@@ -1,0 +1,1 @@
+"""PyTorch port of ``real3dportrait_tpu.inference``."""
