@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. toolchain: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    ``nvcc --version``; exits non-zero when no CUDA device is visible;
 2. build every kernel of ``real3dportrait_tpu_torch/csrc`` with nvcc for
-   sm_90a (registers and spills from ptxas are printed);
+   sm_90a, or reuse the library built from identical sources (registers
+   and spills from ptxas are printed either way);
 3. each kernel (K1-K4) against its plain PyTorch version at the slice's
    shapes, fp32 with TF32 off, with the tolerance stated beside it, and the
    median CUDA-event time of both;
@@ -32,10 +33,13 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# one card: the smoke drives device 0 and reports the cards it can see
+os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 
-from real3dportrait_tpu_torch.inference.profile_frame import card_line, cuda_ms
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from real3dportrait_tpu_torch.kernels import card_line, cuda_ms  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPLACES = {
@@ -79,7 +83,7 @@ def phase_build() -> None:
     from real3dportrait_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    path, log = kernels.build(ptxas_verbose=True)
+    path, log = kernels.build()
     kernels.library()
     print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
@@ -180,7 +184,7 @@ def phase_kernels(dev: torch.device) -> dict:
 def make_pipeline(preset: str, dev, n_vertices: int = 35709, **overrides):
     """The head-only pipeline on the synthetic morphable model at the BFM09
     mesh's scale (35,709 vertices, ~70k faces), seeded mock weights."""
-    from real3dportrait_tpu.config import load_config
+    from real3dportrait_tpu_torch.config import load_config
     from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
     from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
 
@@ -210,7 +214,8 @@ def phase_slice(dev: torch.device) -> dict:
     for preset in ("fast", "reference"):
         pipe = make_pipeline(preset, dev)
         coeffs = pipe.fit_source(None)
-        pipe.synthesize(src, exp[:1], coeffs)  # warm-up: cuDNN plans, first launches
+        # warm-up over the whole sequence: cuDNN plans, allocator, first launches
+        pipe.synthesize(src, exp, coeffs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for w in wrappers.values():
@@ -278,6 +283,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    check(torch.cuda.device_count() == 1,
+          f"chip_smoke uses one card; {torch.cuda.device_count()} are visible "
+          f"(CUDA_VISIBLE_DEVICES={os.environ['CUDA_VISIBLE_DEVICES']})")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -16,12 +16,13 @@ from __future__ import annotations
 
 import os
 import time
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from real3dportrait_tpu.config import FrozenConfig, load_config
+from real3dportrait_tpu_torch.config import load_config
 from real3dportrait_tpu_torch.geometry.bfm import BFMAssets, load_or_synthetic_bfm
 from real3dportrait_tpu_torch.geometry.camera import (
     convert_eg3d_convention,
@@ -75,7 +76,7 @@ class Real3DPortraitPipeline:
     stand-in); a benchmark passes ``synthetic_bfm(n_vertices=35709)`` to run
     the raster at the real mesh's scale."""
 
-    def __init__(self, cfg: FrozenConfig | None = None, use_torso: bool = False,
+    def __init__(self, cfg: Mapping | None = None, use_torso: bool = False,
                  mock_weights: bool = True, bfm_dir: str | None = None,
                  assets: BFMAssets | None = None, seed: int = 0,
                  device: torch.device | str = "cpu"):

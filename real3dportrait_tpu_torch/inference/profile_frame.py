@@ -14,8 +14,6 @@ frame with the device's busy share. fp32 with TF32 off, like chip_smoke.
 from __future__ import annotations
 
 import os
-import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -23,38 +21,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from real3dportrait_tpu.config import load_config
+from real3dportrait_tpu_torch.config import load_config
 from real3dportrait_tpu_torch.geometry import camera
 from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
 from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
+from real3dportrait_tpu_torch.kernels import card_line, cuda_ms
 from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
 from real3dportrait_tpu_torch.rendering.renderer import render_rays
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def card_line() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` reports them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event milliseconds of ``fn`` over ``reps`` launches."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def profile_preset(preset: str, dev: torch.device, n_frames: int = 16) -> None:

@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import shutil
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -26,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,26 +66,28 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build(ptxas_verbose: bool = False) -> tuple[Path, str]:
+def build() -> tuple[Path, str]:
     """Compile every kernel source into one library; returns (path, log).
 
-    Reuses a library already built from identical sources. With
-    ``ptxas_verbose`` it always recompiles and the log carries each
-    kernel's registers, shared memory and spills.
+    Reuses a library already built from identical sources. The log is
+    nvcc's output, kept beside the library, with each kernel's registers,
+    shared memory and spills from ``ptxas -v``.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libr3dp_kernels_{_digest()}.so"
-    if lib_path.exists() and not ptxas_verbose:
-        return lib_path, ""
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        return lib_path, log_path.read_text() if log_path.exists() else ""
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
     os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+    return lib_path, log
 
 
 @functools.cache
@@ -124,3 +127,27 @@ def require(name: str, arg: str, t: torch.Tensor,
         raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event milliseconds of ``fn`` over ``reps`` launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

@@ -2,6 +2,7 @@
 frame step against the JAX package at tiny widths, the weight bridge per
 submodule, the port pipeline on CPU, and the port's independence from JAX."""
 
+import glob
 import os
 import subprocess
 import sys
@@ -17,6 +18,7 @@ from real3dportrait_tpu.geometry import bfm as jbfm
 from real3dportrait_tpu.geometry import camera as jcam
 from real3dportrait_tpu.geometry.secc_renderer import SECCRenderer as JaxSECCRenderer
 from real3dportrait_tpu.models.img2plane import OSAvatarSECCImg2Plane as JaxModel
+from real3dportrait_tpu_torch import config as port_config
 from real3dportrait_tpu_torch.geometry import bfm
 from real3dportrait_tpu_torch.geometry.secc_renderer import SECCRenderer
 from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
@@ -110,8 +112,17 @@ def test_weight_bridge_loads_each_submodule(jax_slice, sub):
         assert torch.equal(v, whole[f"{sub}.{k}"]), k
 
 
+@pytest.mark.parametrize("name", sorted(
+    os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "configs", "*.yaml"))))
+def test_port_config_loader_matches_jax(name):
+    path = os.path.join(ROOT, "configs", name)
+    assert port_config.load_config(path) == load_config(path).to_dict()
+    over = {"sampling_preset": "reference", "final_resolution": 64, "new.nested.key": [1, 2]}
+    assert port_config.load_config(path, over) == load_config(path, over).to_dict()
+
+
 def _tiny_cfg():
-    return load_config(os.path.join(ROOT, "configs", "real3d_orig.yaml"), dict(
+    return port_config.load_config(os.path.join(ROOT, "configs", "real3d_orig.yaml"), dict(
         final_resolution=64, neural_rendering_resolution=16, secc_resolution=32,
         sr_channel0=16, sr_channel1=8, sampling_preset="fast"))
 
@@ -163,7 +174,8 @@ def test_port_imports_leave_jax_out():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'real3dportrait_tpu'))\n"
         "assert len(mods) >= 20, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
