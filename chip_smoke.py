@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's head-only slice once on one NVIDIA GPU.
+"""Drive the PyTorch port's torso flagship slice once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,17 +8,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. toolchain: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    ``nvcc --version``; exits non-zero when no CUDA device is visible;
 2. build every kernel of ``real3dportrait_tpu_torch/csrc`` with nvcc for
-   sm_90a, or reuse the library built from identical sources (registers
-   and spills from ptxas are printed either way);
-3. each kernel (K1-K4) against its plain PyTorch version at the slice's
+   sm_90a (one nvcc per source, in parallel), or reuse the library built
+   from identical sources (registers and spills from ptxas are printed
+   either way);
+3. each kernel (K1-K6b) against its plain PyTorch version at the slice's
    shapes, fp32 with TF32 off, with the tolerance stated beside it, and the
    median CUDA-event time of both;
 4. the slice: ``Real3DPortraitPipeline`` with ``configs/real3d_orig.yaml``
-   (head only, seeded mock weights) synthesises 8 frames of 512^2 from a
-   seeded source image and 8 expression frames at the ``fast`` preset, with
-   every kernel's launch counter checked; then again at ``reference``; and a
-   small configuration run on both the GPU and the CPU (plain versions),
-   whose frames must agree.
+   (the torso model, seeded mock weights) synthesises 8 frames of 512^2
+   from a seeded source image and 8 expression frames at the ``fast``
+   preset with a background image, with every kernel's launch counter
+   checked; then again at ``reference``; then the head-only model at
+   ``fast``;
+5. the flagship frame step (``real3dportrait_tpu_torch.flagship``) with
+   random keypoints, so that the torso warps interpolate;
+6. small configurations run on both the GPU and the CPU (plain versions),
+   whose frames and torso frame-step outputs must agree.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -47,13 +52,45 @@ REPLACES = {
     "importance_sample": "real3dportrait_tpu/rendering/renderer.py:300",
     "merge_composite": "real3dportrait_tpu/rendering/renderer.py:367",
     "secc_raster": "real3dportrait_tpu/geometry/rasterizer.py:248",
+    "torso_deform_input": "real3dportrait_tpu/models/torso.py:378",
+    "torso_warp_volume": "real3dportrait_tpu/models/torso.py:500",
+    "upfirdn2d": "real3dportrait_tpu/ops/upfirdn2d.py:59",
+    "bias_act": "real3dportrait_tpu/ops/bias_act.py:37",
 }
 SOURCES = {
     "triplane_decode": "real3dportrait_tpu_torch/csrc/triplane_decode.cu",
     "importance_sample": "real3dportrait_tpu_torch/csrc/render_march.cu",
     "merge_composite": "real3dportrait_tpu_torch/csrc/render_march.cu",
     "secc_raster": "real3dportrait_tpu_torch/csrc/secc_raster.cu",
+    "torso_deform_input": "real3dportrait_tpu_torch/csrc/torso_warp.cu",
+    "torso_warp_volume": "real3dportrait_tpu_torch/csrc/torso_warp.cu",
+    "upfirdn2d": "real3dportrait_tpu_torch/csrc/stylegan_epilogue.cu",
+    "bias_act": "real3dportrait_tpu_torch/csrc/stylegan_epilogue.cu",
 }
+
+
+def wrappers() -> dict:
+    """The eight kernel wrappers, by kernel name; each counts its launches."""
+    from real3dportrait_tpu_torch.geometry.rasterizer import secc_raster
+    from real3dportrait_tpu_torch.models.decoder import triplane_decode
+    from real3dportrait_tpu_torch.models.torso import torso_deform_input, torso_warp_volume
+    from real3dportrait_tpu_torch.ops.bias_act import bias_act
+    from real3dportrait_tpu_torch.ops.upfirdn2d import upfirdn2d
+    from real3dportrait_tpu_torch.rendering.renderer import importance_sample, merge_composite
+
+    return {"triplane_decode": triplane_decode, "importance_sample": importance_sample,
+            "merge_composite": merge_composite, "secc_raster": secc_raster,
+            "torso_deform_input": torso_deform_input, "torso_warp_volume": torso_warp_volume,
+            "upfirdn2d": upfirdn2d, "bias_act": bias_act}
+
+
+def reset_launches() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in wrappers().items()}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -178,19 +215,89 @@ def phase_kernels(dev: torch.device) -> dict:
            cuda_ms(lambda: secc_raster(uv, z, faces, attr, 192)),
            cuda_ms(lambda: secc_raster_plain(uv, z, faces, attr, 192), reps=5),
            f"coverage {float(km.mean()):.3f} ")
+
+    # K5a: the compressed volume of one 512^2 frame [1,16,64,64,4] and 4 of
+    # the 68 keypoints, uniform in [-0.8,0.8]; then offsets up to 3.2 that
+    # push samples outside the volume (zero padding). The plain version's
+    # grid coordinates are i * (1 / (n-1)) (torch's CUDA division by a
+    # scalar), the kernel's i / (n-1): one rounding of a coordinate moves a
+    # sample by up to ~4e-6 voxel at n = 64, and neighbouring voxels of the
+    # N(0,1) volume differ by up to ~6, so the two differ by up to ~3e-5
+    # (each is ~2-4e-5 off a float64 evaluation): tolerance 1e-4 absolute.
+    # K5b: the appearance volume [1,16,64,64,32], deformation uniform in
+    # [-1.2,1.2] (border clamp); the same coordinates reach both versions:
+    # 1e-5 absolute.
+    from real3dportrait_tpu_torch.models import torso
+
+    fs = torch.randn((1, 16, 64, 64, 4), device=dev, generator=gen)
+    for tag, reach in (("kp 0.8", 0.8), ("kp 1.6, outside", 1.6)):
+        kp_s = reach * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+        kp_d = reach * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+        record("torso_deform_input", f"[1,16,64,64,4] {tag}",
+               [(torso.torso_deform_input(fs, kp_s, kp_d),
+                 torso.torso_deform_input_plain(fs, kp_s, kp_d))], 1e-4,
+               cuda_ms(lambda: torso.torso_deform_input(fs, kp_s, kp_d)),
+               cuda_ms(lambda: torso.torso_deform_input_plain(fs, kp_s, kp_d)))
+    vol = torch.randn((1, 16, 64, 64, 32), device=dev, generator=gen)
+    grid = 2.4 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1.2
+    record("torso_warp_volume", "[1,16,64,64,32]",
+           [(torso.torso_warp_volume(vol, grid), torso.torso_warp_volume_plain(vol, grid))],
+           1e-5, cuda_ms(lambda: torso.torso_warp_volume(vol, grid)),
+           cuda_ms(lambda: torso.torso_warp_volume_plain(vol, grid)))
+
+    # K6a: the FIR after block1's and block0's up-convolutions (4x4 taps,
+    # gain 4), the skip image's 2x upsample at both blocks, and a crop
+    # (negative padding) with a downsample. 16 taps summed in another
+    # order: 1e-5 absolute on N(0,1) inputs.
+    from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+
+    f = ufd.setup_filter([1, 3, 3, 1], device=dev)
+    cases = (("block1 FIR [1,128,515^2]", (1, 128, 515, 515), dict(gain=4)),
+             ("block0 FIR [1,256,259^2]", (1, 256, 259, 259), dict(gain=4)),
+             ("skip up2 [1,3,128^2]", (1, 3, 128, 128), dict(up=2, padding=(2, 1, 2, 1), gain=4)),
+             ("skip up2 [1,3,256^2]", (1, 3, 256, 256), dict(up=2, padding=(2, 1, 2, 1), gain=4)),
+             ("crop up2 down2 [1,8,99^2]", (1, 8, 99, 99), dict(up=2, down=2,
+                                                              padding=(-3, 1, 2, -2))))
+    for tag, shape, kw in cases:
+        x = torch.randn(shape, device=dev, generator=gen)
+        record("upfirdn2d", tag, [(ufd.upfirdn2d(x, f, **kw), ufd.upfirdn2d_plain(x, f, **kw))],
+               1e-5, cuda_ms(lambda: ufd.upfirdn2d(x, f, **kw)),
+               cuda_ms(lambda: ufd.upfirdn2d_plain(x, f, **kw)))
+        del x
+
+    # K6b: block1's conv epilogue [1,128,512,512] (demodulation, noise, bias,
+    # lrelu, gain sqrt 2, clamp) and toRGB's [1,3,512,512] (bias only).
+    # Rounded in the plain version's order: 1e-6 absolute.
+    x = 4 * torch.randn((1, 128, 512, 512), device=dev, generator=gen)
+    kw = dict(act="lrelu", gain=2 ** 0.5, clamp=4.0, axis=1,
+              scale=torch.rand((1, 128), device=dev, generator=gen) + 0.5,
+              noise=0.3 * torch.randn((512, 512), device=dev, generator=gen))
+    b = torch.randn((128,), device=dev, generator=gen)
+    record("bias_act", "[1,128,512^2] lrelu demod noise clamp",
+           [(ba.bias_act(x, b, **kw), ba.bias_act_plain(x, b, **kw))], 1e-6,
+           cuda_ms(lambda: ba.bias_act(x, b, **kw)),
+           cuda_ms(lambda: ba.bias_act_plain(x, b, **kw)))
+    x, b = x[:, :3].contiguous(), b[:3].contiguous()
+    record("bias_act", "[1,3,512^2] linear",
+           [(ba.bias_act(x, b, axis=1), ba.bias_act_plain(x, b, axis=1))], 1e-6,
+           cuda_ms(lambda: ba.bias_act(x, b, axis=1)),
+           cuda_ms(lambda: ba.bias_act_plain(x, b, axis=1)))
     return rows
 
 
-def make_pipeline(preset: str, dev, n_vertices: int = 35709, **overrides):
-    """The head-only pipeline on the synthetic morphable model at the BFM09
-    mesh's scale (35,709 vertices, ~70k faces), seeded mock weights."""
+def make_pipeline(preset: str, dev, use_torso: bool = True, n_vertices: int = 35709,
+                  **overrides):
+    """The pipeline (torso model or head only) on the synthetic morphable
+    model at the BFM09 mesh's scale (35,709 vertices, ~70k faces), seeded
+    mock weights."""
     from real3dportrait_tpu_torch.config import load_config
     from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
     from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
 
     cfg = load_config(os.path.join(ROOT, "configs", "real3d_orig.yaml"),
                       dict(sampling_preset=preset, **overrides))
-    return Real3DPortraitPipeline(cfg, use_torso=False, mock_weights=True,
+    return Real3DPortraitPipeline(cfg, use_torso=use_torso, mock_weights=True,
                                   assets=synthetic_bfm(n_vertices=n_vertices), seed=0,
                                   device=dev)
 
@@ -199,84 +306,149 @@ def slice_inputs(res: int, n_frames: int):
     rng = np.random.RandomState(0)
     src = rng.randint(0, 256, (res, res, 3)).astype(np.uint8)
     exp = torch.from_numpy(rng.randn(n_frames, 64).astype(np.float32) * 0.3)
-    return src, exp
+    bg = rng.randint(0, 256, (res, res, 3)).astype(np.uint8)
+    return src, exp, bg
+
+
+def run_slice(name: str, pipe, src, exp, bg, expect: set) -> dict:
+    """Warm up over the whole sequence (cuDNN plans, allocator, first
+    launches), then synthesise it again with the launch counters from 0;
+    check the frames and that every kernel in ``expect`` launched."""
+    coeffs = pipe.fit_source(None)
+    pipe.synthesize(src, exp, coeffs, bg_img=bg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tm: dict = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = pipe.synthesize(src, exp, coeffs, bg_img=bg, timings=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    res = pipe.res
+    check(tuple(frames.shape) == (len(exp), res, res, 3), f"frames shape {tuple(frames.shape)}")
+    check(frames.is_cuda, "frames must stay on the GPU")
+    check(bool(torch.isfinite(frames).all()), "non-finite frames")
+    check(all(counts[k] > 0 for k in expect), f"{name}: a kernel was not launched: {counts}")
+    p50 = statistics.median(tm["frame_ms"])
+    caches = "".join(f", {k[:-3]} {tm[k]:.2f} ms" for k in ("cano_ms", "appearance_ms", "bg_ms")
+                     if k in tm)
+    print(f"slice[{name}]: frames {tuple(frames.shape)} p50 {p50:.2f} ms/frame "
+          f"({1e3 / p50:.2f} fps), frame ms {[round(x, 2) for x in tm['frame_ms']]}"
+          f"{caches}, wall {wall:.2f} s, launches {counts}, "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
 
 
 def phase_slice(dev: torch.device) -> dict:
-    from real3dportrait_tpu_torch.geometry.rasterizer import secc_raster
-    from real3dportrait_tpu_torch.models.decoder import triplane_decode
-    from real3dportrait_tpu_torch.rendering.renderer import importance_sample, merge_composite
-
-    wrappers = {"triplane_decode": triplane_decode, "importance_sample": importance_sample,
-                "merge_composite": merge_composite, "secc_raster": secc_raster}
-    src, exp = slice_inputs(512, 8)
+    """The torso pipeline at ``fast`` (with a background image, the main
+    path, whose launch counts the JSON line reports) and ``reference``, then
+    the head-only pipeline at ``fast``."""
+    src, exp, bg = slice_inputs(512, 8)
+    every = set(REPLACES)
     launches = {}
-    for preset in ("fast", "reference"):
-        pipe = make_pipeline(preset, dev)
-        coeffs = pipe.fit_source(None)
-        # warm-up over the whole sequence: cuDNN plans, allocator, first launches
-        pipe.synthesize(src, exp, coeffs)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
-        tm: dict = {}
-        t0 = time.perf_counter()
-        frames = pipe.synthesize(src, exp, coeffs, timings=tm)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: w.launches for k, w in wrappers.items()}
-        check(tuple(frames.shape) == (8, 512, 512, 3), f"frames shape {tuple(frames.shape)}")
-        check(frames.is_cuda, "frames must stay on the GPU")
-        check(bool(torch.isfinite(frames).all()), "non-finite frames")
-        check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
-        p50 = statistics.median(tm["frame_ms"])
-        print(f"slice[{preset}]: frames {tuple(frames.shape)} p50 {p50:.2f} ms/frame "
-              f"({1e3 / p50:.2f} fps), frame ms {[round(x, 2) for x in tm['frame_ms']]}, "
-              f"cano plane {tm['cano_ms']:.2f} ms, wall {wall:.2f} s, launches {counts}, "
-              f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if preset == "fast":
+    for name, preset, use_torso, bg_img in (("torso fast", "fast", True, bg),
+                                            ("torso reference", "reference", True, None),
+                                            ("head-only fast", "fast", False, None)):
+        pipe = make_pipeline(preset, dev, use_torso=use_torso)
+        head_only = every - {"torso_deform_input", "torso_warp_volume"}
+        counts = run_slice(name, pipe, src, exp, bg_img, every if use_torso else head_only)
+        if name == "torso fast":
             launches = counts
-        del pipe, frames
+        del pipe
         torch.cuda.empty_cache()
     return launches
 
 
+def phase_flagship(dev: torch.device, steps: int = 16) -> None:
+    """The flagship frame step at 512^2 (``fast``) with random keypoints:
+    p50 of the CUDA-event time of ``steps`` steps after 3 warm-up steps."""
+    from real3dportrait_tpu_torch.flagship import flagship
+
+    t0 = time.perf_counter()
+    frame_step, args = flagship(device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    for _ in range(3):
+        frame_step(*args)
+    torch.cuda.synchronize()
+    reset_launches()
+    times = []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        image = frame_step(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    counts = read_launches()
+    check(tuple(image.shape) == (1, 512, 512, 3) and bool(torch.isfinite(image).all()),
+          f"flagship image {tuple(image.shape)} not finite or of the wrong shape")
+    # the step takes a SECC map as input: every kernel but the raster
+    check(all(v > 0 for k, v in counts.items() if k != "secc_raster"),
+          f"flagship: a kernel was not launched: {counts}")
+    p50 = statistics.median(times)
+    print(f"flagship[fast, random keypoints]: p50 {p50:.2f} ms/step ({1e3 / p50:.2f} fps) over "
+          f"{steps} steps, step ms {[round(x, 2) for x in times]}, set-up {setup:.2f} s, "
+          f"launches per step {({k: v // steps for k, v in counts.items()})}")
+
+
+def compare(tag: str, gpu: torch.Tensor, cpu: torch.Tensor) -> None:
+    """Scale-normalised GPU vs CPU check: max 1e-3 and mean 1e-4 (fp32
+    through ~100 layers of random weights, convs and sums in another order)."""
+    scale = max(float(cpu.abs().max()), 1e-6)
+    err, merr = max_err(gpu.cpu(), cpu) / scale, mean_err(gpu.cpu(), cpu) / scale
+    print(f"reference[{tag}]: small config GPU vs CPU max_err/scale {err:.3e} "
+          f"mean {merr:.3e} (tol 1e-3 / 1e-4)")
+    check(err <= 1e-3 and merr <= 1e-4, f"GPU {tag} disagrees with the CPU reference")
+
+
 def phase_reference(dev: torch.device) -> None:
-    """A small configuration on the GPU (kernels) and on the CPU (plain
-    versions) from the same seed must agree: the synthesised frames, and,
-    since random SR weights saturate many frame pixels at +-1, the
-    unclamped raw render, depth and weight images of one frame step.
-    Tolerance, scale-normalised: max 1e-3 and mean 1e-4 (fp32 through ~90
-    layers of random weights, convs and sums in another order; measured
-    at most ~6e-6 on an H100)."""
+    """Small configurations on the GPU (kernels) and on the CPU (plain
+    versions) from the same seed must agree: the frames of the torso
+    (``torso_model_scale=tiny``) and head-only pipelines, and, since random
+    SR weights saturate many frame pixels at +-1, the unclamped raw render,
+    depth and weight images of one frame step; for the torso model that
+    step has random keypoints, and its warped torso image and occlusion
+    are compared too."""
     from real3dportrait_tpu_torch.geometry import camera
 
     small = dict(final_resolution=64, neural_rendering_resolution=16, secc_resolution=48,
-                 sr_channel0=16, sr_channel1=16)
-    src, exp = slice_inputs(64, 2)
+                 sr_channel0=16, sr_channel1=16, torso_model_scale="tiny")
+    src, exp, bg = slice_inputs(64, 2)
     rng = np.random.RandomState(1)
     secc = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 9)).astype(np.float32))
     img = torch.from_numpy(src[None].astype(np.float32) / 127.5 - 1.0)
+    kps = [torch.from_numpy(rng.uniform(-0.8, 0.8, (1, 68, 3)).astype(np.float32))
+           for _ in range(2)]
     euler = torch.tensor([[0.05, 0.2, 0.0]])
     _, c2w, intr = camera.convert_eg3d_convention(euler, torch.zeros((1, 3)))
     cam = camera.pack_camera(c2w, intr[0])
-    outs = []
-    for d in (dev, torch.device("cpu")):
-        pipe = make_pipeline("fast", d, n_vertices=2000, **small)
-        frames = pipe.synthesize(src, exp, pipe.fit_source(None))
-        with torch.no_grad():
-            cano = pipe.model.cal_cano_plane(img.to(d))
-            step = pipe.model.synthesis(None, cam.to(d), secc=secc.to(d), cano_planes=cano)
-        outs.append({"frames": frames, **{k: step[k] for k in
-                                          ("image_raw", "image_depth", "weights_img")}})
-    for k, gpu in outs[0].items():
-        cpu = outs[1][k]
-        scale = max(float(cpu.abs().max()), 1e-6)
-        err, merr = max_err(gpu.cpu(), cpu) / scale, mean_err(gpu.cpu(), cpu) / scale
-        print(f"reference[{k}]: small config GPU vs CPU max_err/scale {err:.3e} "
-              f"mean {merr:.3e} (tol 1e-3 / 1e-4)")
-        check(err <= 1e-3 and merr <= 1e-4, f"GPU slice {k} disagrees with the CPU reference")
+    for use_torso in (True, False):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            pipe = make_pipeline("fast", d, use_torso=use_torso, n_vertices=2000, **small)
+            frames = pipe.synthesize(src, exp, pipe.fit_source(None), bg_img=bg)
+            with torch.no_grad():
+                m = pipe.model
+                cano = m.cal_cano_plane(img.to(d))
+                if use_torso:
+                    cond = pipe.mock_cond(img.to(d))
+                    cond.update(kp_src=kps[0].to(d), kp_drv=kps[1].to(d))
+                    cond.update(torso_appearance=m.cal_torso_appearance(cond),
+                                bg_feat=m.cal_bg_feat(cond))
+                    step = m.synthesis(None, cam.to(d), cond, secc=secc.to(d),
+                                       cano_planes=cano)
+                    step.update({k: step["torso_ret"][k]
+                                 for k in ("deformed_torso_img", "occlusion_2")})
+                else:
+                    step = m.synthesis(None, cam.to(d), secc=secc.to(d), cano_planes=cano)
+            keys = ["image_raw", "image_depth", "weights_img"]
+            if use_torso:
+                keys += ["image", "deformed_torso_img", "occlusion_2"]
+            outs.append({"frames": frames, **{k: step[k] for k in keys}})
+        for k, gpu in outs[0].items():
+            compare(f"{'torso' if use_torso else 'head-only'} {k}", gpu, outs[1][k])
 
 
 def main() -> int:
@@ -296,6 +468,8 @@ def main() -> int:
     rows = phase_kernels(dev)
     torch.cuda.synchronize()
     launches = phase_slice(dev)
+    torch.cuda.synchronize()
+    phase_flagship(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     torch.cuda.synchronize()

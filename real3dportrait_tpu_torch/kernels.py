@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources are ``csrc/*.cu``, each with a plain C entry point. At first use
-they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``build/torch_kernels/`` at the root of the checkout, named by
-a hash of the sources, and loaded with ``ctypes``. Pointers and the CUDA
+they are compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
+source, all started together, and linked into one shared library under
+``build/torch_kernels/`` at the root of the checkout, named by a hash of
+the sources, and loaded with ``ctypes``. Pointers and the CUDA
 stream cross as ``c_void_p``; every entry point returns
 ``cudaGetLastError()``, and :func:`launch` raises if that is not 0.
 
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,10 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_importance_sample": (_P, _P, _P, _I, _I, _I, _P, _P),
     "r3dp_merge_composite": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "r3dp_secc_raster": (_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P, _P, _P),
+    "r3dp_torso_deform_input": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "r3dp_torso_warp_volume": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "r3dp_upfirdn2d": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "r3dp_bias_act": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
 }
 
 
@@ -67,24 +72,39 @@ def _digest() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile every kernel source into one library; returns (path, log).
+    """Compile every kernel source and link one library; returns (path, log).
 
-    Reuses a library already built from identical sources. The log is
-    nvcc's output, kept beside the library, with each kernel's registers,
-    shared memory and spills from ``ptxas -v``.
+    Reuses a library already built from identical sources. The sources
+    compile in parallel, one nvcc each. The log is nvcc's output, kept
+    beside the library, with each kernel's registers, shared memory and
+    spills from ``ptxas -v``.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libr3dp_kernels_{_digest()}.so"
+    digest = _digest()
+    lib_path = BUILD_DIR / f"libr3dp_kernels_{digest}.so"
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
         return lib_path, log_path.read_text() if log_path.exists() else ""
+    nvcc, tag = nvcc_path(), f"{digest}.{os.getpid()}"
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+             str(BUILD_DIR / f"{src.stem}.{tag}.o"), str(src)] for src in sources()]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *(c[-2] for c in cmds)]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed = [(link, proc.returncode, outs[-1])]
+    for c in cmds:
+        Path(c[-2]).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(f"nvcc failed ({rc}):\n{' '.join(c)}\n{o}"
+                                     for c, rc, o in failed))
+    log = "".join(outs)
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, log

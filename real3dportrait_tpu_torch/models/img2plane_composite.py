@@ -35,7 +35,8 @@ def pixel_shuffle(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
 
 class ChannelAffine(nn.Module):
-    """Per-channel ``x * weight + bias`` on NCHW: a folded eval-time BatchNorm."""
+    """Per-channel ``x * weight + bias`` on NC... (NCHW, NCDHW): a folded
+    eval-time BatchNorm."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -43,7 +44,8 @@ class ChannelAffine(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.weight[:, None, None] + self.bias[:, None, None]
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        return x * self.weight.view(shape) + self.bias.view(shape)
 
 
 class BasicBlock(nn.Module):

@@ -24,20 +24,24 @@ from real3dportrait_tpu_torch.ops.upfirdn2d import conv2d_resample, setup_filter
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor,
-                     noise: torch.Tensor | None = None, up: int = 1, down: int = 1,
-                     padding: int = 0, resample_filter: torch.Tensor | None = None,
-                     demodulate: bool = True) -> torch.Tensor:
-    """x [B,Cin,H,W], weight OIHW [Cout,Cin,kh,kw], styles [B,Cin]."""
+                     up: int = 1, down: int = 1, padding: int = 0,
+                     resample_filter: torch.Tensor | None = None,
+                     demodulate: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x [B,Cin,H,W], weight OIHW [Cout,Cin,kh,kw], styles [B,Cin] ->
+    (convolution [B,Cout,H',W'] before demodulation, coefficients d
+    [B,Cout] or None).
+
+    The demodulation multiply and the noise add of the reference run in
+    the fused epilogue, ``bias_act(..., scale=d, noise=...)`` (kernel K6b).
+    """
     x = x * styles[:, :, None, None]
     x = conv2d_resample(x, weight, f=resample_filter, up=up, down=down,
                         padding=padding, flip_weight=(up == 1))
+    d = None
     if demodulate:
         w_sq = weight.square().sum(dim=(2, 3))                     # [Cout,Cin]
         d = torch.rsqrt(styles.square() @ w_sq.T + 1e-8)            # [B,Cout]
-        x = x * d[:, :, None, None]
-    if noise is not None:
-        x = x + noise
-    return x
+    return x, d
 
 
 class FullyConnectedLayer(nn.Module):
@@ -148,12 +152,12 @@ class SynthesisLayer(nn.Module):
         if self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
-        x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
-                             padding=self.padding, resample_filter=f)
+        x, d = modulated_conv2d(x, self.weight, styles, up=self.up,
+                                padding=self.padding, resample_filter=f)
         act_gain = ACTIVATIONS[self.activation].def_gain * gain
         clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain,
-                        clamp=clamp, axis=1)
+                        clamp=clamp, axis=1, scale=d, noise=noise)
 
 
 class ToRGBLayer(nn.Module):
@@ -178,7 +182,7 @@ class ToRGBLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d(x, self.weight, styles, demodulate=False)
+        x, _ = modulated_conv2d(x, self.weight, styles, demodulate=False)
         return bias_act(x, self.bias, clamp=self.conv_clamp, axis=1)
 
 

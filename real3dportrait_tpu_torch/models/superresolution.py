@@ -11,7 +11,10 @@ from real3dportrait_tpu_torch.models.stylegan2 import SynthesisBlock
 
 
 def resize_bilinear(x: torch.Tensor, size: int, antialias: bool = True) -> torch.Tensor:
-    """NHWC bilinear resize, half-pixel centres (align_corners=False)."""
+    """NHWC bilinear resize, half-pixel centres (align_corners=False); the
+    identity when the size is unchanged, as in the JAX package."""
+    if x.shape[1] == size and x.shape[2] == size:
+        return x
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
                       align_corners=False, antialias=antialias)
     return y.permute(0, 2, 3, 1)

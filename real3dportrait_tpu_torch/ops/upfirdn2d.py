@@ -1,6 +1,9 @@
-"""Upsample-FIR-downsample resampling and resampling convolutions in plain
-PyTorch (port of ``real3dportrait_tpu/ops/upfirdn2d.py``; a hand kernel for
-the FIR is queued as K6).
+"""Upsample-FIR-downsample resampling, resampling convolutions and kernel
+K6a (port of ``real3dportrait_tpu/ops/upfirdn2d.py``).
+
+:func:`upfirdn2d` is the wrapper of kernel K6a
+(``csrc/stylegan_epilogue.cu``); :func:`upfirdn2d_plain` is its plain
+PyTorch version (zero insertion, pad/crop, depthwise ``F.conv2d``).
 
 Tensors here are NCHW and conv weights OIHW, PyTorch's own layouts; the
 modules that call these convert from the port's NHWC public layout once.
@@ -13,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from real3dportrait_tpu_torch import kernels
 
 
 def setup_filter(f, normalize: bool = True, gain: float = 1.0,
@@ -58,21 +63,61 @@ def _zero_insert(x: torch.Tensor, up: int) -> torch.Tensor:
     return y
 
 
-def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up: int = 1, down: int = 1,
-              padding=0, gain: float = 1.0) -> torch.Tensor:
+def _taps(f: torch.Tensor | None, gain: float, x: torch.Tensor) -> torch.Tensor:
+    """The flipped, gain-scaled filter both versions correlate with."""
+    if f is None:
+        f = torch.ones((1, 1), dtype=x.dtype, device=x.device)
+    return (torch.flip(f, (0, 1)) * gain).to(x.dtype)
+
+
+def upfirdn2d_plain(x: torch.Tensor, f: torch.Tensor | None, up: int = 1, down: int = 1,
+                    padding=0, gain: float = 1.0) -> torch.Tensor:
     """x [B,C,H,W] -> upsample(up), pad, FIR(f), downsample(down).
 
     ``f`` is a [fh,fw] filter applied as a true convolution (flipped).
     """
     c = x.shape[1]
     px0, px1, py0, py1 = _parse_padding(padding)
-    if f is None:
-        f = torch.ones((1, 1), dtype=x.dtype, device=x.device)
+    kernel = _taps(f, gain, x)
     x = _pad(_zero_insert(x, up), px0, px1, py0, py1)
-    kernel = (torch.flip(f, (0, 1)) * gain).to(x.dtype)
-    kernel = kernel[None, None].expand(c, 1, *f.shape)
-    x = F.conv2d(x, kernel, groups=c)
+    x = F.conv2d(x, kernel[None, None].expand(c, 1, *kernel.shape), groups=c)
     return x[:, :, ::down, ::down] if down > 1 else x
+
+
+def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up: int = 1, down: int = 1,
+              padding=0, gain: float = 1.0) -> torch.Tensor:
+    """K6a wrapper, same contract as :func:`upfirdn2d_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes fp32 NCHW ``x``, any small filter and ``up``, ``down`` of 1
+    or 2, or raise.
+    """
+    if x.device.type == "cpu":
+        return upfirdn2d_plain(x, f, up, down, padding, gain)
+    name = "upfirdn2d"
+    x = x.contiguous()
+    kernels.require(name, "x", x)
+    taps = _taps(f, gain, x).detach().contiguous()
+    kernels.require(name, "f", taps)
+    if x.dim() != 4 or taps.dim() != 2 or up not in (1, 2) or down not in (1, 2):
+        raise ValueError(f"{name}: kernel takes x [B,C,H,W], a [fh,fw] filter and "
+                         f"up, down in (1, 2); got x {tuple(x.shape)}, f {tuple(taps.shape)}, "
+                         f"up {up}, down {down}")
+    b, c, h, w = x.shape
+    fh, fw = taps.shape
+    px0, px1, py0, py1 = _parse_padding(padding)
+    ho = (h * up + py0 + py1 - fh) // down + 1
+    wo = (w * up + px0 + px1 - fw) // down + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"{name}: empty output {ho}x{wo}")
+    y = torch.empty((b, c, ho, wo), device=x.device)
+    kernels.launch("r3dp_upfirdn2d", x, taps, b * c, h, w, up, down, px0, py0, fh, fw,
+                   ho, wo, y)
+    upfirdn2d.launches += 1
+    return y
+
+
+upfirdn2d.launches = 0
 
 
 def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2, padding=0,

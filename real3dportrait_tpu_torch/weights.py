@@ -6,6 +6,8 @@ with shape-directed transforms, the reverse of
 ``tools/convert_torch_ckpt.py:convert_leaf``:
 
 * Flax ``kernel`` / StyleGAN ``weight`` of rank 4: HWIO -> OIHW;
+* of rank 5 (``Conv3D`` and 3D ``nn.Conv``): ``[kd,kh,kw,ci,co]`` ->
+  ``[co,ci,kd,kh,kw]``;
 * of rank 2: ``[in, out]`` -> ``[out, in]``;
 * Flax ``scale`` -> ``weight`` (LayerNorm, GroupNorm and the folded
   per-channel BatchNorm affines, whose values carry over as they are);
@@ -53,7 +55,9 @@ def torch_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.T
                 raise ValueError(f"unexpected variable collection {coll!r}")
             leaf = path[-1]
             if leaf in ("kernel", "weight"):
-                if a.ndim == 4:
+                if a.ndim == 5:
+                    a = a.transpose(4, 3, 0, 1, 2)
+                elif a.ndim == 4:
                     a = a.transpose(3, 2, 0, 1)
                 elif a.ndim == 2:
                     a = a.T
@@ -75,7 +79,7 @@ def mock_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for mod in model.modules():
             if isinstance(mod, styled):
                 mod.reset_parameters(generator)
-            elif isinstance(mod, (nn.Conv2d, nn.Linear)):
+            elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(generator=generator).mul_(fan_in ** -0.5)
                 if mod.bias is not None:

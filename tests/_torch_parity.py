@@ -65,6 +65,26 @@ def random_like(shapes, seed: int = 0):
     return go(shapes)
 
 
+def jax_run(module, *args, seed: int = 0, method=None, **kw):
+    """Seeded variables on a Flax ``module``'s init tree (no init compile)
+    and its jitted apply: (variables, outputs). ``method`` (a function of
+    the bound module and ``args``) replaces ``__call__`` for the apply; the
+    init always runs ``__call__``, with ``init_args`` from ``kw`` if given."""
+    import jax
+    import jax.numpy as jnp
+
+    args = jax.tree.map(jnp.asarray, args)
+    init_args = jax.tree.map(jnp.asarray, kw.pop("init_args", args))
+    shapes = jax.eval_shape(lambda: module.init(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)}, *init_args, **kw))
+    variables = random_like(shapes, seed=seed)
+    if method is None:
+        out = jax.jit(lambda v, *a: module.apply(v, *a, **kw))(variables, *args)
+    else:
+        out = jax.jit(lambda v, *a: module.apply(v, *a, method=method))(variables, *args)
+    return variables, out
+
+
 def _plain(tree):
     if hasattr(tree, "items"):
         return {k: _plain(v) for k, v in tree.items()}

@@ -1,10 +1,10 @@
 """Parity of the port's networks with the JAX package at narrow widths: the
 SECC SegFormer, the composite canonical backbone, the StyleGAN2 synthesis
-blocks and SR head, bias_act and upfirdn2d. Weights are seeded numpy leaves on
+blocks and SR head, and the plain versions of kernels K6a (upfirdn2d) and
+K6b (the fused bias_act epilogue). Weights are seeded numpy leaves on
 each JAX module's init tree, loaded through ``torch_state_dict_from_jax``
 with strict name matching."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,21 +29,16 @@ from real3dportrait_tpu_torch.models.segformer import (
     SegFormerImg2PlaneBackbone,
     SegFormerSECC2PlaneBackbone,
 )
-from real3dportrait_tpu_torch.models.stylegan2 import SynthesisBlock
+from real3dportrait_tpu_torch.models.stylegan2 import SynthesisBlock, modulated_conv2d
 from real3dportrait_tpu_torch.models.superresolution import SuperresolutionHybrid8XDC
 from real3dportrait_tpu_torch.ops import bias_act as tba
 from real3dportrait_tpu_torch.ops import upfirdn2d as tup
-from tests._torch_parity import agree, load_from_jax, random_like, t
+from tests._torch_parity import agree, jax_run, load_from_jax, t
 
 torch.set_num_threads(1)
 
 
-def _jax_run(module, *args, seed=0, **kw):
-    """Seeded variables on ``module``'s init tree (no init compile) and the
-    jitted apply: (variables, outputs)."""
-    shapes = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)}, *args, **kw))
-    variables = random_like(shapes, seed=seed)
-    return variables, jax.jit(lambda v, *a: module.apply(v, *a, **kw))(variables, *args)
+_jax_run = jax_run
 
 
 def _nchw(x):
@@ -189,3 +184,47 @@ def test_resample_helpers_match_jax():
         got = _nhwc(tup.conv2d_resample(_nchw(x), w_oihw, f=tf, up=up, down=down,
                                         padding=1, flip_weight=(up == 1)))
         agree(got, want, 1e-5, 1e-6, f"conv2d_resample up{up} down{down}")
+
+
+@pytest.mark.parametrize("up,demodulate,noise", [(1, True, True), (2, True, False),
+                                                 (1, False, False)],
+                         ids=["demod_noise", "up2_demod", "torgb"])
+def test_k6b_plain_epilogue_matches_jax_modulated_conv(up, demodulate, noise):
+    # the port's modulated_conv2d + fused epilogue (demodulation, noise,
+    # bias, lrelu, gain, clamp) against JAX modulated_conv2d + bias_act:
+    # fp32 conv sums in another order, 1e-5 of scale max, 1e-6 mean
+    rng = np.random.RandomState(14)
+    x = rng.randn(2, 6, 6, 5).astype(np.float32)
+    w = rng.randn(3, 3, 5, 7).astype(np.float32)                  # HWIO
+    styles = (1 + 0.3 * rng.randn(2, 5)).astype(np.float32)
+    res = 6 * up
+    nz = (rng.randn(res, res) * 0.7).astype(np.float32) if noise else None
+    b = rng.randn(7).astype(np.float32)
+    f = jup.setup_filter([1, 3, 3, 1]) if up > 1 else None
+    pad = 1
+    want = jsg.modulated_conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(styles),
+                                noise=None if nz is None else jnp.asarray(nz)[None, :, :, None],
+                                up=up, padding=pad, resample_filter=f, demodulate=demodulate)
+    want = jba.bias_act(want, jnp.asarray(b), act="lrelu", gain=1.3, clamp=2.5)
+    y, d = modulated_conv2d(_nchw(x), t(w).permute(3, 2, 0, 1), t(styles), up=up,
+                            padding=pad, demodulate=demodulate,
+                            resample_filter=tup.setup_filter([1, 3, 3, 1]) if up > 1 else None)
+    assert (d is None) == (not demodulate)
+    got = tba.bias_act(y, t(b), act="lrelu", gain=1.3, clamp=2.5, axis=1, scale=d,
+                       noise=None if nz is None else t(nz))
+    agree(_nhwc(got), want, 1e-5, 1e-6, "modulated conv + epilogue")
+
+
+def test_cpu_tensors_take_the_plain_k6_versions():
+    # the wrappers dispatch on the tensor's device: no launch on the CPU
+    rng = np.random.RandomState(15)
+    x = t(rng.randn(1, 4, 7, 9))
+    launches = (tba.bias_act.launches, tup.upfirdn2d.launches)
+    f = tup.setup_filter([1, 3, 3, 1])
+    assert torch.equal(tup.upfirdn2d(x, f, up=2, padding=(-1, 2, 1, 0), gain=4),
+                       tup.upfirdn2d_plain(x, f, up=2, padding=(-1, 2, 1, 0), gain=4))
+    kw = dict(act="lrelu", gain=1.4, clamp=0.5, axis=1, scale=t(rng.rand(1, 4)),
+              noise=t(rng.randn(7, 9)))
+    b = t(rng.randn(4))
+    assert torch.equal(tba.bias_act(x, b, **kw), tba.bias_act_plain(x, b, **kw))
+    assert (tba.bias_act.launches, tup.upfirdn2d.launches) == launches

@@ -143,7 +143,7 @@ def test_pipeline_synthesize_two_frames_on_cpu(tiny_pipeline):
     assert torch.isfinite(frames).all() and frames.abs().max() <= 1.0
     assert len(timings["frame_ms"]) == 2 and timings["cano_ms"] > 0
     # the same seed gives the same weights and frames
-    again = Real3DPortraitPipeline(_tiny_cfg(), seed=0)
+    again = Real3DPortraitPipeline(_tiny_cfg(), use_torso=False, seed=0)
     assert torch.equal(again.synthesize(src, exp, again.fit_source(None)), frames)
     # pose-driven frames go through the same loop
     pose = (t(rng.uniform(-0.1, 0.1, (1, 3))), t(rng.uniform(-0.1, 0.1, (1, 3))))
@@ -162,11 +162,6 @@ def test_pipeline_raises_on_unported_modes(tiny_pipeline, kwargs):
                                  tiny_pipeline.fit_source(None), **kwargs)
 
 
-def test_pipeline_raises_for_torso():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Real3DPortraitPipeline(_tiny_cfg(), use_torso=True)
-
-
 def test_port_imports_leave_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -176,7 +171,9 @@ def test_port_imports_leave_jax_out():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'real3dportrait_tpu'))\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 23, mods\n"
+        "new = {'flagship', 'models.torso', 'models.sr_with_ref', 'ops.grid_sample'}\n"
+        "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
