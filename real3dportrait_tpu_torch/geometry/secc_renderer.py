@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from real3dportrait_tpu_torch import entry_device
 from real3dportrait_tpu_torch.geometry import bfm as bfm_ops
 from real3dportrait_tpu_torch.geometry.bfm import BFMAssets
 from real3dportrait_tpu_torch.geometry.rasterizer import rasterize
@@ -44,11 +45,13 @@ def resize_bilinear_nhwc(x: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class SECCRenderer:
-    """Holds the mesh and NCC colours on ``device``; :meth:`render` rasterizes."""
+    """Holds the mesh and NCC colours on ``device`` (default ``"cuda"``;
+    raises without a CUDA device); :meth:`render` rasterizes."""
 
     def __init__(self, assets: BFMAssets, bfm_dir: str | None = None,
                  rasterize_size: int = 512, output_resolution: int | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        device = entry_device(device)
         self.assets = assets.to(device)
         self.faces = load_eye_free_faces(assets, bfm_dir).to(device)
         self.rasterize_size = rasterize_size

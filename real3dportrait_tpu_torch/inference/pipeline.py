@@ -16,6 +16,13 @@ it then: the source image is also the torso and background image, the
 segmap is all torso (class 4) and the keypoints are zero, so every warp is
 an identity warp. ``bg_img`` replaces the background.
 
+Without a config the model is the JAX pipeline's default,
+``configs/secc_img2plane_torso.yaml``: tri-grids of depth 3 x 32 channels
+(kernel K1-trigrid), the composite canonical backbone with GroupNorms and
+bf16 SR blocks; ``configs/real3d_orig.yaml`` is the released checkpoints'
+geometry (tri-planes of depth 1, kernel K1, folded BatchNorms, fp32 SR).
+The pipeline runs on ``device="cuda"`` unless it is given another device.
+
 Without released checkpoints, ``mock_weights=True`` draws every weight from
 a ``torch.Generator`` seeded with ``seed``; the graph is the same, only the
 pixels are untrained.
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from real3dportrait_tpu_torch import entry_device
 from real3dportrait_tpu_torch.config import load_config
 from real3dportrait_tpu_torch.geometry.bfm import BFMAssets, load_or_synthetic_bfm
 from real3dportrait_tpu_torch.geometry.camera import (
@@ -56,6 +64,8 @@ SAMPLING_PRESETS: dict[str, tuple[int, int] | None] = {
 SHIPPED_SAMPLING_PRESET = "fast"
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the JAX pipeline's default model
+DEFAULT_CONFIG = os.path.join(_ROOT, "configs", "secc_img2plane_torso.yaml")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -127,9 +137,11 @@ def build_model(cfg: Mapping, use_torso: bool = True) -> torch.nn.Module:
 
 class Real3DPortraitPipeline:
     """Synthesis with the torso/background model (``use_torso=True``) or
-    the head only. ``assets`` overrides the morphable model that ``bfm_dir``
-    would load (BFM09 if present there, else the small synthetic stand-in);
-    a benchmark passes ``synthetic_bfm(n_vertices=35709)`` to run the raster
+    the head only, of ``cfg`` (default :data:`DEFAULT_CONFIG`), on
+    ``device`` (default ``"cuda"``; raises without a CUDA device).
+    ``assets`` overrides the morphable model that ``bfm_dir`` would load
+    (BFM09 if present there, else the small synthetic stand-in); a
+    benchmark passes ``synthetic_bfm(n_vertices=35709)`` to run the raster
     at the real mesh's scale. Below 256^2 the torso needs
     ``torso_model_scale: tiny`` (the standard motion-field U-Net pools the
     volume's H, W five times)."""
@@ -137,15 +149,15 @@ class Real3DPortraitPipeline:
     def __init__(self, cfg: Mapping | None = None, use_torso: bool = True,
                  mock_weights: bool = True, bfm_dir: str | None = None,
                  assets: BFMAssets | None = None, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if not mock_weights:
             raise _not_ported("loading released checkpoints into the port",
                               "queue 1 item 1, weight bridge")
+        self.device = entry_device(device)
         if cfg is None:
-            cfg = load_config(os.path.join(_ROOT, "configs", "real3d_orig.yaml"))
+            cfg = load_config(DEFAULT_CONFIG)
         self.cfg = cfg
         self.use_torso = use_torso
-        self.device = torch.device(device)
         self.res = int(cfg.get("final_resolution", 512))
 
         self.assets = assets if assets is not None else load_or_synthetic_bfm(bfm_dir)

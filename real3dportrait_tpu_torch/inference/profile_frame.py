@@ -1,10 +1,12 @@
 """Where a torso frame's time goes on a CUDA device.
 
-    python -m real3dportrait_tpu_torch.inference.profile_frame
+    python -m real3dportrait_tpu_torch.inference.profile_frame [--config NAME]
 
-For the ``fast`` and ``reference`` presets of ``configs/real3d_orig.yaml``
-(the torso model, seeded mock weights, the 35,709-vertex synthetic mesh,
-source and driving keypoints uniform in [-0.8, 0.8]) it prints:
+For the ``fast`` and ``reference`` presets of ``configs/NAME`` (default
+``secc_img2plane_torso.yaml``, the pipeline's default model with tri-grids
+and bf16 SR blocks; ``real3d_orig.yaml`` is the released geometry), with
+the torso model, seeded mock weights, the 35,709-vertex synthetic mesh and
+source and driving keypoints uniform in [-0.8, 0.8], it prints:
 
 * the CUDA-event median of each stage run alone: the per-video caches
   (canonical plane, torso appearance volume, background feature), SECC
@@ -30,6 +32,7 @@ gaps and do not add up to the step exactly.
 
 from __future__ import annotations
 
+import argparse
 import os
 import time
 from functools import partial
@@ -81,9 +84,8 @@ class ModuleTimer:
                 for name, pairs in self.pairs.items()}
 
 
-def profile_preset(preset: str, dev: torch.device, n_frames: int = 16) -> None:
-    cfg = load_config(os.path.join(_ROOT, "configs", "real3d_orig.yaml"),
-                      {"sampling_preset": preset})
+def profile_preset(config: str, preset: str, dev: torch.device, n_frames: int = 16) -> None:
+    cfg = load_config(os.path.join(_ROOT, "configs", config), {"sampling_preset": preset})
     pipe = Real3DPortraitPipeline(cfg, assets=synthetic_bfm(n_vertices=35709), seed=0,
                                   device=dev)
     m, res = pipe.model, pipe.res
@@ -124,8 +126,8 @@ def profile_preset(preset: str, dev: torch.device, n_frames: int = 16) -> None:
             "background feature (once per video)": lambda: m.cal_bg_feat(cond),
             "SECC raster (K4 + upsample)": raster,
             "SECC backbone + fusion": lambda: m.cal_plane_given_cano(cano, secc),
-            "render_rays (K1-K3)": lambda: render_rays(planes, m.decoder, origins, dirs,
-                                                       m.render_options),
+            "render_rays (K1 or K1-trigrid, K2, K3)": lambda: render_rays(
+                planes, m.decoder, origins, dirs, m.render_options),
             "SR-with-ref head (torso, fusion, SR blocks)": lambda: m._forward_sr(
                 feat[..., :3], feat, ws, weights, cond, "none"),
             "frame step": step,
@@ -226,13 +228,18 @@ def profile_preset(preset: str, dev: torch.device, n_frames: int = 16) -> None:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default="secc_img2plane_torso.yaml",
+                        help="a file of configs/ (default: the pipeline's default model)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device is visible")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card_line()}")
+    print(f"config: {args.config}")
     for preset in ("fast", "reference"):
-        profile_preset(preset, torch.device("cuda"))
+        profile_preset(args.config, preset, torch.device("cuda"))
         torch.cuda.empty_cache()
 
 

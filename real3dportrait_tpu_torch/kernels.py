@@ -38,13 +38,16 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (the last argument is the stream)
 SIGNATURES: dict[str, tuple] = {
     "r3dp_triplane_decode": (_P, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P, _P, _P, _P),
+    "r3dp_trigrid_decode": (_P, _I, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P, _P, _P, _P),
     "r3dp_importance_sample": (_P, _P, _P, _I, _I, _I, _P, _P),
     "r3dp_merge_composite": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "r3dp_secc_raster": (_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P, _P, _P),
     "r3dp_torso_deform_input": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_torso_warp_volume": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_upfirdn2d": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "r3dp_upfirdn2d_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_bias_act": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
+    "r3dp_bias_act_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
 }
 
 
@@ -139,12 +142,15 @@ def launch(name: str, *args) -> None:
 
 
 def require(name: str, arg: str, t: torch.Tensor,
-            dtype: torch.dtype = torch.float32) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``."""
+            dtype: torch.dtype | tuple[torch.dtype, ...] = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (or of
+    one of several)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: {arg} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: {arg} must be {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")
 

@@ -1,8 +1,6 @@
-"""One-shot avatar models: image -> tri-plane -> rendered portrait.
+"""One-shot avatar models: image -> tri-plane or tri-grid -> rendered portrait.
 
-Port of ``real3dportrait_tpu/models/img2plane.py`` for plain tri-planes
-(``triplane_feature_type="triplane"``, the released configuration) in
-fp32:
+Port of ``real3dportrait_tpu/models/img2plane.py``:
 
 * :class:`OSAvatarImg2Plane` — canonical backbone + ``OSGDecoder`` +
   volume renderer + SR head;
@@ -10,6 +8,15 @@ fp32:
   plane is fused with the cached canonical plane;
 * :class:`OSAvatarSECCImg2PlaneTorso` — replaces the SR head with the
   torso/background fusion head of ``models/sr_with_ref.py``.
+
+``triplane_feature_type`` is ``triplane`` (planes [B,3,H,W,C], the released
+checkpoints, depth 1), ``trigrid`` (tri-grids [B,3,D,H,W,C], the class
+default and every training stage's geometry) or ``trigrid_v2`` (tri-grids
+refined by :class:`Plane2GridModule`). The backbones emit ``C*D`` channels
+per plane; :meth:`OSAvatarImg2Plane.to_render_layout` splits them. The
+class defaults are the JAX package's: tri-grids of depth 3 x 32 channels,
+the SegFormer-b0 canonical backbone, GroupNorm heads and four bf16 SR
+resolutions.
 
 The per-video caches are explicit inputs: :meth:`cal_cano_plane` (and, for
 the torso model, ``cal_torso_appearance`` and ``cal_bg_feat``) run once per
@@ -22,6 +29,7 @@ from typing import Any
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from real3dportrait_tpu_torch.geometry.camera import unpack_camera
 from real3dportrait_tpu_torch.models.decoder import OSGDecoder
@@ -34,25 +42,66 @@ from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
 from real3dportrait_tpu_torch.rendering.renderer import RenderOptions, render_rays
 
 
+class SameBlock3d(nn.Module):
+    """3D-conv residual block on NCDHW: GroupNorm(4) -> relu -> edge-padded
+    3x3x3 conv, twice, added back with a learned scale ``alpha`` (init
+    0.01)."""
+
+    def __init__(self, feats: int):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(4, feats, eps=1e-6)
+        self.conv1 = nn.Conv3d(feats, feats, 3)
+        self.norm2 = nn.GroupNorm(4, feats, eps=1e-6)
+        self.conv2 = nn.Conv3d(feats, feats, 3)
+        self.alpha = nn.Parameter(torch.full((1,), 0.01))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.pad(F.relu(self.norm1(x)), (1,) * 6, mode="replicate"))
+        h = self.conv2(F.pad(F.relu(self.norm2(h)), (1,) * 6, mode="replicate"))
+        return x + self.alpha * h
+
+
+class Plane2GridModule(nn.Module):
+    """3D-conv refinement of tri-grids [B,3,D,H,W,C] for
+    ``triplane_feature_type="trigrid_v2"``, shared by the canonical and
+    SECC plane paths: one :class:`SameBlock3d` (two above depth 3) over
+    each plane's [D,H,W] volume."""
+
+    def __init__(self, triplane_depth: int = 3, channels: int = 32):
+        super().__init__()
+        self.n_blocks = 1 if triplane_depth <= 3 else 2
+        for i in range(self.n_blocks):
+            setattr(self, f"block{i}", SameBlock3d(channels))
+
+    def forward(self, planes: torch.Tensor) -> torch.Tensor:
+        b, k, d, h, w, c = planes.shape
+        x = planes.reshape(b * k, d, h, w, c).permute(0, 4, 1, 2, 3)
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x.permute(0, 2, 3, 4, 1).reshape(b, k, d, h, w, c)
+
+
 class OSAvatarImg2Plane(nn.Module):
     """One-shot image -> canonical plane -> rendered image."""
 
-    def __init__(self, triplane_hid_dim: int = 32, triplane_depth: int = 1,
-                 triplane_feature_type: str = "triplane",
+    def __init__(self, triplane_hid_dim: int = 32, triplane_depth: int = 3,
+                 triplane_feature_type: str = "trigrid",
                  neural_rendering_resolution: int = 128, final_resolution: int = 512,
-                 backbone_mode: str = "composite", backbone_scale: str = "standard",
+                 backbone_mode: str = "segformer", backbone_scale: str = "b0",
                  composite_vit_dim: int = 1024, w_dim: int = 512,
-                 sr_num_fp16_res: int = 0, sr_channel0: int = 256,
+                 sr_num_fp16_res: int = 4, sr_channel0: int = 256,
                  sr_channel1: int = 128, num_samples_coarse: int = 48,
                  num_samples_fine: int = 48, box_warp: float = 1.0,
                  ray_near: Any = "auto", ray_far: Any = "auto",
-                 head_norm_mode: str = "folded_bn"):
+                 head_norm_mode: str = "gn"):
         super().__init__()
-        if triplane_feature_type != "triplane" or triplane_depth != 1:
-            raise NotImplementedError(
-                "only plain tri-planes (depth 1) are ported; tri-grids need the "
-                "K1-trigrid kernel (ROADMAP queue 2)")
+        if triplane_feature_type not in ("triplane", "trigrid", "trigrid_v2"):
+            raise ValueError("triplane_feature_type must be triplane, trigrid or "
+                             f"trigrid_v2, got {triplane_feature_type!r}")
         self.triplane_hid_dim = triplane_hid_dim
+        self.triplane_depth = triplane_depth
+        self.triplane_feature_type = triplane_feature_type
+        self.head_norm_mode = head_norm_mode
         self.neural_rendering_resolution = neural_rendering_resolution
         self.final_resolution = final_resolution
         self.w_dim = w_dim
@@ -60,7 +109,7 @@ class OSAvatarImg2Plane(nn.Module):
             depth_resolution=num_samples_coarse,
             depth_resolution_importance=num_samples_fine,
             box_warp=box_warp, ray_start=ray_near, ray_end=ray_far)
-        plane_channels = triplane_hid_dim * triplane_depth
+        plane_channels = self.plane_channels
         if backbone_mode == "composite":
             from real3dportrait_tpu_torch.models.img2plane_composite import (
                 CompositeImg2PlaneBackbone,
@@ -76,8 +125,12 @@ class OSAvatarImg2Plane(nn.Module):
             self.img2plane_backbone = SegFormerImg2PlaneBackbone(
                 scale=backbone_scale, plane_channels=plane_channels,
                 head_norm_mode=head_norm_mode)
-        self.decoder = OSGDecoder(plane_channels, hidden_dim=64,
-                                  output_dim=triplane_hid_dim)
+        # a tri-grid's sample has C channels, a tri-plane's all C*D
+        self.decoder = OSGDecoder(
+            plane_channels if triplane_feature_type == "triplane" else triplane_hid_dim,
+            hidden_dim=64, output_dim=triplane_hid_dim)
+        if triplane_feature_type == "trigrid_v2":
+            self.plane2grid_module = Plane2GridModule(triplane_depth, triplane_hid_dim)
         self.superresolution = self._make_superresolution(dict(
             channels=triplane_hid_dim, w_dim=w_dim, sr_num_fp16_res=sr_num_fp16_res,
             input_resolution=neural_rendering_resolution,
@@ -88,9 +141,26 @@ class OSAvatarImg2Plane(nn.Module):
         """SR-head factory; the torso model builds its warp/fusion head."""
         return SuperresolutionHybrid8XDC(**sr_kwargs)
 
+    @property
+    def plane_channels(self) -> int:
+        return self.triplane_hid_dim * self.triplane_depth
+
+    def to_render_layout(self, planes: torch.Tensor) -> torch.Tensor:
+        """Backbone planes [B,3,H,W,C*D] -> tri-planes [B,3,H,W,C] or
+        tri-grids [B,3,D,H,W,C]: channel ``c*D + d`` is depth slice d of
+        feature c."""
+        if self.triplane_feature_type == "triplane":
+            return planes
+        b, k, h, w, _ = planes.shape
+        planes = planes.reshape(b, k, h, w, self.triplane_hid_dim, self.triplane_depth)
+        planes = planes.movedim(-1, 2)
+        if self.triplane_feature_type == "trigrid_v2":
+            planes = self.plane2grid_module(planes)
+        return planes
+
     def cal_cano_plane(self, img: torch.Tensor) -> torch.Tensor:
-        """Source image [B,H,W,3] -> canonical plane [B,3,H/2,W/2,C]."""
-        return self.img2plane_backbone(img)
+        """Source image [B,H,W,3] -> canonical plane in render layout."""
+        return self.to_render_layout(self.img2plane_backbone(img))
 
     def _forward_sr(self, rgb_image: torch.Tensor, feature_image: torch.Tensor,
                     ws: torch.Tensor, weights_image: torch.Tensor, cond: dict | None,
@@ -143,13 +213,14 @@ class OSAvatarSECCImg2Plane(OSAvatarImg2Plane):
         self.plane_fusion_mode = plane_fusion_mode
         self.secc_img2plane_backbone = SegFormerSECC2PlaneBackbone(
             scale=secc_segformer_scale,
-            plane_channels=self.triplane_hid_dim,
+            plane_channels=self.plane_channels,
             pncc_cond_mode=pncc_cond_mode,
-            head_norm_mode=kwargs.get("head_norm_mode", "folded_bn"))
+            head_norm_mode=self.head_norm_mode)
 
     def cal_secc_plane(self, secc: torch.Tensor) -> torch.Tensor:
-        """SECC condition maps [B,H,W,6|9] -> motion residual plane."""
-        return self.secc_img2plane_backbone(secc)
+        """SECC condition maps [B,H,W,6|9] -> motion residual plane in
+        render layout."""
+        return self.to_render_layout(self.secc_img2plane_backbone(secc))
 
     def cal_plane_given_cano(self, cano_plane: torch.Tensor, secc: torch.Tensor
                              ) -> torch.Tensor:
@@ -187,7 +258,7 @@ class OSAvatarSECCImg2PlaneTorso(OSAvatarSECCImg2Plane):
     def __init__(self, torso_kp_num: int = 4, torso_scale: str = "standard",
                  fuse_mode: str = "v2", head_threshold: float = 0.9,
                  torso_version: str = "v2", torso_inp_mode: str = "rgb_alpha", **kwargs):
-        norm = kwargs.get("head_norm_mode", "folded_bn")
+        norm = kwargs.get("head_norm_mode", "gn")
         # read by _make_superresolution during the base class's __init__
         self.torso_kwargs = dict(
             torso_kp_num=torso_kp_num, torso_scale=torso_scale, fuse_mode=fuse_mode,

@@ -5,8 +5,9 @@ global-attention ViT (low resolution), a detail CNN (high resolution), and
 a predictor ViT fusing both into the raw planes.
 
 The ResNet's BatchNorms are the exact eval-time per-channel affines of
-converted checkpoints (``norm_mode="affine"``); GroupNorm training mode is
-not ported. Public layouts are NHWC; convolutions run NCHW inside.
+converted checkpoints (``norm_mode="affine"``) or GroupNorms
+(``norm_mode="gn"``, the JAX package's default, which every training stage
+uses). Public layouts are NHWC; convolutions run NCHW inside.
 """
 
 from __future__ import annotations
@@ -48,21 +49,35 @@ class ChannelAffine(nn.Module):
         return x * self.weight.view(shape) + self.bias.view(shape)
 
 
+def _norm(c: int, mode: str) -> nn.Module:
+    """``affine``: a folded eval-time BatchNorm; ``gn``: Flax's GroupNorm
+    (epsilon 1e-6) with at most 32 groups of at least 8 channels, fewer
+    until the count divides ``c``."""
+    if mode == "affine":
+        return ChannelAffine(c)
+    if mode != "gn":
+        raise ValueError(f"norm_mode must be 'affine' or 'gn', got {mode!r}")
+    groups = max(1, min(32, c // 8))
+    while c % groups:
+        groups -= 1
+    return nn.GroupNorm(groups, c, eps=1e-6)
+
+
 class BasicBlock(nn.Module):
     """ResNet BasicBlock with SMP's dilation patching."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 use_downsample: bool = False):
+                 use_downsample: bool = False, norm_mode: str = "affine"):
         super().__init__()
         self.conv1 = Conv(in_planes, planes, 3, stride=stride, padding=dilation,
                           dilation=dilation, bias=False)
-        self.bn1 = ChannelAffine(planes)
+        self.bn1 = _norm(planes, norm_mode)
         self.conv2 = Conv(planes, planes, 3, padding=dilation, dilation=dilation, bias=False)
-        self.bn2 = ChannelAffine(planes)
+        self.bn2 = _norm(planes, norm_mode)
         self.use_downsample = use_downsample
         if use_downsample:
             self.downsample_conv = Conv(in_planes, planes, 1, stride=stride, bias=False)
-            self.downsample_norm = ChannelAffine(planes)
+            self.downsample_norm = _norm(planes, norm_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         y = F.relu(self.bn1(self.conv1(x)))
@@ -76,10 +91,11 @@ class ResNet34Encoder(nn.Module):
 
     def __init__(self, in_ch: int, layers: Sequence[int] = (3, 4, 6, 3),
                  planes: Sequence[int] = (64, 128, 256, 512),
-                 stage_cfg: Sequence[tuple] = ((1, 1), (2, 1), (1, 2), (1, 4))):
+                 stage_cfg: Sequence[tuple] = ((1, 1), (2, 1), (1, 2), (1, 4)),
+                 norm_mode: str = "affine"):
         super().__init__()
         self.conv1 = Conv(in_ch, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = ChannelAffine(64)
+        self.bn1 = _norm(64, norm_mode)
         self.block_names = []
         c = 64
         for li, (n_blocks, p, (stride, dil)) in enumerate(zip(layers, planes, stage_cfg), 1):
@@ -87,7 +103,8 @@ class ResNet34Encoder(nn.Module):
                 use_ds = bi == 0 and (stride != 1 or c != p)
                 name = f"layer{li}_{bi}"
                 setattr(self, name, BasicBlock(c, p, stride=stride if bi == 0 else 1,
-                                               dilation=dil, use_downsample=use_ds))
+                                               dilation=dil, use_downsample=use_ds,
+                                               norm_mode=norm_mode))
                 self.block_names.append(name)
                 c = p
 
@@ -125,9 +142,9 @@ class DeepLabDecoder(nn.Module):
 
 
 class DeepLabV3LowEncoder(nn.Module):
-    def __init__(self, in_ch: int):
+    def __init__(self, in_ch: int, norm_mode: str = "affine"):
         super().__init__()
-        self.encoder = ResNet34Encoder(in_ch)
+        self.encoder = ResNet34Encoder(in_ch, norm_mode=norm_mode)
         self.decoder = DeepLabDecoder()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -215,14 +232,14 @@ class CompositeImg2PlaneBackbone(nn.Module):
     def __init__(self, plane_channels: int = 96, scale: str = "standard",
                  vit_dim: int = 1024, input_mode: str = "rgb", norm_mode: str = "affine"):
         super().__init__()
-        if input_mode != "rgb" or norm_mode != "affine":
+        if input_mode != "rgb":
             raise NotImplementedError(
-                "the composite backbone is ported for rgb input and folded "
-                "BatchNorm affines (the released checkpoints' mode)")
+                "the composite backbone is ported for rgb input, the only mode "
+                "the avatar models pass")
         self.plane_channels = plane_channels
         low_blocks, pred_blocks = COMPOSITE_SCALES[scale]
         in_ch = 3 + 2  # rgb + the xy coordinate channels
-        self.low_reso_encoder = DeepLabV3LowEncoder(in_ch)
+        self.low_reso_encoder = DeepLabV3LowEncoder(in_ch, norm_mode)
         self.low_reso_vit = LowResolutionViT(256, low_blocks, vit_dim)
         self.high_reso_encoder = HighResoEncoder(in_ch)
         self.triplane_predictor_vit = TriplanePredictorViT(

@@ -6,8 +6,11 @@ with the keypoint-warped torso (:class:`WarpBasedTorsoModel`) by the NeRF
 weights image, composited over the encoded background with an occlusion
 union, then lifted to 512^2. Fuse modes ``v2`` (alpha-cat + a NoUp
 SynthesisBlock, the released one) and ``v1`` (additive blend), or no weight
-fusion (plain concatenation). Resizes are antialiased bilinear. fp32; the
-reference's fp16 SR layers are not ported.
+fusion (plain concatenation). Resizes are antialiased bilinear. With
+``sr_num_fp16_res > 0`` block0 and block1 run in bf16 (``conv_clamp=256``);
+the fusion convs and ``head_torso_block`` stay fp32, and block0's bf16
+features become fp32 where the fp32 weights image multiplies them, as in
+the JAX package.
 
 Two per-video caches have entry points of their own:
 
@@ -46,10 +49,8 @@ class SuperresolutionHybrid8XDCWarp(nn.Module):
                  torso_version: str = "v2", torso_norm_mode: str = "gn",
                  torso_inp_mode: str = "rgb_alpha"):
         super().__init__()
-        if sr_num_fp16_res > 0:
-            raise NotImplementedError(
-                "fp16 SR layers are not ported; the slice runs fp32 "
-                "(num_fp16_layers_in_super_resolution: 0)")
+        use_fp16 = sr_num_fp16_res > 0
+        clamp = 256.0 if use_fp16 else None
         if fuse_mode not in ("v1", "v2"):
             raise ValueError(f"fuse_mode must be 'v1' or 'v2', got {fuse_mode!r}")
         self.sr_antialias, self.mid = sr_antialias, mid_resolution
@@ -60,7 +61,8 @@ class SuperresolutionHybrid8XDCWarp(nn.Module):
         self.bg_enc_conv1 = _conv3(64, c0)
         self.bg_enc_conv2 = _conv3(c0, c0)
         self.block0 = SynthesisBlock(channels, c0, w_dim=w_dim, resolution=mid_resolution,
-                                     img_channels=3, is_last=False, conv_clamp=None)
+                                     img_channels=3, is_last=False, conv_clamp=clamp,
+                                     use_fp16=use_fp16)
         self.torso_model = WarpBasedTorsoModel(
             torso_kp_num=torso_kp_num, scale=torso_scale, norm_mode=torso_norm_mode,
             version=torso_version, inp_mode=torso_inp_mode)
@@ -76,7 +78,7 @@ class SuperresolutionHybrid8XDCWarp(nn.Module):
         self.fuse_fb_conv2 = _conv3(c0, c0)
         self.block1 = SynthesisBlock(c0, block1_channels, w_dim=w_dim,
                                      resolution=final_resolution, img_channels=3,
-                                     is_last=True, conv_clamp=None)
+                                     is_last=True, conv_clamp=clamp, use_fp16=use_fp16)
 
     def _resize(self, x: torch.Tensor, size: int) -> torch.Tensor:
         return resize_bilinear(x, size, self.sr_antialias)

@@ -4,8 +4,10 @@
 Parameter names and shapes follow the reference torch modules (which the
 JAX tree reuses): dense weights [out, in], conv weights OIHW. Modulated
 convolution uses the activation-scaling form (``fused_modconv=False``).
-The blocks run fp32; the reference's fp16 layers are not ported (the
-released configuration uses none in its SR head).
+Blocks flagged ``use_fp16`` (the reference's fp16 resolutions) run their
+activations in bf16, as the JAX package does; parameters stay fp32, the
+demodulation coefficients are computed in fp32 and the toRGB output joins
+the fp32 skip image.
 
 Internally the convolutions run NCHW; :class:`SynthesisBlock.forward` keeps
 the port's NHWC public layout.
@@ -31,11 +33,21 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
     (convolution [B,Cout,H',W'] before demodulation, coefficients d
     [B,Cout] or None).
 
-    The demodulation multiply and the noise add of the reference run in
-    the fused epilogue, ``bias_act(..., scale=d, noise=...)`` (kernel K6b).
+    The convolution runs in ``x``'s dtype. In bf16 (or fp16) the weight and
+    styles are first normalised by their largest magnitudes, against
+    overflow, and ``d`` is computed in fp32 from the normalised values. The
+    demodulation multiply and the noise add of the reference run in the
+    fused epilogue, ``bias_act(..., scale=d, noise=...)`` (kernel K6b),
+    which casts ``d`` and the noise to ``x``'s dtype.
     """
-    x = x * styles[:, :, None, None]
-    x = conv2d_resample(x, weight, f=resample_filter, up=up, down=down,
+    dtype = x.dtype
+    if dtype in (torch.float16, torch.bfloat16) and demodulate:
+        cout, cin, kh, kw = weight.shape
+        w_norm = weight.abs().amax(dim=(1, 2, 3), keepdim=True)
+        weight = weight * (1.0 / math.sqrt(cin * kh * kw) / (w_norm + 1e-12))
+        styles = styles / (styles.abs().amax(dim=1, keepdim=True) + 1e-12)
+    x = x * styles.to(dtype)[:, :, None, None]
+    x = conv2d_resample(x, weight.to(dtype), f=resample_filter, up=up, down=down,
                         padding=padding, flip_weight=(up == 1))
     d = None
     if demodulate:
@@ -107,14 +119,15 @@ class Conv2dLayer(nn.Module):
 
 
 class SynthesisLayer(nn.Module):
-    """Modulated conv + noise + bias/act."""
+    """Modulated conv + noise + bias/act, with activations in ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
                  resolution: int, kernel_size: int = 3, up: int = 1,
                  use_noise: bool = True, activation: str = "lrelu",
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: float | None = 256.0):
+                 conv_clamp: float | None = 256.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.resolution, self.up, self.use_noise = resolution, up, use_noise
         self.activation, self.conv_clamp = activation, conv_clamp
         self.padding = kernel_size // 2
@@ -152,7 +165,7 @@ class SynthesisLayer(nn.Module):
         if self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
-        x, d = modulated_conv2d(x, self.weight, styles, up=self.up,
+        x, d = modulated_conv2d(x.to(self.dtype), self.weight, styles, up=self.up,
                                 padding=self.padding, resample_filter=f)
         act_gain = ACTIVATIONS[self.activation].def_gain * gain
         clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
@@ -161,12 +174,14 @@ class SynthesisLayer(nn.Module):
 
 
 class ToRGBLayer(nn.Module):
-    """Modulated 1x1 projection to image channels (no demodulation)."""
+    """Modulated 1x1 projection to image channels (no demodulation), with
+    activations in ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
-                 kernel_size: int = 1, conv_clamp: float | None = 256.0):
+                 kernel_size: int = 1, conv_clamp: float | None = 256.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv_clamp = conv_clamp
+        self.conv_clamp, self.dtype = conv_clamp, dtype
         self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
         self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1.0)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
@@ -182,7 +197,7 @@ class ToRGBLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         styles = self.affine(w) * self.weight_gain
-        x, _ = modulated_conv2d(x, self.weight, styles, demodulate=False)
+        x, _ = modulated_conv2d(x.to(self.dtype), self.weight, styles, demodulate=False)
         return bias_act(x, self.bias, clamp=self.conv_clamp, axis=1)
 
 
@@ -190,7 +205,9 @@ class SynthesisBlock(nn.Module):
     """One resolution level: up-conv0 + conv1 + skip toRGB.
 
     ``ws`` [B, 3, w_dim]: conv0 and conv1 take the first two latents, toRGB
-    the third. Only blocks with an input (``in_channels > 0``) are ported.
+    the third. ``use_fp16`` runs the block's activations in bf16; ``x``
+    leaves the block in that dtype and the image in fp32. Only blocks with
+    an input (``in_channels > 0``) are ported.
     """
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
@@ -199,19 +216,20 @@ class SynthesisBlock(nn.Module):
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
                  conv_clamp: float | None = 256.0, use_fp16: bool = False, up: int = 2):
         super().__init__()
-        if in_channels == 0 or use_fp16:
+        if in_channels == 0:
             raise NotImplementedError(
-                "SynthesisBlock: const-input and fp16 blocks are not ported "
+                "SynthesisBlock: const-input blocks are not ported "
                 "(ROADMAP queue 1, training slice)")
         self.up, self.is_last, self.architecture = up, is_last, architecture
+        self.dtype = torch.bfloat16 if use_fp16 else torch.float32
         self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution,
                                     up=up, resample_filter=resample_filter,
-                                    conv_clamp=conv_clamp)
+                                    conv_clamp=conv_clamp, dtype=self.dtype)
         self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim, resolution,
-                                    conv_clamp=conv_clamp)
+                                    conv_clamp=conv_clamp, dtype=self.dtype)
         if is_last or architecture == "skip":
             self.torgb = ToRGBLayer(out_channels, img_channels, w_dim,
-                                    conv_clamp=conv_clamp)
+                                    conv_clamp=conv_clamp, dtype=self.dtype)
         self.register_buffer("resample_filter", setup_filter(resample_filter),
                              persistent=False)
 
@@ -223,7 +241,7 @@ class SynthesisBlock(nn.Module):
         if img is not None and self.up > 1:
             img = upsample2d(img, self.resample_filter, up=self.up)
         if self.is_last or self.architecture == "skip":
-            y = self.torgb(x, ws[:, 2])
+            y = self.torgb(x, ws[:, 2]).float()
             img = img + y if img is not None else y
         return x, img
 

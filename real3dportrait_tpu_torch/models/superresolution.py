@@ -21,25 +21,24 @@ def resize_bilinear(x: torch.Tensor, size: int, antialias: bool = True) -> torch
 
 
 class SuperresolutionHybrid8XDC(nn.Module):
-    """128 -> 512 SR head: two skip SynthesisBlocks."""
+    """128 -> 512 SR head: two skip SynthesisBlocks, both in bf16 with
+    ``conv_clamp=256`` when ``sr_num_fp16_res > 0``."""
 
     def __init__(self, channels: int, w_dim: int = 512, sr_num_fp16_res: int = 0,
                  sr_antialias: bool = True, input_resolution: int = 128,
                  block0_channels: int = 256, block1_channels: int = 128,
                  final_resolution: int = 512):
         super().__init__()
-        if sr_num_fp16_res > 0:
-            raise NotImplementedError(
-                "fp16 SR layers are not ported; the slice runs fp32 "
-                "(num_fp16_layers_in_super_resolution: 0)")
+        use_fp16 = sr_num_fp16_res > 0
+        clamp = 256.0 if use_fp16 else None
         self.sr_antialias = sr_antialias
         self.final_resolution = final_resolution
         self.block0 = SynthesisBlock(channels, block0_channels, w_dim=w_dim,
                                      resolution=final_resolution // 2, img_channels=3,
-                                     is_last=False, conv_clamp=None)
+                                     is_last=False, conv_clamp=clamp, use_fp16=use_fp16)
         self.block1 = SynthesisBlock(block0_channels, block1_channels, w_dim=w_dim,
                                      resolution=final_resolution, img_channels=3,
-                                     is_last=True, conv_clamp=None)
+                                     is_last=True, conv_clamp=clamp, use_fp16=use_fp16)
 
     def forward(self, rgb: torch.Tensor, x: torch.Tensor, ws: torch.Tensor,
                 noise_mode: str = "none") -> torch.Tensor:

@@ -3,8 +3,10 @@
 noise tail of ``models/stylegan2.py:modulated_conv2d``).
 
 :func:`bias_act` is the wrapper of kernel K6b (``csrc/stylegan_epilogue.cu``),
-one fused pass of ``clamp(gain * act(x * scale + noise + b))``;
-:func:`bias_act_plain` is its plain PyTorch version.
+one fused pass of ``clamp(gain * act(x * scale + noise + b))`` in fp32 or
+bf16; :func:`bias_act_plain` is its plain PyTorch version. ``scale``,
+``noise`` and ``b`` are cast to ``x``'s dtype first, as the JAX package
+casts them, and in bf16 every step rounds to bf16.
 """
 
 from __future__ import annotations
@@ -48,9 +50,9 @@ def bias_act_plain(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "l
     [H,W] apply to NCHW ``x`` only."""
     spec = ACTIVATIONS[act]
     if scale is not None:
-        x = x * scale[:, :, None, None]
+        x = x * scale.to(x.dtype)[:, :, None, None]
     if noise is not None:
-        x = x + noise
+        x = x + noise.to(x.dtype)
     if b is not None:
         shape = [1] * x.dim()
         shape[axis] = b.shape[0]
@@ -71,8 +73,10 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "linear"
     """K6b wrapper, same contract as :func:`bias_act_plain`.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes fp32 NCHW ``x`` with ``axis=1`` or [N,C] ``x`` with the
-    channel axis last, and a linear, relu or lrelu activation, or raise.
+    which takes fp32 or bf16 NCHW ``x`` with ``axis=1`` or [N,C] ``x`` with
+    the channel axis last, and a linear, relu or lrelu activation, or
+    raise. ``bias_act.launches`` counts every launch, ``launches_bf16`` the
+    bf16 ones among them.
     """
     if x.device.type == "cpu":
         return bias_act_plain(x, b, act, gain, clamp, axis, scale, noise)
@@ -80,7 +84,7 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "linear"
     if act not in KERNEL_ACTS:
         raise ValueError(f"{name}: the kernel takes {sorted(KERNEL_ACTS)}, got {act!r}")
     x = x.contiguous()
-    kernels.require(name, "x", x)
+    kernels.require(name, "x", x, (torch.float32, torch.bfloat16))
     if x.dim() == 4 and axis in (1, -3):
         bsz, c, h, w = x.shape
     elif x.dim() == 2 and axis in (1, -1) and scale is None and noise is None:
@@ -91,7 +95,8 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "linear"
     extras = []
     for arg, t, shape in (("b", b, (c,)), ("scale", scale, (bsz, c)), ("noise", noise, (h, w))):
         if t is not None:
-            t = t.detach().to(torch.float32).contiguous()
+            # the values of x's dtype, passed in fp32
+            t = t.detach().to(x.dtype).to(torch.float32).contiguous()
             kernels.require(name, arg, t)
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: {arg} must be {shape}, got {tuple(t.shape)}")
@@ -99,10 +104,14 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "linear"
     b, scale, noise = extras
     g = ACTIVATIONS[act].def_gain if gain is None else gain
     y = torch.empty_like(x)
-    kernels.launch("r3dp_bias_act", x, scale, noise, b, x.numel(), c, h * w,
-                   KERNEL_ACTS[act], float(g), -1.0 if clamp is None else float(clamp), y)
+    bf16 = x.dtype == torch.bfloat16
+    kernels.launch("r3dp_bias_act_bf16" if bf16 else "r3dp_bias_act", x, scale, noise, b,
+                   x.numel(), c, h * w, KERNEL_ACTS[act], float(g),
+                   -1.0 if clamp is None else float(clamp), y)
     bias_act.launches += 1
+    bias_act.launches_bf16 += bf16
     return y
 
 
 bias_act.launches = 0
+bias_act.launches_bf16 = 0

@@ -2,8 +2,10 @@
 K6a (port of ``real3dportrait_tpu/ops/upfirdn2d.py``).
 
 :func:`upfirdn2d` is the wrapper of kernel K6a
-(``csrc/stylegan_epilogue.cu``); :func:`upfirdn2d_plain` is its plain
-PyTorch version (zero insertion, pad/crop, depthwise ``F.conv2d``).
+(``csrc/stylegan_epilogue.cu``), in fp32 or bf16; :func:`upfirdn2d_plain`
+is its plain PyTorch version (zero insertion, pad/crop, depthwise
+``F.conv2d``). In bf16 the taps are rounded to bf16, as the JAX package
+casts them, and the sum is taken in fp32 and rounded once.
 
 Tensors here are NCHW and conv weights OIHW, PyTorch's own layouts; the
 modules that call these convert from the port's NHWC public layout once.
@@ -89,15 +91,17 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up: int = 1, down: int = 
     """K6a wrapper, same contract as :func:`upfirdn2d_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes fp32 NCHW ``x``, any small filter and ``up``, ``down`` of 1
-    or 2, or raise.
+    which takes fp32 or bf16 NCHW ``x``, any small filter and ``up``,
+    ``down`` of 1 or 2, or raise. ``upfirdn2d.launches`` counts every
+    launch, ``launches_bf16`` the bf16 ones among them.
     """
     if x.device.type == "cpu":
         return upfirdn2d_plain(x, f, up, down, padding, gain)
     name = "upfirdn2d"
     x = x.contiguous()
-    kernels.require(name, "x", x)
-    taps = _taps(f, gain, x).detach().contiguous()
+    kernels.require(name, "x", x, (torch.float32, torch.bfloat16))
+    # the taps of x's dtype, passed in fp32
+    taps = _taps(f, gain, x).detach().to(torch.float32).contiguous()
     kernels.require(name, "f", taps)
     if x.dim() != 4 or taps.dim() != 2 or up not in (1, 2) or down not in (1, 2):
         raise ValueError(f"{name}: kernel takes x [B,C,H,W], a [fh,fw] filter and "
@@ -110,14 +114,17 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up: int = 1, down: int = 
     wo = (w * up + px0 + px1 - fw) // down + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"{name}: empty output {ho}x{wo}")
-    y = torch.empty((b, c, ho, wo), device=x.device)
-    kernels.launch("r3dp_upfirdn2d", x, taps, b * c, h, w, up, down, px0, py0, fh, fw,
-                   ho, wo, y)
+    y = torch.empty((b, c, ho, wo), device=x.device, dtype=x.dtype)
+    bf16 = x.dtype == torch.bfloat16
+    kernels.launch("r3dp_upfirdn2d_bf16" if bf16 else "r3dp_upfirdn2d", x, taps, b * c, h, w,
+                   up, down, px0, py0, fh, fw, ho, wo, y)
     upfirdn2d.launches += 1
+    upfirdn2d.launches_bf16 += bf16
     return y
 
 
 upfirdn2d.launches = 0
+upfirdn2d.launches_bf16 = 0
 
 
 def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2, padding=0,

@@ -1,16 +1,17 @@
-"""Two-pass importance-sampled tri-plane volume renderer, with kernels K2
-and K3.
+"""Two-pass importance-sampled tri-plane / tri-grid volume renderer, with
+kernels K2 and K3.
 
 Port of ``real3dportrait_tpu/rendering/renderer.py`` (EG3D's
-``ImportanceRenderer``) for tri-planes ``[B,3,H,W,C]``. Per frame:
+``ImportanceRenderer``) for tri-planes ``[B,3,H,W,C]`` and tri-grids
+``[B,3,D,H,W,C]``. Per frame:
 
 1. ray/box limits; rays that miss the box take the valid population's
    depth range (two reductions over all rays, in PyTorch);
-2. stratified coarse depths, sampled and decoded by kernel K1
-   (``OSGDecoder.decode_points``);
+2. stratified coarse depths, sampled and decoded by kernel K1 or, for
+   tri-grids, K1-trigrid (``OSGDecoder.decode_points``);
 3. kernel K2, :func:`importance_sample`: coarse march + weight smoothing +
    inverse-CDF resampling into the fine depths;
-4. the fine depths through K1;
+4. the fine depths through K1 or K1-trigrid;
 5. kernel K3, :func:`merge_composite`: merge of the sorted coarse and fine
    samples, march and composite; the depth clip to the batch's depth range
    is a reduction over all rays and runs after it, in PyTorch.
@@ -27,7 +28,7 @@ from typing import Any, NamedTuple
 import torch
 
 from real3dportrait_tpu_torch import kernels
-from real3dportrait_tpu_torch.ops.grid_sample import grid_sample_2d
+from real3dportrait_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
 from real3dportrait_tpu_torch.rendering import math_utils
 from real3dportrait_tpu_torch.rendering.ray_marcher import march_rays, march_weights
 
@@ -50,6 +51,16 @@ def sample_from_planes(planes: torch.Tensor, coordinates: torch.Tensor,
     """planes [B,3,H,W,C], coords [B,M,3] -> features [B,3,M,C]."""
     coords = (2.0 / box_warp) * coordinates
     outs = [grid_sample_2d(planes[:, k], coords[..., list(perm[:2])])
+            for k, perm in enumerate(_PLANE_PERMS)]
+    return torch.stack(outs, dim=1)
+
+
+def sample_from_trigrids(planes: torch.Tensor, coordinates: torch.Tensor,
+                         box_warp: float) -> torch.Tensor:
+    """planes [B,3,D,H,W,C], coords [B,M,3] -> features [B,3,M,C]; the
+    third projected coordinate indexes the depth axis D trilinearly."""
+    coords = (2.0 / box_warp) * coordinates
+    outs = [grid_sample_3d(planes[:, k], coords[..., list(perm)])
             for k, perm in enumerate(_PLANE_PERMS)]
     return torch.stack(outs, dim=1)
 
@@ -196,15 +207,13 @@ merge_composite.launches = 0
 
 def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
                 ray_directions: torch.Tensor, options: RenderOptions) -> dict[str, Any]:
-    """Full two-pass render of tri-planes [B,3,H,W,C] along rays [B,M,3].
+    """Full two-pass render of tri-planes [B,3,H,W,C] or tri-grids
+    [B,3,D,H,W,C] along rays [B,M,3].
 
-    ``decoder`` is an ``OSGDecoder`` (its ``decode_points`` is kernel K1).
-    Returns ``rgb`` [B,M,C], ``depth`` [B,M,1], ``weights_sum`` [B,M,1],
-    ``is_ray_valid`` [B,M].
+    ``decoder`` is an ``OSGDecoder`` (its ``decode_points`` is kernel K1 or
+    K1-trigrid, by the planes' rank). Returns ``rgb`` [B,M,C], ``depth``
+    [B,M,1], ``weights_sum`` [B,M,1], ``is_ray_valid`` [B,M].
     """
-    if planes.dim() != 5:
-        raise NotImplementedError("tri-grid planes need the K1-trigrid kernel "
-                                  "(ROADMAP queue 2)")
     b, m, _ = ray_origins.shape
     if options.ray_start == "auto" or options.ray_end == "auto":
         ray_start, ray_end, is_valid = math_utils.get_ray_limits_box(

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from real3dportrait_tpu_torch.models.img2plane import SameBlock3d
 from real3dportrait_tpu_torch.models.img2plane_composite import ChannelAffine
 from real3dportrait_tpu_torch.models.stylegan2 import (
     Conv2dLayer,
@@ -41,20 +42,23 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
 
 def torch_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ..., "noise_const": ...}`` as nested
-    dicts of arrays, or a bare params tree) -> the port's ``state_dict``."""
+    dicts of arrays, or a bare params tree) -> the port's ``state_dict``.
+    A leaf that has only a ``shape`` (``jax.eval_shape``'s structs) gives a
+    meta tensor of the converted shape: names and shapes, no weights."""
     if "params" not in variables:
         variables = {"params": variables}
     out: dict[str, torch.Tensor] = {}
     for coll, tree in variables.items():
         for path, arr in _leaves(tree):
-            a = np.asarray(arr, dtype=np.float32)
-            if coll == "noise_const":
-                out[".".join(path[:-1] + ("noise_const",))] = torch.from_numpy(a.copy())
-                continue
-            if coll != "params":
-                raise ValueError(f"unexpected variable collection {coll!r}")
+            has_data = hasattr(arr, "__array__")
+            a = (np.asarray(arr, dtype=np.float32) if has_data
+                 else np.broadcast_to(np.float32(0), tuple(arr.shape)))
             leaf = path[-1]
-            if leaf in ("kernel", "weight"):
+            if coll == "noise_const":
+                leaf = "noise_const"
+            elif coll != "params":
+                raise ValueError(f"unexpected variable collection {coll!r}")
+            elif leaf in ("kernel", "weight"):
                 if a.ndim == 5:
                     a = a.transpose(4, 3, 0, 1, 2)
                 elif a.ndim == 4:
@@ -65,7 +69,9 @@ def torch_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.T
             elif leaf == "scale":
                 leaf = "weight"
             # np.array (not ascontiguousarray) keeps 0-d leaves 0-d
-            out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.array(a, order="C"))
+            out[".".join(path[:-1] + (leaf,))] = (
+                torch.from_numpy(np.array(a, order="C")) if has_data
+                else torch.empty(a.shape, device="meta"))
     return out
 
 
@@ -73,7 +79,8 @@ def mock_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter of ``model`` from ``generator`` in place, with
     the JAX package's initialisers: StyleGAN layers N(0,1) weights with their
     bias inits and N(0,1) noise buffers; other convs and dense layers
-    lecun-normal weights and zero biases; norms and affines ones and zeros."""
+    lecun-normal weights and zero biases; norms and affines ones and zeros;
+    the residual scale of ``SameBlock3d`` 0.01."""
     styled = (FullyConnectedLayer, Conv2dLayer, SynthesisLayer, ToRGBLayer)
     with torch.no_grad():
         for mod in model.modules():
@@ -87,4 +94,6 @@ def mock_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, ChannelAffine)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, SameBlock3d):
+                mod.alpha.fill_(0.01)
     return model

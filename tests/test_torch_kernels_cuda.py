@@ -1,10 +1,12 @@
-"""Kernels K1-K6 against their plain PyTorch versions on a CUDA device, at
-edge-case shapes the slice's chip_smoke run does not reach (several frames
-per call, ragged ray counts, more than 32 channels, white background, ties,
-posed meshes; warps with samples exactly on and far beyond the volume's
-faces, K = 9 keypoints, odd volume sizes; every resampling and epilogue
-option). Every test needs a card and skips without one. On the card
-(where JAX, which tests/conftest.py imports, is not installed):
+"""Kernels K1-K6 and K1-trigrid against their plain PyTorch versions on a
+CUDA device, at edge-case shapes the slice's chip_smoke run does not reach
+(several frames per call, ragged ray counts, more than 32 channels, white
+background, ties, posed meshes; tri-grids of depth 1-3 with odd H != W and
+points outside the box; warps with samples exactly on and far beyond the
+volume's faces, K = 9 keypoints, odd volume sizes; every resampling and
+epilogue option, in fp32 and bf16). Every test needs a card and skips
+without one. On the card (where JAX, which tests/conftest.py imports, is
+not installed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 """
@@ -22,6 +24,8 @@ from real3dportrait_tpu_torch.geometry.rasterizer import (
 from real3dportrait_tpu_torch.models import torso
 from real3dportrait_tpu_torch.models.decoder import (
     OSGDecoder,
+    trigrid_decode,
+    trigrid_decode_plain,
     triplane_decode,
     triplane_decode_plain,
 )
@@ -69,6 +73,29 @@ def test_k1_several_frames_ragged_points(dev):
     _close(k[1], p[1], 1e-4, "sigma")
     with pytest.raises(ValueError):
         triplane_decode(planes[..., :16], coords, 1.0, dec)
+
+
+@pytest.mark.parametrize("b,dhw", [(2, (1, 9, 13)), (1, (2, 7, 5)), (2, (3, 11, 6))],
+                         ids=["b2_d1", "d2_odd", "b2_d3"])
+def test_k1_trigrid_depths_odd_sizes_points_outside(dev, b, dhw):
+    # points up to 1.4x the box: corners outside on every axis, zero
+    # padding per corner; fp32 sums in another order: 1e-4 absolute
+    g = torch.Generator(device=dev).manual_seed(9)
+    planes = torch.randn((b, 3, *dhw, 32), device=dev, generator=g)
+    coords = 1.4 * (torch.rand((b, 777, 3), device=dev, generator=g) - 0.5)
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
+    before = trigrid_decode.launches
+    with torch.no_grad():
+        k = trigrid_decode(planes, coords, 1.0, dec)
+        p = trigrid_decode_plain(planes, coords, 1.0, dec)
+    torch.cuda.synchronize()
+    assert trigrid_decode.launches == before + 1
+    _close(k[0], p[0], 1e-4, "rgb")
+    _close(k[1], p[1], 1e-4, "sigma")
+    with pytest.raises(ValueError):
+        trigrid_decode(planes[..., :16].contiguous(), coords, 1.0, dec)
+    with pytest.raises(ValueError):
+        trigrid_decode(planes.double(), coords, 1.0, dec)
 
 
 @pytest.mark.parametrize("r,s,n", [(37, 4, 7), (129, 100, 40)])
@@ -210,3 +237,51 @@ def test_k6b_refuses_other_activations(dev):
     x = torch.randn((1, 2, 3, 3), device=dev)
     with pytest.raises(ValueError):
         ba.bias_act(x, None, act="tanh", axis=1)
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of the last place of bf16 ``want``."""
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("up,down,padding,hw", [
+    (1, 1, 0, (37, 29)), (2, 1, (2, 1, 2, 1), (9, 13)), (2, 2, (-1, 1, 1, -1), (9, 7)),
+    (1, 2, (1, 1, 1, 1), (13, 10))])
+def test_k6a_bf16_matches_plain_bf16(dev, up, down, padding, hw):
+    # bf16 in and out, the sum in fp32 and rounded once, as the plain
+    # version's bf16 depthwise convolution; the two sum in another order:
+    # within 2 bf16 ulps of the plain output
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((2, 5, *hw), device=dev, generator=g).bfloat16()
+    f = ufd.setup_filter([1, 3, 3, 1], device=dev)
+    before = (ufd.upfirdn2d.launches, ufd.upfirdn2d.launches_bf16)
+    got = ufd.upfirdn2d(x, f, up=up, down=down, padding=padding, gain=4)
+    want = ufd.upfirdn2d_plain(x, f, up=up, down=down, padding=padding, gain=4)
+    torch.cuda.synchronize()
+    assert (ufd.upfirdn2d.launches, ufd.upfirdn2d.launches_bf16) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("act", ["linear", "lrelu"])
+def test_k6b_bf16_matches_plain_bf16(dev, act):
+    # every step rounded to bf16 where the plain version's bf16 ops round,
+    # with d, noise and bias cast to bf16 first: bit-equal
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (40 * torch.randn((2, 5, 7, 9), device=dev, generator=g)).bfloat16()
+    b = torch.randn((5,), device=dev, generator=g)
+    scale = torch.rand((2, 5), device=dev, generator=g) + 0.5
+    noise = torch.randn((7, 9), device=dev, generator=g)
+    before = (ba.bias_act.launches, ba.bias_act.launches_bf16)
+    for kw in (dict(), dict(scale=scale, noise=noise)):
+        got = ba.bias_act(x, b, act=act, gain=2 ** 0.5, clamp=25.0, axis=1, **kw)
+        want = ba.bias_act_plain(x, b, act=act, gain=2 ** 0.5, clamp=25.0, axis=1, **kw)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want), f"K6b bf16 {act} {sorted(kw)}: {_bf16_ulps(got, want)} ulps"
+    assert float(want.abs().max()) == 25.0  # the clamp acts
+    assert (ba.bias_act.launches, ba.bias_act.launches_bf16) == (before[0] + 2, before[1] + 2)
+    with pytest.raises(ValueError):
+        ba.bias_act(x.half(), b, act=act, axis=1)

@@ -112,6 +112,33 @@ def test_synthesis_block_matches_jax():
     agree(got_img, want_img, 1e-5, 1e-6, "block img")
 
 
+@pytest.mark.parametrize("use_fp16", [True, False], ids=["bf16", "fp32"])
+def test_clamped_synthesis_block_matches_jax(use_fp16):
+    # the SR heads' half-precision block: up 2, conv_clamp 256, const noise.
+    # bf16: the weight and styles pre-normalised, demodulation in fp32 then
+    # cast, activations rounded to bf16 (8 mantissa bits) at other points
+    # in the two frameworks: 3e-2 of scale max, 3e-3 mean. The same block in
+    # fp32 guards the algorithm at 1e-5 / 1e-6.
+    rng = np.random.RandomState(16)
+    x = rng.randn(2, 8, 8, 8).astype(np.float32)
+    img = rng.randn(2, 8, 8, 3).astype(np.float32)
+    ws = rng.randn(2, 3, 32).astype(np.float32)
+    jm = jsg.SynthesisBlock(in_channels=8, out_channels=16, w_dim=32, resolution=16,
+                            img_channels=3, is_last=False, use_fp16=use_fp16,
+                            conv_clamp=256.0)
+    variables, (want_x, want_img) = _jax_run(jm, x, img, ws, seed=17, noise_mode="const")
+    tm = load_from_jax(SynthesisBlock(8, 16, 32, 16, 3, is_last=False, use_fp16=use_fp16,
+                                      conv_clamp=256.0), variables)
+    with torch.no_grad():
+        got_x, got_img = tm(t(x), t(img), t(ws), noise_mode="const")
+    dtype = torch.bfloat16 if use_fp16 else torch.float32
+    assert got_x.dtype == dtype and got_img.dtype == torch.float32
+    assert str(want_x.dtype) == str(dtype).split(".")[-1]
+    tol = (3e-2, 3e-3) if use_fp16 else (1e-5, 1e-6)
+    agree(got_x.float(), np.asarray(want_x, np.float32), *tol, "block x")
+    agree(got_img, want_img, *tol, "block img")
+
+
 @pytest.mark.parametrize("in_res", [16, 8])
 def test_superresolution_matches_jax(in_res):
     # two blocks 16 -> 64 (in_res 8 first resizes to 16): 1e-5 of scale max,
@@ -130,6 +157,28 @@ def test_superresolution_matches_jax(in_res):
         got = tm(t(rgb), t(x), t(ws))
     assert got.shape == (1, 64, 64, 3)
     agree(got, want, 1e-5, 1e-6, "SR image")
+
+
+def test_bf16_superresolution_matches_jax():
+    # both blocks in bf16 with conv_clamp 256 (sr_num_fp16_res 4, the JAX
+    # default): block0's bf16 features feed block1 directly, the image
+    # stays fp32. bf16 rounding at other points: 3e-2 of scale max, 3e-3 mean
+    rng = np.random.RandomState(18)
+    rgb = rng.randn(1, 16, 16, 3).astype(np.float32)
+    x = rng.randn(1, 16, 16, 8).astype(np.float32)
+    ws = np.ones((1, 14, 16), np.float32)
+    jm = JaxSR(w_dim=16, sr_num_fp16_res=4, input_resolution=16, block0_channels=16,
+               block1_channels=8, final_resolution=64)
+    variables, want = _jax_run(jm, rgb, x, ws, seed=19)
+    tm = load_from_jax(SuperresolutionHybrid8XDC(8, w_dim=16, sr_num_fp16_res=4,
+                                                 input_resolution=16, block0_channels=16,
+                                                 block1_channels=8, final_resolution=64),
+                       variables)
+    assert tm.block1.dtype == torch.bfloat16 and tm.block1.conv1.conv_clamp == 256.0
+    with torch.no_grad():
+        got = tm(t(rgb), t(x), t(ws))
+    assert got.dtype == torch.float32
+    agree(got, want, 3e-2, 3e-3, "bf16 SR image")
 
 
 @pytest.mark.parametrize("act", sorted(jba.ACTIVATIONS))

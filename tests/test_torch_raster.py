@@ -92,7 +92,7 @@ def test_plain_zbuffer_matches_jax_secc_renderer(size):
     zero = np.zeros((3, 3), np.float32)
     jm, js = JaxSECCRenderer(jbfm.synthetic_bfm(512), rasterize_size=size).render(
         *map(jnp.asarray, (idc, exp, zero, zero)))
-    tm, ts = SECCRenderer(bfm.synthetic_bfm(512), rasterize_size=size).render(
+    tm, ts = SECCRenderer(bfm.synthetic_bfm(512), rasterize_size=size, device="cpu").render(
         *map(t, (idc, exp, zero, zero)))
     jm, js, tm, ts = map(to_np, (jm, js, tm, ts))
     assert tm.shape == (3, size, size, 1) and ts.shape == (3, size, size, 3)
@@ -112,7 +112,7 @@ def test_secc_renderer_upsample_matches_jax_resize():
     want = jax.image.resize(jnp.asarray(x), (2, 64, 64, 3), method="bilinear")
     agree(resize_bilinear_nhwc(t(x), 64), want, 1e-6, 1e-7, "resize 24->64")
     mask, secc = SECCRenderer(bfm.synthetic_bfm(512), rasterize_size=24,
-                              output_resolution=64).render(
+                              output_resolution=64, device="cpu").render(
         *(torch.zeros((1, n)) for n in (80, 64, 3, 3)))
     assert mask.shape == (1, 64, 64, 1) and secc.shape == (1, 64, 64, 3)
 

@@ -74,7 +74,8 @@ def jax_slice():
 def test_tiny_head_only_slice_matches_jax(jax_slice):
     s = jax_slice
     # SECC raster: masks equal here, NCC within 1e-4 (ties, see test_torch_raster)
-    renderer = SECCRenderer(bfm.synthetic_bfm(512), rasterize_size=32, output_resolution=64)
+    renderer = SECCRenderer(bfm.synthetic_bfm(512), rasterize_size=32, output_resolution=64,
+                            device="cpu")
     zero = torch.zeros((1, 3))
     seccs = [renderer.render(t(s["idc"]), t(e), zero, zero)[1]
              for e in (np.zeros((1, 64), np.float32), s["exp"][:1], s["exp"][1:])]
@@ -129,7 +130,8 @@ def _tiny_cfg():
 
 @pytest.fixture(scope="module")
 def tiny_pipeline():
-    return Real3DPortraitPipeline(_tiny_cfg(), use_torso=False, mock_weights=True, seed=0)
+    return Real3DPortraitPipeline(_tiny_cfg(), use_torso=False, mock_weights=True, seed=0,
+                                  device="cpu")
 
 
 def test_pipeline_synthesize_two_frames_on_cpu(tiny_pipeline):
@@ -143,7 +145,7 @@ def test_pipeline_synthesize_two_frames_on_cpu(tiny_pipeline):
     assert torch.isfinite(frames).all() and frames.abs().max() <= 1.0
     assert len(timings["frame_ms"]) == 2 and timings["cano_ms"] > 0
     # the same seed gives the same weights and frames
-    again = Real3DPortraitPipeline(_tiny_cfg(), use_torso=False, seed=0)
+    again = Real3DPortraitPipeline(_tiny_cfg(), use_torso=False, seed=0, device="cpu")
     assert torch.equal(again.synthesize(src, exp, again.fit_source(None)), frames)
     # pose-driven frames go through the same loop
     pose = (t(rng.uniform(-0.1, 0.1, (1, 3))), t(rng.uniform(-0.1, 0.1, (1, 3))))
@@ -172,7 +174,9 @@ def test_port_imports_leave_jax_out():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'real3dportrait_tpu'))\n"
         "assert len(mods) >= 23, mods\n"
-        "new = {'flagship', 'models.torso', 'models.sr_with_ref', 'ops.grid_sample'}\n"
+        "new = {'flagship', 'models.torso', 'models.sr_with_ref', 'ops.grid_sample',\n"
+        "       'models.decoder', 'models.img2plane', 'models.img2plane_composite',\n"
+        "       'models.stylegan2', 'rendering.renderer', 'weights'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -327,7 +327,7 @@ def _tiny_cfg(**over):
 
 @pytest.fixture(scope="module")
 def torso_pipeline():
-    return Real3DPortraitPipeline(_tiny_cfg(), mock_weights=True, seed=0)
+    return Real3DPortraitPipeline(_tiny_cfg(), mock_weights=True, seed=0, device="cpu")
 
 
 def test_pipeline_defaults_to_torso(torso_pipeline):
@@ -366,7 +366,7 @@ def test_pipeline_torso_synthesize_two_frames(torso_pipeline, bg):
 def test_flagship_tiny_runs_on_cpu():
     from real3dportrait_tpu_torch.models.torso import torso_deform_input
 
-    frame_step, args = flagship(tiny=True)
+    frame_step, args = flagship(tiny=True, device="cpu")
     image = frame_step(*args)
     assert image.shape == (1, 64, 64, 3) and torch.isfinite(image).all()
     kp_s, kp_d = args[-1]["kp_src"], args[-1]["kp_drv"]
@@ -374,5 +374,5 @@ def test_flagship_tiny_runs_on_cpu():
     assert isinstance(frame_step.model, OSAvatarSECCImg2PlaneTorso)
     assert torso_deform_input.launches == 0  # CPU tensors take the plain versions
     # the same seed gives the same frame
-    again, args2 = flagship(tiny=True)
+    again, args2 = flagship(tiny=True, device="cpu")
     assert torch.equal(again(*args2), image)
