@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's default model and the released geometry once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's audio-driven ``run``, its default model and the
+released geometry once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,13 +12,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    sm_90a (one nvcc per source, in parallel), or reuse the library built
    from identical sources (registers and spills from ptxas are printed
    either way);
-3. each kernel (K1, K1-trigrid, K2-K6b; K6a/K6b in fp32 and bf16) against
+3. each kernel (K1, K1-trigrid, K2-K7b; K6a/K6b in fp32 and bf16) against
    its plain PyTorch version at the main path's shapes, TF32 off, with the
    tolerance stated beside it; the median CUDA-event time of both, of one
    PyTorch call that computes the same function where there is one, and
    the bound: the larger of the bytes over the HBM rate and the operations
    over the peak rate of their type (H100 SXM data sheet);
-4. the slices: ``Real3DPortraitPipeline()``'s default model,
+4. the main path: ``Real3DPortraitPipeline().run`` with the JAX defaults
+   (periodic blink, source preparation) from a 4 s seeded 16 kHz wav
+   through the audio front end and the audio-to-motion flow-VAE to 100
+   frames of 512^2 and a written video, with the launch counters from 0
+   (the counts the kernels line reports); then its stage times,
+   ``synthesize`` with an explicit seeded segmap, and ``hubert_large``
+   (seeded weights) on the same wav;
+5. the slices: ``Real3DPortraitPipeline()``'s default model,
    ``configs/secc_img2plane_torso.yaml`` (depth-3 tri-grids through
    K1-trigrid, the composite backbone with GroupNorms, bf16 SR blocks
    through bf16 K6a/K6b; the torso model, seeded mock weights) synthesises
@@ -28,12 +35,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``configs/real3d_orig.yaml`` (tri-planes through K1, fp32) with the
    torso at ``fast`` and ``reference`` (48+48) and the head only at
    ``fast``. Each run checks which
-   kernels launched and which must not have;
-5. the flagship frame step (``real3dportrait_tpu_torch.flagship``, the
+   kernels launched and which must not have (these drive the torso
+   without source preparation or blinks, as before the ``run`` path);
+6. the flagship frame step (``real3dportrait_tpu_torch.flagship``, the
    released geometry) with random keypoints, so that the torso warps
    interpolate;
-6. small configurations of both models run on both the GPU and the CPU
-   (plain versions), whose frames and frame-step outputs must agree.
+7. small configurations of both models, the full-width audio-to-motion
+   model, a small HuBERT and a tiny-config ``run`` on both the GPU and the
+   CPU (plain versions), whose outputs must agree.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +56,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # one card: the smoke drives device 0 and reports the cards it can see
@@ -73,6 +83,8 @@ REPLACES = {
     "torso_warp_volume": "real3dportrait_tpu/models/torso.py:500",
     "upfirdn2d": "real3dportrait_tpu/ops/upfirdn2d.py:59",
     "bias_act": "real3dportrait_tpu/ops/bias_act.py:37",
+    "conv3d": "real3dportrait_tpu/ops/conv3d.py:21",
+    "mfe_tail": "real3dportrait_tpu/models/torso.py:429",
 }
 SOURCES = {
     "triplane_decode": "real3dportrait_tpu_torch/csrc/triplane_decode.cu",
@@ -84,16 +96,20 @@ SOURCES = {
     "torso_warp_volume": "real3dportrait_tpu_torch/csrc/torso_warp.cu",
     "upfirdn2d": "real3dportrait_tpu_torch/csrc/stylegan_epilogue.cu",
     "bias_act": "real3dportrait_tpu_torch/csrc/stylegan_epilogue.cu",
+    "conv3d": "real3dportrait_tpu_torch/csrc/conv3d.cu",
+    "mfe_tail": "real3dportrait_tpu_torch/csrc/conv3d.cu",
 }
 
 
 def wrappers() -> dict:
-    """The nine kernel wrappers, by kernel name; each counts its launches
+    """The eleven kernel wrappers, by kernel name; each counts its launches
     (K6a and K6b also their bf16 launches apart, ``launches_bf16``)."""
     from real3dportrait_tpu_torch.geometry.rasterizer import secc_raster
     from real3dportrait_tpu_torch.models.decoder import trigrid_decode, triplane_decode
-    from real3dportrait_tpu_torch.models.torso import torso_deform_input, torso_warp_volume
+    from real3dportrait_tpu_torch.models.torso import (
+        mfe_tail, torso_deform_input, torso_warp_volume)
     from real3dportrait_tpu_torch.ops.bias_act import bias_act
+    from real3dportrait_tpu_torch.ops.conv3d import conv3d
     from real3dportrait_tpu_torch.ops.upfirdn2d import upfirdn2d
     from real3dportrait_tpu_torch.rendering.renderer import importance_sample, merge_composite
 
@@ -101,7 +117,7 @@ def wrappers() -> dict:
             "importance_sample": importance_sample, "merge_composite": merge_composite,
             "secc_raster": secc_raster, "torso_deform_input": torso_deform_input,
             "torso_warp_volume": torso_warp_volume, "upfirdn2d": upfirdn2d,
-            "bias_act": bias_act}
+            "bias_act": bias_act, "conv3d": conv3d, "mfe_tail": mfe_tail}
 
 
 BF16_COUNTED = ("upfirdn2d", "bias_act")
@@ -441,7 +457,62 @@ def phase_kernels(dev: torch.device) -> dict:
            cuda_ms(lambda: ba.bias_act(x, bias, axis=1)),
            cuda_ms(lambda: ba.bias_act_plain(x, bias, axis=1)),
            (nbytes(x, got, bias), x.numel(), f32))
+    del x, got
+    kernels_k7(dev, gen, record)
     return rows
+
+
+def kernels_k7(dev: torch.device, gen: torch.Generator, record) -> None:
+    """K7a at the standard torso's shapes: the 7^3 tgt_head_fuser
+    [1,89,16,64,64] -> 32, the U-Net's first 3^3 conv (down_0,
+    [1,25,16,64,64] -> 64) and its deepest (down_4, [1,512,16,4,4] -> 1024,
+    57 MB of weights); K7b at the frame's [1,32,16,64,64] with 4 keypoints
+    uniform in [-0.8, 0.8]. Inputs N(0,1), weights N(0, 1/fan_in), so every
+    output is O(1). K7a sums up to 89 * 343 = 30,527 products in another
+    order than cuDNN: 3e-4 absolute. K7b: mask logits of 32 * 343 products
+    and occlusion sums of 512 * 49, then softmax and sigmoid: 1e-4 absolute
+    on the deformation and both maps. Operations: 2 per product, counting
+    only the taps inside the volume (``conv3d_ops``), none of the padding's. The
+    library call of K7a is cuDNN's ``F.conv3d`` (TF32 off), which is also
+    the plain version; no single PyTorch call computes K7b, so cuDNN's
+    ``mask_conv`` alone is printed beside it."""
+    import torch.nn.functional as F
+
+    from real3dportrait_tpu_torch.models import torso
+    from real3dportrait_tpu_torch.ops import conv3d as c3d
+
+    f32 = torch.float32
+    tiles, sms = c3d.kernel_tiles(), c3d.sm_count(dev)
+    for tag, (ci, co, k, dhw) in (("fuser 7^3 [1,89,16,64,64]->32", (89, 32, 7, (16, 64, 64))),
+                                  ("down_0 3^3 [1,25,16,64,64]->64", (25, 64, 3, (16, 64, 64))),
+                                  ("down_4 3^3 [1,512,16,4,4]->1024", (512, 1024, 3, (16, 4, 4)))):
+        x = torch.randn((1, ci, *dhw), device=dev, generator=gen)
+        w = torch.randn((co, ci, k, k, k), device=dev, generator=gen) / (ci * k ** 3) ** 0.5
+        b = torch.randn((co,), device=dev, generator=gen)
+        got = c3d.conv3d(x, w, b)
+        record("conv3d", tag, [(got, c3d.conv3d_plain(x, w, b))], 3e-4,
+               cuda_ms(lambda: c3d.conv3d(x, w, b)), cuda_ms(lambda: c3d.conv3d_plain(x, w, b)),
+               (nbytes(x, w, b, got), c3d.conv3d_ops(ci, co, *dhw, k), f32),
+               library=cuda_ms(lambda: F.conv3d(x, w, b, padding=k // 2)),
+               extra=f"plan {c3d.conv3d_plan(1, ci, co, *dhw, k, tiles, sms)} ")
+        del x, w, b, got
+    c, d, h, w_ = 32, 16, 64, 64
+    x = torch.randn((1, c, d, h, w_), device=dev, generator=gen)
+    mask_w = torch.randn((5, c, 7, 7, 7), device=dev, generator=gen) / (c * 343) ** 0.5
+    mask_b = torch.randn((5,), device=dev, generator=gen)
+    occ_w = torch.randn((2, c * d, 7, 7), device=dev, generator=gen) / (c * d * 49) ** 0.5
+    occ_b = torch.randn((2,), device=dev, generator=gen)
+    kp_s, kp_d = (1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8
+                  for _ in range(2))
+    args = (x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)
+    got = torso.mfe_tail(*args)
+    mask_ms = cuda_ms(lambda: F.conv3d(x, mask_w, mask_b, padding=3))
+    # the 7^3 mask conv and both 7^2 heads, a conv of depth 1 over C*D channels
+    ops = c3d.conv3d_ops(c, 5, d, h, w_, 7) + c3d.conv3d_ops(c * d, 2, 1, h, w_, 7)
+    record("mfe_tail", "[1,32,16,64,64] K+1=5", list(zip(got, torso.mfe_tail_plain(*args))),
+           1e-4, cuda_ms(lambda: torso.mfe_tail(*args)),
+           cuda_ms(lambda: torso.mfe_tail_plain(*args)), (nbytes(*args, *got), ops, f32),
+           extra=f"cuDNN mask_conv 7^3 alone {mask_ms:.4f} ms ")
 
 
 def make_pipeline(config: str, preset: str, dev, use_torso: bool = True,
@@ -474,13 +545,14 @@ def run_slice(name: str, pipe, src, exp, bg, expect: set, forbid: set) -> dict:
     check the frames, that every kernel in ``expect`` launched and that
     none in ``forbid`` did."""
     coeffs = pipe.fit_source(None)
-    pipe.synthesize(src, exp, coeffs, bg_img=bg)
+    mock = dict(blink_mode="none", prepare_source_images=False)
+    pipe.synthesize(src, exp, coeffs, bg_img=bg, **mock)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tm: dict = {}
     reset_launches()
     t0 = time.perf_counter()
-    frames = pipe.synthesize(src, exp, coeffs, bg_img=bg, timings=tm)
+    frames = pipe.synthesize(src, exp, coeffs, bg_img=bg, timings=tm, **mock)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
@@ -502,17 +574,17 @@ def run_slice(name: str, pipe, src, exp, bg, expect: set, forbid: set) -> dict:
 
 def phase_slice(dev: torch.device) -> dict:
     """The default model's torso pipeline at ``fast`` (with a background
-    image: the main path, whose launch counts the JSON line reports) and at
-    the config's 48+48; then the released geometry's torso pipeline at
-    ``fast`` (with the background image: the path whose count the line
-    reports for K1, which the default model does not run) and at
+    image) and at the config's 48+48; then the released geometry's torso
+    pipeline at ``fast`` (with the background image: the path whose count
+    the line reports for K1, which the default model does not run) and at
     ``reference`` (48+48: K1 on 786k points per fine pass), and its
-    head-only pipeline at ``fast``."""
+    head-only pipeline at ``fast``. Each drives the torso without source
+    preparation or blinks."""
     src, exp, bg = slice_inputs(512, 8)
     every = set(read_launches())
     trigrid = every - {"triplane_decode"}
     triplane = every - {"trigrid_decode", "upfirdn2d bf16", "bias_act bf16"}
-    torso = {"torso_deform_input", "torso_warp_volume"}
+    torso = {"torso_deform_input", "torso_warp_volume", "conv3d", "mfe_tail"}
     launches = {}
     for name, config, preset, use_torso, bg_img, expect in (
             ("default torso fast", DEFAULT_CONFIG, "fast", True, bg, trigrid),
@@ -523,17 +595,122 @@ def phase_slice(dev: torch.device) -> dict:
              triplane - torso)):
         pipe = make_pipeline(config, preset, dev, use_torso=use_torso)
         counts = run_slice(name, pipe, src, exp, bg_img, expect, every - expect)
-        # each kernel's launches from the first (fast, with background) path
-        # that runs it: the default model's, or for K1 the released one's
+        # K1's launches from the released torso path at fast (the main path,
+        # run, has the default model's tri-grids)
         if preset == "fast" and use_torso:
-            for k in REPLACES:
-                if k not in launches and counts[k] > 0:
-                    launches[k] = dict(launches=counts[k], path=name)
-                    if k in BF16_COUNTED:
-                        launches[k]["launches_bf16"] = counts[f"{k} bf16"]
+            launches[name] = counts
         del pipe
         torch.cuda.empty_cache()
     return launches
+
+
+def seeded_wav(seconds: float, seed: int = 0) -> np.ndarray:
+    """A 120-220 Hz chirp plus noise at 16 kHz, float32 in [-1, 1]."""
+    rng = np.random.RandomState(seed)
+    n = int(16000 * seconds)
+    tt = np.arange(n) / 16000.0
+    f = 120.0 + 100.0 * tt / seconds
+    wav = 0.5 * np.sin(2 * np.pi * np.cumsum(f) / 16000.0) + 0.05 * rng.randn(n)
+    return np.clip(wav, -1, 1).astype(np.float32)
+
+
+def portrait_segmap(res: int) -> np.ndarray:
+    """A [res,res] class map shaped like a portrait: face (3) and hair (1)
+    blobs, a neck band (2), the torso (4) below, a patch of "other" (5)."""
+    yy, xx = np.mgrid[:res, :res] / res
+    seg = np.zeros((res, res), np.int64)
+    seg[(yy - 0.4) ** 2 + (xx - 0.5) ** 2 < 0.06] = 3
+    seg[((yy - 0.25) ** 2 + (xx - 0.5) ** 2 < 0.04) & (yy < 0.25)] = 1
+    seg[(yy > 0.62) & (yy < 0.72) & (abs(xx - 0.5) < 0.1)] = 2
+    seg[yy >= 0.72] = 4
+    seg[(yy > 0.3) & (yy < 0.35) & (xx < 0.1)] = 5
+    return seg
+
+
+def phase_run(dev: torch.device, out_dir: str) -> dict:
+    """The main path: ``Real3DPortraitPipeline()`` (the default model,
+    seeded mock weights, the 35,709-vertex synthetic mesh) runs
+    ``run(src, wav=<4 s>, out_path=...)`` with the JAX defaults after a
+    warm-up on 0.64 s, with the launch counters from 0; it must give 100
+    finite frames of 512^2 on the GPU through every default-path kernel and
+    a non-empty video (or raw) file. Then the same call with stage timings
+    (per-frame synchronisation), ``synthesize`` with a seeded portrait
+    segmap (the head/torso split), and ``hubert_large`` on the wav."""
+    from real3dportrait_tpu_torch.audio.hubert import hubert_large, make_hubert_extractor
+    from real3dportrait_tpu_torch.weights import mock_init_
+
+    pipe = make_pipeline(DEFAULT_CONFIG, "fast", dev)
+    res = pipe.res
+    rng = np.random.RandomState(0)
+    src = rng.randint(0, 256, (res, res, 3)).astype(np.uint8)
+    wav = seeded_wav(4.0)
+    path = os.path.join(out_dir, "run.mp4")
+    pipe.run(src, wav=seeded_wav(0.64, seed=1), out_path=os.path.join(out_dir, "warm.mp4"))
+    torch.cuda.synchronize()
+    every = set(read_launches())
+    expect = every - {"triplane_decode"}
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = pipe.run(src, wav=wav, out_path=path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    check(tuple(frames.shape) == (100, res, res, 3), f"run frames {tuple(frames.shape)}")
+    check(frames.is_cuda and bool(torch.isfinite(frames).all()),
+          "run frames must be finite and on the GPU")
+    check(all(counts[k] > 0 for k in expect), f"run: a kernel was not launched: {counts}")
+    check(counts["triplane_decode"] == 0, f"run: a kernel of another path ran: {counts}")
+    written = {f: os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir)
+               if f.startswith("run.mp4")}
+    check(any(written.get(f, 0) > 0 for f in ("run.mp4", "run.mp4.raw")),
+          f"run wrote no video: {written}")
+    print(f"run[default, 4.0 s wav, JAX defaults]: frames {tuple(frames.shape)}, wall "
+          f"{wall:.2f} s ({1e3 * wall / len(frames):.2f} ms/frame, host features, a2m, "
+          f"source preparation, caches and video writing included), files {written}, "
+          f"launches {counts}")
+    del frames
+    tm: dict = {}
+    frames = pipe.run(src, wav=wav, out_path=path, timings=tm)
+    torch.cuda.synchronize()
+    p50 = statistics.median(tm["frame_ms"])
+    stages = ", ".join(f"{k[:-3]} {tm[k]:.2f} ms" for k in (
+        "features_ms", "a2m_ms", "prep_ms", "cano_ms", "appearance_ms", "bg_ms"))
+    blinks = sorted(tm["frame_ms"][62:67])
+    print(f"run stages (synchronised): {stages}; frame p50 {p50:.2f} ms ({1e3 / p50:.2f} fps), "
+          f"blink frames 62-66 p50 {blinks[2]:.2f} ms, frame ms "
+          f"{[round(x, 2) for x in tm['frame_ms'][:8]]}...")
+    del frames
+
+    seg = portrait_segmap(res)
+    exp = pipe.audio_to_motion(*pipe.audio_to_features(wav[:16000]), temperature=0.2,
+                               generator=torch.Generator().manual_seed(1))
+    tm = {}
+    frames = pipe.synthesize(src, exp, pipe.fit_source(None), segmap=seg, timings=tm)
+    torch.cuda.synchronize()
+    check(tuple(frames.shape) == (24, res, res, 3) and bool(torch.isfinite(frames).all()),
+          f"synthesize with a segmap: frames {tuple(frames.shape)}")
+    print(f"run synthesize[explicit portrait segmap, 24 frames]: prep {tm['prep_ms']:.2f} ms, "
+          f"appearance {tm['appearance_ms']:.2f} ms, frame p50 "
+          f"{statistics.median(tm['frame_ms']):.2f} ms")
+    del frames, pipe
+    torch.cuda.empty_cache()
+
+    hub = mock_init_(hubert_large(), torch.Generator().manual_seed(2)).to(dev).eval()
+    extract = make_hubert_extractor(hub)
+    feats = extract(wav)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        feats = extract(wav)
+    torch.cuda.synchronize()
+    check(feats.shape == (199, 1024) and bool(np.isfinite(feats).all()),
+          f"hubert_large features {feats.shape}")
+    print(f"run hubert_large[24 x 1024, seeded weights, 4.0 s wav]: features {feats.shape}, "
+          f"{(time.perf_counter() - t0) * 1e3 / 3:.2f} ms per call (host normalisation and "
+          f"copies included)")
+    del hub
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_flagship(dev: torch.device, steps: int = 16) -> None:
@@ -578,7 +755,7 @@ def compare(tag: str, gpu: torch.Tensor, cpu: torch.Tensor, tol: tuple = (1e-3, 
     once, at other points than the CPU's), 3e-2 / 3e-3."""
     scale = max(float(cpu.abs().max()), 1e-6)
     err, merr = max_err(gpu.cpu(), cpu) / scale, mean_err(gpu.cpu(), cpu) / scale
-    print(f"reference[{tag}]: small config GPU vs CPU max_err/scale {err:.3e} "
+    print(f"reference[{tag}]: GPU vs CPU max_err/scale {err:.3e} "
           f"mean {merr:.3e} (tol {tol[0]:g} / {tol[1]:g})")
     check(err <= tol[0] and merr <= tol[1], f"GPU {tag} disagrees with the CPU reference")
 
@@ -591,8 +768,10 @@ def phase_reference(dev: torch.device) -> None:
     SR weights saturate many frame pixels at +-1, the unclamped raw render,
     depth and weight images of one frame step; for the torso models that
     step has random keypoints, and its warped torso image and occlusion are
-    compared too. The default model's frames and SR image pass through two
-    bf16 blocks (3e-2 / 3e-3); everything before its SR head is fp32."""
+    compared too. Then the audio path: the full-width audio-to-motion
+    model, a small HuBERT and the tiny-config ``run``. The default model's
+    frames and SR image pass through two bf16 blocks (3e-2 / 3e-3);
+    everything before its SR head is fp32."""
     from real3dportrait_tpu_torch.geometry import camera
 
     small = dict(final_resolution=64, neural_rendering_resolution=16, secc_resolution=48,
@@ -614,7 +793,8 @@ def phase_reference(dev: torch.device) -> None:
         for d in (dev, torch.device("cpu")):
             pipe = make_pipeline(config, "fast", d, use_torso=use_torso, n_vertices=2000,
                                  **small)
-            frames = pipe.synthesize(src, exp, pipe.fit_source(None), bg_img=bg)
+            frames = pipe.synthesize(src, exp, pipe.fit_source(None), bg_img=bg,
+                                     blink_mode="none", prepare_source_images=False)
             with torch.no_grad():
                 m = pipe.model
                 cano = m.cal_cano_plane(img.to(d))
@@ -638,6 +818,29 @@ def phase_reference(dev: torch.device) -> None:
             tol = bf16_tol if bf16 and k in ("frames", "image") else (1e-3, 1e-4)
             compare(f"{label} {k}", gpu, outs[1][k], tol)
 
+    # the audio path: the full-width audio-to-motion model on 1 s of the
+    # mel tiled to 1024 channels, with the same prior noise (drawn on the
+    # CPU); a 2-layer 256-wide HuBERT; the tiny-config run from 0.32 s of
+    # wav (its frames through the default model's bf16 SR blocks)
+    from real3dportrait_tpu_torch.audio.hubert import HubertEncoder, make_hubert_extractor
+    from real3dportrait_tpu_torch.weights import mock_init_
+
+    wav = seeded_wav(1.0, seed=3)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        pipe = make_pipeline(DEFAULT_CONFIG, "fast", d, n_vertices=2000, **small)
+        feats, f0 = pipe.audio_to_features(wav)
+        exp = pipe.audio_to_motion(feats, f0, temperature=0.5,
+                                   generator=torch.Generator().manual_seed(4))
+        hub = mock_init_(HubertEncoder(hidden=256, layers=2, heads=4, ffn=512),
+                         torch.Generator().manual_seed(5)).to(d).eval()
+        hid = torch.from_numpy(make_hubert_extractor(hub)(wav))
+        frames = pipe.run(src, wav=wav[:5120])
+        outs.append({"audio-to-motion (full width)": exp, "HuBERT 2x256": hid,
+                     "run frames": frames})
+    for k, gpu in outs[0].items():
+        compare(f"default {k}", gpu, outs[1][k], bf16_tol if k == "run frames" else (1e-3, 1e-4))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -656,7 +859,10 @@ def main() -> int:
     torch.cuda.synchronize()
     rows = phase_kernels(dev)
     torch.cuda.synchronize()
-    launches = phase_slice(dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        run_counts = phase_run(dev, out_dir)
+    torch.cuda.synchronize()
+    slice_counts = phase_slice(dev)
     torch.cuda.synchronize()
     phase_flagship(dev)
     torch.cuda.synchronize()
@@ -664,7 +870,17 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     check(set(rows) == set(REPLACES), f"kernels measured: {sorted(rows)}")
-    check(set(launches) == set(REPLACES), f"kernels launched: {sorted(launches)}")
+    # each kernel's launches on the main path (run); K1, which the default
+    # model does not run, from the released torso slice at fast
+    launches = {}
+    for k in REPLACES:
+        path, counts = "run", run_counts
+        if counts[k] == 0:
+            path, counts = "released torso fast", slice_counts["released torso fast"]
+        launches[k] = dict(launches=counts[k], path=path)
+        if k in BF16_COUNTED:
+            launches[k]["launches_bf16"] = counts[f"{k} bf16"]
+    check(all(v["launches"] > 0 for v in launches.values()), f"kernels launched: {launches}")
     kernels_json = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                          **launches[k], **rows[k]) for k in REPLACES]
     print(json.dumps({"kernels": kernels_json}))

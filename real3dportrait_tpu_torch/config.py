@@ -2,13 +2,15 @@
 
 The same semantics as ``real3dportrait_tpu.config.load_config``: a
 ``base_config:`` path (or list of paths) is loaded depth-first and merged
-under the file, then dot-path overrides (``{"a.b": 1}``) are applied. The
-result is a plain nested ``dict``; the port reads it with ``cfg.get``.
+under the file, then dot-path overrides (``{"a.b": 1}``, or the CLI's
+``"a.b=1,c=true"`` through :func:`parse_overrides`) are applied. The result
+is a plain nested ``dict``; the port reads it with ``cfg.get``.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from collections.abc import Mapping
 from typing import Any
 
@@ -48,3 +50,46 @@ def load_config(path: str, overrides: Mapping[str, Any] | None = None) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = value
     return cfg
+
+
+def _parse_scalar(v: str) -> Any:
+    """A CLI override value: bool, None, int, float, a YAML list or dict, or
+    the string itself."""
+    s = v.strip()
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    if s.lower() in ("none", "null"):
+        return None
+    if re.fullmatch(r"[+-]?\d+", s):
+        return int(s)
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    if s.startswith("[") or s.startswith("{"):
+        try:
+            return yaml.safe_load(s)
+        except yaml.YAMLError:
+            pass
+    return s
+
+
+def parse_overrides(spec: str) -> dict[str, Any]:
+    """``"a.b=1,c=true,d=[1,2]"`` -> a dot-path dict; commas inside
+    brackets and braces do not split."""
+    items, cur, depth = [], [], 0
+    for ch in spec or "":
+        depth += (ch in "[{(") - (ch in "]})")
+        if ch == "," and depth == 0:
+            items.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    items.append("".join(cur))
+    out: dict[str, Any] = {}
+    for item in filter(None, (i.strip() for i in items)):
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must look like key=value")
+        k, v = item.split("=", 1)
+        out[k.strip()] = _parse_scalar(v)
+    return out

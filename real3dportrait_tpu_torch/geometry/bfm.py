@@ -208,3 +208,26 @@ def compute_face_vertex(
     shape = compute_shape(assets, id_coeff, exp_coeff)
     shape = transform(shape, compute_rotation(euler), trans)
     return to_camera(shape, camera_distance)
+
+
+def compute_key_shape(assets: BFMAssets, id_coeff: torch.Tensor,
+                      exp_coeff: torch.Tensor) -> torch.Tensor:
+    """[B,80],[B,64] -> [B,K,3] landmark subset of the face shape."""
+    flat = (id_coeff @ assets.key_id_base.T + exp_coeff @ assets.key_exp_base.T
+            + assets.key_mean_shape.reshape(-1)[None, :])
+    return flat.reshape(id_coeff.shape[0], -1, 3)
+
+
+def perspective_projection_matrix(focal: float = DEFAULT_FOCAL,
+                                  center: float = DEFAULT_CENTER,
+                                  device: torch.device | str = "cpu") -> torch.Tensor:
+    """Row-vector projection matrix P with pts @ P semantics."""
+    return torch.tensor([[focal, 0, center], [0, focal, center], [0, 0, 1]],
+                        dtype=torch.float32, device=device).T
+
+
+def to_image(shape_cam: torch.Tensor, focal: float = DEFAULT_FOCAL,
+             center: float = DEFAULT_CENTER) -> torch.Tensor:
+    """[B,N,3] camera-space -> [B,N,2] pixel coordinates (224 scale)."""
+    proj = shape_cam @ perspective_projection_matrix(focal, center, shape_cam.device)
+    return proj[..., :2] / proj[..., 2:]

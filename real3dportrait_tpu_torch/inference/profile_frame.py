@@ -16,12 +16,14 @@ source and driving keypoints uniform in [-0.8, 0.8], it prints:
   around each module's forward (block0, the torso model and inside it the
   motion-field estimator and generator, the fusion convs and the
   head/torso and final SR blocks), each with its share of the step;
-* the MFE's 7^3 convs (``tgt_head_fuser``, ``mask_conv``) and 7^2
-  occlusion heads timed alone at the frame's shapes (kernel K7's
-  evidence), with cuDNN's default algorithm choice and with
-  ``cudnn.benchmark``;
+* the MFE's 7^3 fuser (kernel K7a) and its tail (kernel K7b: the 7^3
+  mask conv, softmax, deformation and both 7^2 occlusion heads) timed
+  alone at the frame's shapes, beside cuDNN's convolutions of the same
+  shapes with its default algorithm choice and with ``cudnn.benchmark``,
+  and K7a at each 3^3 conv of the U-Net beside cuDNN's;
 * the wall time per frame of ``synthesize`` over 16 frames without
-  per-frame synchronisation;
+  per-frame synchronisation, driven as chip_smoke's slices drive it
+  (without source preparation or blinks);
 * a ``torch.profiler`` table of device kernel time per frame and the
   device's busy share.
 
@@ -48,6 +50,7 @@ from real3dportrait_tpu_torch.geometry import camera
 from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
 from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
 from real3dportrait_tpu_torch.kernels import card_line, cuda_ms
+from real3dportrait_tpu_torch.models.torso import mfe_tail
 from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
 from real3dportrait_tpu_torch.rendering.renderer import render_rays
 
@@ -147,8 +150,10 @@ def profile_preset(config: str, preset: str, dev: torch.device, n_frames: int = 
         modules = {"SECC backbone": [m.secc_img2plane_backbone], "SR-with-ref head": [sr],
                    "block0 layers (128->256)": layers(sr.block0), "torso model": [tm],
                    "  motion-field estimator (MFE)": [mfe],
-                   "    MFE 7^3 tgt_head_fuser (89->32)": [mfe.tgt_head_fuser],
-                   "    MFE 7^3 mask_conv (32->5)": [mfe.mask_conv],
+                   "    MFE 7^3 tgt_head_fuser (89->32, K7a)": [mfe.tgt_head_fuser],
+                   "    MFE U-Net 3^3 convs (K7a)": [getattr(mfe, n).conv for n in (
+                       *(f"down_{i}" for i in range(mfe.n_down)),
+                       *(f"up_{i}" for i in range(mfe.n_up)))],
                    "  warp generator (K5b + convs)": [tm.deform_based_generator],
                    "fusion convs": [getattr(sr, n) for n in (
                        "torso_encoder", "fuse_ht_conv0", "fuse_ht_conv1", "fuse_fb_conv0",
@@ -169,32 +174,58 @@ def profile_preset(config: str, preset: str, dev: torch.device, n_frames: int = 
         for name, t in ms.items():
             print(f"[{preset}] in-step {name}: {t:.3f} ms ({100 * t / frame:.1f}% of the step)")
 
-        # K7's evidence: the MFE's fat convs alone at the frame's shapes
+        # K7 alone at the frame's shapes: the kernels, and cuDNN's convs of
+        # the same shapes (the port's path before K7a/K7b)
         d, h = cond["torso_appearance"].shape[1:3]
         x89 = torch.randn((1, mfe.tgt_head_fuser.in_channels, d, h, h), device=dev)
         x32 = torch.randn((1, mfe.mask_conv.in_channels, d, h, h), device=dev)
         occ_w = torch.cat([mfe.occlusion_conv.weight, mfe.occlusion_conv2.weight])
         occ_b = torch.cat([mfe.occlusion_conv.bias, mfe.occlusion_conv2.bias])
-        k7 = {"tgt_head_fuser 7^3": lambda: mfe.tgt_head_fuser(x89),
-              "mask_conv 7^3": lambda: mfe.mask_conv(x32),
-              "occlusion heads 7^2 (512->2)": lambda: F.conv2d(
-                  x32.reshape(1, -1, h, h), occ_w, occ_b, padding=3)}
-        k7_ms = {name: cuda_ms(fn) for name, fn in k7.items()}
-        # the same convs with cuDNN's algorithm search, which the port leaves off
-        torch.backends.cudnn.benchmark = True
-        tuned = {name: cuda_ms(fn) for name, fn in k7.items()}
-        torch.backends.cudnn.benchmark = False
-        total = sum(k7_ms.values())
+        kps = [cond["kp_src"][:, :4].contiguous(), cond["kp_drv"][:, :4].contiguous()]
+        fuser, mask = mfe.tgt_head_fuser, mfe.mask_conv
+        kernels = {"K7a tgt_head_fuser 7^3": lambda: fuser(x89),
+                   "K7b tail (mask 7^3 + softmax + deformation + occlusion 7^2)":
+                   lambda: mfe_tail(x32, mask.weight, mask.bias, occ_w, occ_b, *kps)}
+        cudnn = {"tgt_head_fuser 7^3": lambda: F.conv3d(x89, fuser.weight, fuser.bias,
+                                                        padding=3),
+                 "mask_conv 7^3": lambda: F.conv3d(x32, mask.weight, mask.bias, padding=3),
+                 "occlusion heads 7^2 (512->2)": lambda: F.conv2d(
+                     x32.reshape(1, -1, h, h), occ_w, occ_b, padding=3)}
+        k7_ms = {name: cuda_ms(fn) for name, fn in kernels.items()}
         for name, t in k7_ms.items():
-            print(f"[{preset}] K7 alone {name}: {t:.3f} ms (cudnn.benchmark: "
+            print(f"[{preset}] K7 alone {name}: {t:.3f} ms")
+        cudnn_ms = {name: cuda_ms(fn) for name, fn in cudnn.items()}
+        # the same convs with cuDNN's algorithm search
+        torch.backends.cudnn.benchmark = True
+        tuned = {name: cuda_ms(fn) for name, fn in cudnn.items()}
+        torch.backends.cudnn.benchmark = False
+        for name, t in cudnn_ms.items():
+            print(f"[{preset}] cuDNN alone {name}: {t:.3f} ms (cudnn.benchmark: "
                   f"{tuned[name]:.3f} ms)")
-        print(f"[{preset}] K7 alone, all three: {total:.3f} ms ({100 * total / frame:.1f}% of "
-              f"the in-place frame step; cudnn.benchmark: {sum(tuned.values()):.3f} ms)")
+        total = sum(k7_ms.values())
+        print(f"[{preset}] K7a fuser + K7b alone: {total:.3f} ms ({100 * total / frame:.1f}% "
+              f"of the in-place frame step); cuDNN's three convs: "
+              f"{sum(cudnn_ms.values()):.3f} ms (cudnn.benchmark: {sum(tuned.values()):.3f})")
+        # K7a at each 3^3 conv of the U-Net, beside cuDNN's conv3d of the shape
+        size, ours, theirs = h, 0.0, 0.0
+        for name in [f"down_{i}" for i in range(mfe.n_down)] + \
+                [f"up_{i}" for i in range(mfe.n_up)]:
+            conv = getattr(mfe, name).conv
+            size = size * 2 if name.startswith("up") else size
+            x = torch.randn((1, conv.in_channels, d, size, size), device=dev)
+            k_ms = cuda_ms(lambda: conv(x))
+            c_ms = cuda_ms(lambda: F.conv3d(x, conv.weight, conv.bias, padding=1))
+            ours, theirs = ours + k_ms, theirs + c_ms
+            print(f"[{preset}] K7a alone U-Net {name} [1,{conv.in_channels},{d},{size},{size}]"
+                  f"->{conv.out_channels}: {k_ms:.4f} ms (cuDNN {c_ms:.4f} ms)")
+            size = size // 2 if name.startswith("down") else size
+        print(f"[{preset}] K7a alone U-Net, ten 3^3 convs: {ours:.3f} ms (cuDNN {theirs:.3f} ms)")
 
-        pipe.synthesize(src, exp[:2], coeffs)
+        mock = dict(blink_mode="none", prepare_source_images=False)
+        pipe.synthesize(src, exp[:2], coeffs, **mock)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe.synthesize(src, exp, coeffs)
+        pipe.synthesize(src, exp, coeffs, **mock)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_frames
         print(f"[{preset}] synthesize {n_frames} frames, no per-frame sync: {wall:.3f} "

@@ -48,6 +48,9 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_upfirdn2d_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_bias_act": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
     "r3dp_bias_act_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
+    "r3dp_conv3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "r3dp_mfe_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                      _P, _P),
 }
 
 

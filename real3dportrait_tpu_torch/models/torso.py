@@ -1,4 +1,4 @@
-"""Keypoint-driven warp-based torso model and kernels K5a, K5b (port of
+"""Keypoint-driven warp-based torso model and kernels K5a, K5b, K7b (port of
 ``real3dportrait_tpu/models/torso.py``).
 
 Components: :class:`AppearanceFeatureExtractor` (2D conv pyramid -> 3D
@@ -10,8 +10,10 @@ landmarks. Parameter names follow the JAX tree. Convolutions run NCDHW /
 NCHW inside; public tensors keep the JAX layouts (volumes [B,D,H,W,C],
 images NHWC, keypoints [B,K,3]).
 
-The two trilinear warps are kernels (``csrc/torso_warp.cu``), each with its
-plain PyTorch version beside it:
+The two trilinear warps (``csrc/torso_warp.cu``) and the estimator's tail
+(``csrc/conv3d.cu``) are kernels, each with its plain PyTorch version
+beside it (every 3D convolution of the model is kernel K7a,
+``ops/conv3d.py``):
 
 * :func:`torso_deform_input` (K5a) writes the motion-field estimator's
   input: keypoint heatmaps and the K+1 candidate warps of the compressed
@@ -19,17 +21,21 @@ plain PyTorch version beside it:
   :func:`torso_deform_input_plain`;
 * :func:`torso_warp_volume` (K5b) warps the appearance volume by the dense
   deformation (align_corners=True, border padding) into the generator's
-  depth-folded input, plain version :func:`torso_warp_volume_plain`.
+  depth-folded input, plain version :func:`torso_warp_volume_plain`;
+* :func:`mfe_tail` (K7b) computes the estimator's tail: the 7^3 mask conv,
+  its softmax and the deformation, and both 7^2 occlusion heads on the
+  depth fold, plain version :func:`mfe_tail_plain` (the reference's
+  ``direct`` form; the JAX package's default ``fused`` tail computes the
+  same taps as one depth-folded convolution, a TPU lane layout).
 
 Inference only: the training outputs of the JAX model (the occlusion
 regularisers in ``losses`` and the 0.1 gradient scale on the motion field)
-come with the training slice. The estimator's tail runs in the reference's
-``direct`` form; the JAX package's default ``fused`` tail computes the same
-taps as one depth-folded convolution, a TPU lane layout.
+come with the training slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -40,6 +46,7 @@ from real3dportrait_tpu_torch import kernels
 from real3dportrait_tpu_torch.models.img2plane_composite import ChannelAffine
 from real3dportrait_tpu_torch.models.segformer import nchw, nhwc
 from real3dportrait_tpu_torch.models.superresolution import resize_bilinear
+from real3dportrait_tpu_torch.ops.conv3d import Conv3D, kernel_tiles, sm_count
 from real3dportrait_tpu_torch.ops.grid_sample import grid_sample_3d
 
 
@@ -86,7 +93,7 @@ class ConvBlock2D(nn.Module):
 
 
 class ConvBlock3D(ConvBlock2D):
-    conv_cls = nn.Conv3d
+    conv_cls = Conv3D
 
 
 class ResBlock2D(nn.Module):
@@ -254,6 +261,74 @@ def torso_warp_volume(fs: torch.Tensor, deformation: torch.Tensor) -> torch.Tens
 torso_warp_volume.launches = 0
 
 
+def mfe_tail_plan(b: int, c: int, h: int, w: int, tile: tuple[int, int], sms: int) -> dict:
+    """The kernel's split of the ``c`` input channels into ``n_split``
+    groups of ``c_per_split``, so that its pixel tiles (``tile``: rows,
+    columns, from :func:`~real3dportrait_tpu_torch.ops.conv3d.kernel_tiles`)
+    times the groups fill the card's ``sms`` SMs about once."""
+    tiles = b * math.ceil(h / tile[0]) * math.ceil(w / tile[1])
+    splits = min(c, max(1, math.ceil(sms / tiles)))
+    per = math.ceil(c / splits)
+    return dict(c_per_split=per, n_split=math.ceil(c / per))
+
+
+def mfe_tail_plain(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
+                   occ_w: torch.Tensor, occ_b: torch.Tensor, kp_s: torch.Tensor,
+                   kp_d: torch.Tensor):
+    """The motion-field estimator's tail. x [B,C,D,H,W]; mask_w [K+1,C,7,7,7],
+    mask_b [K+1]; occ_w [2,C*D,7,7], occ_b [2] (both occlusion heads);
+    kp_s, kp_d [B,K,3] -> (deformation [B,D,H,W,3], occlusion [B,H,W,1],
+    occlusion_2 [B,H,W,1]): the mask conv's logits, softmax over the K+1
+    candidates, the deformation as the mask-weighted sum of the sparse
+    motions, and both occlusion heads on the C-major depth fold (channel
+    c*D + d, the reference's view(N, -1, H, W)) through a sigmoid."""
+    b, _, d, h, w = x.shape
+    mask = F.conv3d(x, mask_w, mask_b, padding=3)
+    occ = torch.sigmoid(F.conv2d(x.reshape(b, -1, h, w), occ_w, occ_b, padding=3))
+    mask = torch.softmax(mask.float(), dim=1)[..., None]   # over the K+1 candidates
+    sparse = create_sparse_motions(kp_s, kp_d, d, h, w)
+    deformation = (sparse * mask).sum(dim=1)
+    return deformation, nhwc(occ[:, :1]), nhwc(occ[:, 1:])
+
+
+def mfe_tail(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
+             occ_w: torch.Tensor, occ_b: torch.Tensor, kp_s: torch.Tensor,
+             kp_d: torch.Tensor):
+    """K7b wrapper, same contract as :func:`mfe_tail_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes fp32, K + 1 = 5 candidates and a depth of 16 (the standard
+    and small presets) or 2 (tiny), or raise.
+    """
+    if x.device.type == "cpu":
+        return mfe_tail_plain(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)
+    name = "mfe_tail"
+    args = [t.detach().contiguous() for t in (x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)]
+    for arg, t in zip(("x", "mask_w", "mask_b", "occ_w", "occ_b", "kp_s", "kp_d"), args):
+        kernels.require(name, arg, t)
+    x = args[0]
+    b, c, d, h, w = x.shape if x.dim() == 5 else (0,) * 5
+    k1 = args[1].shape[0]
+    if x.dim() != 5 or k1 != 5 or d not in (2, 16) or min(h, w) < 2 \
+            or tuple(args[1].shape) != (k1, c, 7, 7, 7) or tuple(args[2].shape) != (k1,) \
+            or tuple(args[3].shape) != (2, c * d, 7, 7) or tuple(args[4].shape) != (2,) \
+            or tuple(args[5].shape) != (b, k1 - 1, 3) or args[6].shape != args[5].shape:
+        raise ValueError(f"{name}: kernel takes x [B,C,D,H,W] with D in (2, 16), H, W >= 2, "
+                         f"mask_w [5,C,7,7,7], occ_w [2,C*D,7,7] and keypoints [B,4,3]; got "
+                         f"{[tuple(t.shape) for t in args]}")
+    plan = mfe_tail_plan(b, c, h, w, kernel_tiles()["tail_tile"], sm_count(x.device))
+    partial = torch.empty((plan["n_split"], b, d * k1 + 2, h, w), device=x.device)
+    deformation = torch.empty((b, d, h, w, 3), device=x.device)
+    occ1, occ2 = (torch.empty((b, h, w, 1), device=x.device) for _ in range(2))
+    kernels.launch("r3dp_mfe_tail", *args, b, c, d, h, w, k1, plan["c_per_split"],
+                   plan["n_split"], partial, deformation, occ1, occ2)
+    mfe_tail.launches += 1
+    return deformation, occ1, occ2
+
+
+mfe_tail.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # networks
 # ---------------------------------------------------------------------------
@@ -317,9 +392,9 @@ class MotionFieldEstimator(nn.Module):
             self.tgt_head_in_conv = ConvBlock2D(4, head_hid_dim, kernel=7, norm_mode=norm_mode)
             for i in range(3):
                 setattr(self, f"tgt_head_res_{i}", ResBlock2D(head_hid_dim, norm_mode))
-            self.tgt_head_fuser = nn.Conv3d(c_tail + head_hid_dim, head_hid_dim, 7, padding=3)
+            self.tgt_head_fuser = Conv3D(c_tail + head_hid_dim, head_hid_dim, 7)
             c_tail = head_hid_dim
-        self.mask_conv = nn.Conv3d(c_tail, k1, 7, padding=3)
+        self.mask_conv = Conv3D(c_tail, k1, 7)
         self.occlusion_conv = nn.Conv2d(c_tail * depth, 1, 7, padding=3)
         self.occlusion_conv2 = nn.Conv2d(c_tail * depth, 1, 7, padding=3)
 
@@ -354,17 +429,10 @@ class MotionFieldEstimator(nn.Module):
             x = torch.cat([x, head[:, :, None].expand(-1, -1, d, -1, -1)], dim=1)
             x = self.tgt_head_fuser(x)
 
-        mask = self.mask_conv(x)
-        # C-major depth fold [B, C*D, H, W], the reference's view(N, -1, H, W)
-        x2d = x.reshape(b, -1, h, w)
         occ_w = torch.cat([self.occlusion_conv.weight, self.occlusion_conv2.weight])
         occ_b = torch.cat([self.occlusion_conv.bias, self.occlusion_conv2.bias])
-        occ = torch.sigmoid(F.conv2d(x2d, occ_w, occ_b, padding=3))
-
-        mask = torch.softmax(mask.float(), dim=1)[..., None]   # over the K+1 candidates
-        sparse = create_sparse_motions(kp_s, kp_d, d, h, w)
-        deformation = (sparse * mask).sum(dim=1)
-        return deformation, nhwc(occ[:, :1]), nhwc(occ[:, 1:])
+        return mfe_tail(x, self.mask_conv.weight, self.mask_conv.bias, occ_w, occ_b,
+                        kp_s, kp_d)
 
 
 class WarpGenerator(nn.Module):

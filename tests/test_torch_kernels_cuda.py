@@ -1,11 +1,13 @@
-"""Kernels K1-K6 and K1-trigrid against their plain PyTorch versions on a
+"""Kernels K1-K7b and K1-trigrid against their plain PyTorch versions on a
 CUDA device, at edge-case shapes the slice's chip_smoke run does not reach
 (several frames per call, ragged ray counts, more than 32 channels, white
 background, ties, posed meshes; tri-grids of depth 1-3 with odd H != W and
 points outside the box; warps with samples exactly on and far beyond the
 volume's faces, K = 9 keypoints, odd volume sizes; every resampling and
-epilogue option, in fp32 and bf16). Every test needs a card and skips
-without one. On the card (where JAX, which tests/conftest.py imports, is
+epilogue option, in fp32 and bf16; 3D convolutions of kernel 3 and 7 at odd
+sizes, input channels that are no multiple of the staged chunk and split
+input channels; the estimator's tail at D = 16 and 2). Every test needs a
+card and skips without one. On the card (where JAX, which tests/conftest.py imports, is
 not installed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -37,6 +39,7 @@ from real3dportrait_tpu_torch.rendering.renderer import (
     merge_composite_plain,
 )
 from real3dportrait_tpu_torch.ops import bias_act as ba
+from real3dportrait_tpu_torch.ops import conv3d as c3d
 from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
 from real3dportrait_tpu_torch.weights import mock_init_
 
@@ -285,3 +288,75 @@ def test_k6b_bf16_matches_plain_bf16(dev, act):
     assert (ba.bias_act.launches, ba.bias_act.launches_bf16) == (before[0] + 2, before[1] + 2)
     with pytest.raises(ValueError):
         ba.bias_act(x.half(), b, act=act, axis=1)
+
+
+@pytest.mark.parametrize("k,b,ci,co,dhw", [
+    (3, 2, 5, 7, (3, 9, 11)), (3, 1, 37, 70, (16, 4, 4)), (3, 1, 300, 40, (5, 8, 8)),
+    (7, 1, 13, 9, (4, 7, 5)), (7, 2, 6, 33, (5, 13, 70)), (3, 1, 24, 16, (2, 66, 67))],
+    ids=["k3_odd", "k3_deep_split", "k3_ci300", "k7_odd", "k7_wide", "k3_w67"])
+def test_k7a_conv3d_cases(dev, k, b, ci, co, dhw):
+    # zero "same" padding on every face; input channels no multiple of the
+    # staged chunk (8 for k 3, 4 for k 7), output channels no multiple of
+    # 32, widths above one tile (64) and split input channels. fp32 sums of
+    # up to 300 * 27 terms in another order than cuDNN's: 1e-4 absolute on
+    # outputs O(1)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((b, ci, *dhw), device=dev, generator=g)
+    w = torch.randn((co, ci, k, k, k), device=dev, generator=g) / (ci * k ** 3) ** 0.5
+    bias = torch.randn((co,), device=dev, generator=g)
+    before = c3d.conv3d.launches
+    got = c3d.conv3d(x, w, bias)
+    torch.cuda.synchronize()
+    assert c3d.conv3d.launches == before + 1
+    plan = c3d.conv3d_plan(b, ci, co, *dhw, k, c3d.kernel_tiles(), c3d.sm_count(x.device))
+    _close(got, c3d.conv3d_plain(x, w, bias), 1e-4, f"K7a {plan}")
+    _close(c3d.conv3d(x, w), c3d.conv3d_plain(x, w), 1e-4, "K7a without bias")
+    with pytest.raises(ValueError):
+        c3d.conv3d(x, torch.randn((co, ci, 5, 5, 5), device=dev), bias)
+    with pytest.raises(ValueError):
+        c3d.conv3d(x.double(), w, bias)
+
+
+def test_k7a_module_uses_the_kernel_and_follows_weight_updates(dev):
+    conv = c3d.Conv3D(6, 10, 3).to(dev)
+    x = torch.randn((1, 6, 4, 9, 9), device=dev)
+    before = c3d.conv3d.launches
+    with torch.no_grad():
+        first = conv(x)
+        conv.weight.mul_(2.0)  # the kernel reads the weight as it is now
+        conv.bias.zero_()
+        second = conv(x)
+    torch.cuda.synchronize()
+    assert c3d.conv3d.launches == before + 2
+    _close(second, c3d.conv3d_plain(x, conv.weight, conv.bias), 1e-4, "after the update")
+    assert float((second - first).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("b,c,d,hw", [(1, 32, 16, (64, 64)), (2, 57, 16, (9, 37)),
+                                      (2, 4, 2, (16, 16)), (1, 3, 2, (5, 70))],
+                         ids=["frame", "v1_odd", "tiny", "tiny_wide"])
+def test_k7b_mfe_tail_cases(dev, b, c, d, hw):
+    # K+1 = 5 candidates; mask logits sum up to 57 * 343 terms and the
+    # occlusion heads 57 * 16 * 49 in another order than cuDNN's; after
+    # softmax and sigmoid: 1e-4 absolute on the deformation (O(1)) and
+    # the occlusion maps
+    g = torch.Generator(device=dev).manual_seed(13)
+    h, w = hw
+    x = torch.randn((b, c, d, h, w), device=dev, generator=g)
+    mask_w = torch.randn((5, c, 7, 7, 7), device=dev, generator=g) / (c * 343) ** 0.5
+    mask_b = torch.randn((5,), device=dev, generator=g)
+    occ_w = torch.randn((2, c * d, 7, 7), device=dev, generator=g) / (c * d * 49) ** 0.5
+    occ_b = torch.randn((2,), device=dev, generator=g)
+    kp_s = 1.6 * torch.rand((b, 4, 3), device=dev, generator=g) - 0.8
+    kp_d = 1.6 * torch.rand((b, 4, 3), device=dev, generator=g) - 0.8
+    args = (x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)
+    before = torso.mfe_tail.launches
+    got = torso.mfe_tail(*args)
+    want = torso.mfe_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert torso.mfe_tail.launches == before + 1
+    for k_, p_, what in zip(got, want, ("deformation", "occlusion", "occlusion_2")):
+        assert k_.shape == p_.shape, what
+        _close(k_, p_, 1e-4, f"K7b {what}")
+    with pytest.raises(ValueError):
+        torso.mfe_tail(x[:, :, :1].contiguous(), mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)

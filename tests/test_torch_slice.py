@@ -154,14 +154,19 @@ def test_pipeline_synthesize_two_frames_on_cpu(tiny_pipeline):
     assert posed.shape == frames.shape and torch.isfinite(posed).all()
 
 
-@pytest.mark.parametrize("kwargs", [dict(blink_mode="periodic"),
-                                    dict(prepare_source_images=True),
-                                    dict(frame_batch=2)], ids=["blink", "prepare", "batch"])
+@pytest.mark.parametrize("kwargs", [dict(src_shape=(2, 64, 64, 3)),
+                                    dict(src_lm2d=np.zeros((68, 2))),
+                                    dict(frame_batch=2)],
+                         ids=["multi_identity", "fit_source", "batch"])
 def test_pipeline_raises_on_unported_modes(tiny_pipeline, kwargs):
-    src = np.zeros((64, 64, 3), np.uint8)
+    # the blink edit and source preparation are ported (test_torch_run.py)
+    src = np.zeros(kwargs.pop("src_shape", (64, 64, 3)), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tiny_pipeline.synthesize(src, torch.zeros((1, 64)),
-                                 tiny_pipeline.fit_source(None), **kwargs)
+        if "src_lm2d" in kwargs:
+            tiny_pipeline.run(src, wav=np.zeros(8000, np.float32), **kwargs)
+        else:
+            tiny_pipeline.synthesize(src, torch.zeros((1, 64)),
+                                     tiny_pipeline.fit_source(None), **kwargs)
 
 
 def test_port_imports_leave_jax_out():
@@ -176,7 +181,10 @@ def test_port_imports_leave_jax_out():
         "assert len(mods) >= 23, mods\n"
         "new = {'flagship', 'models.torso', 'models.sr_with_ref', 'ops.grid_sample',\n"
         "       'models.decoder', 'models.img2plane', 'models.img2plane_composite',\n"
-        "       'models.stylegan2', 'rendering.renderer', 'weights'}\n"
+        "       'models.stylegan2', 'rendering.renderer', 'weights', 'ops.conv3d',\n"
+        "       'models.audio2motion', 'audio.features', 'audio.hubert', 'inference.cli',\n"
+        "       'inference.edit_secc', 'inference.infer_utils', 'geometry.face3d_helper',\n"
+        "       'preprocess.segment_utils', 'preprocess.pipeline', 'utils.visualization'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -345,9 +345,11 @@ def test_pipeline_torso_synthesize_two_frames(torso_pipeline, bg):
     bg_u8 = rng.randint(0, 256, (48, 48, 3)).astype(np.uint8)
     bg_img = {"none": None, "uint8": bg_u8,
               "float": bg_u8.astype(np.float32) / 127.5 - 1.0}[bg]
+    # the torso driven without source preparation (the mock cond)
+    mock = dict(blink_mode="none", prepare_source_images=False)
     timings = {}
     frames = torso_pipeline.synthesize(src, exp, torso_pipeline.fit_source(None),
-                                       bg_img=bg_img, timings=timings)
+                                       bg_img=bg_img, timings=timings, **mock)
     assert frames.shape == (2, 64, 64, 3)
     assert torch.isfinite(frames).all() and frames.abs().max() <= 1.0
     assert len(timings["frame_ms"]) == 2
@@ -355,11 +357,11 @@ def test_pipeline_torso_synthesize_two_frames(torso_pipeline, bg):
     if bg == "float":
         # a uint8 background and its [-1,1] float form give the same frames
         again = torso_pipeline.synthesize(src, exp, torso_pipeline.fit_source(None),
-                                          bg_img=bg_u8)
+                                          bg_img=bg_u8, **mock)
         torch.testing.assert_close(again, frames, rtol=0, atol=1e-6)
     if bg == "none":
         other = torso_pipeline.synthesize(src, exp, torso_pipeline.fit_source(None),
-                                          bg_img=bg_u8)
+                                          bg_img=bg_u8, **mock)
         assert not torch.equal(other, frames)
 
 
