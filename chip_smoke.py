@@ -11,13 +11,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
 2. build every kernel of ``real3dportrait_tpu_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, in parallel), or reuse the library built
    from identical sources (registers and spills from ptxas are printed
-   either way);
-3. each kernel (K1, K1-trigrid, K2-K7b; K6a/K6b in fp32 and bf16) against
-   its plain PyTorch version at the main path's shapes, TF32 off, with the
+   either way, and, where the toolkit has ``cuobjdump``, the count of
+   tensor-core ``HMMA`` instructions in K7a's SASS, which must not be 0);
+3. each kernel (K1, K1-trigrid, K2-K7b; K6a/K6b in fp32 and bf16; K7a at
+   every distinct 3D conv of the standard torso) against its plain
+   PyTorch version at the main path's shapes, TF32 off, with the
    tolerance stated beside it; the median CUDA-event time of both, of one
    PyTorch call that computes the same function where there is one, and
    the bound: the larger of the bytes over the HBM rate and the operations
-   over the peak rate of their type (H100 SXM data sheet);
+   over the peak rate of their type (H100 SXM data sheet; K7a's products
+   at the tensor cores' split-TF32 rate, its FFMA bound beside it);
 4. the main path: ``Real3DPortraitPipeline().run`` with the JAX defaults
    (periodic blink, source preparation) from a 4 s seeded 16 kHz wav
    through the audio front end and the audio-to-motion flow-VAE to 100
@@ -77,6 +80,9 @@ RELEASED_CONFIG = "real3d_orig.yaml"
 # H100 SXM data sheet: HBM bytes/s and dense peak operations/s by type
 HBM_RATE = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# fp32 products on the tensor cores in split TF32: 3 TF32 products (dense
+# peak 495 TFLOP/s) for each
+SPLIT_TF32_RATE = 495e12 / 3
 REPLACES = {
     "triplane_decode": "real3dportrait_tpu/rendering/renderer.py:113",
     "trigrid_decode": "real3dportrait_tpu/rendering/renderer.py:81",
@@ -152,9 +158,11 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want).abs() / ulp).max())
 
 
-def bound(n_bytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
-    """(least ms the card could take, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / HBM_RATE, ops / PEAK_OPS[dtype]
+def bound(n_bytes: float, ops: float, dtype: torch.dtype,
+          rate: float | None = None) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations"); the
+    operations at ``rate`` where given, else at the peak of ``dtype``."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, ops / (rate or PEAK_OPS[dtype])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -191,6 +199,21 @@ def phase_build() -> None:
     for line in log.splitlines():
         if "Function properties" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    if os.path.isfile(cuobjdump):
+        # K7a's products run on the tensor cores: HMMA instructions in the
+        # SASS of each conv3d_kernel instantiation
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        hmma = {}
+        for fn in sass.split("Function : ")[1:]:
+            name = fn.split(None, 1)[0]
+            if "conv3d_kernel" in name:
+                hmma[name] = sum("HMMA" in line for line in fn.splitlines())
+        print(f"  cuobjdump: HMMA instructions in conv3d_kernel: {hmma}")
+        check(bool(hmma) and all(hmma.values()), "K7a's SASS has no HMMA instruction")
+    else:
+        print("  cuobjdump: not in the toolkit; HMMA count not taken")
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -215,7 +238,8 @@ def phase_kernels(dev: torch.device) -> dict:
     def record(name, tag, outs, tol, ms, plain_ms, cost, library=None, ulps=None, extra="",
                launch_ms=None):
         """``outs``: (kernel output, plain output) pairs; ``cost``: (bytes,
-        operations, dtype) of the call; ``library``: the ms of one PyTorch
+        operations, dtype[, operations/s where not the dtype's peak]) of the
+        call; ``library``: the ms of one PyTorch
         call computing the same function, or None; ``ulps``: in bf16, the
         largest distance allowed in bf16 ulps of the plain output (then
         ``tol`` is not used); ``launch_ms``: the device time of one launch
@@ -483,38 +507,46 @@ def phase_kernels(dev: torch.device) -> dict:
 
 
 def kernels_k7(dev: torch.device, gen: torch.Generator, record) -> None:
-    """K7a at the standard torso's shapes: the 7^3 tgt_head_fuser
-    [1,89,16,64,64] -> 32, the U-Net's first 3^3 conv (down_0,
-    [1,25,16,64,64] -> 64) and its deepest (down_4, [1,512,16,4,4] -> 1024,
-    57 MB of weights); K7b at the frame's [1,32,16,64,64] with 4 keypoints
-    uniform in [-0.8, 0.8]. Inputs N(0,1), weights N(0, 1/fan_in), so every
-    output is O(1). K7a sums up to 89 * 343 = 30,527 products in another
-    order than cuDNN: 3e-4 absolute. K7b: mask logits of 32 * 343 products
-    and occlusion sums of 512 * 49, then softmax and sigmoid: 1e-4 absolute
-    on the deformation and both maps. Operations: 2 per product, counting
-    only the taps inside the volume (``conv3d_ops``), none of the padding's. The
+    """K7a at every distinct 3D conv of the standard torso: the 7^3
+    tgt_head_fuser [1,89,16,64,64] -> 32, the U-Net's down_0-4 and up_0-4
+    and the appearance extractor's ResBlock3D 3^3 [1,32,16,64,64] -> 32
+    (``TORSO_CONV3D_SHAPES``; the fuser's is the JSON line's); K7b at the
+    frame's [1,32,16,64,64] with 4 keypoints uniform in [-0.8, 0.8]. Inputs N(0,1), weights N(0, 1/fan_in), so every
+    output is O(1). K7a sums up to 89 * 343 = 30,527 split-TF32 products in
+    another order than cuDNN's fp32: 3e-4 absolute. K7b: mask logits of
+    32 * 343 products and occlusion sums of 512 * 49, then softmax and
+    sigmoid: 1e-4 absolute on the deformation and both maps. Operations: 2
+    per product, counting only the taps inside the volume (``conv3d_ops``),
+    none of the padding's. K7a's bound is the tensor cores' (3 TF32
+    products per fp32 product at 495 TFLOP/s); the FFMA bound (67 TFLOP/s)
+    is printed beside it. Each K7a row gives the device time of one launch
+    (20 back-to-back) for the kernel and cuDNN, and one call's time. The
     library call of K7a is cuDNN's ``F.conv3d`` (TF32 off), which is also
     the plain version; no single PyTorch call computes K7b, so cuDNN's
     ``mask_conv`` alone is printed beside it."""
     import torch.nn.functional as F
 
+    from real3dportrait_tpu_torch.inference.k7_shapes import TORSO_CONV3D_SHAPES
     from real3dportrait_tpu_torch.models import torso
     from real3dportrait_tpu_torch.ops import conv3d as c3d
 
     f32 = torch.float32
     tiles, sms = c3d.kernel_tiles(), c3d.sm_count(dev)
-    for tag, (ci, co, k, dhw) in (("fuser 7^3 [1,89,16,64,64]->32", (89, 32, 7, (16, 64, 64))),
-                                  ("down_0 3^3 [1,25,16,64,64]->64", (25, 64, 3, (16, 64, 64))),
-                                  ("down_4 3^3 [1,512,16,4,4]->1024", (512, 1024, 3, (16, 4, 4)))):
+    for tag, (ci, co, k, dhw) in TORSO_CONV3D_SHAPES:
         x = torch.randn((1, ci, *dhw), device=dev, generator=gen)
         w = torch.randn((co, ci, k, k, k), device=dev, generator=gen) / (ci * k ** 3) ** 0.5
         b = torch.randn((co,), device=dev, generator=gen)
         got = c3d.conv3d(x, w, b)
+        ops = c3d.conv3d_ops(ci, co, *dhw, k)
+        cost = (nbytes(x, w, b, got), ops, f32, SPLIT_TF32_RATE)
+        ffma_ms = bound(*cost[:3])[0]
         record("conv3d", tag, [(got, c3d.conv3d_plain(x, w, b))], 3e-4,
                cuda_ms(lambda: c3d.conv3d(x, w, b)), cuda_ms(lambda: c3d.conv3d_plain(x, w, b)),
-               (nbytes(x, w, b, got), c3d.conv3d_ops(ci, co, *dhw, k), f32),
-               library=cuda_ms(lambda: F.conv3d(x, w, b, padding=k // 2)),
-               extra=f"plan {c3d.conv3d_plan(1, ci, co, *dhw, k, tiles, sms)} ")
+               cost, library=cuda_ms(lambda: F.conv3d(x, w, b, padding=k // 2)),
+               launch_ms=(device_ms(lambda: c3d.conv3d(x, w, b)),
+                          device_ms(lambda: F.conv3d(x, w, b, padding=k // 2))),
+               extra=f"FFMA bound {ffma_ms:.4f} ms, plan "
+                     f"{c3d.conv3d_plan(1, ci, co, *dhw, k, tiles, sms)}; ")
         del x, w, b, got
     c, d, h, w_ = 32, 16, 64, 64
     x = torch.randn((1, c, d, h, w_), device=dev, generator=gen)

@@ -9,23 +9,67 @@
 // stride-1 3D convolution with zero "same" padding, cubic kernel 3 or 7,
 // fp32, bias fused, on NCDHW activations and [Co,Ci,k,k,k] weights.
 //
-// What bounds it on an H100: the fp32 operations (the fuser is 108 GFLOP,
-// the U-Net's ten 3^3 convs 60 GFLOP, counting the taps inside the volume,
-// against 67 TFLOP/s on CUDA cores), even at the deepest 3^3 convs, whose
-// 4x4 planes carry 57 MB of weights for 4.8 GFLOP. Design: each CTA owns
-// TD depth slices x TH rows x TW columns of output voxels (the whole
-// volume's width where it is at most 64, several depth slices where the
-// planes are small) times 32 output channels. Per chunk of input channels
-// and per depth tap it stages the input halo tile and the matching weights
-// in shared memory (the weights transposed on the way, so that a tap's 32
-// output channels are contiguous there); each of the 256 threads keeps 4
-// neighbouring output columns x 8 channels in
-// registers, loads a row of 4 + k - 1 inputs once per (channel, kh) and
-// slides it over the kw taps: 32 FFMAs per weight-pair load. Where the
-// tiles and output-channel blocks give fewer than two CTAs per SM (the
-// deep 4x4 and 8x8 levels) the input channels are split over CTAs that
-// write partial sums, and a second pass adds them and the bias in a fixed
-// order (no atomics: the result does not depend on scheduling).
+// What bounds it on an H100: operations (the fuser is 108 GFLOP, the
+// U-Net's ten 3^3 convs 60 GFLOP, counting the taps inside the volume),
+// even at the deepest 3^3 convs, whose 4x4 planes carry 57 MB of weights
+// for 4.8 GFLOP. Two bounds: as FFMAs on the CUDA cores, ops / 67 TFLOP/s
+// (fuser 1.616 ms); on the tensor cores in split TF32, 3 x ops / 495
+// TFLOP/s (fuser 0.656 ms), the one this kernel is held to.
+//
+// Design: an implicit GEMM on the tensor cores. M is a CTA's output voxels
+// (TD depth slices x TH rows x TW columns, the whole width up to 64), N its
+// output channels (32, or 64 on the 4x4 planes), K = Ci x k^3, walked in
+// steps of (8 input channels, kd, KH rows of taps), KH = k where two CTAs'
+// stages fit an SM's shared memory, else 1 (the 7^3 fuser, the 4x4
+// planes); the taps of a step are unrolled inside it. No im2col is written:
+// a step stages the 8 channels' input halo tile (TD x (TH+KH-1) x
+// (TW+k-1)) and the matching weights in shared memory, and the A fragment
+// of tap (kh, kw) is the halo tile read at a shifted address. Each of the
+// 8 warps owns 32 voxels x 32 channels: 2 x 4 tiles of mma.sync m16n8k8
+// TF32 (A: voxels x channels in, B: channels in x channels out).
+//
+// Split TF32 ("3xTF32"): every fp32 operand x is split as hi = tf32(x),
+// lo = tf32(x - hi) (cvt.rna), and each product is lo*hi + hi*lo + hi*hi,
+// accumulated in fp32 in that order, small terms first. hi*hi alone keeps
+// 11 bits of each operand: its products err by up to 2^-11 relatively, and
+// a sum of up to 89 x 343 = 30,527 of them errs near 1e-3 on O(1)
+// outputs, where the port holds K7a to 1e-4-3e-4. The two cross terms
+// restore all but lo*lo (~2^-22 relatively), for 3 tensor-core products
+// per fp32 product: the 3x in the bound above. A landed stage is split once
+// in shared memory (hi in place, lo beside it), not per fragment load: a
+// halo value feeds up to k^2 taps of 1-2 warps, a weight every M warp.
+// The tensor cores add into their accumulator with truncation, so each
+// mma loses up to an ulp of the running sum, always the same way: ~12,000
+// of them into one accumulator (the fuser) erred by 1.2e-3 on the card.
+// So a row of taps sums into a fresh tile that the running sum takes by a
+// rounded fp32 add, which leaves the error of fp32 FFMAs (3.8e-5 at the
+// fuser, against 3.3e-5 for the FFMA kernel this one replaced).
+//
+// Staging: cp.async into a ring of kStages buffers, so that step s + 1
+// loads while step s computes. A halo row's interior goes in 16 B pieces
+// (where W is a multiple of 4 and x is 16 B aligned; else 4 B pieces) and
+// its k/2 border columns on each side in 4 B pieces; the padding faces,
+// ragged rows and ragged Ci and Co are zero-filled (src-size 0). A halo
+// row starts OFF = (4 - k/2 % 4) % 4 floats into its shared row, so that
+// the interior lands 16 B aligned. The weights, read [Co,Ci,k,k,k] from
+// device memory, are transposed on the way to [tap][ci][co] (a warp reads
+// 8 output channels x 4 consecutive (ci, tap) rows: 16 B runs).
+//
+// Shared-memory layout, chosen so that every fragment load of a warp hits
+// 32 distinct banks: a lane (g = lane/4, t = lane%4) reads A at channel t
+// (and t + 4) and voxel g (and g + 8), B at channel t (and t + 4) and
+// output channel g. So the per-channel stride of the halo tile (CS) and of
+// the weights (NS = BN + 8) are both 8 mod 32: the 4 channels land on bank
+// groups 0, 8, 16, 24 and the 8 voxels (consecutive columns, or 2 rows of
+// 4 columns with a row stride of 12 at the 4x4 planes) or channels fill
+// each group. The weights' tap stride (TS = 8 NS + 8) is also 8 mod 32, so
+// that the staging stores of 4 consecutive taps do not collide.
+//
+// The plan (ops/conv3d.py conv3d_plan) picks the tile. Where the tiles and
+// output-channel blocks give fewer CTAs than SMs (the deep 4x4, 8x8 and
+// 16x16 levels) the input channels are split over CTAs that write partial
+// sums, and a second pass adds them and the bias in a fixed order (no
+// atomics: the result does not depend on scheduling).
 //
 // K7b mfe_tail replaces models/torso.py lines 429-482 (the "fused" tail,
 // with ops/conv3d.py folded_banded_kernel, lines 49-74, as its TPU form:
@@ -50,145 +94,319 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPixelGroups = 64;  // 4-column groups of output voxels per CTA
-constexpr int kCoBlock = 32;      // output channels per CTA: 4 groups of 8
-constexpr int kCiChunk3 = 8, kCiChunk7 = 4;  // input channels staged at once, k = 3 and 7
-// a staged weight row (one input channel and tap): the CTA's output
-// channels, padded so that the transposing stores of a warp hit 32 banks
-constexpr int kWRow = kCoBlock + 8;
-static_assert(kThreads == kPixelGroups * kCoBlock / 8, "a thread owns 8 output channels");
+constexpr int kThreads = 256;     // 8 warps (K7a and K7b)
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpTile = 32;     // a K7a warp's output tile: 32 voxels x 32 channels
+constexpr int kCiChunk = 8;       // input channels per step: the mma's k
+constexpr int kStages = 2;        // depth of the cp.async ring
+constexpr int kSmemMax = 232448;  // shared memory an H100 block can opt into
 
 // ---------------------------------------------------------------------------
 // K7a
 // ---------------------------------------------------------------------------
 
-template <int K, int CI_CH>
-__global__ void __launch_bounds__(kThreads)
+// The shared-memory layout of one step's stage (in floats), shared by the
+// launcher and the kernel. A step covers KH rows of taps (K, or 1).
+struct K7Layout {
+  int RS;  // halo row stride: OFF + TW + K - 1, rounded up to 4
+  int HR;  // halo rows: TH + KH - 1
+  int CS;  // one input channel's halo tile TD x HR x RS, rounded up to 8 mod 32
+  int NS;  // one input channel's weight row: BN + 8
+  int TS;  // one tap's weights: 8 NS + 8
+  int in_floats, stage_floats;
+};
+
+__host__ __device__ constexpr int k7_halo_off(int K) { return (4 - (K / 2) % 4) % 4; }
+
+static K7Layout k7_layout(int K, int KH, int BN, int TD, int TH, int TW) {
+  K7Layout l;
+  l.RS = (k7_halo_off(K) + TW + K - 1 + 3) & ~3;
+  l.HR = TH + KH - 1;
+  const int cs = TD * l.HR * l.RS;
+  l.CS = cs + ((8 - cs % 32) + 32) % 32;
+  l.NS = BN + 8;
+  l.TS = kCiChunk * l.NS + 8;
+  l.in_floats = kCiChunk * l.CS;
+  l.stage_floats = l.in_floats + KH * K * l.TS;
+  return l;
+}
+
+// n / d for 0 <= n < 2^22 by a float reciprocal and one correction each way
+struct K7Div {
+  int d;
+  float r;
+};
+
+static K7Div k7_div(int d) { return K7Div{d, 1.0f / (float)d}; }
+
+__device__ __forceinline__ int k7_quot(int n, K7Div v) {
+  int q = __float2int_rz((float)n * v.r);
+  q += (q + 1) * v.d <= n;
+  q -= q * v.d > n;
+  return q;
+}
+
+// Everything of one K7a call but its pointers, passed to the kernel by value.
+struct K7Geom {
+  K7Layout l;
+  int Ci, Co, D, H, W;
+  int TD, TH, TW, nd, nh, nw;
+  int ci_per_split, vec, pieces;  // pieces: copies per halo row
+  K7Div by_pieces, by_rows, by_depth;  // pieces, HR, TD
+  long long split_stride;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a * b for a 16x8 (row) by 8x8 (col) TF32 tile pair, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// asynchronous copies to shared memory; an invalid source copies nothing
+// and zero-fills the destination (src-size 0)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// Issue the copies of one step (input channels ci0.., depth tap kd, tap
+// rows kh0 .. kh0 + KH - 1) into a stage buffer: the halo tile
+// [8][TD][HR][RS] and the weights [KH*K][8][NS] (tap stride TS).
+template <int K, int KH, int BN>
+__device__ __forceinline__ void k7_stage(float* buf, const float* __restrict__ xb,
+                                         const float* __restrict__ wt, const K7Geom& g, int ci0,
+                                         int ci_end, int kd, int kh0, int d0, int h0, int w0,
+                                         int co0) {
+  constexpr int P = K / 2, OFF = k7_halo_off(K), KK = K * K, TAPS = KH * K;
+  const int tid = threadIdx.x;
+  const long long HW = (long long)g.H * g.W, DHW = g.D * HW;
+  const int n_vec = g.vec ? g.TW / 4 : 0;
+  const int rows = kCiChunk * g.TD * g.l.HR;
+  for (int e = tid; e < rows * g.pieces; e += kThreads) {
+    const int r = k7_quot(e, g.by_pieces), piece = e - r * g.pieces;
+    const int rz = k7_quot(r, g.by_rows), hy = r - rz * g.l.HR;
+    const int ci = k7_quot(rz, g.by_depth), z = rz - ci * g.TD;
+    const int gd = d0 + z + kd - P, gh = h0 + kh0 + hy - P;
+    const bool row_ok = ci0 + ci < ci_end && gd >= 0 && gd < g.D && gh >= 0 && gh < g.H;
+    float* srow = buf + ci * g.l.CS + (z * g.l.HR + hy) * g.l.RS + OFF;  // halo column 0
+    const long long grow = (ci0 + ci) * DHW + gd * HW + (long long)gh * g.W;
+    if (piece < n_vec) {  // interior, 16 B: halo columns P + 4 piece ..
+      const int gw = w0 + 4 * piece;
+      const bool ok = row_ok && gw < g.W;
+      cp_async16(srow + P + 4 * piece, ok ? xb + grow + gw : xb, ok);
+    } else {  // 4 B: the borders (vec), or every column
+      const int q = piece - n_vec;
+      const int c = g.vec && q >= P ? g.TW + q : q;
+      const int gw = w0 + c - P;
+      const bool ok = row_ok && gw >= 0 && gw < g.W;
+      cp_async4(srow + c, ok ? xb + grow + gw : xb, ok);
+    }
+  }
+  // a warp reads 8 output channels x 4 consecutive (ci, tap) rows of the
+  // [Co,Ci,K,K,K] weight; a thread keeps its output channel, and its rows
+  // step by kThreads / BN
+  constexpr int ITEMS = BN * kCiChunk * TAPS / kThreads, STRIDE = kThreads / BN;
+  static_assert(ITEMS * kThreads == BN * kCiChunk * TAPS, "whole rows of copies");
+  float* w_s = buf + g.l.in_floats;
+  const int lane = tid % 32, warp = tid / 32;
+  const int n = 8 * (warp % (BN / 8)) + lane % 8, r0 = 4 * (warp / (BN / 8)) + lane / 8;
+  const bool n_ok = co0 + n < g.Co;
+  const float* w_n = wt + ((long long)(co0 + n) * g.Ci + ci0) * (K * KK) + kd * KK + kh0 * K;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int r = r0 + STRIDE * i;
+    const int ci = r / TAPS, t = r - ci * TAPS;
+    const bool ok = n_ok && ci0 + ci < ci_end;
+    cp_async4(w_s + t * g.l.TS + ci * g.l.NS + n, ok ? w_n + ci * (K * KK) + t : wt, ok);
+  }
+}
+
+// Split a landed stage in place into its TF32 high parts, and its low parts
+// into lo: x = hi + lo + (~2^-22 |x|).
+__device__ __forceinline__ void k7_split_stage(float* buf, float* lo, int n_floats) {
+  float4* b4 = reinterpret_cast<float4*>(buf);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  for (int e = threadIdx.x; e < n_floats / 4; e += kThreads) {
+    float4 v = b4[e], h;
+    h.x = __uint_as_float(tf32_rna(v.x));
+    h.y = __uint_as_float(tf32_rna(v.y));
+    h.z = __uint_as_float(tf32_rna(v.z));
+    h.w = __uint_as_float(tf32_rna(v.w));
+    b4[e] = h;
+    v.x = __uint_as_float(tf32_rna(v.x - h.x));
+    v.y = __uint_as_float(tf32_rna(v.y - h.y));
+    v.z = __uint_as_float(tf32_rna(v.z - h.z));
+    v.w = __uint_as_float(tf32_rna(v.w - h.w));
+    l4[e] = v;
+  }
+}
+
+template <int K, int KH, int WN>
+__global__ void __launch_bounds__(kThreads, 2)
 conv3d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-              const float* __restrict__ bias, float* __restrict__ out, int Ci, int Co,
-              int D, int H, int W, int TD, int TH, int G, int nd, int nh, int nw,
-              int ci_per_split, long long split_stride) {
-  constexpr int P = K / 2;
+              const float* __restrict__ bias, float* __restrict__ out, const K7Geom g) {
+  constexpr int BN = kWarpTile * WN, WM = kWarps / WN;
+  constexpr int OFF = k7_halo_off(K), ROWS = K / KH;  // steps per (chunk, kd)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int TW = 4 * G;
-  const int RS = (TW + K - 1 + 3) & ~3;  // halo row stride, 16 B aligned
-  const int HR = TH + K - 1;             // halo rows
-  const int in_plane = TD * HR * RS;     // one input channel's halo tile
-  float* in_s = smem;                    // [CI_CH][TD][HR][RS]
-  float* w_s = smem + CI_CH * in_plane;  // [CI_CH][K][K][kWRow]
-  static_assert(CI_CH * K * K % 4 == 0, "the weight staging takes rows 4 at a time");
+  const int stage_floats = g.l.stage_floats;
+  float* lo = smem + kStages * stage_floats;  // the low parts of the step computing
 
   int t = blockIdx.x;
-  const int tw_i = t % nw;
-  t /= nw;
-  const int th_i = t % nh;
-  t /= nh;
-  const int td_i = t % nd;
-  const int b = t / nd;
-  const int d0 = td_i * TD, h0 = th_i * TH, w0 = tw_i * TW;
-  const int co0 = blockIdx.y * kCoBlock;
-  const int ci_begin = blockIdx.z * ci_per_split;
-  const int ci_end = min(Ci, ci_begin + ci_per_split);
+  const int tw_i = t % g.nw;
+  t /= g.nw;
+  const int th_i = t % g.nh;
+  t /= g.nh;
+  const int td_i = t % g.nd;
+  const int b = t / g.nd;
+  const int d0 = td_i * g.TD, h0 = th_i * g.TH, w0 = tw_i * g.TW;
+  const int co0 = blockIdx.y * BN;
+  const int ci_begin = blockIdx.z * g.ci_per_split;
+  const int ci_end = min(g.Ci, ci_begin + g.ci_per_split);
 
-  const int tid = threadIdx.x;
-  const int cg = tid / kPixelGroups;  // two warps per channel group: weight loads broadcast
-  const int pgi = tid % kPixelGroups;
-  const int pg = pgi % G;
-  const int py = (pgi / G) % TH;
-  const int pz = pgi / (G * TH);
-  const bool active = pgi < TD * TH * G;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wm = warp % WM, wn = warp / WM;
+  const int tile_vox = g.TD * g.TH * g.TW;
+  // the halo offset of output voxel m (rows gid and gid + 8 of each m16
+  // tile) at tap (0, 0); voxels past the tile read offset 0 and are not stored
+  int voff[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = wm * kWarpTile + mt * 16 + gid + 8 * j;
+      const int z = m / (g.TH * g.TW), y = (m / g.TW) % g.TH, xx = m % g.TW;
+      voff[mt][j] = m < tile_vox ? (z * g.l.HR + y) * g.l.RS + xx + OFF : 0;
+    }
 
-  float acc[4][8];
+  float acc[2][4][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[p][c] = 0.0f;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
-  const long long HW = (long long)H * W, DHW = (long long)D * HW;
-  const float* xb = x + (long long)b * Ci * DHW;
-  const int n_in = CI_CH * in_plane;
-  const int n_w = CI_CH * K * K * kCoBlock;
-  constexpr int kCoGroups = kCoBlock / 8;
+  const long long DHW = (long long)g.D * g.H * g.W;
+  const float* xb = x + (long long)b * g.Ci * DHW;
+  // step s: channel chunk s / (K ROWS), depth tap (s / ROWS) % K, tap rows
+  // from (s % ROWS) KH
+  const int n_steps = (ci_end - ci_begin + kCiChunk - 1) / kCiChunk * K * ROWS;
+  auto stage = [&](int s) {
+    k7_stage<K, KH, BN>(smem + s % kStages * stage_floats, xb, wt, g,
+                        ci_begin + s / (K * ROWS) * kCiChunk, ci_end, s / ROWS % K,
+                        s % ROWS * KH, d0, h0, w0, co0);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+  }
 
-  for (int ci0 = ci_begin; ci0 < ci_end; ci0 += CI_CH) {
-    for (int kd = 0; kd < K; ++kd) {
-      __syncthreads();  // the previous tap's compute is done with the tiles
-      for (int e = tid; e < n_in; e += kThreads) {
-        const int c = e % RS;
-        int r = e / RS;
-        const int hy = r % HR;
-        r /= HR;
-        const int z = r % TD;
-        const int ci = ci0 + r / TD;
-        const int gd = d0 + z + kd - P, gh = h0 + hy - P, gw = w0 + c - P;
-        float v = 0.0f;
-        if (ci < ci_end && c < TW + K - 1 && gd >= 0 && gd < D && gh >= 0 && gh < H &&
-            gw >= 0 && gw < W)
-          v = __ldg(xb + ci * DHW + gd * HW + (long long)gh * W + gw);
-        in_s[e] = v;
-      }
-      // a warp reads 8 output channels x 4 consecutive rows (input channel,
-      // kh, kw): 16 B runs of the [Co,Ci,K,K,K] weight
-      for (int e = tid; e < n_w; e += kThreads) {
-        const int lane = e % 32, q = e / 32;
-        const int co = 8 * (q % kCoGroups) + lane % 8;
-        const int r = 4 * (q / kCoGroups) + lane / 8;
-        const int ci = ci0 + r / (K * K);
-        float v = 0.0f;
-        if (ci < ci_end && co0 + co < Co)
-          v = __ldg(wt + (((long long)(co0 + co) * Ci + ci) * K + kd) * (K * K) + r % (K * K));
-        w_s[r * kWRow + co] = v;
-      }
-      __syncthreads();
-      if (!active) continue;
-      constexpr int kCiUnroll = K == 3 ? CI_CH : 1;  // the 7^3 body is large already
-#pragma unroll (kCiUnroll)
-      for (int i = 0; i < CI_CH; ++i) {
-        const float* in_i = in_s + ((i * TD + pz) * HR + py) * RS + 4 * pg;
-        const float* w_i = w_s + i * K * K * kWRow + 8 * cg;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kStages - 2>();  // step s has landed
+    __syncthreads();               // ... for every thread; step s - 1 is computed
+    if (s + kStages - 1 < n_steps) stage(s + kStages - 1);  // into step s - 1's buffer
+    cp_async_commit();
+    float* hi = smem + s % kStages * stage_floats;
+    k7_split_stage(hi, lo, stage_floats);
+    __syncthreads();
+    const int a_off = tig * g.l.CS, b_off = g.l.in_floats + tig * g.l.NS + wn * kWarpTile + gid;
+    const int a_hi = 4 * g.l.CS, b_hi = 4 * g.l.NS;  // channels t + 4
+#pragma unroll 1
+    for (int kh = 0; kh < KH; ++kh) {
+      // a fresh tile per row of taps: the tensor cores' accumulation
+      // truncates (see the note at the top)
+      float row[2][4][4];
 #pragma unroll
-        for (int kh = 0; kh < K; ++kh) {
-          float v[K + 3];
-          const float2* row = reinterpret_cast<const float2*>(in_i + kh * RS);
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < (K + 3) / 2; ++j) {
-            const float2 q = row[j];
-            v[2 * j] = q.x;
-            v[2 * j + 1] = q.y;
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) row[mt][nt][i] = 0.0f;
+#pragma unroll
+      for (int kw = 0; kw < K; ++kw) {
+        const int at = a_off + kh * g.l.RS + kw;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int a = at + voff[mt][i % 2] + (i / 2) * a_hi;
+            ah[mt][i] = __float_as_uint(hi[a]);
+            al[mt][i] = __float_as_uint(lo[a]);
           }
+        const int bt = b_off + (kh * K + kw) * g.l.TS;
 #pragma unroll
-          for (int kw = 0; kw < K; ++kw) {
-            const float4* wp = reinterpret_cast<const float4*>(w_i + (kh * K + kw) * kWRow);
-            const float4 wa = wp[0], wb = wp[1];
-            const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t bh0 = __float_as_uint(hi[bt + nt * 8]);
+          const uint32_t bh1 = __float_as_uint(hi[bt + nt * 8 + b_hi]);
+          const uint32_t bl0 = __float_as_uint(lo[bt + nt * 8]);
+          const uint32_t bl1 = __float_as_uint(lo[bt + nt * 8 + b_hi]);
 #pragma unroll
-            for (int p = 0; p < 4; ++p)
-#pragma unroll
-              for (int c = 0; c < 8; ++c) acc[p][c] = fmaf(v[p + kw], wv[c], acc[p][c]);
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(row[mt][nt], al[mt], bh0, bh1);
+            mma_tf32(row[mt][nt], ah[mt], bl0, bl1);
+            mma_tf32(row[mt][nt], ah[mt], bh0, bh1);
           }
         }
       }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += row[mt][nt][i];
     }
   }
+  cp_async_wait<0>();
 
-  const int od = d0 + pz, oh = h0 + py;
-  if (!active || od >= D || oh >= H) return;
-  float* ob = out + blockIdx.z * split_stride;
+  // accumulator (mt, nt) element 2j + i: voxel row gid + 8j, channel 2 tig + i
+  float* ob = out + blockIdx.z * g.split_stride + (long long)b * g.Co * DHW;
   const bool add_bias = gridDim.z == 1 && bias != nullptr;
+  const long long HW = (long long)g.H * g.W;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int co = co0 + 8 * cg + c;
-    if (co >= Co) continue;
-    const float bv = add_bias ? __ldg(bias + co) : 0.0f;
-    float* orow = ob + ((long long)b * Co + co) * DHW + od * HW + (long long)oh * W;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int ow = w0 + 4 * pg + p;
-      if (ow < W) orow[ow] = acc[p][c] + bv;
+    for (int j = 0; j < 2; ++j) {
+      const int m = wm * kWarpTile + mt * 16 + gid + 8 * j;
+      const int z = m / (g.TH * g.TW), y = (m / g.TW) % g.TH, xx = m % g.TW;
+      const int od = d0 + z, oh = h0 + y, ow = w0 + xx;
+      if (m >= tile_vox || od >= g.D || oh >= g.H || ow >= g.W) continue;
+      float* ov = ob + od * HW + (long long)oh * g.W + ow;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int co = co0 + wn * kWarpTile + nt * 8 + 2 * tig + i;
+          if (co < g.Co)
+            ov[co * DHW] = acc[mt][nt][2 * j + i] + (add_bias ? __ldg(bias + co) : 0.0f);
+        }
     }
-  }
 }
 
 // out[n] = bias[co] + sum over the splits of partial[s][n], in split order
@@ -204,33 +422,23 @@ conv3d_reduce_kernel(const float* __restrict__ partial, const float* __restrict_
   out[n] = s;
 }
 
-template <int K, int CI_CH>
+template <int K, int KH, int WN>
 int launch_conv3d(const float* x, const float* wt, const float* bias, float* out,
-                  float* partial, int B, int Ci, int Co, int D, int H, int W, int TD, int TH,
-                  int G, int ci_per_split, int n_split, cudaStream_t stream) {
-  const int nd = (D + TD - 1) / TD, nh = (H + TH - 1) / TH, nw = (W + 4 * G - 1) / (4 * G);
-  const int RS = (4 * G + K - 1 + 3) & ~3;
-  const size_t smem = sizeof(float) * ((size_t)CI_CH * TD * (TH + K - 1) * RS +
-                                       (size_t)CI_CH * K * K * kWRow);
-  auto kernel = conv3d_kernel<K, CI_CH>;
+                  float* partial, int B, const K7Geom& g, int n_split, size_t smem,
+                  cudaStream_t stream) {
+  auto kernel = conv3d_kernel<K, KH, WN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)B * Co * D * H * W;
-  dim3 grid((unsigned)(B * nd * nh * nw), (unsigned)((Co + kCoBlock - 1) / kCoBlock),
-            (unsigned)n_split);
+  const long long total = (long long)B * g.Co * g.D * g.H * g.W;
   if (total == 0) return (int)cudaGetLastError();
-  if (n_split == 1) {
-    kernel<<<grid, kThreads, smem, stream>>>(x, wt, bias, out, Ci, Co, D, H, W, TD, TH, G,
-                                             nd, nh, nw, ci_per_split, 0);
-    return (int)cudaGetLastError();
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(x, wt, bias, partial, Ci, Co, D, H, W, TD, TH, G,
-                                           nd, nh, nw, ci_per_split, total);
+  dim3 grid((unsigned)(B * g.nd * g.nh * g.nw), (unsigned)((g.Co + 32 * WN - 1) / (32 * WN)),
+            (unsigned)n_split);
+  kernel<<<grid, kThreads, smem, stream>>>(x, wt, bias, n_split == 1 ? out : partial, g);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || n_split == 1) return (int)err;
   conv3d_reduce_kernel<<<r3dp_blocks(total, 256), 256, 0, stream>>>(
-      partial, bias, total, (long long)D * H * W, Co, n_split, out);
+      partial, bias, total, (long long)g.D * g.H * g.W, g.Co, n_split, out);
   return (int)cudaGetLastError();
 }
 
@@ -437,36 +645,53 @@ int launch_mfe_tail(const float* x, const float* mask_w, const float* mask_b,
 
 }  // namespace
 
-// The tiles a caller plans its launches for (out[6]): K7a's 4-column
-// pixel groups per CTA, output channels per CTA and input-channel chunk
-// for K = 3 and K = 7; K7b's pixel tile rows and columns.
+// The tiles a caller plans its launches for (out[7]): K7a's threads per
+// CTA, a warp's output tile (voxels and channels), input channels per step,
+// stages of the copy ring and the shared memory a CTA may use; K7b's pixel
+// tile rows and columns.
 R3DP_EXPORT int r3dp_k7_tiles(int* out) {
-  const int tiles[6] = {kPixelGroups, kCoBlock, kCiChunk3, kCiChunk7, kTailTH, kTailTW};
-  for (int i = 0; i < 6; ++i) out[i] = tiles[i];
+  const int tiles[7] = {kThreads, kWarpTile, kCiChunk, kStages, kSmemMax, kTailTH, kTailTW};
+  for (int i = 0; i < 7; ++i) out[i] = tiles[i];
   return 0;
 }
 
 // x [B,Ci,D,H,W] fp32; wt [Co,Ci,K,K,K]; bias [Co] or null; out
-// [B,Co,D,H,W]. The tile (TD x TH x 4G voxels, TD * TH * G at most the
-// pixel groups) and the split of the input channels (ci_per_split a
-// multiple of the channel chunk) come from the caller, planned for
-// r3dp_k7_tiles; partial [n_split,B,Co,D,H,W] when n_split > 1, else
-// unused.
+// [B,Co,D,H,W]. The caller plans the launch for r3dp_k7_tiles: KH tap rows
+// per step (K, or 1), BN output channels (32, or 64 at K = 3), TD x TH x TW
+// voxels (TW a multiple of 4, at most 8192 / BN voxels), the split of the
+// input channels (ci_per_split a multiple of the step's 8), and vec,
+// whether W is a multiple of 4 and x 16 B aligned (the halo rows' interiors
+// then copy in 16 B pieces); partial [n_split,B,Co,D,H,W] when n_split > 1,
+// else unused.
 R3DP_EXPORT int r3dp_conv3d(const float* x, const float* wt, const float* bias, float* out,
                             float* partial, int B, int Ci, int Co, int D, int H, int W, int K,
-                            int TD, int TH, int G, int ci_per_split, int n_split,
-                            cudaStream_t stream) {
-  const int chunk = K == 3 ? kCiChunk3 : kCiChunk7;
-  if (TD * TH * G > kPixelGroups || TD < 1 || TH < 1 || G < 1 || n_split < 1 ||
-      ci_per_split < 1 || ci_per_split % chunk)
+                            int KH, int BN, int TD, int TH, int TW, int ci_per_split,
+                            int n_split, int vec, cudaStream_t stream) {
+  if ((K != 3 && K != 7) || (KH != K && KH != 1) || (K == 7 && (KH != 1 || BN != 32)) ||
+      (BN != 32 && BN != 64) || TD < 1 || TH < 1 || TW < 4 || TW % 4 ||
+      TD * TH * TW > kWarps * kWarpTile * kWarpTile / BN || n_split < 1 || ci_per_split < 1 ||
+      ci_per_split % kCiChunk)
     return (int)cudaErrorInvalidValue;
-  if (K == 3)
-    return launch_conv3d<3, kCiChunk3>(x, wt, bias, out, partial, B, Ci, Co, D, H, W, TD, TH,
-                                       G, ci_per_split, n_split, stream);
+  K7Geom g;
+  g.l = k7_layout(K, KH, BN, TD, TH, TW);
+  const size_t smem = sizeof(float) * (size_t)(kStages + 1) * g.l.stage_floats;
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  g.Ci = Ci, g.Co = Co, g.D = D, g.H = H, g.W = W;
+  g.TD = TD, g.TH = TH, g.TW = TW;
+  g.nd = (D + TD - 1) / TD, g.nh = (H + TH - 1) / TH, g.nw = (W + TW - 1) / TW;
+  g.ci_per_split = ci_per_split, g.vec = vec;
+  g.pieces = vec ? TW / 4 + 2 * (K / 2) : TW + 2 * (K / 2);
+  g.by_pieces = k7_div(g.pieces), g.by_rows = k7_div(g.l.HR), g.by_depth = k7_div(TD);
+  g.split_stride = (long long)B * Co * D * H * W;
   if (K == 7)
-    return launch_conv3d<7, kCiChunk7>(x, wt, bias, out, partial, B, Ci, Co, D, H, W, TD, TH,
-                                       G, ci_per_split, n_split, stream);
-  return (int)cudaErrorInvalidValue;
+    return launch_conv3d<7, 1, 1>(x, wt, bias, out, partial, B, g, n_split, smem, stream);
+  if (KH == 1)
+    return BN == 64
+               ? launch_conv3d<3, 1, 2>(x, wt, bias, out, partial, B, g, n_split, smem, stream)
+               : launch_conv3d<3, 1, 1>(x, wt, bias, out, partial, B, g, n_split, smem, stream);
+  return BN == 64
+             ? launch_conv3d<3, 3, 2>(x, wt, bias, out, partial, B, g, n_split, smem, stream)
+             : launch_conv3d<3, 3, 1>(x, wt, bias, out, partial, B, g, n_split, smem, stream);
 }
 
 // x [B,C,D,H,W] fp32; mask_w [K1,C,7,7,7], mask_b [K1]; occ_w [2,C*D,7,7]

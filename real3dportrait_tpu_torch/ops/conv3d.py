@@ -27,39 +27,80 @@ from real3dportrait_tpu_torch import kernels
 @functools.cache
 def kernel_tiles() -> dict:
     """The tiles ``csrc/conv3d.cu`` is compiled for, read from the built
-    library: K7a's ``pixel_groups`` (groups of 4 output columns per CTA),
-    ``co_block`` (output channels per CTA) and ``ci_chunk`` (input
-    channels staged at once, by k); K7b's ``tail_tile`` (pixel rows,
-    columns per CTA)."""
-    out = (ctypes.c_int * 6)()
+    library: K7a's ``threads`` per CTA, ``warp_tile`` (a warp's output tile
+    is that many voxels x output channels), ``ci_chunk`` (input channels
+    per step), ``stages`` (of the copy ring) and ``smem_max`` (bytes of
+    shared memory a CTA may use); K7b's ``tail_tile`` (pixel rows, columns
+    per CTA)."""
+    out = (ctypes.c_int * 7)()
     kernels.library().r3dp_k7_tiles(out)
-    return dict(pixel_groups=out[0], co_block=out[1], ci_chunk={3: out[2], 7: out[3]},
-                tail_tile=(out[4], out[5]))
+    return dict(threads=out[0], warp_tile=out[1], ci_chunk=out[2], stages=out[3],
+                smem_max=out[4], tail_tile=(out[5], out[6]))
 
 
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def conv3d_smem(k: int, kh: int, bn: int, td: int, th: int, tw: int, tiles: dict) -> int:
+    """Bytes of shared memory of a K7a CTA whose steps cover ``kh`` rows of
+    taps: ``stages`` stage buffers and one buffer of low parts, each the
+    halo tiles of ``ci_chunk`` input channels plus their weights for the
+    ``kh * k`` taps, laid out as ``csrc/conv3d.cu`` ``k7_layout`` does (row
+    stride a multiple of 4 floats after an offset that aligns the interior,
+    channel strides 8 mod 32, so that fragment loads are free of bank
+    conflicts)."""
+    off = (4 - (k // 2) % 4) % 4
+    rs = (off + tw + k - 1 + 3) // 4 * 4
+    cs = td * (th + kh - 1) * rs
+    cs += (8 - cs % 32) % 32
+    ts = tiles["ci_chunk"] * (bn + 8) + 8
+    return 4 * (tiles["stages"] + 1) * (tiles["ci_chunk"] * cs + kh * k * ts)
+
+
+def _balanced(n: int, cap: int) -> int:
+    """The tile length at most ``cap`` that cuts ``n`` into the fewest,
+    most even tiles."""
+    return math.ceil(n / math.ceil(n / cap))
+
+
 def conv3d_plan(b: int, ci: int, co: int, d: int, h: int, w: int, k: int, tiles: dict,
                 sms: int) -> dict:
     """The kernel's tiling of one call for ``tiles`` (:func:`kernel_tiles`)
-    on ``sms`` SMs: ``TD`` depth slices x ``TH`` rows x ``4 G`` columns of
-    output voxels per CTA (the whole width up to 64, so that small planes
-    stack depth slices), and ``n_split`` groups of ``ci_per_split`` input
-    channels, so that the call gives at least two CTAs per SM where its
-    tiles and output-channel blocks alone do not."""
-    g = min(math.ceil(w / 4), 16)
-    rows = tiles["pixel_groups"] // g
-    th = min(h, rows)
-    td = min(d, rows // th)
-    ctas = b * math.ceil(d / td) * math.ceil(h / th) * math.ceil(w / (4 * g)) \
-        * math.ceil(co / tiles["co_block"])
-    chunk = tiles["ci_chunk"][k]
+    on ``sms`` SMs: ``BN`` output channels per CTA (one warp tile, or two
+    at k = 3 on the 4x4 planes, where a one-tile CTA's halo of 16 depth
+    slices would cost more than its weights) and ``TD`` depth slices x ``TH``
+    rows x ``TW`` columns of output voxels, at most the CTA's M of
+    ``threads / 32 * warp_tile^2 / BN`` (the whole width up to 64, a power
+    of 2, so that small planes stack rows and depth slices); ``KH``, the
+    rows of taps a step stages: all k where two CTAs fit an SM's shared
+    memory, else one (k = 7 always), and fewer depth slices where even that
+    does not fit; and ``n_split`` groups of ``ci_per_split`` input
+    channels, so that a call whose tiles and output-channel blocks give
+    fewer CTAs than SMs gets two CTAs per SM."""
+    wt = tiles["warp_tile"]
+    bn = 2 * wt if k == 3 and co > wt and h * w <= 16 else wt
+    bm = tiles["threads"] // 32 * wt * wt // bn
+    tw = min(64, 1 << max(2, (w - 1).bit_length()))
+    th = _balanced(h, bm // tw)
+    td = _balanced(d, bm // (tw * th))
+    kh = k if k == 3 and conv3d_smem(k, k, bn, td, th, tw, tiles) <= tiles["smem_max"] // 2 \
+        else 1
+    while td > 1 and conv3d_smem(k, kh, bn, td, th, tw, tiles) > tiles["smem_max"]:
+        td = _balanced(d, td - 1)
+    ctas = b * math.ceil(d / td) * math.ceil(h / th) * math.ceil(w / tw) * math.ceil(co / bn)
+    chunk = tiles["ci_chunk"]
     chunks = math.ceil(ci / chunk)
-    splits = min(chunks, max(1, math.ceil(2 * sms / ctas)))
+    splits = 1 if ctas >= sms else min(chunks, math.ceil(2 * sms / ctas))
     per = math.ceil(chunks / splits) * chunk
-    return dict(TD=td, TH=th, G=g, ci_per_split=per, n_split=math.ceil(ci / per))
+    return dict(KH=kh, BN=bn, TD=td, TH=th, TW=tw, ci_per_split=per,
+                n_split=math.ceil(ci / per))
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_plan(b: int, ci: int, co: int, d: int, h: int, w: int, k: int, index: int) -> dict:
+    return conv3d_plan(b, ci, co, d, h, w, k, kernel_tiles(),
+                       sm_count(torch.device("cuda", index)))
 
 
 def conv3d_ops(ci: int, co: int, d: int, h: int, w: int, k: int, b: int = 1) -> int:
@@ -107,13 +148,15 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor,
                          f"{None if bias is None else tuple(bias.shape)}")
     b, ci, d, h, w = x.shape
     co = weight.shape[0]
-    plan = conv3d_plan(b, ci, co, d, h, w, k, kernel_tiles(), sm_count(x.device))
+    plan = _cached_plan(b, ci, co, d, h, w, k, x.get_device())
     out = torch.empty((b, co, d, h, w), device=x.device)
     partial = (torch.empty((plan["n_split"], b, co, d, h, w), device=x.device)
                if plan["n_split"] > 1 else None)
-    kernels.launch("r3dp_conv3d", x, weight, bias, out, partial, b, ci, co,
-                   d, h, w, k, plan["TD"], plan["TH"], plan["G"], plan["ci_per_split"],
-                   plan["n_split"])
+    # the halo rows' interiors copy in 16 B pieces where they are 16 B aligned
+    vec = int(w % 4 == 0 and x.data_ptr() % 16 == 0)
+    kernels.launch("r3dp_conv3d", x, weight, bias, out, partial, b, ci, co, d, h, w, k,
+                   plan["KH"], plan["BN"], plan["TD"], plan["TH"], plan["TW"],
+                   plan["ci_per_split"], plan["n_split"], vec)
     conv3d.launches += 1
     return out
 

@@ -13,6 +13,7 @@ import torch
 
 from real3dportrait_tpu.models import torso as jt
 from real3dportrait_tpu.ops import conv3d as jconv
+from real3dportrait_tpu_torch.inference.k7_shapes import TORSO_CONV3D_SHAPES
 from real3dportrait_tpu_torch.models import torso
 from real3dportrait_tpu_torch.ops import conv3d as c3d
 from tests._torch_parity import agree, jax_run, load_from_jax, t
@@ -102,24 +103,85 @@ def test_k7b_plain_matches_jax_fused_tail(b, c, d, hw):
 
 # the tiles csrc/conv3d.cu is compiled for (c3d.kernel_tiles() reads them
 # from the built library on a card) and an H100 SXM's 132 SMs
-TILES = dict(pixel_groups=64, co_block=32, ci_chunk={3: 8, 7: 4}, tail_tile=(8, 32))
+TILES = dict(threads=256, warp_tile=32, ci_chunk=8, stages=2, smem_max=232448,
+             tail_tile=(8, 32))
+
+# every distinct 3D conv of the standard torso (models/torso.py:367-413):
+# the 7^3 tgt_head_fuser, the U-Net's down_0-4 and up_0-4, the appearance
+# extractor's ResBlock3D
+TORSO_SHAPES = [(1, ci, co, dhw, k) for _, (ci, co, k, dhw) in TORSO_CONV3D_SHAPES]
+TORSO_IDS = [tag.split()[0] for tag, _ in TORSO_CONV3D_SHAPES]
 
 
-@pytest.mark.parametrize("b,ci,co,dhw,k", [
-    (1, 89, 32, (16, 64, 64), 7), (1, 25, 64, (16, 64, 64), 3), (1, 512, 1024, (16, 4, 4), 3),
-    (1, 1024, 512, (16, 4, 4), 3), (2, 5, 7, (3, 9, 11), 3), (1, 6, 33, (5, 13, 70), 7),
-    (1, 37, 70, (16, 4, 4), 3)])
+@pytest.mark.parametrize("b,ci,co,dhw,k", TORSO_SHAPES + [
+    (2, 5, 7, (3, 9, 11), 3), (1, 6, 33, (5, 13, 70), 7), (1, 37, 70, (16, 4, 4), 3)],
+    ids=TORSO_IDS + ["b2_odd", "k7_wide", "deep_odd"])
 def test_k7_launch_plans_cover_every_voxel_and_channel(b, ci, co, dhw, k):
+    # each (batch, output channel, voxel) is written once by one CTA of
+    # each input-channel split; the splits cut the input channels into
+    # consecutive ranges of whole steps, which the second pass adds in
+    # split order; the tile fits the CTA's M and its shared memory
     d, h, w = dhw
     plan = c3d.conv3d_plan(b, ci, co, d, h, w, k, TILES, 132)
-    td, th, g = plan["TD"], plan["TH"], plan["G"]
-    assert td * th * g <= TILES["pixel_groups"] and min(td, th, g) >= 1
-    assert td <= d and th <= h and (4 * g >= w or g == 16)
+    kh, bn, td, th, tw = plan["KH"], plan["BN"], plan["TD"], plan["TH"], plan["TW"]
+    assert bn in (32, 64) and (bn == 64) == (k == 3 and co > 32 and h * w <= 16)
+    assert kh in (1, k) and (k == 3 or kh == 1)
+    assert td * th * tw <= TILES["threads"] // 32 * TILES["warp_tile"] ** 2 // bn
+    assert min(td, th) >= 1 and tw % 4 == 0 and (tw >= w or tw == 64)
+    assert c3d.conv3d_smem(k, kh, bn, td, th, tw, TILES) <= TILES["smem_max"]
     per, n = plan["ci_per_split"], plan["n_split"]
-    assert per % TILES["ci_chunk"][k] == 0 and (n - 1) * per < ci <= n * per
+    assert per % TILES["ci_chunk"] == 0 and (n - 1) * per < ci <= n * per
+    ranges = [(s * per, min(ci, (s + 1) * per)) for s in range(n)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == ci
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    covered = np.zeros((b, -(-co // bn) * bn, -(-d // td) * td, -(-h // th) * th,
+                        -(-w // tw) * tw), np.int32)
+    for i in range(b):
+        for c0 in range(0, co, bn):
+            for d0 in range(0, d, td):
+                for h0 in range(0, h, th):
+                    for w0 in range(0, w, tw):
+                        covered[i, c0:c0 + bn, d0:d0 + td, h0:h0 + th, w0:w0 + tw] += 1
+    assert (covered[:, :co, :d, :h, :w] == 1).all()
     tail = torso.mfe_tail_plan(b, ci, h, w, TILES["tail_tile"], 132)
     assert (tail["n_split"] - 1) * tail["c_per_split"] < ci <= tail["n_split"] * tail[
         "c_per_split"]
+
+
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: round fp32 to 10 mantissa bits, ties away from
+    zero (the low 13 bits of the result are zero)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("ci,co,dhw,k", [(89, 4, (7, 8, 8), 7), (512, 8, (4, 4, 4), 3)],
+                         ids=["fuser_fan_in", "down_4_fan_in"])
+def test_split_tf32_conv3d_holds_the_chip_tolerance(ci, co, dhw, k):
+    # K7a's arithmetic: each fp32 operand split as hi = tf32(x), lo =
+    # tf32(x - hi), each product lo*hi + hi*lo + hi*hi, summed in fp32, on
+    # the chip's inputs (N(0,1), weights N(0, 1/fan_in)) at the fuser's
+    # fan-in (89 x 7^3) and down_4's (512 x 3^3). It stays within the chip
+    # tolerance of 3e-4 of the float64 conv, and one-pass TF32 (hi*hi
+    # alone) errs at least 10x more: why the kernel pays for 3 products
+    rng = np.random.RandomState(ci)
+    x = rng.randn(1, ci, *dhw).astype(np.float32)
+    w = (rng.randn(co, ci, k, k, k) / np.sqrt(ci * k ** 3)).astype(np.float32)
+    x_hi, w_hi = _tf32_rna(x), _tf32_rna(w)
+    x_lo, w_lo = _tf32_rna(x - x_hi), _tf32_rna(w - w_hi)
+    assert not (x_hi.view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(x - x_hi) <= 2.0 ** -11 * np.abs(x)).all()
+
+    def conv(a, b_):
+        return c3d.conv3d_plain(torch.from_numpy(a), torch.from_numpy(b_))
+
+    want = c3d.conv3d_plain(torch.from_numpy(x).double(), torch.from_numpy(w).double())
+    split = conv(x_lo, w_hi) + conv(x_hi, w_lo) + conv(x_hi, w_hi)
+    one_pass = conv(x_hi, w_hi)
+    err = float((split.double() - want).abs().max())
+    err_one = float((one_pass.double() - want).abs().max())
+    assert err <= 3e-4, f"split TF32: {err}"
+    assert err_one >= 10 * err, f"one pass {err_one} against split {err}"
 
 
 @pytest.mark.parametrize("ci,co,dhw,k", [(3, 2, (16, 64, 64), 7), (2, 5, (16, 4, 4), 3),

@@ -5,8 +5,9 @@ background, ties, posed meshes; tri-grids of depth 1-3 with odd H != W and
 points outside the box; warps with samples exactly on and far beyond the
 volume's faces, K = 9 keypoints, odd volume sizes; every resampling and
 epilogue option, in fp32 and bf16; 3D convolutions of kernel 3 and 7 at odd
-sizes, input channels that are no multiple of the staged chunk and split
-input channels; the estimator's tail at D = 16 and 2). Every test needs a
+sizes, input channels that are no multiple of the step's 8, output
+channels across N tiles, widths across M tiles, split input channels and
+inputs of 1e4 next to 1e-4; the estimator's tail at D = 16 and 2). Every test needs a
 card and skips without one. On the card (where JAX, which tests/conftest.py imports, is
 not installed):
 
@@ -326,14 +327,18 @@ def test_k6b_bf16_matches_plain_bf16(dev, act):
 
 @pytest.mark.parametrize("k,b,ci,co,dhw", [
     (3, 2, 5, 7, (3, 9, 11)), (3, 1, 37, 70, (16, 4, 4)), (3, 1, 300, 40, (5, 8, 8)),
-    (7, 1, 13, 9, (4, 7, 5)), (7, 2, 6, 33, (5, 13, 70)), (3, 1, 24, 16, (2, 66, 67))],
-    ids=["k3_odd", "k3_deep_split", "k3_ci300", "k7_odd", "k7_wide", "k3_w67"])
+    (7, 1, 13, 9, (4, 7, 5)), (7, 2, 6, 33, (5, 13, 70)), (3, 1, 24, 16, (2, 66, 67)),
+    (3, 1, 25, 64, (4, 16, 64)), (7, 1, 89, 32, (3, 8, 64)), (3, 1, 16, 20, (3, 6, 70)),
+    (3, 1, 40, 70, (3, 5, 70)), (3, 1, 1024, 96, (16, 4, 4)), (3, 2, 25, 40, (4, 8, 12))],
+    ids=["k3_odd", "k3_deep_split", "k3_ci300", "k7_odd", "k7_wide", "k3_w67", "k3_ci25",
+         "k7_ci89", "k3_co20_w70", "k3_co70_w70", "k3_ci1024_split", "k3_b2"])
 def test_k7a_conv3d_cases(dev, k, b, ci, co, dhw):
     # zero "same" padding on every face; input channels no multiple of the
-    # staged chunk (8 for k 3, 4 for k 7), output channels no multiple of
-    # 32, widths above one tile (64) and split input channels. fp32 sums of
-    # up to 300 * 27 terms in another order than cuDNN's: 1e-4 absolute on
-    # outputs O(1)
+    # step's 8 (25, 89), output channels below one N tile (20 < 32) and
+    # across two (33 at k 7, 70 at k 3), widths across an M tile (67, 70 >
+    # 64), split input channels (1024 on a 4^2 plane), B = 2. Split-TF32
+    # products summed in fp32 over up to 89 * 343 terms in another order
+    # than cuDNN's fp32: 1e-4 absolute on outputs O(1)
     g = torch.Generator(device=dev).manual_seed(12)
     x = torch.randn((b, ci, *dhw), device=dev, generator=g)
     w = torch.randn((co, ci, k, k, k), device=dev, generator=g) / (ci * k ** 3) ** 0.5
@@ -349,6 +354,27 @@ def test_k7a_conv3d_cases(dev, k, b, ci, co, dhw):
         c3d.conv3d(x, torch.randn((co, ci, 5, 5, 5), device=dev), bias)
     with pytest.raises(ValueError):
         c3d.conv3d(x.double(), w, bias)
+
+
+def test_k7a_conv3d_keeps_small_values_beside_large_ones(dev):
+    # inputs of magnitude 1e4 next to 1e-4 (random signs and places): a
+    # product whose operands lose their lo terms errs by up to 2^-11 of
+    # itself, ~1e-4 of the output's scale, where the split keeps ~1e-7.
+    # Held to a float64 conv at 1e-5 of the output's largest magnitude, and
+    # in the depth slices that see only the 1e-4 inputs at 1e-5 of theirs
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((1, 24, 8, 12, 64), device=dev, generator=g).sign()
+    big = torch.rand((1, 24, 8, 12, 64), device=dev, generator=g) < 0.5
+    big[:, :, 5:] = False
+    x = x * torch.where(big, 1e4, 1e-4)
+    w = torch.randn((40, 24, 3, 3, 3), device=dev, generator=g) / (24 * 27) ** 0.5
+    got = c3d.conv3d(x, w)
+    want = c3d.conv3d_plain(x.double(), w.double())
+    err = (got.double() - want).abs()
+    assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    small = want[:, :, 6:]
+    assert float(err[:, :, 6:].max()) <= 1e-5 * float(small.abs().max())
+    assert float(small.abs().max()) < 1e-2  # those slices see no 1e4 input
 
 
 def test_k7a_module_uses_the_kernel_and_follows_weight_updates(dev):
