@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    sm_90a (one nvcc per source, in parallel), or reuse the library built
    from identical sources (registers and spills from ptxas are printed
    either way, and, where the toolkit has ``cuobjdump``, the count of
-   tensor-core ``HMMA`` instructions in K7a's SASS, which must not be 0);
+   tensor-core ``HMMA`` instructions in the SASS of K7a and of K1 /
+   K1-trigrid, which must not be 0);
 3. each kernel (K1, K1-trigrid, K2-K7b; K6a/K6b in fp32 and bf16; K7a at
    every distinct 3D conv of the standard torso) against its plain
    PyTorch version at the main path's shapes, TF32 off, with the
@@ -20,7 +21,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    PyTorch call that computes the same function where there is one, and
    the bound: the larger of the bytes over the HBM rate and the operations
    over the peak rate of their type (H100 SXM data sheet; K7a's products
-   at the tensor cores' split-TF32 rate, its FFMA bound beside it);
+   and K1's MLP at the tensor cores' split-TF32 rate, with K1's corner
+   lerps at the fp32 rate as a third term; their FFMA bounds beside them);
 4. the main path: ``Real3DPortraitPipeline().run`` with the JAX defaults
    (periodic blink, source preparation) from a 4 s seeded 16 kHz wav
    through the audio front end and the audio-to-motion flow-VAE to 100
@@ -158,11 +160,14 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want).abs() / ulp).max())
 
 
-def bound(n_bytes: float, ops: float, dtype: torch.dtype,
-          rate: float | None = None) -> tuple[float, str]:
+def bound(n_bytes: float, ops: float, dtype: torch.dtype, rate: float | None = None,
+          more: tuple = ()) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations"); the
-    operations at ``rate`` where given, else at the peak of ``dtype``."""
-    t_bytes, t_ops = n_bytes / HBM_RATE, ops / (rate or PEAK_OPS[dtype])
+    operations at ``rate`` where given, else at the peak of ``dtype``;
+    ``more``: (operations, operations/s) of work on other units, each a
+    term of its own."""
+    t_bytes = n_bytes / HBM_RATE
+    t_ops = max([ops / (rate or PEAK_OPS[dtype])] + [o / r for o, r in more])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -201,17 +206,18 @@ def phase_build() -> None:
             print(f"  ptxas: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     if os.path.isfile(cuobjdump):
-        # K7a's products run on the tensor cores: HMMA instructions in the
-        # SASS of each conv3d_kernel instantiation
+        # K7a's products and K1's MLP run on the tensor cores: HMMA
+        # instructions in the SASS of each instantiation
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                               check=True, timeout=300).stdout
-        hmma = {}
-        for fn in sass.split("Function : ")[1:]:
-            name = fn.split(None, 1)[0]
-            if "conv3d_kernel" in name:
-                hmma[name] = sum("HMMA" in line for line in fn.splitlines())
-        print(f"  cuobjdump: HMMA instructions in conv3d_kernel: {hmma}")
-        check(bool(hmma) and all(hmma.values()), "K7a's SASS has no HMMA instruction")
+        for kernel in ("conv3d_kernel", "plane_decode_kernel"):
+            hmma = {}
+            for fn in sass.split("Function : ")[1:]:
+                name = fn.split(None, 1)[0]
+                if kernel in name:
+                    hmma[name] = sum("HMMA" in line for line in fn.splitlines())
+            print(f"  cuobjdump: HMMA instructions in {kernel}: {hmma}")
+            check(bool(hmma) and all(hmma.values()), f"{kernel}'s SASS has no HMMA instruction")
     else:
         print("  cuobjdump: not in the toolkit; HMMA count not taken")
 
@@ -224,7 +230,7 @@ def phase_kernels(dev: torch.device) -> dict:
     from real3dportrait_tpu_torch.geometry.rasterizer import (
         project_to_screen, secc_raster, secc_raster_plain)
     from real3dportrait_tpu_torch.models.decoder import (
-        OSGDecoder, trigrid_decode, trigrid_decode_plain, triplane_decode,
+        OSGDecoder, k1_cost, trigrid_decode, trigrid_decode_plain, triplane_decode,
         triplane_decode_plain)
     from real3dportrait_tpu_torch.rendering.renderer import (
         importance_sample, importance_sample_plain, importance_u, merge_composite,
@@ -276,16 +282,19 @@ def phase_kernels(dev: torch.device) -> dict:
 
     # K1 and K1-trigrid: the planes of one frame, [1,3,256,256,32] and
     # [1,3,3,256,256,32]; the fast preset's coarse (16 x 128^2) and fine
-    # (32 x 128^2) passes and the 48-sample passes. fp32 sums in another
+    # (32 x 128^2) passes and the 48-sample passes, points uniform in the
+    # box. The MLP in split TF32 and the corner sums in fp32, in another
     # order: tolerance 1e-4 absolute on rgb in [-0.001, 1.001] and sigma
-    # O(1). Operations: 2 per corner channel (FMA) and the MLP's
-    # 2 * (32*64 + 64*33) plus 96 transcendentals, per point.
+    # O(1). Bound (decoder.k1_cost): the largest of the bytes (the planes
+    # once, coordinates, rgb, sigma), the MLP's 2 * (32*64 + 64*33) a point
+    # at the split-TF32 rate, and the corner lerps (2 a corner channel) and
+    # 96 transcendentals a point at the fp32 rate; the FFMA bound (all of
+    # it at 67 TFLOP/s, the CUDA-core design's bound) beside it. Per call and
+    # per launch, as K6a.
     dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
-    mlp_ops = 2 * (32 * 64 + 64 * 33) + 96
-    for name, shape, corners, fn, plain in (
-            ("trigrid_decode", (1, 3, 3, 256, 256, 32), 8, trigrid_decode,
-             trigrid_decode_plain),
-            ("triplane_decode", (1, 3, 256, 256, 32), 4, triplane_decode,
+    for name, shape, fn, plain in (
+            ("trigrid_decode", (1, 3, 3, 256, 256, 32), trigrid_decode, trigrid_decode_plain),
+            ("triplane_decode", (1, 3, 256, 256, 32), triplane_decode,
              triplane_decode_plain)):
         planes = torch.randn(shape, device=dev, generator=gen)
         counts = (524288, 262144, 786432) if name == "trigrid_decode" else (262144, 786432)
@@ -296,9 +305,14 @@ def phase_kernels(dev: torch.device) -> dict:
                 p_rgb, p_sig = plain(planes, coords, 1.0, dec)
                 ms = cuda_ms(lambda: fn(planes, coords, 1.0, dec))
                 pms = cuda_ms(lambda: plain(planes, coords, 1.0, dec))
-            cost = (nbytes(planes, coords, k_rgb, k_sig),
-                    n * (3 * corners * 32 * 2 + mlp_ops), f32)
-            record(name, f"{n} pts", [(k_rgb, p_rgb), (k_sig, p_sig)], 1e-4, ms, pms, cost)
+                launch = device_ms(lambda: fn(planes, coords, 1.0, dec))
+            c = k1_cost(tuple(planes.shape), n)
+            check(c["bytes"] == nbytes(planes, coords, k_rgb, k_sig), f"{name}: k1_cost bytes")
+            cost = (c["bytes"], c["mma_ops"], f32, SPLIT_TF32_RATE,
+                    ((c["fp32_ops"], PEAK_OPS[f32]),))
+            ffma_ms = bound(c["bytes"], c["mma_ops"] + c["fp32_ops"], f32)[0]
+            record(name, f"{n} pts", [(k_rgb, p_rgb), (k_sig, p_sig)], 1e-4, ms, pms, cost,
+                   launch_ms=(launch, None), extra=f"FFMA bound {ffma_ms:.4f} ms; ")
         del planes
 
     # K2/K3: 16,384 rays (128^2) at 16+32 and 48+48. Depths O(2-3); sums in
@@ -469,17 +483,20 @@ def phase_kernels(dev: torch.device) -> dict:
     # sqrt 2, clamp 256) at [1,128,512^2] and block0's at [1,256,256^2] in
     # bf16, where every step rounds to bf16 in the plain version's order:
     # expected bit-equal, checked within 2 bf16 ulps; then block1's fp32
-    # epilogue of the released geometry (clamp 4 so that it acts) and
-    # toRGB's [1,3,512^2] (bias only), rounded in the plain version's
-    # order: 1e-6 absolute. Operations: one per term (scale, noise, bias,
-    # activation, gain) and two for the clamp, per element. No single
-    # PyTorch call computes this epilogue. Per call and per launch, as K6a.
+    # epilogue of the released geometry and head_torso_block's fp32 one at
+    # [1,256,256^2] (clamp 4 so that it acts) and toRGB's [1,3,512^2]
+    # (bias only), rounded in the plain version's order: 1e-6 absolute.
+    # Operations: one per term (scale, noise, bias, activation, gain) and
+    # two for the clamp, per element. No single PyTorch call computes this
+    # epilogue. Per call and per launch, as K6a.
     for tag, shape, dtype, clamp in (("[1,128,512^2] lrelu demod noise clamp bf16",
                                       (1, 128, 512, 512), bf16, 256.0),
                                      ("[1,256,256^2] lrelu demod noise clamp bf16",
                                       (1, 256, 256, 256), bf16, 256.0),
                                      ("[1,128,512^2] lrelu demod noise clamp",
-                                      (1, 128, 512, 512), f32, 4.0)):
+                                      (1, 128, 512, 512), f32, 4.0),
+                                     ("[1,256,256^2] lrelu demod noise clamp",
+                                      (1, 256, 256, 256), f32, 4.0)):
         b, c, h, w = shape
         x = (4 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
         kw = dict(act="lrelu", gain=2 ** 0.5, clamp=clamp, axis=1,

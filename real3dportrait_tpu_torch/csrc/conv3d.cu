@@ -156,21 +156,6 @@ struct K7Geom {
   long long split_stride;
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// c += a * b for a 16x8 (row) by 8x8 (col) TF32 tile pair, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // asynchronous copies to shared memory; an invalid source copies nothing
 // and zero-fills the destination (src-size 0)
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {

@@ -26,8 +26,9 @@
 // In bf16, K6a rounds once, when it stores the fp32 sum of the taps (as a
 // depthwise convolution with fp32 accumulation does); K6b rounds to bf16
 // after each operation, where the plain version's separate bf16 PyTorch ops
-// round (the wrapper hands it d, noise and bias already rounded to bf16,
-// as the plain version casts them).
+// round, and rounds d, noise and bias to bf16 as it loads them (the plain
+// version casts them first), so the wrapper passes their fp32 tensors
+// as they come and launches nothing else.
 //
 // What bounds them on an H100: bytes. The largest tensors are the 512^2
 // activations of block1 (128 channels, 134 MB in fp32, 67 MB in bf16). K6b
@@ -44,7 +45,12 @@
 // polyphase, 2 x 2
 // outputs per thread from a 3 x 3 neighbourhood loaded once, where the
 // time is the launch's; every other call is one thread per output. K6b is
-// one thread per element, neighbouring threads on neighbouring addresses.
+// one pass of 16 B vectors (4 fp32 or 8 bf16 a thread, each loaded and
+// stored once) over a 2-D grid of (column range, group of rows): a row
+// (b, c) loads its d and bias once, a thread reads its noise vector once
+// for up to 16 rows, and no index is divided per element. In bf16 the
+// rounding after each term would make the pass instruction bound, so the
+// leading terms run on bf16 pairs (Vec16 below).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -425,38 +431,251 @@ int upfirdn2d(const T* x, const FirTaps& f, int sep, int N, int H, int W, int up
   return (int)cudaGetLastError();
 }
 
+// K6b. Every term rounds to T as the plain version's op of T does (no FMA
+// contraction: __fmul_rn, __fadd_rn); d, noise, bias and the clamp bound
+// are rounded to T as they are loaded, as the plain version casts them.
+struct EpiTerms {
+  float s, bias;  // this row's d[b,c] and bias[c], rounded to T
+  int act;
+  float gain, clamp;  // clamp rounded to T, < 0 for none
+  bool scale, noise, has_bias;
+};
+
+// activation, gain and clamp of one element (a value of T): a clamp of a
+// value of T to bounds of T needs no rounding
 template <typename T>
-__global__ void __launch_bounds__(256)
-bias_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                const float* __restrict__ noise, const float* __restrict__ bias,
-                long long total, int C, int HW, int act, float gain, float clamp,
-                T* __restrict__ y) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  long long bc = i / HW;
-  int hw = (int)(i - bc * HW);
-  int c = (int)(bc % C);
-  float v = load_f(x + i);
-  if (scale) v = round_to<T>(__fmul_rn(v, scale[bc]));
-  if (noise) v = round_to<T>(__fadd_rn(v, noise[hw]));
-  if (bias) v = round_to<T>(__fadd_rn(v, bias[c]));
-  if (act == kRelu)
+__device__ __forceinline__ float act_tail(float v, const EpiTerms& e) {
+  if (e.act == kRelu)
     v = v > 0.0f ? v : 0.0f;
-  else if (act == kLrelu)
+  else if (e.act == kLrelu)
     v = v >= 0.0f ? v : round_to<T>(__fmul_rn(v, 0.2f));
-  if (gain != 1.0f) v = round_to<T>(__fmul_rn(v, gain));
-  if (clamp >= 0.0f) v = round_to<T>(fminf(fmaxf(v, -clamp), clamp));
-  store_f(y + i, v);
+  if (e.gain != 1.0f) v = round_to<T>(__fmul_rn(v, e.gain));
+  if (e.clamp >= 0.0f) v = fminf(fmaxf(v, -e.clamp), e.clamp);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ float epilogue(float v, float noise, const EpiTerms& e) {
+  if (e.scale) v = round_to<T>(__fmul_rn(v, e.s));
+  if (e.noise) v = round_to<T>(__fadd_rn(v, noise));
+  if (e.has_bias) v = round_to<T>(__fadd_rn(v, e.bias));
+  return act_tail<T>(v, e);
+}
+
+template <typename T>
+__device__ __forceinline__ EpiTerms row_terms(const float* scale, const float* noise,
+                                              const float* bias, long long bc, int c, int act,
+                                              float gain, float clamp) {
+  EpiTerms e;
+  e.scale = scale != nullptr;
+  e.noise = noise != nullptr;
+  e.has_bias = bias != nullptr;
+  e.s = e.scale ? round_to<T>(__ldg(scale + bc)) : 1.0f;
+  e.bias = e.has_bias ? round_to<T>(__ldg(bias + c)) : 0.0f;
+  e.act = act;
+  e.gain = gain;
+  e.clamp = clamp >= 0.0f ? round_to<T>(clamp) : -1.0f;
+  return e;
+}
+
+// 16 B of T: 4 fp32 or 8 bf16 elements (Raw), their noise values rounded
+// to T (Noise), and the epilogue of all of them. In bf16 the three leading
+// terms run on bf16 pairs: the product or sum of two bf16 values rounded
+// once to bf16 equals the plain version's fp32 op rounded to bf16 (an fp32
+// product of two bf16 values is exact; an fp32 sum that rounds lies far
+// from a bf16 tie), at one instruction for two elements.
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  using Raw = float4;
+  using Noise = float4;
+  static __device__ __forceinline__ Noise noise(const float (&n)[4]) {
+    return make_float4(n[0], n[1], n[2], n[3]);
+  }
+  static __device__ __forceinline__ Raw gather(const float* p) {
+    return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+  }
+  static __device__ __forceinline__ Raw apply(Raw v, const Noise& n, const EpiTerms& e) {
+    v.x = epilogue<float>(v.x, n.x, e);
+    v.y = epilogue<float>(v.y, n.y, e);
+    v.z = epilogue<float>(v.z, n.z, e);
+    v.w = epilogue<float>(v.w, n.w, e);
+    return v;
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  using Raw = uint4;
+  struct Noise {
+    __nv_bfloat162 h[4];
+  };
+  static __device__ __forceinline__ Noise noise(const float (&n)[8]) {
+    Noise r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r.h[i] = __floats2bfloat162_rn(n[2 * i], n[2 * i + 1]);
+    return r;
+  }
+  static __device__ __forceinline__ Raw gather(const __nv_bfloat16* p) {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // element 2i in the low half
+      w[i] = (uint32_t)__ldg(q + 2 * i) | ((uint32_t)__ldg(q + 2 * i + 1) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ Raw apply(Raw v, const Noise& n, const EpiTerms& e) {
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const __nv_bfloat162 s2 = __float2bfloat162_rn(e.s), b2 = __float2bfloat162_rn(e.bias);
+    const bool tail = e.act != kLinear || e.gain != 1.0f || e.clamp >= 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+      if (e.scale) h = __hmul2(h, s2);
+      if (e.noise) h = __hadd2(h, n.h[i]);
+      if (e.has_bias) h = __hadd2(h, b2);
+      if (tail) {
+        float2 f = __bfloat1622float2(h);
+        h = __floats2bfloat162_rn(act_tail<__nv_bfloat16>(f.x, e),
+                                  act_tail<__nv_bfloat16>(f.y, e));
+      }
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// V noise values from p: 16 B loads where p is aligned, else one at a time
+template <int V>
+__device__ __forceinline__ void load_noise(const float* p, float (&v)[V]) {
+  if (aligned16(p)) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p + i));
+      v[i] = a.x, v[i + 1] = a.y, v[i + 2] = a.z, v[i + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __ldg(p + i);
+  }
+}
+
+constexpr int kEpiThreads = 256;
+constexpr int kEpiRows = 2;  // rows whose loads a thread has in flight together
+
+// NCHW: rows = B x C rows of HW elements. blockIdx.y owns rows_per_cta
+// consecutive rows, so d[b,c] and bias[c] are loaded once per row and
+// nothing is divided per element; a thread owns one 16 B vector slot of
+// every row and reads its noise vector once. kAligned: x, y and noise 16 B
+// aligned and HW a multiple of the vector width, so every row is vectors
+// alone (the main path). Otherwise each row starts where y is aligned:
+// a scalar head before, a scalar tail after the last whole vector; x and
+// noise are read as vectors where they are aligned at that start, else
+// element by element.
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(kEpiThreads)
+bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ noise, const float* __restrict__ bias, int rows,
+                     int C, int HW, int rows_per_cta, int act, float gain, float clamp,
+                     T* __restrict__ y) {
+  using Vec = Vec16<T>;
+  using Raw = typename Vec::Raw;
+  constexpr int V = 16 / (int)sizeof(T);
+  const int r0 = blockIdx.y * rows_per_cta, r1 = min(rows, r0 + rows_per_cta);
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;  // vector slot of a row
+  float nf[V] = {};
+  if (kAligned) {
+    const int e = V * k;
+    if (e >= HW) return;
+    if (noise) load_noise<V>(noise + e, nf);
+    const typename Vec::Noise nz = Vec::noise(nf);
+    for (int r = r0; r < r1; r += kEpiRows) {
+      Raw v[kEpiRows];
+#pragma unroll
+      for (int u = 0; u < kEpiRows; ++u)
+        if (r + u < r1) v[u] = __ldg(reinterpret_cast<const Raw*>(x + (long long)(r + u) * HW + e));
+#pragma unroll
+      for (int u = 0; u < kEpiRows; ++u) {
+        if (r + u >= r1) break;
+        const EpiTerms t =
+            row_terms<T>(scale, noise, bias, r + u, (r + u) % C, act, gain, clamp);
+        *reinterpret_cast<Raw*>(y + (long long)(r + u) * HW + e) = Vec::apply(v[u], nz, t);
+      }
+    }
+    return;
+  }
+  for (int r = r0; r < r1; ++r) {
+    const T* xr = x + (long long)r * HW;
+    T* yr = y + (long long)r * HW;
+    const int h = min(HW, (int)((16 - (reinterpret_cast<uintptr_t>(yr) & 15)) & 15) /
+                              (int)sizeof(T));
+    const int n_vec = (HW - h) / V, tail = h + V * n_vec;
+    const EpiTerms t = row_terms<T>(scale, noise, bias, r, r % C, act, gain, clamp);
+    if (k < n_vec) {
+      const int e = h + V * k;
+      if (noise) load_noise<V>(noise + e, nf);
+      const Raw v = aligned16(xr + e) ? __ldg(reinterpret_cast<const Raw*>(xr + e))
+                                      : Vec::gather(xr + e);
+      *reinterpret_cast<Raw*>(yr + e) = Vec::apply(v, Vec::noise(nf), t);
+    }
+    // the head [0, h) and the tail [tail, HW), one element a thread
+    const int i = threadIdx.x < V ? threadIdx.x : tail + threadIdx.x - V;
+    if (blockIdx.x == 0 && threadIdx.x < 2 * V && (threadIdx.x < V ? i < h : i < HW)) {
+      const float nz = noise ? round_to<T>(__ldg(noise + i)) : 0.0f;
+      store_f(yr + i, epilogue<T>(load_f(xr + i), nz, t));
+    }
+  }
+}
+
+// HW = 1 (the [N,C] affine layers): one thread an element, channel i % C.
+template <typename T>
+__global__ void __launch_bounds__(kEpiThreads)
+bias_act_flat_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ noise, const float* __restrict__ bias,
+                     long long total, int C, int act, float gain, float clamp,
+                     T* __restrict__ y) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const EpiTerms t = row_terms<T>(scale, noise, bias, i, (int)(i % C), act, gain, clamp);
+  const float nz = noise ? round_to<T>(__ldg(noise)) : 0.0f;
+  store_f(y + i, epilogue<T>(load_f(x + i), nz, t));
 }
 
 template <typename T>
 int bias_act(const T* x, const float* scale, const float* noise, const float* bias,
              long long total, int C, int HW, int act, float gain, float clamp, T* y,
              cudaStream_t stream) {
-  if (act < kLinear || act > kLrelu || C < 1 || HW < 1) return (int)cudaErrorInvalidValue;
-  if (total > 0)
-    bias_act_kernel<T><<<r3dp_blocks(total, 256), 256, 0, stream>>>(
-        x, scale, noise, bias, total, C, HW, act, gain, clamp, y);
+  if (act < kLinear || act > kLrelu || C < 1 || HW < 1 || total % HW)
+    return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaGetLastError();
+  if (HW == 1) {
+    bias_act_flat_kernel<T><<<r3dp_blocks(total, kEpiThreads), kEpiThreads, 0, stream>>>(
+        x, scale, noise, bias, total, C, act, gain, clamp, y);
+    return (int)cudaGetLastError();
+  }
+  if (total / HW > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / (int)sizeof(T);
+  const int rows = (int)(total / HW);
+  const bool aligned = HW % V == 0 && aligned16(x) && aligned16(y) && (!noise || aligned16(noise));
+  const unsigned gx = r3dp_blocks(HW / V + (aligned ? 0 : 1), kEpiThreads);
+  // about 4096 CTAs (several waves, so that the last is a small share),
+  // each over 4 to 16 rows of one column range
+  long long per = ((long long)rows * gx + 4095) / 4096;
+  per = per < 4 ? 4 : per > 16 ? 16 : per;
+  if ((rows + per - 1) / per > 65535) per = (rows + 65534) / 65535;
+  const dim3 grid(gx, (unsigned)((rows + per - 1) / per));
+  if (aligned)
+    bias_act_rows_kernel<T, true><<<grid, kEpiThreads, 0, stream>>>(
+        x, scale, noise, bias, rows, C, HW, (int)per, act, gain, clamp, y);
+  else
+    bias_act_rows_kernel<T, false><<<grid, kEpiThreads, 0, stream>>>(
+        x, scale, noise, bias, rows, C, HW, (int)per, act, gain, clamp, y);
   return (int)cudaGetLastError();
 }
 
@@ -478,9 +697,9 @@ R3DP_EXPORT int r3dp_upfirdn2d_bf16(const __nv_bfloat16* x, const Upfirdn2dPlan*
                    p->fw, p->Ho, p->Wo, y, stream);
 }
 
-// x, y [B,C,HW] fp32 or bf16; scale [B,C], noise [HW], bias [C] fp32, each
-// optional (NULL); act 0 linear, 1 relu, 2 lrelu(0.2); gain; clamp < 0 for
-// none.
+// x, y [B,C,HW] fp32 or bf16, total = B x C x HW; scale [B,C], noise
+// [HW], bias [C] fp32 (the kernel rounds them to x's type), each optional
+// (NULL); act 0 linear, 1 relu, 2 lrelu(0.2); gain; clamp < 0 for none.
 R3DP_EXPORT int r3dp_bias_act(const float* x, const float* scale, const float* noise,
                               const float* bias, long long total, int C, int HW, int act,
                               float gain, float clamp, float* y, cudaStream_t stream) {

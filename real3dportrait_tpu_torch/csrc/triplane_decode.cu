@@ -18,210 +18,314 @@
 // mean over the planes, FC 32->64, softplus, FC 64->33; sigma = channel 0,
 // rgb = sigmoid(channels 1..32) * 1.002 - 0.001.
 //
-// What bounds them on an H100: the fp32 operations. Per point the MLP
-// costs 2 x (32x64 + 64x33) + ~100 = ~8.4k operations and the corner
-// lerps 3 x 4 x 32 x 2 (K1) or 3 x 8 x 32 x 2 (K1-trigrid), ~9.2k or
-// ~10k in all: at 786k points 0.11-0.12 ms on the fp32 peak, against
-// ~0.02 ms to read the planes once from HBM. The gathers come second:
-// 3 planes x 4 or 8 corners of one 128 B row each, 1.5 or 3 KB per point
-// of L2 traffic; a tri-plane set of one frame (3 x 256 x 256 x 32 fp32 =
-// 25 MB) fits in the 50 MB L2, a depth-3 tri-grid (75.5 MB) does not, yet
-// a tri-grid point costs only ~1.3x a tri-plane one on the card. Design:
-// one thread per point; the planes stay channels-last so each corner is one
-// contiguous 128 B row read as eight float4 loads; the folded MLP weights
-// (17 KB) sit in shared memory, where every lane of a warp reads the same
-// address (a broadcast, no bank conflicts), and the 32-wide feature and
-// 64-wide hidden vectors live in registers, so nothing between the sample
-// and the decoder output touches device memory. A tri-grid point visits
-// only the depth slices its two z corners fall in, so the extra cost over
-// K1 is the second slice's four rows.
+// What bounds them on an H100: bytes, once the MLP runs on the tensor
+// cores. A point reads 3 planes x 4 (K1) or 8 (K1-trigrid) corner rows of
+// 128 B and writes 132 B; the planes of a frame are 25 MB (tri-planes, in
+// the 50 MB L2) or 75.5 MB (depth-3 tri-grids, not). The MLP is 8.3k
+// operations a point: on the CUDA cores (67 TFLOP/s) it alone took longer
+// than reading the planes once; in split TF32 on the tensor cores (3
+// products per fp32 product at 495 TFLOP/s) it takes less.
+//
+// Design. The gathers go by warp: a warp owns a tile of 16 consecutive
+// points (samples of one or two rays, spatial neighbours) and gathers 4 of
+// them at a time, 8 lanes on a point, each lane a 16 B piece (4 channels)
+// of every corner row, so that each 128 B row is one coalesced read. A
+// lane computes its point's corner offsets, weights and masks once per
+// plane and starts the plane's 4 or 8 loads together. The blended
+// [16 x 32] features land in the warp's shared buffer as the A operand of
+// the first product; both products run on mma.sync m16n8k8 TF32 with
+// split-TF32 operands (common.cuh), [16 x 32] x [32 x 64], softplus in
+// fp32 in registers, then [16 x 64] x [64 x 40] (33 outputs, N padded to
+// 5 tiles). The first product's accumulators are the second one's A
+// fragments as they lie: the hidden units are taken in the order the
+// accumulator holds them (k = t is hidden 8j + 2t, k = t + 4 is 8j + 2t +
+// 1), and the weights are packed in that order. The output columns are
+// permuted so that rgb is columns 0..31 and sigma column 32; rgb goes
+// through the warp buffer so that each point's 128 B row leaves as
+// coalesced 16 B stores. The folded weights come packed by the wrapper in
+// fragment order, already split into hi and lo parts
+// (models/decoder.py packed_decoder_mlp, cached per set of weights), and a
+// CTA of 8 warps stages them in shared memory once (37 KB) and then walks
+// tiles until none is left. Each accumulator takes 12 (first product) or
+// 24 (second) truncating mma: up to 24 ulps of its sum, the size of an
+// fp32 dot product's rounding at K = 64.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kC = 32;    // plane channels
-constexpr int kHid = 64;  // decoder hidden width
-constexpr int kOut = 33;  // 1 density + 32 feature channels
-
-struct DecoderSmem {
-  float w0[kHid * kC];
-  float b0[kHid];
-  float w1[kOut * kHid];
-  float b1[kOut];
-};
-
-__device__ __forceinline__ void load_decoder(DecoderSmem& s, const float* w0,
-                                             const float* b0, const float* w1,
-                                             const float* b1) {
-  for (int i = threadIdx.x; i < kHid * kC; i += blockDim.x) s.w0[i] = w0[i];
-  for (int i = threadIdx.x; i < kOut * kHid; i += blockDim.x) s.w1[i] = w1[i];
-  for (int i = threadIdx.x; i < kHid; i += blockDim.x) s.b0[i] = b0[i];
-  for (int i = threadIdx.x; i < kOut; i += blockDim.x) s.b1[i] = b1[i];
-  __syncthreads();
-}
-
-__device__ __forceinline__ void add_corner(float* feat, const float* plane,
-                                           int H, int W, float xi, float yi,
-                                           float wgt) {
-  if (xi < 0.0f || xi > (float)(W - 1) || yi < 0.0f || yi > (float)(H - 1))
-    return;
-  const float4* row = reinterpret_cast<const float4*>(
-      plane + ((long long)yi * W + (long long)xi) * kC);
-#pragma unroll
-  for (int q = 0; q < kC / 4; ++q) {
-    float4 v = __ldg(row + q);
-    feat[4 * q + 0] += v.x * wgt;
-    feat[4 * q + 1] += v.y * wgt;
-    feat[4 * q + 2] += v.z * wgt;
-    feat[4 * q + 3] += v.w * wgt;
-  }
-}
-
-// Four corners of one [H,W,32] slice at the unnormalised (x, y), each
-// weight scaled by wz (1 for a tri-plane, the z corner's weight for a
-// tri-grid slice).
-__device__ __forceinline__ void sample_slice(float* feat, const float* plane,
-                                             int H, int W, float x, float y,
-                                             float wz) {
-  float x0 = floorf(x), y0 = floorf(y);
-  float wx1 = x - x0, wy1 = y - y0;
-  float wx0 = 1.0f - wx1, wy0 = 1.0f - wy1;
-  add_corner(feat, plane, H, W, x0, y0, wx0 * wy0 * wz);
-  add_corner(feat, plane, H, W, x0 + 1.0f, y0, wx1 * wy0 * wz);
-  add_corner(feat, plane, H, W, x0, y0 + 1.0f, wx0 * wy1 * wz);
-  add_corner(feat, plane, H, W, x0 + 1.0f, y0 + 1.0f, wx1 * wy1 * wz);
-}
+constexpr int kC = 32;     // plane channels
+constexpr int kHid = 64;   // decoder hidden width
+constexpr int kN2 = 40;    // 33 outputs padded to 5 n-tiles
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kTile = 16;  // points of a warp tile: one m16 block
+constexpr int kAS = 36;    // feature row stride: A fragment loads hit 32 banks
+constexpr int kOS = 40;    // output row stride: float2 stores hit 32 banks
+// packed weights, in floats: the two products' B fragments as float4
+// (hi0, hi1, lo0, lo1) by [k-step][n-tile][lane], then b0 and b1 (permuted)
+constexpr int kW0F4 = (kC / 8) * (kHid / 8) * 32;
+constexpr int kW1F4 = (kHid / 8) * (kN2 / 8) * 32;
+constexpr int kPacked = 4 * (kW0F4 + kW1F4) + kHid + kN2;
+constexpr int kBuf = kTile * kOS;  // a warp's buffer, in floats
+constexpr int kSmemBytes = (kPacked + kWarps * kBuf) * 4;
+static_assert(kPacked % 4 == 0 && kTile * kAS <= kBuf, "shared-memory layout");
 
 // torch grid_sample unnormalisation with align_corners=False
 __device__ __forceinline__ float unnormalise(float u, int size) {
   return ((u + 1.0f) * size - 1.0f) / 2.0f;
 }
 
-// Bilinear lookup of one [H,W,32] plane at (u, v) in [-1, 1].
-__device__ __forceinline__ void sample_plane(float* feat, const float* plane,
-                                             int H, int W, float u, float v) {
-  sample_slice(feat, plane, H, W, unnormalise(u, W), unnormalise(v, H), 1.0f);
-}
-
-// Trilinear lookup of one [D,H,W,32] grid at (u, v, t) in [-1, 1]: u
-// indexes W, v H, t D; a z corner outside [0, D-1] adds nothing.
-__device__ __forceinline__ void sample_grid(float* feat, const float* grid,
-                                            int D, int H, int W, float u,
-                                            float v, float t) {
-  float x = unnormalise(u, W), y = unnormalise(v, H), z = unnormalise(t, D);
-  float z0 = floorf(z);
-  float wz1 = z - z0, wz0 = 1.0f - wz1;
-  long long slice = (long long)H * W * kC;
-  if (z0 >= 0.0f && z0 <= (float)(D - 1))
-    sample_slice(feat, grid + (long long)z0 * slice, H, W, x, y, wz0);
-  if (z0 + 1.0f >= 0.0f && z0 + 1.0f <= (float)(D - 1))
-    sample_slice(feat, grid + ((long long)z0 + 1) * slice, H, W, x, y, wz1);
-}
-
-// Plane mean, MLP and the two outputs of point n.
-__device__ __forceinline__ void decode_point(float* feat, const DecoderSmem& s,
-                                             long long n, float* rgb,
-                                             float* sigma) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) feat[c] = feat[c] / 3.0f;
-
-  float hid[kHid];
-#pragma unroll
-  for (int j = 0; j < kHid; ++j) {
-    float acc = s.b0[j];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc += feat[c] * s.w0[j * kC + c];
-    hid[j] = r3dp_softplus(acc);
-  }
-
-  float* rgb_row = rgb + n * (kOut - 1);
-#pragma unroll 1
-  for (int o = 0; o < kOut; ++o) {
-    float acc = s.b1[o];
-#pragma unroll
-    for (int j = 0; j < kHid; ++j) acc += hid[j] * s.w1[o * kHid + j];
-    if (o == 0)
-      sigma[n] = acc;
-    else
-      rgb_row[o - 1] = r3dp_sigmoid(acc) * (1.0f + 2.0f * 0.001f) - 0.001f;
-  }
-}
-
-// D = 0 marks tri-planes [B,3,H,W,32]; D >= 1 tri-grids [B,3,D,H,W,32].
-__global__ void __launch_bounds__(128)
-plane_decode_kernel(const float* __restrict__ planes, int B, int D, int H,
-                    int W, const float* __restrict__ coords,
-                    long long n_per_batch, float coord_scale,
-                    const float* __restrict__ w0, const float* __restrict__ b0,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    float* __restrict__ rgb, float* __restrict__ sigma) {
-  __shared__ DecoderSmem s;
-  load_decoder(s, w0, b0, w1, b1);
-
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)B * n_per_batch) return;
-  long long b = n / n_per_batch;
-
-  float px = coords[3 * n + 0] * coord_scale;
-  float py = coords[3 * n + 1] * coord_scale;
-  float pz = coords[3 * n + 2] * coord_scale;
-
-  float feat[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) feat[c] = 0.0f;
-  long long plane_elems = (long long)(D > 0 ? D : 1) * H * W * kC;
-  const float* base = planes + b * 3 * plane_elems;
-  if (D == 0) {
-    sample_plane(feat, base, H, W, px, py);                    // (x, y)
-    sample_plane(feat, base + plane_elems, H, W, px, pz);      // (x, z)
-    sample_plane(feat, base + 2 * plane_elems, H, W, pz, px);  // (z, x)
+// Adds one plane's lookup of the lane's 4 channels at (u, v) to f: kGrid,
+// a [D,H,W,32] grid, trilinear, t indexing D; else an [H,W,32] plane,
+// bilinear. ``plane`` points at the lane's channels of row 0. A corner
+// outside the plane, or a z corner outside [0, D-1], adds nothing; the
+// tests are on the floored coordinates in fp32 (a NaN is outside), the
+// offsets in 32 bits (the wrapper keeps a plane under 2^31 floats).
+template <bool kGrid>
+__device__ __forceinline__ void gather_plane(float4& f, const float* __restrict__ plane, int D,
+                                             int H, int W, float u, float v, float t) {
+  constexpr int kZ = kGrid ? 2 : 1, kCorners = 4 * kZ;
+  const float x = unnormalise(u, W), y = unnormalise(v, H);
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float wx[2] = {1.0f - (x - x0), x - x0};
+  const float wy[2] = {1.0f - (y - y0), y - y0};
+  const bool xok[2] = {x0 >= 0.0f && x0 <= (float)(W - 1),
+                       x0 + 1.0f >= 0.0f && x0 + 1.0f <= (float)(W - 1)};
+  const bool yok[2] = {y0 >= 0.0f && y0 <= (float)(H - 1),
+                       y0 + 1.0f >= 0.0f && y0 + 1.0f <= (float)(H - 1)};
+  float wz[kZ], z0 = 0.0f;
+  bool zok[kZ];
+  if (kGrid) {
+    const float z = unnormalise(t, D);
+    z0 = floorf(z);
+    wz[kZ - 1] = z - z0;
+    wz[0] = 1.0f - (z - z0);
+    zok[0] = z0 >= 0.0f && z0 <= (float)(D - 1);
+    zok[kZ - 1] = z0 + 1.0f >= 0.0f && z0 + 1.0f <= (float)(D - 1);
   } else {
-    sample_grid(feat, base, D, H, W, px, py, pz);                    // (x, y | z)
-    sample_grid(feat, base + plane_elems, D, H, W, px, pz, py);      // (x, z | y)
-    sample_grid(feat, base + 2 * plane_elems, D, H, W, pz, px, py);  // (z, x | y)
+    wz[0] = 1.0f;
+    zok[0] = true;
   }
-  decode_point(feat, s, n, rgb, sigma);
+  // row (x0, y0, z0) in floats; unsigned, so that the offsets of corners
+  // outside (never read) wrap instead of overflowing
+  const unsigned row_w = (unsigned)W * kC, slice = (unsigned)H * row_w;
+  const unsigned base = (unsigned)(int)z0 * slice + (unsigned)(int)y0 * row_w +
+                        (unsigned)(int)x0 * kC;
+  // corners (x0,y0), (x1,y0), (x0,y1), (x1,y1) of slice z0, then of z0 + 1;
+  // every load started before the first is used
+  bool ok[kCorners];
+  float4 val[kCorners];
+#pragma unroll
+  for (int i = 0; i < kCorners; ++i) {
+    const int c = i % 4, k = i / 4;
+    ok[i] = zok[k] && xok[c & 1] && yok[c >> 1];
+    const unsigned off = base + (c & 1) * kC + (c >> 1) * row_w + k * slice;
+    val[i] = ok[i] ? __ldg(reinterpret_cast<const float4*>(plane + off))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int i = 0; i < kCorners; ++i) {
+    const int c = i % 4, k = i / 4;
+    const float w = ok[i] ? wx[c & 1] * wy[c >> 1] * wz[k] : 0.0f;
+    f.x += val[i].x * w;
+    f.y += val[i].y * w;
+    f.z += val[i].z * w;
+    f.w += val[i].w * w;
+  }
 }
 
+// softplus and sigmoid on the SFU's exp2 and log2 (ex2.approx, lg2.approx:
+// ~2^-22 relative): within ~2e-7 absolute of the fp32 library functions,
+// against the decoder's tolerance of 1e-4, at a fraction of their
+// instructions
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float softplus_fast(float x) {
+  const float e = exp2_approx(-fabsf(x) * 1.4426950408889634f);
+  return fmaxf(x, 0.0f) + __log2f(1.0f + e) * 0.6931471805599453f;
+}
+
+__device__ __forceinline__ float rgb_of(float v) {
+  const float s = __fdividef(1.0f, 1.0f + exp2_approx(-v * 1.4426950408889634f));
+  return s * (1.0f + 2.0f * 0.001f) - 0.001f;
+}
+
+// kGrid: tri-grids [B,3,D,H,W,32]; else tri-planes [B,3,H,W,32] (D unused).
+template <bool kGrid>
+__global__ void __launch_bounds__(kThreads, 2)
+plane_decode_kernel(const float* __restrict__ planes, int B, int D, int H, int W,
+                    const float* __restrict__ coords, long long n_per_batch, float coord_scale,
+                    const float4* __restrict__ packed, float* __restrict__ rgb,
+                    float* __restrict__ sigma) {
+  extern __shared__ float4 smem4[];
+  for (int i = threadIdx.x; i < kPacked / 4; i += kThreads) smem4[i] = __ldg(packed + i);
+  __syncthreads();
+  const float4* w0f = smem4;
+  const float4* w1f = smem4 + kW0F4;
+  const float* b0 = reinterpret_cast<const float*>(smem4 + kW0F4 + kW1F4);
+  const float* b1 = b0 + kHid;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;  // mma fragment coordinates
+  const int grp = lane / 8, q = lane % 8;    // gather: point of 4, channels 4q..4q+3
+  float* buf = reinterpret_cast<float*>(smem4) + kPacked + warp * kBuf;
+  const long long total = (long long)B * n_per_batch;
+  const long long plane_elems = (long long)(kGrid ? D : 1) * H * W * kC;
+  const long long n_tiles = (total + kTile - 1) / kTile;
+
+  for (long long tile = (long long)blockIdx.x * kWarps + warp; tile < n_tiles;
+       tile += (long long)gridDim.x * kWarps) {
+    const long long n0 = tile * kTile;
+#pragma unroll 1
+    for (int r = 0; r < kTile / 4; ++r) {
+      const int p = 4 * r + grp;
+      const long long n = n0 + p;
+      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (n < total) {
+        const float px = __ldg(coords + 3 * n + 0) * coord_scale;
+        const float py = __ldg(coords + 3 * n + 1) * coord_scale;
+        const float pz = __ldg(coords + 3 * n + 2) * coord_scale;
+        const long long b = B == 1 ? 0 : n / n_per_batch;
+        const float* base = planes + b * 3 * plane_elems + 4 * q;
+        gather_plane<kGrid>(f, base, D, H, W, px, py, pz);                    // (x, y | z)
+        gather_plane<kGrid>(f, base + plane_elems, D, H, W, px, pz, py);      // (x, z | y)
+        gather_plane<kGrid>(f, base + 2 * plane_elems, D, H, W, pz, px, py);  // (z, x | y)
+      }
+      constexpr float kThird = 1.0f / 3.0f;  // the mean of the planes
+      f.x *= kThird;
+      f.y *= kThird;
+      f.z *= kThird;
+      f.w *= kThird;
+      *reinterpret_cast<float4*>(buf + p * kAS + 4 * q) = f;
+    }
+    __syncwarp();
+
+    // hidden = features [16 x 32] . w0^T [32 x 64]: k-steps s, n-tiles j
+    float hid[kHid / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHid / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hid[j][i] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kC / 8; ++s) {
+      const float* a_at = buf + gid * kAS + 8 * s + tig;
+      const float a[4] = {a_at[0], a_at[8 * kAS], a_at[4], a_at[8 * kAS + 4]};
+      uint32_t ah[4], al[4];
+      split_tf32(a, ah, al);
+#pragma unroll
+      for (int j = 0; j < kHid / 8; ++j) mma_split_tf32(hid[j], ah, al, w0f[(s * 8 + j) * 32 + lane]);
+    }
+    __syncwarp();  // the features are read: the buffer takes the outputs next
+#pragma unroll
+    for (int j = 0; j < kHid / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(b0 + 8 * j + 2 * tig);
+      hid[j][0] = softplus_fast(hid[j][0] + bb.x);
+      hid[j][1] = softplus_fast(hid[j][1] + bb.y);
+      hid[j][2] = softplus_fast(hid[j][2] + bb.x);
+      hid[j][3] = softplus_fast(hid[j][3] + bb.y);
+    }
+
+    // out = hidden [16 x 64] . w1^T [64 x 40]: the accumulator of n-tile j
+    // is the A fragment of k-step j (k = t: hidden 8j + 2t, k = t + 4:
+    // 8j + 2t + 1)
+    float out[kN2 / 8][4];
+#pragma unroll
+    for (int m = 0; m < kN2 / 8; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[m][i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kHid / 8; ++j) {
+      const float a[4] = {hid[j][0], hid[j][2], hid[j][1], hid[j][3]};
+      uint32_t ah[4], al[4];
+      split_tf32(a, ah, al);
+#pragma unroll
+      for (int m = 0; m < kN2 / 8; ++m)
+        mma_split_tf32(out[m], ah, al, w1f[(j * (kN2 / 8) + m) * 32 + lane]);
+    }
+
+    // columns 0..31 rgb, through the buffer; column 32 sigma, stored here
+#pragma unroll
+    for (int m = 0; m < kC / 8; ++m) {
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + 8 * m + 2 * tig);
+      *reinterpret_cast<float2*>(buf + gid * kOS + 8 * m + 2 * tig) =
+          make_float2(rgb_of(out[m][0] + bb.x), rgb_of(out[m][1] + bb.y));
+      *reinterpret_cast<float2*>(buf + (gid + 8) * kOS + 8 * m + 2 * tig) =
+          make_float2(rgb_of(out[m][2] + bb.x), rgb_of(out[m][3] + bb.y));
+    }
+    if (tig == 0) {
+      if (n0 + gid < total) sigma[n0 + gid] = out[kC / 8][0] + b1[kC];
+      if (n0 + gid + 8 < total) sigma[n0 + gid + 8] = out[kC / 8][2] + b1[kC];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kTile * kC / 4 / 32; ++k) {
+      const int i = lane + 32 * k, p = i / 8, c = i % 8;
+      if (n0 + p < total)
+        reinterpret_cast<float4*>(rgb)[(n0 + p) * (kC / 4) + c] =
+            *reinterpret_cast<const float4*>(buf + p * kOS + 4 * c);
+    }
+    __syncwarp();  // the outputs are read before the next tile's features land
+  }
+}
+
+template <bool kGrid>
 int launch(const float* planes, int B, int D, int H, int W, const float* coords,
-           long long n_per_batch, float coord_scale, const float* w0,
-           const float* b0, const float* w1, const float* b1, float* rgb,
+           long long n_per_batch, float coord_scale, const float* packed, float* rgb,
            float* sigma, cudaStream_t stream) {
-  const int threads = 128;
-  long long total = (long long)B * n_per_batch;
-  if (total > 0)
-    plane_decode_kernel<<<r3dp_blocks(total, threads), threads, 0, stream>>>(
-        planes, B, D, H, W, coords, n_per_batch, coord_scale, w0, b0, w1, b1,
-        rgb, sigma);
+  const long long total = (long long)B * n_per_batch;
+  if (total <= 0) return (int)cudaGetLastError();
+  auto kernel = plane_decode_kernel<kGrid>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  // one wave of CTAs that walk the tiles: as many as fit the card at once
+  static int ctas_per_sm = 0, sms = 0;
+  if (ctas_per_sm == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, kernel, kThreads,
+                                                             kSmemBytes)) != cudaSuccess)
+      return (int)err;
+    if (ctas_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long n_tiles = (total + kTile - 1) / kTile;
+  const long long want = (n_tiles + kWarps - 1) / kWarps;
+  const long long fit = (long long)ctas_per_sm * sms;
+  kernel<<<(unsigned int)(want < fit ? want : fit), kThreads, kSmemBytes, stream>>>(
+      planes, B, D, H, W, coords, n_per_batch, coord_scale,
+      reinterpret_cast<const float4*>(packed), rgb, sigma);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// planes [B,3,H,W,32] fp32 contiguous; coords [B,n_per_batch,3];
-// w0 [64,32], b0 [64], w1 [33,64], b1 [33] with the equalised-LR gains
-// already folded in; rgb [B*n_per_batch,32], sigma [B*n_per_batch].
+// planes [B,3,H,W,32] fp32 contiguous, a plane under 2^31 floats; coords [B,n_per_batch,3]; packed
+// the folded decoder (w0 [64,32], b0 [64], w1 [33,64], b1 [33]) in the
+// kernel's fragment order, split into TF32 hi and lo parts, 16 B aligned
+// (models/decoder.py pack_decoder_mlp); rgb [B*n_per_batch,32] and sigma
+// [B*n_per_batch] 16 B aligned.
 R3DP_EXPORT int r3dp_triplane_decode(const float* planes, int B, int H, int W,
                                      const float* coords, long long n_per_batch,
-                                     float coord_scale, const float* w0,
-                                     const float* b0, const float* w1,
-                                     const float* b1, float* rgb, float* sigma,
-                                     cudaStream_t stream) {
-  return launch(planes, B, 0, H, W, coords, n_per_batch, coord_scale, w0, b0,
-                w1, b1, rgb, sigma, stream);
+                                     float coord_scale, const float* packed, float* rgb,
+                                     float* sigma, cudaStream_t stream) {
+  if ((long long)H * W * kC >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  return launch<false>(planes, B, 0, H, W, coords, n_per_batch, coord_scale, packed, rgb,
+                       sigma, stream);
 }
 
 // The same with tri-grids [B,3,D,H,W,32], D >= 1.
-R3DP_EXPORT int r3dp_trigrid_decode(const float* planes, int B, int D, int H,
-                                    int W, const float* coords,
-                                    long long n_per_batch, float coord_scale,
-                                    const float* w0, const float* b0,
-                                    const float* w1, const float* b1,
-                                    float* rgb, float* sigma,
-                                    cudaStream_t stream) {
-  if (D < 1) return (int)cudaErrorInvalidValue;
-  return launch(planes, B, D, H, W, coords, n_per_batch, coord_scale, w0, b0,
-                w1, b1, rgb, sigma, stream);
+R3DP_EXPORT int r3dp_trigrid_decode(const float* planes, int B, int D, int H, int W,
+                                    const float* coords, long long n_per_batch,
+                                    float coord_scale, const float* packed, float* rgb,
+                                    float* sigma, cudaStream_t stream) {
+  if (D < 1 || (long long)D * H * W * kC >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  return launch<true>(planes, B, D, H, W, coords, n_per_batch, coord_scale, packed, rgb,
+                      sigma, stream);
 }
 
 R3DP_EXPORT const char* r3dp_error_string(int status) {

@@ -25,7 +25,8 @@ source and driving keypoints uniform in [-0.8, 0.8], it prints:
   per-frame synchronisation, driven as chip_smoke's slices drive it
   (without source preparation or blinks);
 * a ``torch.profiler`` table of device kernel time per frame and the
-  device's busy share.
+  device's busy share: the 20 largest kernels, then every other kernel
+  of the port (``csrc/``).
 
 fp32 with TF32 off, like chip_smoke. An event pair also counts the device
 idling while the host enqueues, so in-place module times include launch
@@ -253,7 +254,11 @@ def profile_preset(config: str, preset: str, dev: torch.device, n_frames: int = 
     busy = sum(x.self_device_time_total for x in rows) / reps / 1e3
     print(f"[{preset}] profiler: kernel time {busy:.3f} ms/frame, wall {wall:.3f} "
           f"ms/frame, busy share {busy / wall:.3f}")
-    for x in sorted(rows, key=lambda x: -x.self_device_time_total)[:20]:
+    ranked = sorted(rows, key=lambda x: -x.self_device_time_total)
+    # the 20 largest, then the port's own kernels below them (csrc/*.cu
+    # keeps them in anonymous namespaces; PyTorch's sit under at::)
+    port = [x for x in ranked[20:] if "(anonymous namespace)::" in x.key and "at::" not in x.key]
+    for x in ranked[:20] + port:
         print(f"[{preset}]   {x.self_device_time_total / reps / 1e3:8.3f} ms/frame "
               f"x{x.count // reps:4d}  {x.key[:100]}")
 

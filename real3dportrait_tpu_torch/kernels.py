@@ -55,8 +55,8 @@ class Upfirdn2dPlan(ctypes.Structure):
 
 # C entry point -> argument types (the last argument is the stream)
 SIGNATURES: dict[str, tuple] = {
-    "r3dp_triplane_decode": (_P, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P, _P, _P, _P),
-    "r3dp_trigrid_decode": (_P, _I, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P, _P, _P, _P),
+    "r3dp_triplane_decode": (_P, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P),
+    "r3dp_trigrid_decode": (_P, _I, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P),
     "r3dp_importance_sample": (_P, _P, _P, _I, _I, _I, _P, _P),
     "r3dp_merge_composite": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "r3dp_secc_raster": (_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P, _P, _P),

@@ -8,10 +8,16 @@ two equalized-LR dense layers with softplus and MipNeRF sigmoid clamping.
 mean and this MLP; :func:`triplane_decode_plain` is its plain PyTorch
 version (``F.grid_sample`` + :class:`OSGDecoder`). :func:`trigrid_decode`
 and :func:`trigrid_decode_plain` are the same for tri-grids (kernel
-K1-trigrid, trilinear sampling, in the same source).
+K1-trigrid, trilinear sampling, in the same source). Both kernels take the
+decoder's folded weights packed in their fragment order and split for the
+tensor cores (:func:`pack_decoder_mlp`), cached on the decoder
+(:func:`packed_decoder_mlp`).
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 import torch.nn as nn
@@ -56,21 +62,99 @@ def triplane_decode_plain(planes: torch.Tensor, coords: torch.Tensor, box_warp: 
     return out["rgb"], out["sigma"]
 
 
-def _folded_mlp(name: str, decoder: OSGDecoder, planes: torch.Tensor,
-                coords: torch.Tensor) -> list[torch.Tensor]:
-    """Check what the K1 kernels take; return the folded MLP weights."""
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, ties away
+    from zero (the kernels' split; an fp32 tensor in, its bits kept)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def pack_decoder_mlp(w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                     b1: torch.Tensor) -> torch.Tensor:
+    """The folded decoder (w0 [64,32], b0 [64], w1 [33,64], b1 [33]) in the
+    K1 kernels' order (``csrc/triplane_decode.cu``): 9,320 fp32.
+
+    First the B fragments of both mma.sync m16n8k8 products, split into
+    TF32 hi and lo parts, as float4 (hi0, hi1, lo0, lo1) by [k-step][n-tile]
+    [lane], lane = 4 g + t: for hidden = features . w0^T, [4][8][32] with
+    b0 = w0[8j + g, 8s + t], b1 = w0[8j + g, 8s + t + 4]; for out = hidden .
+    w1p^T, [8][5][32] with b0 = w1p[8m + g, 8j + 2t], b1 = w1p[8m + g, 8j +
+    2t + 1] (the hidden units in the order the first product's accumulator
+    holds them). w1p is w1 with its rows permuted and padded to 40: rows
+    0..31 the rgb outputs 1..32, row 32 sigma (output 0), rows 33..39 zero.
+    Then b0, and b1 with the rows of w1p.
+    """
+    f32 = dict(dtype=torch.float32, device=w0.device)
+    w0, w1 = w0.to(**f32), w1.to(**f32)
+    w1p = torch.zeros((40, 64), **f32)
+    w1p[:32], w1p[32] = w1[1:], w1[0]
+    b1p = torch.zeros((40,), **f32)
+    b1p[:32], b1p[32] = b1[1:], b1[0]
+    ar = functools.partial(torch.arange, device=w0.device)
+    g, t = ar(8)[:, None], ar(4)[None, :]                       # [8,4] -> lane 4g + t
+    s, j = ar(4)[:, None, None, None], ar(8)[None, :, None, None]
+    rows, k = 8 * j + g, 8 * s + t                              # [4,8,8,4]
+    first = (w0[rows, k], w0[rows, k + 4])
+    j, m = ar(8)[:, None, None, None], ar(5)[None, :, None, None]
+    rows, k = 8 * m + g, 8 * j + 2 * t                          # [8,5,8,4]
+    second = (w1p[rows, k], w1p[rows, k + 1])
+    frags = []
+    for e0, e1 in (first, second):
+        (h0, l0), (h1, l1) = _hi_lo(e0), _hi_lo(e1)
+        frags.append(torch.stack((h0, h1, l0, l1), dim=-1).flatten())
+    return torch.cat(frags + [b0.to(**f32), b1p]).contiguous()
+
+
+def packed_decoder_mlp(decoder: OSGDecoder) -> torch.Tensor:
+    """:func:`pack_decoder_mlp` of ``decoder``'s folded weights, cached on
+    the decoder: packed once, and again when a parameter changes (in
+    place, by ``load_state_dict``, or moved), which the key of each
+    parameter's ``_version`` and ``data_ptr`` shows."""
+    params = (decoder.net0.weight, decoder.net0.bias, decoder.net1.weight, decoder.net1.bias)
+    key = tuple((p._version, p.data_ptr(), p.device) for p in params) + (
+        decoder.net0.lr_multiplier, decoder.net1.lr_multiplier)
+    cached = decoder.__dict__.get("_packed_mlp")
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            w0, b0 = decoder.net0.folded()
+            w1, b1 = decoder.net1.folded()
+            if w0.shape != (64, 32) or w1.shape != (33, 64):
+                raise ValueError(f"the K1 kernels take a 32->64->33 decoder; got net0 "
+                                 f"{tuple(w0.shape)}, net1 {tuple(w1.shape)}")
+            cached = (key, pack_decoder_mlp(w0, b0, w1, b1))
+        decoder.__dict__["_packed_mlp"] = cached
+    return cached[1]
+
+
+def _packed_mlp(name: str, decoder: OSGDecoder, planes: torch.Tensor,
+                coords: torch.Tensor) -> torch.Tensor:
+    """Check what the K1 kernels take; return the packed decoder weights."""
     kernels.require(name, "planes", planes)
     kernels.require(name, "coords", coords)
-    w0, b0 = decoder.net0.folded()
-    w1, b1 = decoder.net1.folded()
-    if planes.shape[1] != 3 or planes.shape[-1] != 32 or w0.shape != (64, 32) \
-            or w1.shape != (33, 64) or coords.dim() != 3 \
+    if planes.shape[1] != 3 or planes.shape[-1] != 32 or coords.dim() != 3 \
             or coords.shape[0] != planes.shape[0] or coords.shape[-1] != 3:
-        raise ValueError(f"{name}: kernel takes planes [B,3,...,32] with a 32->64->33 "
-                         f"decoder; got planes {tuple(planes.shape)}, coords "
-                         f"{tuple(coords.shape)}, net0 {tuple(w0.shape)}, "
-                         f"net1 {tuple(w1.shape)}")
-    return [t.detach().contiguous() for t in (w0, b0, w1, b1)]
+        raise ValueError(f"{name}: kernel takes planes [B,3,...,32] and coords [B,M,3]; got "
+                         f"planes {tuple(planes.shape)}, coords {tuple(coords.shape)}")
+    packed = packed_decoder_mlp(decoder)
+    kernels.require(name, "decoder weights", packed)
+    return packed
+
+
+def k1_cost(planes_shape: tuple, n_points: int) -> dict:
+    """What a K1 / K1-trigrid call must move and compute: ``bytes``, the
+    planes once, the coordinates, rgb and sigma (fp32); ``mma_ops``, the
+    MLP's 2 x (32 x 64 + 64 x 33) a point, which the kernels run on the
+    tensor cores in split TF32 (3 products each); ``fp32_ops``, the
+    corner lerps (2 a corner channel, 4 or 8 corners on each of 3 planes)
+    and 96 transcendentals (softplus, sigmoid) a point, on the CUDA cores."""
+    corners = 8 if len(planes_shape) == 6 else 4
+    return dict(bytes=4 * (math.prod(planes_shape) + n_points * (3 + 32 + 1)),
+                mma_ops=n_points * 2 * (32 * 64 + 64 * 33),
+                fp32_ops=n_points * (3 * corners * 32 * 2 + 96))
 
 
 def triplane_decode(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
@@ -87,13 +171,13 @@ def triplane_decode(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
     planes, coords = planes.contiguous(), coords.contiguous()
     if planes.dim() != 5:
         raise ValueError(f"{name}: planes must be [B,3,H,W,32], got {tuple(planes.shape)}")
-    w0, b0, w1, b1 = _folded_mlp(name, decoder, planes, coords)
+    packed = _packed_mlp(name, decoder, planes, coords)
     b, _, h, w, _ = planes.shape
     m = coords.shape[1]
     rgb = torch.empty((b, m, 32), device=planes.device)
     sigma = torch.empty((b, m, 1), device=planes.device)
     kernels.launch("r3dp_triplane_decode", planes, b, h, w, coords, m, 2.0 / box_warp,
-                   w0, b0, w1, b1, rgb, sigma)
+                   packed, rgb, sigma)
     triplane_decode.launches += 1
     return rgb, sigma
 
@@ -123,13 +207,13 @@ def trigrid_decode(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
     if planes.dim() != 6:
         raise ValueError(f"{name}: planes must be [B,3,D,H,W,32], got "
                          f"{tuple(planes.shape)}")
-    w0, b0, w1, b1 = _folded_mlp(name, decoder, planes, coords)
+    packed = _packed_mlp(name, decoder, planes, coords)
     b, _, d, h, w, _ = planes.shape
     m = coords.shape[1]
     rgb = torch.empty((b, m, 32), device=planes.device)
     sigma = torch.empty((b, m, 1), device=planes.device)
     kernels.launch("r3dp_trigrid_decode", planes, b, d, h, w, coords, m, 2.0 / box_warp,
-                   w0, b0, w1, b1, rgb, sigma)
+                   packed, rgb, sigma)
     trigrid_decode.launches += 1
     return rgb, sigma
 

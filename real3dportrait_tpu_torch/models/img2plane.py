@@ -159,8 +159,11 @@ class OSAvatarImg2Plane(nn.Module):
         return planes
 
     def cal_cano_plane(self, img: torch.Tensor) -> torch.Tensor:
-        """Source image [B,H,W,3] -> canonical plane in render layout."""
-        return self.to_render_layout(self.img2plane_backbone(img))
+        """Source image [B,H,W,3] -> canonical plane in render layout,
+        contiguous: laid out once per video, so that the per-frame fusion
+        (``cano_plane`` first) writes the planes in the layout kernels K1
+        and K1-trigrid read, and their wrappers copy nothing."""
+        return self.to_render_layout(self.img2plane_backbone(img)).contiguous()
 
     def _forward_sr(self, rgb_image: torch.Tensor, feature_image: torch.Tensor,
                     ws: torch.Tensor, weights_image: torch.Tensor, cond: dict | None,

@@ -6,7 +6,8 @@ noise tail of ``models/stylegan2.py:modulated_conv2d``).
 one fused pass of ``clamp(gain * act(x * scale + noise + b))`` in fp32 or
 bf16; :func:`bias_act_plain` is its plain PyTorch version. ``scale``,
 ``noise`` and ``b`` are cast to ``x``'s dtype first, as the JAX package
-casts them, and in bf16 every step rounds to bf16.
+casts them (the kernel rounds them as it loads them, so the wrapper
+launches nothing but the kernel), and in bf16 every step rounds to bf16.
 """
 
 from __future__ import annotations
@@ -95,8 +96,12 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "linear"
     extras = []
     for arg, t, shape in (("b", b, (c,)), ("scale", scale, (bsz, c)), ("noise", noise, (h, w))):
         if t is not None:
-            # the values of x's dtype, passed in fp32
-            t = t.detach().to(x.dtype).to(torch.float32).contiguous()
+            # passed in fp32 as it comes (the kernel rounds it to x's dtype);
+            # another dtype takes x's values first, as the plain version
+            t = t.detach()
+            if t.dtype != torch.float32:
+                t = t.to(x.dtype).float()
+            t = t.contiguous()
             kernels.require(name, arg, t)
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: {arg} must be {shape}, got {tuple(t.shape)}")

@@ -2,9 +2,12 @@
 CUDA device, at edge-case shapes the slice's chip_smoke run does not reach
 (several frames per call, ragged ray counts, more than 32 channels, white
 background, ties, posed meshes; tri-grids of depth 1-3 with odd H != W and
-points outside the box; warps with samples exactly on and far beyond the
+points outside the box; point counts around the decode tile, points all
+outside, features of 1e3 beside 1e-3, decoder weights that change between
+calls; warps with samples exactly on and far beyond the
 volume's faces, K = 9 keypoints, odd volume sizes; every resampling and
-epilogue option, in fp32 and bf16; 3D convolutions of kernel 3 and 7 at odd
+epilogue option, in fp32 and bf16, rows no multiple of the vector and
+misaligned views, with no launch but the kernel's; 3D convolutions of kernel 3 and 7 at odd
 sizes, input channels that are no multiple of the step's 8, output
 channels across N tiles, widths across M tiles, split input channels and
 inputs of 1e4 next to 1e-4; the estimator's tail at D = 16 and 2). Every test needs a
@@ -100,6 +103,123 @@ def test_k1_trigrid_depths_odd_sizes_points_outside(dev, b, dhw):
         trigrid_decode(planes[..., :16].contiguous(), coords, 1.0, dec)
     with pytest.raises(ValueError):
         trigrid_decode(planes.double(), coords, 1.0, dec)
+
+
+def _device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches (the
+    profiler's CUDA events: kernels, copies, memsets)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("kind", ["triplane", "trigrid"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 127, 129, 2049])
+def test_k1_point_counts_around_the_tile(dev, kind, n):
+    # a warp decodes 16 points and a CTA 8 warps: counts of a tile and of
+    # a CTA's tiles +- 1, B = 2, points up to 1.3x the box; fp32 sums and
+    # split-TF32 products in another order: 1e-4 absolute
+    g = torch.Generator(device=dev).manual_seed(20 + n)
+    shape = (2, 3, 2, 9, 13, 32) if kind == "trigrid" else (2, 3, 9, 13, 32)
+    fn, plain = ((trigrid_decode, trigrid_decode_plain) if kind == "trigrid" else
+                 (triplane_decode, triplane_decode_plain))
+    planes = torch.randn(shape, device=dev, generator=g)
+    coords = 1.3 * (torch.rand((2, n, 3), device=dev, generator=g) - 0.5)
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        k, p = fn(planes, coords, 1.0, dec), plain(planes, coords, 1.0, dec)
+    torch.cuda.synchronize()
+    assert k[0].shape == p[0].shape and k[1].shape == p[1].shape
+    _close(k[0], p[0], 1e-4, f"{kind} rgb")
+    _close(k[1], p[1], 1e-4, f"{kind} sigma")
+
+
+@pytest.mark.parametrize("kind", ["triplane", "trigrid"])
+def test_k1_points_all_outside_the_box(dev, kind):
+    # every corner of every plane outside: zero features, so every point
+    # decodes the decoder's constant; 1e-4 absolute
+    g = torch.Generator(device=dev).manual_seed(21)
+    shape = (1, 3, 3, 16, 16, 32) if kind == "trigrid" else (1, 3, 16, 16, 32)
+    fn, plain = ((trigrid_decode, trigrid_decode_plain) if kind == "trigrid" else
+                 (triplane_decode, triplane_decode_plain))
+    planes = torch.randn(shape, device=dev, generator=g)
+    coords = torch.rand((1, 300, 3), device=dev, generator=g) + 0.6   # beyond +0.5 on each axis
+    coords[:, ::2] *= -1                                             # and beyond -0.5
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        k, p = fn(planes, coords, 1.0, dec), plain(planes, coords, 1.0, dec)
+        zero = plain(torch.zeros_like(planes), coords, 1.0, dec)
+    _close(k[0], p[0], 1e-4, "rgb")
+    _close(k[1], p[1], 1e-4, "sigma")
+    _close(k[0], zero[0], 1e-4, "rgb of zero features")
+
+
+@pytest.mark.parametrize("kind", ["triplane", "trigrid"])
+def test_k1_keeps_small_features_beside_large_ones(dev, kind):
+    # planes of magnitude 1e3 in their lower rows and 1e-3 in their upper
+    # rows; points whose every plane coordinate lies in one half or the
+    # other, alternating in each warp's tile. A product whose operands lose
+    # their lo terms (one-pass TF32) errs by ~2^-11 of itself, 5e-4 of the
+    # output's scale; split TF32 with the tensor cores' truncating sums
+    # keeps ~1e-6. Held to a float64 decode, sigma and rgb of each group at
+    # 1e-5 of the group's largest |sigma| (>= 1; an fp32 sum of 64 terms of
+    # 1e3 errs ~1e-7 of its terms)
+    g = torch.Generator(device=dev).manual_seed(22)
+    shape = (1, 3, 2, 24, 24, 32) if kind == "trigrid" else (1, 3, 24, 24, 32)
+    fn, plain = ((trigrid_decode, trigrid_decode_plain) if kind == "trigrid" else
+                 (triplane_decode, triplane_decode_plain))
+    rows = torch.arange(24, device=dev).view(24, 1, 1)
+    planes = torch.randn(shape, device=dev, generator=g) * torch.where(rows < 12, 1e3, 1e-3)
+    u = 0.05 + 0.4 * torch.rand((1, 512, 3), device=dev, generator=g)  # rows >= 12 on each plane
+    coords = u.clone()
+    coords[:, 1::2] = -u[:, 1::2]                                       # rows < 12: the 1e3 half
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(3)).to(dev)
+    with torch.no_grad():
+        for p in (dec.net0.bias, dec.net1.bias):
+            p.normal_(generator=torch.Generator(device=dev).manual_seed(4))
+        rgb, sigma = fn(planes, coords, 1.0, dec)
+        # the float64 reference on the CPU (its decoder's layers take the
+        # plain versions there)
+        want = [t.to(dev) for t in plain(planes.double().cpu(), coords.double().cpu(), 1.0,
+                                          dec.double().cpu())]
+    for half, what in ((slice(0, None, 2), "1e-3 features"), (slice(1, None, 2), "1e3 features")):
+        s_want = want[1][:, half]
+        scale = max(float(s_want.abs().max()), 1.0)
+        err = float((sigma[:, half].double() - s_want).abs().max())
+        assert err <= 1e-5 * scale, f"{what}: sigma err {err} at scale {scale}"
+        _close(rgb[:, half].double(), want[0][:, half], 1e-5 * scale, f"{what} rgb")
+    assert float(want[1][:, 1::2].abs().max()) > 1e2  # the large half is large
+
+
+@pytest.mark.parametrize("kind", ["triplane", "trigrid"])
+def test_k1_follows_decoder_updates_and_launches_alone(dev, kind):
+    # the packed weights are cached on the decoder and refolded when a
+    # parameter changes in place or is loaded; a call whose weights are
+    # packed launches the kernel and nothing else
+    g = torch.Generator(device=dev).manual_seed(23)
+    shape = (1, 3, 3, 16, 20, 32) if kind == "trigrid" else (1, 3, 16, 20, 32)
+    fn, plain = ((trigrid_decode, trigrid_decode_plain) if kind == "trigrid" else
+                 (triplane_decode, triplane_decode_plain))
+    planes = torch.randn(shape, device=dev, generator=g)
+    coords = torch.rand((1, 1000, 3), device=dev, generator=g) - 0.5
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
+    other = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        first = fn(planes, coords, 1.0, dec)
+        dec.net1.weight.mul_(-1.5)
+        dec.net0.bias.add_(0.5)
+        second = fn(planes, coords, 1.0, dec)
+        _close(second[1], plain(planes, coords, 1.0, dec)[1], 1e-4, "after the in-place update")
+        assert float((second[1] - first[1]).abs().max()) > 0.1
+        dec.load_state_dict(other.state_dict())
+        third = fn(planes, coords, 1.0, dec)
+        _close(third[0], plain(planes, coords, 1.0, other)[0], 1e-4, "after load_state_dict")
+        _close(third[1], plain(planes, coords, 1.0, other)[1], 1e-4, "after load_state_dict")
+        names = _device_kernels(lambda: fn(planes, coords, 1.0, dec))
+    assert len(names) == 1 and "plane_decode_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("r,s,n", [(37, 4, 7), (129, 100, 40)])
@@ -323,6 +443,54 @@ def test_k6b_bf16_matches_plain_bf16(dev, act):
     assert (ba.bias_act.launches, ba.bias_act.launches_bf16) == (before[0] + 2, before[1] + 2)
     with pytest.raises(ValueError):
         ba.bias_act(x.half(), b, act=act, axis=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("offset,hw", [(0, (33, 35)), (1, (33, 35)), (1, (64, 64)),
+                                       (3, (1, 5)), (0, (64, 64))],
+                         ids=["hw_ragged", "misaligned_ragged", "misaligned", "narrow", "aligned"])
+def test_k6b_ragged_rows_and_misaligned_views(dev, dtype, offset, hw):
+    # HW no multiple of the 16 B vector (33 x 35; 5, narrower than one),
+    # x and noise as views at an element offset of a larger buffer (not 16 B
+    # aligned), B = 2 x C = 16 rows; every term, then the bias alone. bf16:
+    # bit-equal to the plain version; fp32: 1e-6 absolute
+    g = torch.Generator(device=dev).manual_seed(24)
+    shape = (2, 16, *hw)
+    n = int(np.prod(shape))
+    x = (4 * torch.randn((n + offset,), device=dev, generator=g)).to(dtype)[offset:]
+    x = x.view(shape)
+    noise = torch.randn((hw[0] * hw[1] + offset,), device=dev, generator=g)[offset:].view(hw)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    b = torch.randn((16,), device=dev, generator=g)
+    scale = torch.rand((2, 16), device=dev, generator=g) + 0.5
+    before = ba.bias_act.launches
+    for kw in (dict(act="lrelu", gain=2 ** 0.5, clamp=5.0, scale=scale, noise=noise), dict()):
+        got = ba.bias_act(x, b, axis=1, **kw)
+        want = ba.bias_act_plain(x, b, axis=1, **kw)
+        assert got.dtype == dtype and got.shape == want.shape
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want), f"K6b bf16 {sorted(kw)}: {_bf16_ulps(got, want)} ulps"
+        else:
+            _close(got, want, 1e-6, f"K6b {sorted(kw)}")
+    assert ba.bias_act.launches == before + 2
+
+
+def test_k6b_bf16_bit_equal_with_fp32_terms_and_no_casts(dev):
+    # block-shaped bf16 epilogue at [1,16,33,35] with fp32 d, noise and
+    # bias, as the SR blocks pass them: bit-equal to the plain version, and
+    # the wrapper launches the kernel alone (no casts of the terms)
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = (40 * torch.randn((1, 16, 33, 35), device=dev, generator=g)).bfloat16()
+    kw = dict(act="lrelu", gain=2 ** 0.5, clamp=25.0, axis=1,
+              scale=torch.rand((1, 16), device=dev, generator=g) + 0.5,
+              noise=torch.randn((33, 35), device=dev, generator=g))
+    b = torch.randn((16,), device=dev, generator=g)
+    got = ba.bias_act(x, b, **kw)
+    want = ba.bias_act_plain(x, b, **kw)
+    assert torch.equal(got, want), f"{_bf16_ulps(got, want)} ulps"
+    assert float(want.abs().max()) == 25.0  # the clamp acts
+    names = _device_kernels(lambda: ba.bias_act(x, b, **kw))
+    assert len(names) == 1 and "bias_act" in names[0], names
 
 
 @pytest.mark.parametrize("k,b,ci,co,dhw", [
