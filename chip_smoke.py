@@ -22,7 +22,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the bound: the larger of the bytes over the HBM rate and the operations
    over the peak rate of their type (H100 SXM data sheet; K7a's products
    and K1's MLP at the tensor cores' split-TF32 rate, with K1's corner
-   lerps at the fp32 rate as a third term; their FFMA bounds beside them);
+   lerps at the fp32 rate as a third term; their FFMA bounds beside them),
+   per call (an event pair around one call on an idle device) and per
+   launch (20 back-to-back calls queued behind a spin kernel);
 4. the main path: ``Real3DPortraitPipeline().run`` with the JAX defaults
    (periodic blink, source preparation) from a 4 s seeded 16 kHz wav
    through the audio front end and the audio-to-motion flow-VAE to 100
@@ -201,9 +203,16 @@ def phase_build() -> None:
     path, log = kernels.build()
     kernels.library()
     print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
+    lines = log.splitlines()
+    for line in lines:
         if "Function properties" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    # K3 and K7b's main kernel keep every value in registers: no spills
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and any(
+                k in line for k in ("merge_composite_kernel", "mfe_tail_kernel")):
+            check(" 0 bytes spill stores, 0 bytes spill loads" in lines[i + 1],
+                  f"ptxas spills in {line.split()[-1]}: {lines[i + 1].strip()}")
     cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     if os.path.isfile(cuobjdump):
         # K7a's products and K1's MLP run on the tensor cores: HMMA
@@ -320,7 +329,7 @@ def phase_kernels(dev: torch.device) -> dict:
     # composited rgb in [-1,1] and weights. Operations per ray: K2 ~16 per
     # coarse sample (march, smoothing, pdf, cdf) and per fine sample a
     # binary search and an interpolation; K3 2 per colour channel and ~20
-    # per merged sample.
+    # per merged sample. Per call and per launch, as K6a (below).
     r = 16384
     for s_c, s_f in ((16, 32), (48, 48)):
         start = 2.0 + 0.2 * torch.rand((1, r, 1, 1), device=dev, generator=gen)
@@ -334,7 +343,8 @@ def phase_kernels(dev: torch.device) -> dict:
                cuda_ms(lambda: importance_sample(depths, sigma, u)),
                cuda_ms(lambda: importance_sample_plain(depths, sigma, u)),
                (nbytes(depths, sigma, u, fine_k),
-                r * (16 * s_c + s_f * (2 * math.ceil(math.log2(s_c)) + 10)), f32))
+                r * (16 * s_c + s_f * (2 * math.ceil(math.log2(s_c)) + 10)), f32),
+               launch_ms=(device_ms(lambda: importance_sample(depths, sigma, u)), None))
         c1 = torch.rand((1, r, s_c, 32), device=dev, generator=gen)
         c2 = torch.rand((1, r, s_f, 32), device=dev, generator=gen)
         s2 = 3 * torch.randn((1, r, s_f, 1), device=dev, generator=gen)
@@ -343,14 +353,16 @@ def phase_kernels(dev: torch.device) -> dict:
         record("merge_composite", f"{s_c}+{s_f}", outs, 1e-4,
                cuda_ms(lambda: merge_composite(*args)),
                cuda_ms(lambda: merge_composite_plain(*args)),
-               (nbytes(*args, *(k for k, _ in outs)), r * (s_c + s_f) * (2 * 32 + 20), f32))
+               (nbytes(*args, *(k for k, _ in outs)), r * (s_c + s_f) * (2 * 32 + 20), f32),
+               launch_ms=(device_ms(lambda: merge_composite(*args)), None))
 
     # K4: 16 frames of the 35,709-vertex synthetic mesh at 192^2, zero pose.
     # The kernel rounds every operation as the plain version does and breaks
     # depth ties by face id: expected bit-equal; tolerance 0 differing mask
     # pixels and 1e-6 on the NCC. Operations: ~25 per pixel of each face's
     # clipped bounding box (three edge functions, depth) and ~20 per output
-    # pixel (the resolve), counted from this run's projected faces.
+    # pixel (the resolve), counted from this run's projected faces. Per call
+    # and per launch (the wrapper's launches together).
     assets = bfm.synthetic_bfm(n_vertices=35709).to(dev)
     rng = np.random.RandomState(0)
     idc = torch.from_numpy(np.tile(rng.randn(1, 80).astype(np.float32) * 0.1, (16, 1))).to(dev)
@@ -374,6 +386,7 @@ def phase_kernels(dev: torch.device) -> dict:
            cuda_ms(lambda: secc_raster(uv, z, faces, attr, 192)),
            cuda_ms(lambda: secc_raster_plain(uv, z, faces, attr, 192), reps=5),
            (nbytes(uv, z, faces, attr, km, ki), 25 * box_px + 20 * km.numel(), f32),
+           launch_ms=(device_ms(lambda: secc_raster(uv, z, faces, attr, 192)), None),
            extra=f"coverage {float(km.mean()):.3f} ")
 
     # K5a: the compressed volume of one 512^2 frame [1,16,64,64,4] and 4 of
@@ -390,7 +403,8 @@ def phase_kernels(dev: torch.device) -> dict:
     # [-1.2,1.2] (border clamp); the same coordinates reach both versions:
     # 1e-5 absolute. Operations per voxel: 8 corners of 32 channels, 2 each,
     # and ~20 for the weights. F.grid_sample (5-D, border) computes the
-    # same function, on the volume's NCDHW view.
+    # same function, on the volume's NCDHW view. K5a and K5b per call and
+    # per launch, the library call too.
     from real3dportrait_tpu_torch.models import torso
 
     fs = torch.randn((1, 16, 64, 64, 4), device=dev, generator=gen)
@@ -402,7 +416,8 @@ def phase_kernels(dev: torch.device) -> dict:
                [(got, torso.torso_deform_input_plain(fs, kp_s, kp_d))], 1e-4,
                cuda_ms(lambda: torso.torso_deform_input(fs, kp_s, kp_d)),
                cuda_ms(lambda: torso.torso_deform_input_plain(fs, kp_s, kp_d)),
-               (nbytes(fs, kp_s, kp_d, got), 65536 * (80 + 5 * (8 * 4 * 2 + 20)), f32))
+               (nbytes(fs, kp_s, kp_d, got), 65536 * (80 + 5 * (8 * 4 * 2 + 20)), f32),
+               launch_ms=(device_ms(lambda: torso.torso_deform_input(fs, kp_s, kp_d)), None))
     vol = torch.randn((1, 16, 64, 64, 32), device=dev, generator=gen)
     grid = 2.4 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1.2
     got = torso.torso_warp_volume(vol, grid)
@@ -418,7 +433,9 @@ def phase_kernels(dev: torch.device) -> dict:
            cuda_ms(lambda: torso.torso_warp_volume(vol, grid)),
            cuda_ms(lambda: torso.torso_warp_volume_plain(vol, grid)),
            (nbytes(vol, grid, got), 65536 * (8 * 32 * 2 + 20), f32),
-           library=cuda_ms(k5b_library))
+           library=cuda_ms(k5b_library),
+           launch_ms=(device_ms(lambda: torso.torso_warp_volume(vol, grid)),
+                      device_ms(k5b_library)))
     del fs, vol, grid, got, plain
 
     # K6a: the FIR after block1's and block0's up-convolutions (4x4 taps,
@@ -537,7 +554,8 @@ def kernels_k7(dev: torch.device, gen: torch.Generator, record) -> None:
     none of the padding's. K7a's bound is the tensor cores' (3 TF32
     products per fp32 product at 495 TFLOP/s); the FFMA bound (67 TFLOP/s)
     is printed beside it. Each K7a row gives the device time of one launch
-    (20 back-to-back) for the kernel and cuDNN, and one call's time. The
+    (20 back-to-back) for the kernel and cuDNN, and one call's time; the K7b
+    row one launch (its two kernels) and one call. The
     library call of K7a is cuDNN's ``F.conv3d`` (TF32 off), which is also
     the plain version; no single PyTorch call computes K7b, so cuDNN's
     ``mask_conv`` alone is printed beside it."""
@@ -581,6 +599,7 @@ def kernels_k7(dev: torch.device, gen: torch.Generator, record) -> None:
     record("mfe_tail", "[1,32,16,64,64] K+1=5", list(zip(got, torso.mfe_tail_plain(*args))),
            1e-4, cuda_ms(lambda: torso.mfe_tail(*args)),
            cuda_ms(lambda: torso.mfe_tail_plain(*args)), (nbytes(*args, *got), ops, f32),
+           launch_ms=(device_ms(lambda: torso.mfe_tail(*args)), None),
            extra=f"cuDNN mask_conv 7^3 alone {mask_ms:.4f} ms ")
 
 

@@ -79,22 +79,42 @@
 // deformation sum_k mask_k * sparse_motion_k with the sparse motions
 // computed from the keypoints; per pixel: both 7^2 occlusion heads on the
 // C-major depth fold (channel c*D + d, C*D -> 1 each) and their sigmoid.
-// Both heads read the same x halo tiles, so one pass computes both. What
-// bounds it: fp32 operations (6.5 GFLOP at the standard preset's
-// [1,32,16,64,64]); cuDNN pays for Co = 5 with mostly idle tiles. Design:
-// a CTA owns an 8 x 32 pixel tile at every depth and a group of input
-// channels; per channel it stages the 16 depth planes' halo tiles and the
-// channel's weights, and each thread keeps all D x (K+1) mask logits and
-// both occlusion sums of its pixel in registers: per tap it loads the
-// pixel's D inputs and the tap's 7 (K+1) mask weights once and does
-// ~500 FFMAs. The channel groups' partial logits are added by an epilogue
-// pass (one thread per voxel) that also applies the biases, the softmax,
-// the deformation sum and the sigmoids.
+// Both heads read the same x halo tiles, so one pass computes both.
+//
+// What bounds it: fp32 operations (6.5 GFLOP at the standard preset's
+// [1,32,16,64,64], 0.097 ms at 67 TFLOP/s); cuDNN pays for Co = 5 with
+// mostly idle tiles, and split TF32 on mma.sync would pay 3 products on
+// N = 8 tiles of which 5 are used, so it stays on FFMA. A FFMA kernel needs
+// few other instructions per FFMA, loads that land before they are used,
+// and enough warps to hide the shared-memory latency. Design:
+// - A thread owns 8 output depths (D = 16; all of them at D = 2) of one
+//   pixel: 40 logits and its depth group's two occlusion sums in
+//   registers. Per tap it loads its pixel's 11 input depths (3 LDS.128:
+//   the halo tile is transposed to depth-innermost as it lands, 20 floats a
+//   pixel, so 8 neighbouring lanes hit 8 distinct bank quads), the tap's
+//   35 mask weights (9 broadcast LDS.128, [tap][kd][k] padded to 36) and 16
+//   occlusion weights (4 LDS.128), then does 250 mask and 16 occlusion
+//   FFMAs: 16 loads for 266 FFMAs, where the design this replaced issued
+//   83 scalar loads for 532.
+// - A CTA (8 warps) owns a 4 x 32 pixel tile at every depth (the two depth
+//   groups are whole warps apart, so each warp runs one unrolled tap body)
+//   and a range of input channels (models/torso.py mfe_tail_plan). It
+//   stages one channel at a time with cp.async into a two-stage ring, so
+//   channel c + 1 lands while c computes; the halo's padding is
+//   zero-filled. Two CTAs an SM (128 registers a thread, 2 x 87 KB of
+//   shared memory): 16 warps, where the old design held 8.
+// - The channel splits write partial sums that a second launch adds in
+//   split order (no atomics: two launches are bit-equal) before the
+//   biases, the softmax, the deformation and the sigmoids. A thread-block
+//   cluster per pixel tile, adding the splits through distributed shared
+//   memory in one launch, was built and measured: an H100 holds 30
+//   clusters of 8 such CTAs at once, not the frame's 32 tiles, and the
+//   second wave doubled the time (0.25 ms against 0.18).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // 8 warps (K7a and K7b)
+constexpr int kThreads = 256;     // 8 warps (K7a)
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpTile = 32;     // a K7a warp's output tile: 32 voxels x 32 channels
 constexpr int kCiChunk = 8;       // input channels per step: the mma's k
@@ -431,120 +451,211 @@ int launch_conv3d(const float* x, const float* wt, const float* bias, float* out
 // K7b
 // ---------------------------------------------------------------------------
 
-constexpr int kTailTH = 8, kTailTW = 32;  // pixel tile: one warp per row
-constexpr int kTailHR = kTailTH + 6, kTailRS = kTailTW + 6;
+constexpr int kTailTW = 32;        // pixel tile columns: a warp's row
+constexpr int kTailThreads = 256;  // 8 warps
+constexpr int kTailCtasPerSm = 2;  // CTAs an SM holds (registers, shared memory)
+constexpr int kTailK1 = 5;         // candidates, K + 1
+constexpr int kTailWS = 36;        // a tap's mask weights [kd][k], 35 padded to 9 float4
 
-template <int D, int K1>
-__global__ void __launch_bounds__(kThreads, 1)
+// One depth instantiation's tile. A thread owns DT output depths of one
+// pixel; the NDH depth groups of a pixel are TPG threads (whole warps)
+// apart, so a warp's group is uniform.
+template <int D>
+struct TailShape {
+  static constexpr int DT = D == 16 ? 8 : D;      // output depths a thread owns
+  static constexpr int NDH = D / DT;              // depth groups
+  static constexpr int TPG = kTailThreads / NDH;  // threads (pixels) of a depth group
+  static constexpr int TH = TPG / kTailTW;        // tile rows
+  static constexpr int HR = TH + 6, RS = kTailTW + 6;  // halo rows, columns
+  // a halo pixel's D depths, padded to 4 mod 8 floats: the 8 lanes of an
+  // LDS.128 wavefront (8 neighbouring pixels) hit 8 distinct bank quads
+  static constexpr int PS = D == 16 ? 20 : 4;
+  static constexpr int X_FLOATS = HR * RS * PS;   // [HR][RS][PS]
+  static constexpr int WM_FLOATS = 49 * kTailWS;  // [tap][kd * 5 + k]
+  static constexpr int WO_FLOATS = 49 * 2 * D;    // [tap][group][head][DT]
+  static constexpr int STAGE = X_FLOATS + WM_FLOATS + WO_FLOATS;
+  static constexpr int NCH = D * kTailK1 + 2 * NDH;  // a pixel's partial sums
+  static_assert(D % DT == 0 && TPG % kTailTW == 0 && DT % 2 == 0 && NDH <= 2, "whole tiles");
+};
+
+// Issue the copies of input channel c into a stage buffer: the halo tile,
+// transposed to depth-innermost ([row][column][depth]) on the way, the
+// channel's mask weights by tap and its occlusion weights by tap; the
+// padding rows and columns are zero-filled (src-size 0).
+template <int D>
+__device__ __forceinline__ void tail_stage(float* buf, const float* __restrict__ xc,
+                                           const float* __restrict__ mask_w,
+                                           const float* __restrict__ occ_w, int C, int c,
+                                           int H, int W, int h0, int w0) {
+  using T = TailShape<D>;
+  const long long HW = (long long)H * W;
+  for (int e = threadIdx.x; e < D * T::HR * T::RS; e += kTailThreads) {
+    const int cx = e % T::RS, r = e / T::RS;  // neighbouring threads: neighbouring w
+    const int hy = r % T::HR, dd = r / T::HR;
+    const int gh = h0 + hy - 3, gw = w0 + cx - 3;
+    const bool ok = gh >= 0 && gh < H && gw >= 0 && gw < W;
+    cp_async4(buf + (hy * T::RS + cx) * T::PS + dd,
+              ok ? xc + dd * HW + (long long)gh * W + gw : xc, ok);
+  }
+  float* wm = buf + T::X_FLOATS;
+  for (int e = threadIdx.x; e < 49 * 7 * kTailK1; e += kTailThreads) {
+    const int tap = e / (7 * kTailK1), r = e - tap * (7 * kTailK1);
+    const int kd = r / kTailK1, k = r - kd * kTailK1;
+    cp_async4(wm + tap * kTailWS + r, mask_w + (((long long)k * C + c) * 7 + kd) * 49 + tap,
+              true);
+  }
+  float* wo = wm + T::WM_FLOATS;
+  for (int e = threadIdx.x; e < 49 * 2 * D; e += kTailThreads) {
+    const int tap = e / (2 * D), r = e - tap * (2 * D);
+    const int g = r / (2 * T::DT), j = r / T::DT % 2, dl = r % T::DT;
+    cp_async4(wo + e, occ_w + (((long long)j * C + c) * D + g * T::DT + dl) * 49 + tap, true);
+  }
+}
+
+// element i of a float4 array, i known at compile time once unrolled (no
+// address is taken: the array stays in registers)
+template <int N>
+__device__ __forceinline__ float f4(const float4 (&v)[N], int i) {
+  const float4& q = v[i / 4];
+  return i % 4 == 0 ? q.x : i % 4 == 1 ? q.y : i % 4 == 2 ? q.z : q.w;
+}
+
+// The 49 taps of one staged channel for a thread of depth group D0 / DT:
+// per tap, its pixel's input depths (LDS.128), the tap's 35 mask weights
+// (9 broadcast LDS.128) and its group's occlusion weights, then 16
+// occlusion FFMAs (two chains a head, even and odd depths, so that no
+// chain of 8 dependent FFMAs ends the tap) and 250 (D = 16) mask FFMAs.
+template <int D, int D0>
+__device__ __forceinline__ void tail_taps(const float* buf, int p_off,
+                                          float (&acc)[TailShape<D>::DT][kTailK1],
+                                          float (&occ)[2][2]) {
+  using T = TailShape<D>;
+  constexpr int DT = T::DT;
+  constexpr int LO = (D0 - 3 > 0 ? D0 - 3 : 0) / 4 * 4;             // first depth loaded
+  constexpr int HI = ((D0 + DT + 3 < D ? D0 + DT + 3 : D) + 3) / 4 * 4;  // past the last
+  constexpr int NX = (HI - LO) / 4;
+  static_assert(HI <= T::PS, "loads stay in a pixel's depths");
+  const float* xs = buf + p_off + LO;
+  const float* wm = buf + T::X_FLOATS;
+  const float* wo = wm + T::WM_FLOATS + D0 / DT * 2 * DT;
+#pragma unroll 1
+  for (int kh = 0; kh < 7; ++kh) {
+#pragma unroll 1
+    for (int kw = 0; kw < 7; ++kw) {
+      const int tap = kh * 7 + kw;
+      float4 xv[NX], wv[kTailWS / 4], ov[DT / 2];
+      const float4* xp = reinterpret_cast<const float4*>(xs + (kh * T::RS + kw) * T::PS);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xv[i] = xp[i];
+      const float4* wp = reinterpret_cast<const float4*>(wm + tap * kTailWS);
+#pragma unroll
+      for (int i = 0; i < kTailWS / 4; ++i) wv[i] = wp[i];
+      const float4* op = reinterpret_cast<const float4*>(wo + tap * 2 * D);
+#pragma unroll
+      for (int i = 0; i < DT / 2; ++i) ov[i] = op[i];
+#pragma unroll
+      for (int dl = 0; dl < DT; ++dl) {
+        occ[dl % 2][0] = fmaf(f4(xv, D0 + dl - LO), f4(ov, dl), occ[dl % 2][0]);
+        occ[dl % 2][1] = fmaf(f4(xv, D0 + dl - LO), f4(ov, DT + dl), occ[dl % 2][1]);
+      }
+#pragma unroll
+      for (int kd = 0; kd < 7; ++kd)
+#pragma unroll
+        for (int k = 0; k < kTailK1; ++k) {
+          const float wk = f4(wv, kd * kTailK1 + k);
+#pragma unroll
+          for (int dl = 0; dl < DT; ++dl) {
+            const int dd = D0 + dl + kd - 3;  // zero depth padding: taps outside add nothing
+            if (dd >= 0 && dd < D) acc[dl][k] = fmaf(f4(xv, dd - LO), wk, acc[dl][k]);
+          }
+        }
+    }
+  }
+}
+
+// One CTA: a pixel tile (TH x 32) at every depth and the input channels
+// [split c_per_split, ...); it writes the split's partial sums,
+// partial[split][b][NCH][H][W].
+template <int D>
+__global__ void __launch_bounds__(kTailThreads, kTailCtasPerSm)
 mfe_tail_kernel(const float* __restrict__ x, const float* __restrict__ mask_w,
                 const float* __restrict__ occ_w, int C, int H, int W, int nh, int nw,
                 int c_per_split, float* __restrict__ partial) {
-  constexpr int NCH = D * K1 + 2;
+  using T = TailShape<D>;
+  constexpr int DT = T::DT;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [D][HR][RS]
-  float* wm = xs + D * kTailHR * kTailRS;       // [49][7][K1]
-  float* wo = wm + 49 * 7 * K1;                 // [2][D][49]
+  float* smem = reinterpret_cast<float*>(smem4);
 
   int t = blockIdx.x;
   const int tw_i = t % nw;
   t /= nw;
   const int th_i = t % nh;
   const int b = t / nh;
-  const int h0 = th_i * kTailTH, w0 = tw_i * kTailTW;
-  const int c_begin = blockIdx.y * c_per_split;
-  const int c_end = min(C, c_begin + c_per_split);
-  const int tx = threadIdx.x % kTailTW, ty = threadIdx.x / kTailTW;
-  const long long HW = (long long)H * W;
   const int B = gridDim.x / (nh * nw);
+  const int h0 = th_i * T::TH, w0 = tw_i * kTailTW;
+  const int c_begin = blockIdx.y * c_per_split;
+  const int n_c = min(C, c_begin + c_per_split) - c_begin;
+  const int group = threadIdx.x / T::TPG;  // warp-uniform
+  const int p = threadIdx.x % T::TPG;      // the thread's pixel in the tile
+  const int p_off = (p / kTailTW * T::RS + p % kTailTW) * T::PS;
+  const long long HW = (long long)H * W;
 
-  float acc[D][K1];
+  float acc[DT][kTailK1], occ[2][2] = {};
 #pragma unroll
-  for (int d = 0; d < D; ++d)
+  for (int dl = 0; dl < DT; ++dl)
 #pragma unroll
-    for (int k = 0; k < K1; ++k) acc[d][k] = 0.0f;
-  float occ0 = 0.0f, occ1 = 0.0f;
+    for (int k = 0; k < kTailK1; ++k) acc[dl][k] = 0.0f;
 
-  for (int c = c_begin; c < c_end; ++c) {
+  // a two-stage cp.async ring over the split's channels: channel i + 1
+  // lands while channel i computes
+  const float* xb = x + ((long long)b * C + c_begin) * D * HW;
+  if (n_c > 0) tail_stage<D>(smem, xb, mask_w, occ_w, C, c_begin, H, W, h0, w0);
+  cp_async_commit();
+  for (int i = 0; i < n_c; ++i) {
+    if (i + 1 < n_c)
+      tail_stage<D>(smem + (i + 1) % 2 * T::STAGE, xb + (i + 1) * D * HW, mask_w, occ_w, C,
+                    c_begin + i + 1, H, W, h0, w0);
+    cp_async_commit();
+    cp_async_wait<1>();  // channel i has landed
     __syncthreads();
-    const float* xc = x + ((long long)b * C + c) * D * HW;
-    for (int e = threadIdx.x; e < D * kTailHR * kTailRS; e += kThreads) {
-      const int cx = e % kTailRS;
-      const int r = e / kTailRS;
-      const int hy = r % kTailHR, dd = r / kTailHR;
-      const int gh = h0 + hy - 3, gw = w0 + cx - 3;
-      float v = 0.0f;
-      if (gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = __ldg(xc + dd * HW + (long long)gh * W + gw);
-      xs[e] = v;
+    const float* buf = smem + i % 2 * T::STAGE;
+    if constexpr (T::NDH == 1) {
+      tail_taps<D, 0>(buf, p_off, acc, occ);
+    } else {
+      if (group == 0)
+        tail_taps<D, 0>(buf, p_off, acc, occ);
+      else
+        tail_taps<D, DT>(buf, p_off, acc, occ);
     }
-    for (int e = threadIdx.x; e < 49 * 7 * K1; e += kThreads) {
-      const int k = e % K1;
-      const int r = e / K1;
-      const int kd = r % 7, tap = r / 7;
-      wm[e] = __ldg(mask_w + (((long long)k * C + c) * 7 + kd) * 49 + tap);
-    }
-    for (int e = threadIdx.x; e < 2 * D * 49; e += kThreads) {
-      const int tap = e % 49;
-      const int r = e / 49;
-      const int dd = r % D, j = r / D;
-      wo[e] = __ldg(occ_w + (((long long)j * C + c) * D + dd) * 49 + tap);
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int kh = 0; kh < 7; ++kh) {
-#pragma unroll 1
-      for (int kw = 0; kw < 7; ++kw) {
-        const int tap = kh * 7 + kw;
-        float v[D];
-#pragma unroll
-        for (int dd = 0; dd < D; ++dd) v[dd] = xs[(dd * kTailHR + ty + kh) * kTailRS + tx + kw];
-        float wmv[7][K1];
-#pragma unroll
-        for (int kd = 0; kd < 7; ++kd)
-#pragma unroll
-          for (int k = 0; k < K1; ++k) wmv[kd][k] = wm[(tap * 7 + kd) * K1 + k];
-#pragma unroll
-        for (int d = 0; d < D; ++d)
-#pragma unroll
-          for (int kd = 0; kd < 7; ++kd) {
-            const int dd = d + kd - 3;  // zero depth padding: taps outside add nothing
-            if (dd < 0 || dd >= D) continue;
-#pragma unroll
-            for (int k = 0; k < K1; ++k) acc[d][k] = fmaf(v[dd], wmv[kd][k], acc[d][k]);
-          }
-#pragma unroll
-        for (int dd = 0; dd < D; ++dd) {
-          occ0 = fmaf(v[dd], wo[dd * 49 + tap], occ0);
-          occ1 = fmaf(v[dd], wo[(D + dd) * 49 + tap], occ1);
-        }
-      }
-    }
+    __syncthreads();  // before channel i + 2 lands in this buffer
   }
+  cp_async_wait<0>();
 
-  const int oh = h0 + ty, ow = w0 + tx;
-  if (oh >= H || ow >= W) return;
-  // partial [S, B, NCH, H, W]: neighbouring threads store neighbouring w
-  float* p = partial + (((long long)blockIdx.y * B + b) * NCH) * HW + (long long)oh * W + ow;
+  const int h = h0 + p / kTailTW, w = w0 + p % kTailTW;
+  if (h >= H || w >= W) return;
+  // neighbouring threads store neighbouring w
+  float* o = partial + ((long long)blockIdx.y * B + b) * T::NCH * HW + (long long)h * W + w;
 #pragma unroll
-  for (int d = 0; d < D; ++d)
+  for (int dl = 0; dl < DT; ++dl)
 #pragma unroll
-    for (int k = 0; k < K1; ++k) p[(d * K1 + k) * HW] = acc[d][k];
-  p[(D * K1) * HW] = occ0;
-  p[(D * K1 + 1) * HW] = occ1;
+    for (int k = 0; k < kTailK1; ++k) o[((group * DT + dl) * kTailK1 + k) * HW] = acc[dl][k];
+  o[(D * kTailK1 + 2 * group) * HW] = occ[0][0] + occ[1][0];
+  o[(D * kTailK1 + 2 * group + 1) * HW] = occ[0][1] + occ[1][1];
 }
 
-// one thread per voxel: split sums + biases, softmax over the K+1
-// candidates, deformation = sum_k mask_k * motion_k (motion_0 the identity
-// grid, motion_k = grid - kp_d[k-1] + kp_s[k-1]); the d = 0 threads also
-// write both occlusion maps
-template <int D, int K1>
+// one thread per voxel: the splits' sums in split order (no atomics: two
+// launches are bit-equal) + biases, softmax over the K+1 candidates,
+// deformation = sum_k mask_k * motion_k (motion_0 the identity grid,
+// motion_k = grid - kp_d[k-1] + kp_s[k-1]); the d = 0 threads also write
+// both occlusion maps, adding the depth groups' sums
+template <int D>
 __global__ void __launch_bounds__(256)
 mfe_tail_epilogue_kernel(const float* __restrict__ partial, const float* __restrict__ mask_b,
                          const float* __restrict__ occ_b, const float* __restrict__ kp_s,
                          const float* __restrict__ kp_d, int B, int H, int W, int n_split,
                          float* __restrict__ deformation, float* __restrict__ occ1,
                          float* __restrict__ occ2) {
-  constexpr int NCH = D * K1 + 2;
+  using T = TailShape<D>;
   const long long HW = (long long)H * W;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= (long long)B * D * HW) return;
@@ -553,21 +664,23 @@ mfe_tail_epilogue_kernel(const float* __restrict__ partial, const float* __restr
   const int d = (int)(r / HW);
   const long long hw = r - (long long)d * HW;
   const int h = (int)(hw / W), w = (int)(hw - (long long)h * W);
-  const long long split_stride = (long long)B * NCH * HW;
-  const float* pb = partial + (long long)b * NCH * HW + hw;
+  const long long split_stride = (long long)B * T::NCH * HW;
+  const float* pb = partial + (long long)b * T::NCH * HW + hw;
 
-  float logit[K1];
+  float logit[kTailK1] = {};
+  const float* pq = pb + d * kTailK1 * HW;
+  for (int q = 0; q < n_split; ++q, pq += split_stride)
+#pragma unroll
+    for (int k = 0; k < kTailK1; ++k) logit[k] += __ldg(pq + k * HW);
   float m = -INFINITY;
 #pragma unroll
-  for (int k = 0; k < K1; ++k) {
-    float s = 0.0f;
-    for (int q = 0; q < n_split; ++q) s += __ldg(pb + q * split_stride + (d * K1 + k) * HW);
-    logit[k] = s + __ldg(mask_b + k);
+  for (int k = 0; k < kTailK1; ++k) {
+    logit[k] += __ldg(mask_b + k);
     m = fmaxf(m, logit[k]);
   }
   float sum = 0.0f;
 #pragma unroll
-  for (int k = 0; k < K1; ++k) {
+  for (int k = 0; k < kTailK1; ++k) {
     logit[k] = expf(logit[k] - m);
     sum += logit[k];
   }
@@ -576,12 +689,12 @@ mfe_tail_epilogue_kernel(const float* __restrict__ partial, const float* __restr
   const float gz = 2.0f * ((float)d / (float)(D - 1)) - 1.0f;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f;
 #pragma unroll
-  for (int k = 0; k < K1; ++k) {
+  for (int k = 0; k < kTailK1; ++k) {
     const float mk = logit[k] / sum;
     float sx = gx, sy = gy, sz = gz;
     if (k > 0) {
-      const float* pd = kp_d + ((long long)b * (K1 - 1) + (k - 1)) * 3;
-      const float* ps = kp_s + ((long long)b * (K1 - 1) + (k - 1)) * 3;
+      const float* pd = kp_d + ((long long)b * (kTailK1 - 1) + (k - 1)) * 3;
+      const float* ps = kp_s + ((long long)b * (kTailK1 - 1) + (k - 1)) * 3;
       sx = (gx - pd[0]) + ps[0];
       sy = (gy - pd[1]) + ps[1];
       sz = (gz - pd[2]) + ps[2];
@@ -596,47 +709,60 @@ mfe_tail_epilogue_kernel(const float* __restrict__ partial, const float* __restr
   o[2] = oz;
   if (d == 0) {
     float s0 = 0.0f, s1 = 0.0f;
-    for (int q = 0; q < n_split; ++q) {
-      s0 += __ldg(pb + q * split_stride + (D * K1) * HW);
-      s1 += __ldg(pb + q * split_stride + (D * K1 + 1) * HW);
+    const float* po = pb + D * kTailK1 * HW;  // [group][head] planes
+    for (int q = 0; q < n_split; ++q, po += split_stride) {
+      s0 += __ldg(po);
+      s1 += __ldg(po + HW);
+      if constexpr (T::NDH == 2) {
+        s0 += __ldg(po + 2 * HW);
+        s1 += __ldg(po + 3 * HW);
+      }
     }
     occ1[(long long)b * HW + hw] = r3dp_sigmoid(s0 + __ldg(occ_b));
     occ2[(long long)b * HW + hw] = r3dp_sigmoid(s1 + __ldg(occ_b + 1));
   }
 }
 
-template <int D, int K1>
+template <int D>
 int launch_mfe_tail(const float* x, const float* mask_w, const float* mask_b,
                     const float* occ_w, const float* occ_b, const float* kp_s,
                     const float* kp_d, int B, int C, int H, int W, int c_per_split,
                     int n_split, float* partial, float* deformation, float* occ1,
                     float* occ2, cudaStream_t stream) {
-  const int nh = (H + kTailTH - 1) / kTailTH, nw = (W + kTailTW - 1) / kTailTW;
-  const size_t smem = sizeof(float) * ((size_t)D * kTailHR * kTailRS + 49 * 7 * K1 + 2 * D * 49);
-  auto kernel = mfe_tail_kernel<D, K1>;
+  using T = TailShape<D>;
+  const int nh = (H + T::TH - 1) / T::TH, nw = (W + kTailTW - 1) / kTailTW;
+  if ((long long)c_per_split * (n_split - 1) >= C || (long long)c_per_split * n_split < C ||
+      n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * T::STAGE;
+  auto kernel = mfe_tail_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long voxels = (long long)B * D * H * W;
   if (voxels == 0) return (int)cudaGetLastError();
-  kernel<<<dim3((unsigned)(B * nh * nw), (unsigned)n_split), kThreads, smem, stream>>>(
+  kernel<<<dim3((unsigned)(B * nh * nw), (unsigned)n_split), kTailThreads, smem, stream>>>(
       x, mask_w, occ_w, C, H, W, nh, nw, c_per_split, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mfe_tail_epilogue_kernel<D, K1><<<r3dp_blocks(voxels, 256), 256, 0, stream>>>(
+  mfe_tail_epilogue_kernel<D><<<r3dp_blocks(voxels, 256), 256, 0, stream>>>(
       partial, mask_b, occ_b, kp_s, kp_d, B, H, W, n_split, deformation, occ1, occ2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The tiles a caller plans its launches for (out[7]): K7a's threads per
+// The tiles a caller plans its launches for (out[11]): K7a's threads per
 // CTA, a warp's output tile (voxels and channels), input channels per step,
 // stages of the copy ring and the shared memory a CTA may use; K7b's pixel
-// tile rows and columns.
+// tile rows at D = 16 and at D = 2, its columns, the CTAs an SM holds and
+// the depth groups at D = 16 and at D = 2 (each writes its own occlusion
+// sums into the partial tensor).
 R3DP_EXPORT int r3dp_k7_tiles(int* out) {
-  const int tiles[7] = {kThreads, kWarpTile, kCiChunk, kStages, kSmemMax, kTailTH, kTailTW};
-  for (int i = 0; i < 7; ++i) out[i] = tiles[i];
+  const int tiles[11] = {kThreads, kWarpTile, kCiChunk, kStages, kSmemMax,
+                         TailShape<16>::TH, TailShape<2>::TH, kTailTW, kTailCtasPerSm,
+                         TailShape<16>::NDH, TailShape<2>::NDH};
+  for (int i = 0; i < 11; ++i) out[i] = tiles[i];
   return 0;
 }
 
@@ -681,23 +807,24 @@ R3DP_EXPORT int r3dp_conv3d(const float* x, const float* wt, const float* bias, 
 
 // x [B,C,D,H,W] fp32; mask_w [K1,C,7,7,7], mask_b [K1]; occ_w [2,C*D,7,7]
 // (occlusion_conv's and occlusion_conv2's weights), occ_b [2]; kp_s, kp_d
-// [B,K1-1,3]; partial [n_split,B,D*K1+2,H,W] scratch; deformation
-// [B,D,H,W,3]; occ1, occ2 [B,H,W]. D = 16 (standard and small presets) or
-// 2 (tiny), K1 = 5.
+// [B,K1-1,3]; deformation [B,D,H,W,3]; occ1, occ2 [B,H,W]. D = 16 (standard
+// and small presets) or 2 (tiny), K1 = 5. The caller splits the C input
+// channels into n_split ranges of c_per_split (the last may be shorter,
+// none empty) and gives the scratch partial [n_split,B,D*K1+2*G,H,W] for
+// the G depth groups that r3dp_k7_tiles reports.
 R3DP_EXPORT int r3dp_mfe_tail(const float* x, const float* mask_w, const float* mask_b,
                               const float* occ_w, const float* occ_b, const float* kp_s,
                               const float* kp_d, int B, int C, int D, int H, int W, int K1,
                               int c_per_split, int n_split, float* partial,
                               float* deformation, float* occ1, float* occ2,
                               cudaStream_t stream) {
-  if (K1 != 5 || H < 2 || W < 2 || n_split < 1) return (int)cudaErrorInvalidValue;
+  if (K1 != kTailK1 || H < 2 || W < 2 || C < 1 || n_split < 1 || c_per_split < 1)
+    return (int)cudaErrorInvalidValue;
   if (D == 16)
-    return launch_mfe_tail<16, 5>(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, B, C, H, W,
-                                  c_per_split, n_split, partial, deformation, occ1, occ2,
-                                  stream);
+    return launch_mfe_tail<16>(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, B, C, H, W,
+                               c_per_split, n_split, partial, deformation, occ1, occ2, stream);
   if (D == 2)
-    return launch_mfe_tail<2, 5>(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, B, C, H, W,
-                                 c_per_split, n_split, partial, deformation, occ1, occ2,
-                                 stream);
+    return launch_mfe_tail<2>(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, B, C, H, W,
+                              c_per_split, n_split, partial, deformation, occ1, occ2, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,17 +14,30 @@
 //
 // What bounds them on an H100: neither does enough arithmetic to matter
 // (tens of flops per sample). K2 reads 2 x S_c floats and writes S_f floats
-// per ray; K3 reads the fat colour tensors, (S_c + S_f) x 32 fp32 per ray
-// (6-12 KB), which is almost all of its traffic. Both are latency-bound
-// sequential scans along a short sample axis. Design: one warp per ray, and
-// no one-hot matrix or permutation is materialised. K2: the march and cdf
-// scans are short, so every lane runs them redundantly on values that the
-// warp reads from the same addresses (one transaction per load), and each
-// lane then takes its own fine samples for the inverse-CDF lookup. K3: one
-// lane merges the two lists into shared memory (a two-pointer merge, robust
-// to an unsorted ulp), the warp marches the merged samples with the
-// transmittance as a warp product scan, and each lane composites one colour
-// channel, so the colour rows are read as coalesced 128 B lines.
+// per ray: a latency-bound sequential scan along a short sample axis. Design:
+// one warp per ray, and no one-hot matrix or permutation is materialised;
+// the march and cdf scans are short, so every lane runs them redundantly on
+// values that the warp reads from the same addresses (one transaction per
+// load), and each lane then takes its own fine samples for the inverse-CDF
+// lookup.
+//
+// K3 reads the fat colour tensors, (S_c + S_f) x 32 fp32 per ray (6-12 KB,
+// ~100 MB a frame at 16+32): it is bound by those bytes, 0.03-0.07 ms at
+// the HBM rate, and reaches it only with enough colour rows in flight. One
+// warp per ray, 8 rays a block. Before anything else a lane issues its
+// first 12 colour loads (16 B each: 8 lanes a 128 B row, 4 rows a warp
+// instruction, the ray's c1 rows then its c2 rows, contiguous), so that
+// they land while the warp merges and marches. The merge is parallel: the
+// warp loads both lists coalesced, and each lane ranks its own samples
+// against the other list by a binary search in shared memory (a coarse
+// sample goes before an equal fine one, JAX's tie rule) and scatters depth
+// and density to that rank. The march is a warp product scan of the
+// transmittance. Each merged composite weight is then pulled back to its
+// source sample (w_cat[t] = w_c[pos[t]], as _march_merged does), so the
+// colours are summed in concatenation order straight from the registers,
+// and a shuffle adds the row groups' sums. Other widths (C / 4 not a power
+// of two up to 32) and misaligned colour views take a scalar path of the
+// same order, one lane a channel.
 #include "common.cuh"
 
 namespace {
@@ -104,45 +117,109 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-constexpr int kMergeWarps = 4;  // rays per block of merge_composite
+constexpr int kMergeWarps = 8;   // rays per block of merge_composite, one a warp
+constexpr int kMergeSlots = kMaxS / 32;  // a lane's samples of one ray
+constexpr int kMergeBatch = 12;  // 16 B colour loads a lane has in flight
 
-__global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_kernel(
+// The count of a[0..n) below x (kInclusive: at or below x) for a sorted a,
+// n < 128, by a binary search of 7 fixed steps.
+template <bool kInclusive>
+__device__ __forceinline__ int count_below(const float* a, int n, float x) {
+  int lo = 0;
+#pragma unroll
+  for (int step = 64; step > 0; step >>= 1) {
+    const int k = lo + step;
+    if (k <= n && (kInclusive ? a[k - 1] <= x : a[k - 1] < x)) lo = k;
+  }
+  return lo;
+}
+
+// kVec: C / 4 a power of two up to 32 and both colour tensors 16 B aligned;
+// a ray's colour rows are then read as float4s, C / 4 lanes a row and
+// 128 / C rows a warp instruction, kMergeBatch loads a lane in flight.
+// Otherwise one lane a channel, one row at a time. Both sum in
+// concatenation order.
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kMergeWarps, 2) merge_composite_kernel(
     const float* __restrict__ d1, const float* __restrict__ c1,
     const float* __restrict__ s1, int S1, const float* __restrict__ d2,
     const float* __restrict__ c2, const float* __restrict__ s2, int S2, int R,
     int C, int white_back, float* __restrict__ rgb, float* __restrict__ depth,
     float* __restrict__ weights) {
+  __shared__ float sh_key[kMergeWarps][kMaxS];
   __shared__ float sh_d[kMergeWarps][kMaxS];
   __shared__ float sh_s[kMergeWarps][kMaxS];
   __shared__ float sh_w[kMergeWarps][kMaxS];
-  __shared__ int sh_src[kMergeWarps][kMaxS];
+  __shared__ float sh_wc[kMergeWarps][kMaxS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long ray = (long long)blockIdx.x * kMergeWarps + warp;
   if (ray >= R) return;
   const int S = S1 + S2;
+  float* key = sh_key[warp];
   float* md = sh_d[warp];
   float* ms = sh_s[warp];
   float* w = sh_w[warp];
-  int* src = sh_src[warp];
+  float* wcat = sh_wc[warp];
 
-  // two-pointer merge of the sorted lists by one lane into shared memory; a
-  // coarse sample goes before an equal fine one. src < S1 indexes set 1,
-  // src >= S1 indexes set 2.
-  if (lane == 0) {
-    const float* rd1 = d1 + ray * S1;
-    const float* rd2 = d2 + ray * S2;
-    int i = 0, j = 0;
-    for (int k = 0; k < S; ++k) {
-      bool take1 = i < S1 && (j >= S2 || rd1[i] <= rd2[j]);
-      if (take1) {
-        md[k] = rd1[i];
-        ms[k] = s1[ray * S1 + i];
-        src[k] = i++;
-      } else {
-        md[k] = rd2[j];
-        ms[k] = s2[ray * S2 + j];
-        src[k] = S1 + j++;
-      }
+  // the ray's depths and densities (coalesced, lane t of each 32 takes
+  // sample t of the concatenation), then the first batch of colour rows,
+  // issued before the merge and the march that they wait on
+  float dv[kMergeSlots], sv[kMergeSlots];
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    dv[q] = sv[q] = 0.0f;
+    if (t < S) {
+      dv[q] = t < S1 ? d1[ray * S1 + t] : d2[ray * S2 + (t - S1)];
+      sv[q] = t < S1 ? s1[ray * S1 + t] : s2[ray * S2 + (t - S1)];
+    }
+  }
+  const int C4 = C >> 2;
+  const int rows = kVec ? 32 / C4 : 1;  // rows a warp instruction reads
+  const int grp = kVec ? lane / C4 : 0, col = kVec ? lane % C4 : 0;
+  const float4* r1 = reinterpret_cast<const float4*>(c1 + ray * S1 * C) + col;
+  const float4* r2 = reinterpret_cast<const float4*>(c2 + ray * S2 * C) + col;
+  float4 buf[kVec ? kMergeBatch : 1];
+  if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i) {
+      const int r = i * rows + grp;
+      buf[i] = r < S ? __ldg(r < S1 ? r1 + r * C4 : r2 + (r - S1) * C4)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  // the merge: sample t of the concatenation (set 1 then set 2) goes to
+  // pos1 = i + #(d2 < d1[i]) or pos2 = j + #(d1 <= d2[j]), so a coarse
+  // sample goes before an equal fine one. The counts are taken on each
+  // list's running maximum (the lists themselves where sorted), so a list
+  // out of order by an ulp still gives a permutation.
+  int pos[kMergeSlots];
+  float carry = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    if (q * 32 >= S) break;
+    const int t = q * 32 + lane;
+    const int seg = t < S1 ? 0 : S1;  // the first sample of t's list
+    float m = dv[q];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, m, off);
+      if (lane >= off && t - off >= seg) m = fmaxf(m, o);
+    }
+    if (q * 32 - 1 >= seg) m = fmaxf(m, carry);  // the previous chunk's, same list
+    carry = __shfl_sync(0xffffffffu, m, 31);
+    if (t < S) key[t] = m;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    if (t < S) {
+      pos[q] = t < S1 ? t + count_below<false>(key + S1, S2, key[t])
+                      : (t - S1) + count_below<true>(key, S1, key[t]);
+      md[pos[q]] = dv[q];
+      ms[pos[q]] = sv[q];
     }
   }
   __syncwarp();
@@ -150,7 +227,7 @@ __global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_kernel(
   // march: lane k of each 32-interval chunk takes interval k; the
   // transmittance cumprod of (1 - alpha + 1e-10) is a warp product scan
   // carried across chunks
-  float carry = 1.0f, total = 0.0f, dnum = 0.0f;
+  float trans = 1.0f, total = 0.0f, dnum = 0.0f;
   for (int base = 0; base < S - 1; base += 32) {
     const int k = base + lane;
     const bool on = k < S - 1;
@@ -168,36 +245,88 @@ __global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_kernel(
     }
     float excl = __shfl_up_sync(0xffffffffu, incl, 1);
     if (lane == 0) excl = 1.0f;
-    float wk = alpha * (carry * excl);
+    float wk = alpha * (trans * excl);
     if (on) w[k] = wk;
     total += wk;
     dnum += wk * mid;
-    carry *= __shfl_sync(0xffffffffu, incl, 31);
+    trans *= __shfl_sync(0xffffffffu, incl, 31);
   }
   total = warp_sum(total);
   dnum = warp_sum(dnum);
   __syncwarp();
 
-  // composite, one lane per channel (coalesced colour rows), with the
-  // midpoint quadrature re-indexed onto samples:
-  // w_c[k] = (w[k-1] + w[k]) / 2 with w[-1] = w[S-1] = 0
-  for (int c = lane; c < C; c += 32) {
-    float acc = 0.0f;
-    for (int k = 0; k < S; ++k) {
-      float wl = k > 0 ? w[k - 1] : 0.0f;
-      float wr = k < S - 1 ? w[k] : 0.0f;
-      int t = src[k];
-      float col = t < S1 ? c1[(ray * S1 + t) * C + c]
-                         : c2[(ray * S2 + (t - S1)) * C + c];
-      acc += (wl + wr) / 2.0f * col;
+  // each sample's composite weight, pulled back to concatenation order:
+  // the midpoint quadrature gives merged sample p (w[p-1] + w[p]) / 2 with
+  // w[-1] = w[S-1] = 0
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    if (t < S) {
+      const int p = pos[q];
+      wcat[t] = ((p > 0 ? w[p - 1] : 0.0f) + (p < S - 1 ? w[p] : 0.0f)) / 2.0f;
     }
-    if (white_back) acc = acc + 1.0f - total;
-    rgb[ray * C + c] = acc * 2.0f - 1.0f;
   }
   for (int k = lane; k < S - 1; k += 32) weights[ray * (S - 1) + k] = w[k];
   // unclipped: nan_to_num and the clip to the batch's depth range are
   // reductions over all rays and run after the kernel
   if (lane == 0) depth[ray] = dnum / total;
+  __syncwarp();
+
+  // composite the ray's colour block in concatenation order: c1's S1 rows,
+  // then c2's S2 rows, contiguous in memory
+  if constexpr (kVec) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int base = 0;;) {
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) {
+        const int r = base + i * rows + grp;
+        if (r < S) {
+          const float wr = wcat[r];
+          acc.x = fmaf(wr, buf[i].x, acc.x);
+          acc.y = fmaf(wr, buf[i].y, acc.y);
+          acc.z = fmaf(wr, buf[i].z, acc.z);
+          acc.w = fmaf(wr, buf[i].w, acc.w);
+        }
+      }
+      base += kMergeBatch * rows;
+      if (base >= S) break;
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) {
+        const int r = base + i * rows + grp;
+        buf[i] = r < S ? __ldg(r < S1 ? r1 + r * C4 : r2 + (r - S1) * C4)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+    // add the row groups' sums: lanes col, col + C4, ...
+    for (int off = C4; off < 32; off <<= 1) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+    }
+    if (grp == 0) {
+      if (white_back) {
+        acc.x = acc.x + 1.0f - total;
+        acc.y = acc.y + 1.0f - total;
+        acc.z = acc.z + 1.0f - total;
+        acc.w = acc.w + 1.0f - total;
+      }
+      reinterpret_cast<float4*>(rgb + ray * C)[col] =
+          make_float4(acc.x * 2.0f - 1.0f, acc.y * 2.0f - 1.0f, acc.z * 2.0f - 1.0f,
+                      acc.w * 2.0f - 1.0f);
+    }
+  } else {
+    const float* b1 = c1 + ray * S1 * C;
+    const float* b2 = c2 + ray * S2 * C;
+    for (int c = lane; c < C; c += 32) {
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < S; ++r)
+        acc = fmaf(wcat[r], __ldg(r < S1 ? b1 + r * C + c : b2 + (r - S1) * C + c), acc);
+      if (white_back) acc = acc + 1.0f - total;
+      rgb[ray * C + c] = acc * 2.0f - 1.0f;
+    }
+  }
 }
 
 }  // namespace
@@ -214,17 +343,29 @@ R3DP_EXPORT int r3dp_importance_sample(const float* depths, const float* sigma,
   return (int)cudaGetLastError();
 }
 
-// d1, s1 [R,S1]; c1 [R,S1,C]; d2, s2 [R,S2]; c2 [R,S2,C]; S1 + S2 <= 128.
-// rgb [R,C] (already mapped to [-1,1]), depth [R] unclipped, weights [R,S-1].
+// d1, s1 [R,S1]; c1 [R,S1,C]; d2, s2 [R,S2]; c2 [R,S2,C]; each list sorted,
+// S1 + S2 <= 128. rgb [R,C] (already mapped to [-1,1]), depth [R]
+// unclipped, weights [R,S-1].
 R3DP_EXPORT int r3dp_merge_composite(const float* d1, const float* c1,
                                      const float* s1, int S1, const float* d2,
                                      const float* c2, const float* s2, int S2,
                                      int R, int C, int white_back, float* rgb,
                                      float* depth, float* weights,
                                      cudaStream_t stream) {
-  if (R > 0)
-    merge_composite_kernel<<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps, 0,
-                             stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R, C,
-                                       white_back, rgb, depth, weights);
+  if (S1 < 0 || S2 < 0 || S1 + S2 > kMaxS || C < 1) return (int)cudaErrorInvalidValue;
+  const int c4 = C / 4;
+  const bool vec = C % 4 == 0 && c4 <= 32 && (c4 & (c4 - 1)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(c2) |
+                    reinterpret_cast<uintptr_t>(rgb)) % 16 == 0;
+  if (R > 0) {
+    if (vec)
+      merge_composite_kernel<true><<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps, 0,
+                                     stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R, C,
+                                               white_back, rgb, depth, weights);
+    else
+      merge_composite_kernel<false><<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps, 0,
+                                      stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R, C,
+                                                white_back, rgb, depth, weights);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-"""K1, K1-trigrid and K6b at the shapes of ``chip_smoke.py``'s kernel rows,
-beside their plain versions, and K1-trigrid on the points of a rendered
-frame, on a CUDA device.
+"""K1, K1-trigrid, K3, K6b and K7b at the shapes of ``chip_smoke.py``'s
+kernel rows, beside their plain versions, and K1-trigrid and K3 on the
+samples of a rendered frame, on a CUDA device.
 
     python3 real3dportrait_tpu_torch/inference/kernel_times.py [--tree DIR]
 
@@ -11,11 +11,15 @@ work included), and the max abs error against the plain version (bf16: in
 bf16 ulps of the plain output). Inputs as in ``chip_smoke.py``: N(0,1)
 planes with points uniform in the box and a seeded decoder; K6b's
 epilogues with demodulation, noise, bias, lrelu, gain sqrt 2 and a clamp,
-and toRGB's bias alone. The frame rows are the coarse and fine passes of
-the default model (``configs/secc_img2plane_torso.yaml``, ``fast``, seeded
-mock weights, the 35,709-vertex synthetic mesh, the neutral source
-coefficients), captured from ``synthesize``: their samples follow rays, so
-neighbouring points share corner rows, where uniform points do not.
+and toRGB's bias alone; K3 on 16,384 rays of stratified coarse depths and
+sorted fine depths with 32 uniform colour channels at 16+32 and 48+48; K7b
+on the frame's [1,32,16,64,64] volume, 4 keypoints uniform in [-0.8, 0.8].
+The frame rows are the coarse and fine passes of the default model
+(``configs/secc_img2plane_torso.yaml``, ``fast``, seeded mock weights, the
+35,709-vertex synthetic mesh, the neutral source coefficients), captured
+from ``synthesize``: their samples follow rays, so neighbouring points
+share corner rows, where uniform points do not; K3's frame row merges
+those two passes' samples.
 ``--tree DIR`` imports the port from the checkout at DIR instead of this
 one (run the file, not ``-m``), so that one run on the card can time
 two trees in turns.
@@ -40,10 +44,10 @@ K6B_ROWS = [("block1 bf16", (1, 128, 512, 512), "bfloat16", 256.0),
             ("toRGB fp32", (1, 3, 512, 512), "float32", None)]
 
 
-def frame_passes(dev) -> list:
-    """(planes, coords, box_warp, decoder) of the two K1-trigrid calls of
-    the second of two frames that the default model synthesises at
-    ``fast``."""
+def frame_passes(dev) -> tuple[list, tuple]:
+    """(planes, coords, box_warp, decoder) of the two K1-trigrid calls, and
+    the arguments of the K3 call, of the second of two frames that the
+    default model synthesises at ``fast``."""
     import numpy as np
     import torch
 
@@ -51,6 +55,7 @@ def frame_passes(dev) -> list:
     from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
     from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
     from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.rendering import renderer
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(dm.__file__))))
     cfg = load_config(os.path.join(root, "configs", "secc_img2plane_torso.yaml"),
@@ -60,21 +65,67 @@ def frame_passes(dev) -> list:
     rng = np.random.RandomState(0)
     src = rng.randint(0, 256, (512, 512, 3)).astype(np.uint8)
     exp = torch.from_numpy(rng.randn(2, 64).astype(np.float32) * 0.3)
-    calls, kernel = [], dm.trigrid_decode
+    calls, merges = [], []
+    kernel, merge = dm.trigrid_decode, renderer.merge_composite
 
     def capture(planes, coords, box_warp, decoder):
         calls.append((planes, coords, box_warp, decoder))
         return kernel(planes, coords, box_warp, decoder)
 
-    capture.launches = 0  # the wrapper counts on the name it is called by
-    dm.trigrid_decode = capture
+    def capture_merge(*args):
+        merges.append(args)
+        return merge(*args)
+
+    # the wrappers count on the name they are called by
+    capture.launches = capture_merge.launches = 0
+    dm.trigrid_decode, renderer.merge_composite = capture, capture_merge
     try:
         pipe.synthesize(src, exp, pipe.fit_source(None), blink_mode="none",
                         prepare_source_images=False)
     finally:
-        dm.trigrid_decode = kernel
+        dm.trigrid_decode, renderer.merge_composite = kernel, merge
     torch.cuda.synchronize()
-    return calls[-2:]
+    return calls[-2:], merges[-1]
+
+
+def merge_inputs(dev, gen, r: int, s_c: int, s_f: int, c: int) -> tuple:
+    """K3's arguments as ``chip_smoke.py`` makes them: ``r`` rays of
+    stratified coarse depths in [2, 3] and sorted fine depths (K2's plain
+    resample of the coarse densities), N(0, 3) densities, colours uniform
+    in [0, 1)."""
+    import torch
+
+    from real3dportrait_tpu_torch.rendering import renderer
+
+    start = 2.0 + 0.2 * torch.rand((1, r, 1, 1), device=dev, generator=gen)
+    steps = (torch.arange(s_c, device=dev) + 0.5)[None, None, :, None] / s_c
+    depths = start + 0.8 * steps
+    sigma = 3 * torch.randn((1, r, s_c, 1), device=dev, generator=gen)
+    fine = renderer.importance_sample_plain(depths, sigma, renderer.importance_u(r, s_f, dev))
+    c1 = torch.rand((1, r, s_c, c), device=dev, generator=gen)
+    c2 = torch.rand((1, r, s_f, c), device=dev, generator=gen)
+    s2 = 3 * torch.randn((1, r, s_f, 1), device=dev, generator=gen)
+    return depths, c1, sigma, fine, c2, s2
+
+
+def sm_clock_while(fn, calls: int = 2000) -> str:
+    """The card's SM clock and power draw (``nvidia-smi``) read while
+    ``calls`` calls of ``fn`` queued back to back run: an FFMA-bound
+    kernel's share of its peak depends on that clock."""
+    import subprocess
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        fn()
+    time.sleep(0.05)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    return f"SM clock, power {out}"
 
 
 def main() -> None:
@@ -87,7 +138,9 @@ def main() -> None:
 
     from real3dportrait_tpu_torch import kernels
     from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.models import torso
     from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.rendering import renderer
     from real3dportrait_tpu_torch.weights import mock_init_
 
     if not torch.cuda.is_available():
@@ -113,7 +166,8 @@ def main() -> None:
               f"err {err:.2e}")
         del planes, coords, got, want
 
-    for tag, (planes, coords, box_warp, dec_f) in zip(("coarse", "fine"), frame_passes(dev)):
+    passes, merge_args = frame_passes(dev)
+    for tag, (planes, coords, box_warp, dec_f) in zip(("coarse", "fine"), passes):
         with torch.no_grad():
             got = dm.trigrid_decode(planes, coords, box_warp, dec_f)
             want = dm.trigrid_decode_plain(planes, coords, box_warp, dec_f)
@@ -123,6 +177,39 @@ def main() -> None:
         print(f"trigrid_decode [frame {tag} pass, {coords.shape[1]} pts]: per launch "
               f"{launch:.4f} ms, per call {call:.4f} ms; max abs err {err:.2e}")
         del planes, coords, got, want
+
+    del passes
+    merge_rows = [(f"{s_c}+{s_f}", merge_inputs(dev, gen, 16384, s_c, s_f, 32))
+                  for s_c, s_f in ((16, 32), (48, 48))]
+    merge_rows.append((f"frame {merge_args[0].shape[2]}+{merge_args[3].shape[2]}", merge_args))
+    for tag, margs in merge_rows:
+        got = renderer.merge_composite(*margs)
+        want = renderer.merge_composite_plain(*margs)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        launch = kernels.device_ms(lambda: renderer.merge_composite(*margs))
+        call = kernels.cuda_ms(lambda: renderer.merge_composite(*margs))
+        print(f"merge_composite [{tag}, {margs[0].shape[1]} rays]: per launch {launch:.4f} ms, "
+              f"per call {call:.4f} ms; max abs err {err:.2e}")
+    del merge_rows, merge_args
+
+    c, d, h, w = 32, 16, 64, 64
+    targs = (torch.randn((1, c, d, h, w), device=dev, generator=gen),
+             torch.randn((5, c, 7, 7, 7), device=dev, generator=gen) / (c * 343) ** 0.5,
+             torch.randn((5,), device=dev, generator=gen),
+             torch.randn((2, c * d, 7, 7), device=dev, generator=gen) / (c * d * 49) ** 0.5,
+             torch.randn((2,), device=dev, generator=gen),
+             1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8,
+             1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8)
+    got, want = torso.mfe_tail(*targs), torso.mfe_tail_plain(*targs)
+    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    again = torso.mfe_tail(*targs)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    launch = kernels.device_ms(lambda: torso.mfe_tail(*targs))
+    call = kernels.cuda_ms(lambda: torso.mfe_tail(*targs))
+    print(f"mfe_tail [1,{c},{d},{h},{w}] K+1=5: per launch {launch:.4f} ms, per call "
+          f"{call:.4f} ms; max abs err {err:.2e}; two calls {'bit-equal' if same else 'DIFFER'}; "
+          f"while it runs: {sm_clock_while(lambda: torso.mfe_tail(*targs))}")
+    del targs, got, want, again
 
     for tag, shape, dtype_name, clamp in K6B_ROWS:
         dtype = getattr(torch, dtype_name)

@@ -261,15 +261,19 @@ def torso_warp_volume(fs: torch.Tensor, deformation: torch.Tensor) -> torch.Tens
 torso_warp_volume.launches = 0
 
 
-def mfe_tail_plan(b: int, c: int, h: int, w: int, tile: tuple[int, int], sms: int) -> dict:
-    """The kernel's split of the ``c`` input channels into ``n_split``
-    groups of ``c_per_split``, so that its pixel tiles (``tile``: rows,
-    columns, from :func:`~real3dportrait_tpu_torch.ops.conv3d.kernel_tiles`)
-    times the groups fill the card's ``sms`` SMs about once."""
-    tiles = b * math.ceil(h / tile[0]) * math.ceil(w / tile[1])
-    splits = min(c, max(1, math.ceil(sms / tiles)))
+def mfe_tail_plan(b: int, c: int, d: int, h: int, w: int, tiles: dict, sms: int) -> dict:
+    """The kernel's launch for ``tiles`` (from
+    :func:`~real3dportrait_tpu_torch.ops.conv3d.kernel_tiles`) on ``sms``
+    SMs: ``tile`` (pixel rows, columns of a CTA at depth ``d``), ``n_tiles``
+    (over the batch), and the split of the ``c`` input channels into
+    ``n_split`` ranges of ``c_per_split`` (the last may be shorter, none is
+    empty), so that the grid of ``(n_tiles, n_split)`` CTAs fills the card's
+    ``tail_ctas_per_sm`` CTAs an SM about once."""
+    th, tw = tiles["tail_tiles"][d]
+    n_tiles = b * math.ceil(h / th) * math.ceil(w / tw)
+    splits = min(c, max(1, math.ceil(tiles["tail_ctas_per_sm"] * sms / n_tiles)))
     per = math.ceil(c / splits)
-    return dict(c_per_split=per, n_split=math.ceil(c / per))
+    return dict(tile=(th, tw), n_tiles=n_tiles, c_per_split=per, n_split=math.ceil(c / per))
 
 
 def mfe_tail_plain(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
@@ -298,7 +302,9 @@ def mfe_tail(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes fp32, K + 1 = 5 candidates and a depth of 16 (the standard
-    and small presets) or 2 (tiny), or raise.
+    and small presets) or 2 (tiny), or raise. The input channels are split
+    over CTAs (:func:`mfe_tail_plan`) that write partial sums; a second
+    launch adds them in split order, so two calls are bit-equal.
     """
     if x.device.type == "cpu":
         return mfe_tail_plain(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)
@@ -316,8 +322,10 @@ def mfe_tail(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
         raise ValueError(f"{name}: kernel takes x [B,C,D,H,W] with D in (2, 16), H, W >= 2, "
                          f"mask_w [5,C,7,7,7], occ_w [2,C*D,7,7] and keypoints [B,4,3]; got "
                          f"{[tuple(t.shape) for t in args]}")
-    plan = mfe_tail_plan(b, c, h, w, kernel_tiles()["tail_tile"], sm_count(x.device))
-    partial = torch.empty((plan["n_split"], b, d * k1 + 2, h, w), device=x.device)
+    tiles = kernel_tiles()
+    plan = mfe_tail_plan(b, c, d, h, w, tiles, sm_count(x.device))
+    partial = torch.empty((plan["n_split"], b, d * k1 + 2 * tiles["tail_groups"][d], h, w),
+                          device=x.device)
     deformation = torch.empty((b, d, h, w, 3), device=x.device)
     occ1, occ2 = (torch.empty((b, h, w, 1), device=x.device) for _ in range(2))
     kernels.launch("r3dp_mfe_tail", *args, b, c, d, h, w, k1, plan["c_per_split"],

@@ -30,12 +30,15 @@ def kernel_tiles() -> dict:
     library: K7a's ``threads`` per CTA, ``warp_tile`` (a warp's output tile
     is that many voxels x output channels), ``ci_chunk`` (input channels
     per step), ``stages`` (of the copy ring) and ``smem_max`` (bytes of
-    shared memory a CTA may use); K7b's ``tail_tile`` (pixel rows, columns
-    per CTA)."""
-    out = (ctypes.c_int * 7)()
+    shared memory a CTA may use); K7b's ``tail_tiles`` (pixel rows and
+    columns of a CTA, by the volume's depth), ``tail_ctas_per_sm`` and
+    ``tail_groups`` (a pixel's depth groups, by depth, each with its own
+    occlusion sums)."""
+    out = (ctypes.c_int * 11)()
     kernels.library().r3dp_k7_tiles(out)
     return dict(threads=out[0], warp_tile=out[1], ci_chunk=out[2], stages=out[3],
-                smem_max=out[4], tail_tile=(out[5], out[6]))
+                smem_max=out[4], tail_tiles={16: (out[5], out[7]), 2: (out[6], out[7])},
+                tail_ctas_per_sm=out[8], tail_groups={16: out[9], 2: out[10]})
 
 
 def sm_count(device: torch.device) -> int:

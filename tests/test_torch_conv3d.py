@@ -104,7 +104,8 @@ def test_k7b_plain_matches_jax_fused_tail(b, c, d, hw):
 # the tiles csrc/conv3d.cu is compiled for (c3d.kernel_tiles() reads them
 # from the built library on a card) and an H100 SXM's 132 SMs
 TILES = dict(threads=256, warp_tile=32, ci_chunk=8, stages=2, smem_max=232448,
-             tail_tile=(8, 32))
+             tail_tiles={16: (4, 32), 2: (8, 32)}, tail_ctas_per_sm=2,
+             tail_groups={16: 2, 2: 1})
 
 # every distinct 3D conv of the standard torso (models/torso.py:367-413):
 # the 7^3 tgt_head_fuser, the U-Net's down_0-4 and up_0-4, the appearance
@@ -143,9 +144,43 @@ def test_k7_launch_plans_cover_every_voxel_and_channel(b, ci, co, dhw, k):
                     for w0 in range(0, w, tw):
                         covered[i, c0:c0 + bn, d0:d0 + td, h0:h0 + th, w0:w0 + tw] += 1
     assert (covered[:, :co, :d, :h, :w] == 1).all()
-    tail = torso.mfe_tail_plan(b, ci, h, w, TILES["tail_tile"], 132)
-    assert (tail["n_split"] - 1) * tail["c_per_split"] < ci <= tail["n_split"] * tail[
-        "c_per_split"]
+    for tail_d in TILES["tail_tiles"]:
+        _check_tail_plan(b, ci, tail_d, h, w, 132)
+
+
+def _check_tail_plan(b, c, d, h, w, sms):
+    """K7b's launch: every (batch, pixel) in exactly one of the grid's
+    ``n_tiles`` tiles, every input channel in exactly one of its
+    ``n_split`` splits, none empty, and splits where the tiles alone would
+    leave CTA slots of the card idle."""
+    plan = torso.mfe_tail_plan(b, c, d, h, w, TILES, sms)
+    (th, tw), n, per = plan["tile"], plan["n_split"], plan["c_per_split"]
+    assert (th, tw) == TILES["tail_tiles"][d]
+    assert 1 <= n <= c and (n - 1) * per < c <= n * per
+    channels = np.zeros(c, np.int32)
+    for q in range(n):
+        assert q * per < min(c, (q + 1) * per), "an empty split"
+        channels[q * per:(q + 1) * per] += 1
+    assert (channels == 1).all()
+    tiles = [(i, y0, x0) for i in range(b) for y0 in range(0, h, th) for x0 in range(0, w, tw)]
+    assert len(tiles) == plan["n_tiles"]
+    covered = np.zeros((b, h, w), np.int32)
+    for i, y0, x0 in tiles:
+        covered[i, y0:y0 + th, x0:x0 + tw] += 1
+    assert (covered == 1).all()
+    slots = TILES["tail_ctas_per_sm"] * sms
+    if plan["n_tiles"] < slots and c > 1:
+        assert n > 1 and n * plan["n_tiles"] >= min(slots, c * plan["n_tiles"]) // 2
+
+
+@pytest.mark.parametrize("b,c,d,hw,sms", [
+    (1, 32, 16, (64, 64), 132), (1, 32, 16, (64, 64), 16), (2, 57, 16, (9, 37), 132),
+    (1, 89, 16, (8, 8), 132), (2, 4, 2, (16, 16), 132), (1, 3, 2, (5, 70), 132),
+    (1, 1, 16, (2, 2), 132), (4, 32, 16, (128, 128), 132)],
+    ids=["frame", "frame_16_sms", "v1_odd", "fan_in_89", "tiny", "tiny_wide", "one_channel",
+         "b4_256"])
+def test_k7b_launch_plan_covers_every_pixel_and_channel(b, c, d, hw, sms):
+    _check_tail_plan(b, c, d, *hw, sms)
 
 
 def _tf32_rna(a: np.ndarray) -> np.ndarray:

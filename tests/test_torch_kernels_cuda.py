@@ -1,7 +1,9 @@
 """Kernels K1-K7b and K1-trigrid against their plain PyTorch versions on a
 CUDA device, at edge-case shapes the slice's chip_smoke run does not reach
 (several frames per call, ragged ray counts, more than 32 channels, white
-background, ties, posed meshes; tri-grids of depth 1-3 with odd H != W and
+background, ties and repeated depths in every ray, 128 samples a ray,
+colour widths of the 16 B and the scalar path, misaligned colour views,
+posed meshes; tri-grids of depth 1-3 with odd H != W and
 points outside the box; point counts around the decode tile, points all
 outside, features of 1e3 beside 1e-3, decoder weights that change between
 calls; warps with samples exactly on and far beyond the
@@ -10,7 +12,8 @@ epilogue option, in fp32 and bf16, rows no multiple of the vector and
 misaligned views, with no launch but the kernel's; 3D convolutions of kernel 3 and 7 at odd
 sizes, input channels that are no multiple of the step's 8, output
 channels across N tiles, widths across M tiles, split input channels and
-inputs of 1e4 next to 1e-4; the estimator's tail at D = 16 and 2). Every test needs a
+inputs of 1e4 next to 1e-4; the estimator's tail at D = 16 and 2, at
+B = 2 with ragged tiles, and bit-equal from launch to launch). Every test needs a
 card and skips without one. On the card (where JAX, which tests/conftest.py imports, is
 not installed):
 
@@ -248,6 +251,62 @@ def test_k3_ragged_rays_wide_channels_and_ties(dev, white_back):
     sg1 = 3 * torch.randn((1, r, s1, 1), device=dev, generator=g)
     sg2 = 3 * torch.randn((1, r, s2, 1), device=dev, generator=g)
     args = (d1, c1, sg1, d2, c2, sg2, white_back)
+    for k, p, what in zip(merge_composite(*args), merge_composite_plain(*args),
+                          ("rgb", "depth", "weights")):
+        _close(k, p, 1e-4, what)
+
+
+def _k3_tie_args(dev, g, r, s1, s2, c, white_back=False):
+    """Sorted coarse depths from a grid of s1 // 2 values (repeats in every
+    ray) and fine depths drawn from the ray's own coarse depths (each ties
+    a coarse one)."""
+    grid = 2.0 + torch.arange(max(s1 // 2, 2), device=dev, dtype=torch.float32) / 16
+    d1 = torch.sort(grid[torch.randint(0, len(grid), (1, r, s1), device=dev, generator=g)],
+                    dim=-1).values
+    d2 = torch.sort(d1.gather(-1, torch.randint(0, s1, (1, r, s2), device=dev, generator=g)),
+                    dim=-1).values
+    c1 = torch.rand((1, r, s1, c), device=dev, generator=g)
+    c2 = torch.rand((1, r, s2, c), device=dev, generator=g)
+    sg1 = 3 * torch.randn((1, r, s1, 1), device=dev, generator=g)
+    sg2 = 3 * torch.randn((1, r, s2, 1), device=dev, generator=g)
+    return d1[..., None], c1, sg1, d2[..., None], c2, sg2, white_back
+
+
+@pytest.mark.parametrize("s1,s2,c", [(16, 32, 32), (48, 48, 32), (100, 28, 32), (64, 64, 32),
+                                     (64, 64, 40), (16, 32, 8), (16, 32, 128), (7, 9, 4)],
+                         ids=["fast", "48+48", "100+28", "128_c32", "128_c40", "c8", "c128",
+                              "c4"])
+def test_k3_ties_in_every_ray_and_sample_widths(dev, s1, s2, c):
+    # every fine depth ties a coarse one and each list repeats depths, so
+    # the rank merge's tie rule decides where each density lands; C / 4 a
+    # power of two up to 32 takes the 16 B path, C = 40 the scalar one.
+    # Sums in another order: 1e-4 absolute
+    g = torch.Generator(device=dev).manual_seed(14)
+    args = _k3_tie_args(dev, g, 301, s1, s2, c, white_back=s1 == 100)
+    for k, p, what in zip(merge_composite(*args), merge_composite_plain(*args),
+                          ("rgb", "depth", "weights")):
+        assert torch.isfinite(k).all(), what
+        _close(k, p, 1e-4, what)
+
+
+@pytest.mark.parametrize("which", ["colors1", "colors2", "both"])
+def test_k3_misaligned_colour_views(dev, which):
+    # a contiguous view 4 B past a 16 B boundary takes the scalar path
+    g = torch.Generator(device=dev).manual_seed(15)
+    d1, c1, sg1, d2, c2, sg2, wb = _k3_tie_args(dev, g, 129, 64, 64, 32)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    if which in ("colors1", "both"):
+        c1 = shifted(c1)
+    if which in ("colors2", "both"):
+        c2 = shifted(c2)
+    args = (d1, c1, sg1, d2, c2, sg2, wb)
     for k, p, what in zip(merge_composite(*args), merge_composite_plain(*args),
                           ("rgb", "depth", "weights")):
         _close(k, p, 1e-4, what)
@@ -561,8 +620,10 @@ def test_k7a_module_uses_the_kernel_and_follows_weight_updates(dev):
 
 
 @pytest.mark.parametrize("b,c,d,hw", [(1, 32, 16, (64, 64)), (2, 57, 16, (9, 37)),
-                                      (2, 4, 2, (16, 16)), (1, 3, 2, (5, 70))],
-                         ids=["frame", "v1_odd", "tiny", "tiny_wide"])
+                                      (2, 4, 2, (16, 16)), (1, 3, 2, (5, 70)),
+                                      (2, 32, 16, (30, 45)), (2, 5, 2, (13, 35))],
+                         ids=["frame", "v1_odd", "tiny", "tiny_wide", "b2_ragged",
+                              "tiny_b2_ragged"])
 def test_k7b_mfe_tail_cases(dev, b, c, d, hw):
     # K+1 = 5 candidates; mask logits sum up to 57 * 343 terms and the
     # occlusion heads 57 * 16 * 49 in another order than cuDNN's; after
@@ -588,3 +649,23 @@ def test_k7b_mfe_tail_cases(dev, b, c, d, hw):
         _close(k_, p_, 1e-4, f"K7b {what}")
     with pytest.raises(ValueError):
         torso.mfe_tail(x[:, :, :1].contiguous(), mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)
+
+
+def test_k7b_two_launches_are_bit_equal(dev):
+    # the channel splits' partial sums are added in split order, with no
+    # atomics: the result does not depend on the order in which the CTAs
+    # run
+    g = torch.Generator(device=dev).manual_seed(16)
+    c, d, h, w = 32, 16, 64, 64
+    args = (torch.randn((1, c, d, h, w), device=dev, generator=g),
+            torch.randn((5, c, 7, 7, 7), device=dev, generator=g) / (c * 343) ** 0.5,
+            torch.randn((5,), device=dev, generator=g),
+            torch.randn((2, c * d, 7, 7), device=dev, generator=g) / (c * d * 49) ** 0.5,
+            torch.randn((2,), device=dev, generator=g),
+            1.6 * torch.rand((1, 4, 3), device=dev, generator=g) - 0.8,
+            1.6 * torch.rand((1, 4, 3), device=dev, generator=g) - 0.8)
+    first = torso.mfe_tail(*args)
+    for _ in range(3):
+        again = torso.mfe_tail(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))

@@ -153,6 +153,85 @@ def test_k3_plain_tie_order():
     assert not torch.allclose(swapped, weights)
 
 
+def _tie_inputs(rng, r, s1, s2, c):
+    """Sorted coarse depths drawn from a grid of s1 // 2 values (each list
+    repeats depths) and fine depths drawn from the ray's own coarse depths
+    (every fine depth ties a coarse one)."""
+    grid = 2.0 + np.arange(max(s1 // 2, 2), dtype=np.float32) / 16
+    d1 = np.sort(rng.choice(grid, (1, r, s1)), axis=-1).astype(np.float32)[..., None]
+    pick = rng.randint(0, s1, (1, r, s2))
+    d2 = np.sort(np.take_along_axis(d1[..., 0], pick, axis=-1), axis=-1)[..., None]
+    c1 = rng.uniform(0, 1, (1, r, s1, c)).astype(np.float32)
+    c2 = rng.uniform(0, 1, (1, r, s2, c)).astype(np.float32)
+    sg1 = (rng.randn(1, r, s1, 1) * 3).astype(np.float32)
+    sg2 = (rng.randn(1, r, s2, 1) * 3).astype(np.float32)
+    return d1, c1, sg1, d2.astype(np.float32), c2, sg2
+
+
+@pytest.mark.parametrize("s1,s2", [(16, 32), (48, 48)])
+def test_k3_plain_matches_march_merged_with_ties_everywhere(s1, s2):
+    # every fine depth ties a coarse one and each list repeats depths: the
+    # tie rule (a coarse sample before an equal fine one, in list order)
+    # decides which density lands where. The merge is exact in both (a
+    # permutation), so only the march's and the composite's sums differ
+    # (torch.cumprod against JAX's log-space matmul, a sorted gather
+    # against a one-hot einsum): 1e-6 of scale max, 2e-7 mean
+    rng = np.random.RandomState(5)
+    args = _tie_inputs(rng, 120, s1, s2, 32)
+    assert all((np.diff(a[..., 0], axis=-1) == 0).any(axis=-1).all() for a in (args[0], args[3]))
+    want_rgb, want_depth, want_w = _march_merged(*map(jnp.asarray, args))
+    rgb, depth, weights = merge_composite(*map(t, args))
+    lo = min(args[0].min(), args[3].min())
+    hi = max(args[0].max(), args[3].max())
+    depth = torch.clamp(torch.nan_to_num(depth, nan=float("inf")), lo, hi)
+    agree(weights, want_w, 1e-6, 2e-7, "K3 weights, ties")
+    agree(depth, want_depth, 1e-6, 2e-7, "K3 depth, ties")
+    agree(rgb, want_rgb, 1e-6, 2e-7, "K3 rgb, ties")
+    # the other tie order (fine first) changes the weights, so the checks
+    # above have teeth
+    _, _, swapped = merge_composite(*map(t, args[3:] + args[:3]))
+    assert float((swapped - weights).abs().max()) > 1e-2
+
+
+def _rank_merge(d1: np.ndarray, d2: np.ndarray) -> np.ndarray:
+    """K3's merge as csrc/render_march.cu computes it, per ray [S1], [S2] ->
+    the merged position of each sample of the concatenation: the running
+    maximum of each list as its key, then pos1 = i + #(key2 < key1[i]) and
+    pos2 = j + #(key1 <= key2[j]), counted by a binary search of 7 steps."""
+    k1, k2 = np.maximum.accumulate(d1), np.maximum.accumulate(d2)
+
+    def count_below(a, x, inclusive):
+        lo = 0
+        for step in (64, 32, 16, 8, 4, 2, 1):
+            k = lo + step
+            if k <= len(a) and (a[k - 1] <= x if inclusive else a[k - 1] < x):
+                lo = k
+        return lo
+
+    pos1 = [i + count_below(k2, k1[i], False) for i in range(len(d1))]
+    pos2 = [j + count_below(k1, k2[j], True) for j in range(len(d2))]
+    return np.array(pos1 + pos2)
+
+
+@pytest.mark.parametrize("s1,s2", [(16, 32), (48, 48), (100, 28)])
+def test_k3_rank_merge_is_the_stable_merge(s1, s2):
+    # the kernel's ranks are a permutation equal to the stable sort of the
+    # concatenation (the plain version's order) on sorted lists with ties,
+    # and still a permutation when a list is out of order by an ulp
+    rng = np.random.RandomState(6)
+    d1, _, _, d2, _, _ = _tie_inputs(rng, 40, s1, s2, 1)
+    for r in range(d1.shape[1]):
+        a, b = d1[0, r, :, 0], d2[0, r, :, 0]
+        pos = _rank_merge(a, b)
+        order = np.argsort(np.concatenate([a, b]), kind="stable")
+        np.testing.assert_array_equal(np.argsort(pos), order)
+        b = b.copy()
+        k = 1 + r % (s2 - 1)
+        b[k] = np.nextafter(b[k - 1], np.float32(0))  # one step down, an ulp
+        pos = _rank_merge(a, b)
+        assert sorted(pos) == list(range(s1 + s2))
+
+
 def test_ray_sampling_matches_jax():
     # same fp32 ops in the same order: 1e-6 of scale
     cam = _camera(2, yaw=0.3)
