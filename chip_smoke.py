@@ -13,10 +13,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    from identical sources (registers and spills from ptxas are printed
    either way, and, where the toolkit has ``cuobjdump``, the count of
    tensor-core ``HMMA`` instructions in the SASS of K7a and of K1 /
-   K1-trigrid, which must not be 0);
-3. each kernel (K1, K1-trigrid, K2-K7b; K6a/K6b in fp32 and bf16; K7a at
-   every distinct 3D conv of the standard torso) against its plain
-   PyTorch version at the main path's shapes, TF32 off, with the
+   K1-trigrid, which must not be 0; K3 and K7b must not spill, K2 and K4
+   must keep no stack frame and not spill);
+3. each kernel (K1, K1-trigrid, K2-K7b; K2 also on a rendered frame's
+   coarse samples; K4 at one frame, as ``run`` calls it, and at 16; K6a/K6b
+   in fp32 and bf16; K7a at every distinct 3D conv of the standard torso)
+   against its plain PyTorch version at the main path's shapes, TF32 off, with the
    tolerance stated beside it; the median CUDA-event time of both, of one
    PyTorch call that computes the same function where there is one, and
    the bound: the larger of the bytes over the HBM rate and the operations
@@ -118,7 +120,7 @@ SOURCES = {
 def wrappers() -> dict:
     """The eleven kernel wrappers, by kernel name; each counts its launches
     (K6a and K6b also their bf16 launches apart, ``launches_bf16``)."""
-    from real3dportrait_tpu_torch.geometry.rasterizer import secc_raster
+    from real3dportrait_tpu_torch.geometry.rasterizer import rasterize_verts
     from real3dportrait_tpu_torch.models.decoder import trigrid_decode, triplane_decode
     from real3dportrait_tpu_torch.models.torso import (
         mfe_tail, torso_deform_input, torso_warp_volume)
@@ -129,7 +131,7 @@ def wrappers() -> dict:
 
     return {"triplane_decode": triplane_decode, "trigrid_decode": trigrid_decode,
             "importance_sample": importance_sample, "merge_composite": merge_composite,
-            "secc_raster": secc_raster, "torso_deform_input": torso_deform_input,
+            "secc_raster": rasterize_verts, "torso_deform_input": torso_deform_input,
             "torso_warp_volume": torso_warp_volume, "upfirdn2d": upfirdn2d,
             "bias_act": bias_act, "conv3d": conv3d, "mfe_tail": mfe_tail}
 
@@ -174,7 +176,10 @@ def bound(n_bytes: float, ops: float, dtype: torch.dtype, rate: float | None = N
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    """Bytes of the tensors' distinct elements: a broadcast dimension (stride
+    0, as the deterministic path's ``u``) counts once."""
+    return sum(math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0) * t.element_size()
+               for t in ts if t is not None)
 
 
 def mean_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -207,12 +212,19 @@ def phase_build() -> None:
     for line in lines:
         if "Function properties" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    # K3 and K7b's main kernel keep every value in registers: no spills
+    # K3 and K7b's main kernel keep every value in registers: no spills;
+    # K2's and K4's kernels neither spill nor keep a stack frame (K2's
+    # per-ray values live in registers and shared memory)
     for i, line in enumerate(lines):
         if "Function properties for" in line and any(
                 k in line for k in ("merge_composite_kernel", "mfe_tail_kernel")):
             check(" 0 bytes spill stores, 0 bytes spill loads" in lines[i + 1],
                   f"ptxas spills in {line.split()[-1]}: {lines[i + 1].strip()}")
+        if "Function properties for" in line and any(k in line for k in (
+                "importance_sample_kernel", "secc_zbuffer_kernel", "secc_resolve_kernel")):
+            check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                  in lines[i + 1],
+                  f"ptxas stack frame or spills in {line.split()[-1]}: {lines[i + 1].strip()}")
     cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     if os.path.isfile(cuobjdump):
         # K7a's products and K1's MLP run on the tensor cores: HMMA
@@ -237,7 +249,8 @@ def phase_kernels(dev: torch.device) -> dict:
 
     from real3dportrait_tpu_torch.geometry import bfm
     from real3dportrait_tpu_torch.geometry.rasterizer import (
-        project_to_screen, secc_raster, secc_raster_plain)
+        project_to_screen, rasterize_verts, rasterize_verts_plain)
+    from real3dportrait_tpu_torch.inference.kernel_times import frame_passes
     from real3dportrait_tpu_torch.models.decoder import (
         OSGDecoder, k1_cost, trigrid_decode, trigrid_decode_plain, triplane_decode,
         triplane_decode_plain)
@@ -324,70 +337,87 @@ def phase_kernels(dev: torch.device) -> dict:
                    launch_ms=(launch, None), extra=f"FFMA bound {ffma_ms:.4f} ms; ")
         del planes
 
-    # K2/K3: 16,384 rays (128^2) at 16+32 and 48+48. Depths O(2-3); sums in
-    # another order (cdf, transmittance): tolerance 1e-4 absolute on depths,
-    # composited rgb in [-1,1] and weights. Operations per ray: K2 ~16 per
-    # coarse sample (march, smoothing, pdf, cdf) and per fine sample a
-    # binary search and an interpolation; K3 2 per colour channel and ~20
-    # per merged sample. Per call and per launch, as K6a (below).
+    # K2/K3: 16,384 rays (128^2) at 16+32 and 48+48, and K2 on the coarse
+    # samples of a frame that the default model renders at fast (captured
+    # from synthesize; a stride-0 u, as on the main path). Depths O(2-3);
+    # sums in another order (cdf, transmittance): tolerance 1e-4 absolute on
+    # depths, composited rgb in [-1,1] and weights. Operations per ray: K2
+    # ~16 per coarse sample (march, smoothing, pdf, cdf) and per fine sample
+    # a binary search and an interpolation; K3 2 per colour channel and ~20
+    # per merged sample. K2's bytes: depths, densities and fine depths, and
+    # u once (one row). Per call and per launch, as K6a (below).
     r = 16384
+    k2_frame = frame_passes(dev)[1]
+
+    def k2_row(tag, depths, sigma, u):
+        s_c, s_f = depths.shape[2], u.shape[1]
+        fine_k = importance_sample(depths, sigma, u)
+        record("importance_sample", tag, [(fine_k, importance_sample_plain(depths, sigma, u))],
+               1e-4, cuda_ms(lambda: importance_sample(depths, sigma, u)),
+               cuda_ms(lambda: importance_sample_plain(depths, sigma, u)),
+               (nbytes(depths, sigma, u, fine_k),
+                u.shape[0] * (16 * s_c + s_f * (2 * math.ceil(math.log2(s_c)) + 10)), f32),
+               launch_ms=(device_ms(lambda: importance_sample(depths, sigma, u)), None))
+        return fine_k
+
     for s_c, s_f in ((16, 32), (48, 48)):
         start = 2.0 + 0.2 * torch.rand((1, r, 1, 1), device=dev, generator=gen)
         steps = (torch.arange(s_c, device=dev) + 0.5)[None, None, :, None] / s_c
         depths = start + 0.8 * steps
         sigma = 3 * torch.randn((1, r, s_c, 1), device=dev, generator=gen)
-        u = importance_u(r, s_f, dev)
-        fine_k = importance_sample(depths, sigma, u)
-        fine_p = importance_sample_plain(depths, sigma, u)
-        record("importance_sample", f"{s_c}+{s_f}", [(fine_k, fine_p)], 1e-4,
-               cuda_ms(lambda: importance_sample(depths, sigma, u)),
-               cuda_ms(lambda: importance_sample_plain(depths, sigma, u)),
-               (nbytes(depths, sigma, u, fine_k),
-                r * (16 * s_c + s_f * (2 * math.ceil(math.log2(s_c)) + 10)), f32),
-               launch_ms=(device_ms(lambda: importance_sample(depths, sigma, u)), None))
+        fine = k2_row(f"{s_c}+{s_f}", depths, sigma, importance_u(r, s_f, dev))
         c1 = torch.rand((1, r, s_c, 32), device=dev, generator=gen)
         c2 = torch.rand((1, r, s_f, 32), device=dev, generator=gen)
         s2 = 3 * torch.randn((1, r, s_f, 1), device=dev, generator=gen)
-        args = (depths, c1, sigma, fine_p, c2, s2)
+        args = (depths, c1, sigma, fine, c2, s2)
         outs = list(zip(merge_composite(*args), merge_composite_plain(*args)))
         record("merge_composite", f"{s_c}+{s_f}", outs, 1e-4,
                cuda_ms(lambda: merge_composite(*args)),
                cuda_ms(lambda: merge_composite_plain(*args)),
                (nbytes(*args, *(k for k, _ in outs)), r * (s_c + s_f) * (2 * 32 + 20), f32),
                launch_ms=(device_ms(lambda: merge_composite(*args)), None))
+    check(k2_frame[2].stride(0) == 0, "the frame's u is not the stride-0 row")
+    k2_row(f"frame {k2_frame[0].shape[2]}+{k2_frame[2].shape[1]}", *k2_frame)
+    del k2_frame
 
-    # K4: 16 frames of the 35,709-vertex synthetic mesh at 192^2, zero pose.
-    # The kernel rounds every operation as the plain version does and breaks
-    # depth ties by face id: expected bit-equal; tolerance 0 differing mask
-    # pixels and 1e-6 on the NCC. Operations: ~25 per pixel of each face's
-    # clipped bounding box (three edge functions, depth) and ~20 per output
-    # pixel (the resolve), counted from this run's projected faces. Per call
-    # and per launch (the wrapper's launches together).
+    # K4: one frame of the 35,709-vertex synthetic mesh at 192^2 (the main
+    # path's call: run rasterizes one frame at a time), then 16 frames; zero
+    # pose, camera-space vertices in (the kernel projects them), the map in
+    # [-1,1] as the SECC renderer asks for it. The kernel rounds every
+    # operation as the plain version does and breaks depth ties by face id:
+    # expected bit-equal; tolerance 0 differing mask pixels and 1e-6 on the
+    # NCC. Bytes: vertices, faces, colours, mask and map. Operations: ~25
+    # per pixel of each face's clipped bounding box (three edge functions,
+    # depth) and ~20 per output pixel (the resolve), counted from this run's
+    # projected faces. Per call and per launch (the wrapper's launches
+    # together).
     assets = bfm.synthetic_bfm(n_vertices=35709).to(dev)
     rng = np.random.RandomState(0)
     idc = torch.from_numpy(np.tile(rng.randn(1, 80).astype(np.float32) * 0.1, (16, 1))).to(dev)
     exp = torch.from_numpy(rng.randn(16, 64).astype(np.float32) * 0.1).to(dev)
     zero = torch.zeros((16, 3), device=dev)
-    verts = bfm.compute_face_vertex(assets, idc, exp, zero, zero)
-    uv, z = project_to_screen(verts, 1015.0, 112.0, 192)
-    uv, z = uv.contiguous(), z.contiguous()
+    verts16 = bfm.compute_face_vertex(assets, idc, exp, zero, zero).contiguous()
     attr = ((assets.ncc_code + 1) / 2).contiguous()
     faces = assets.face_buf
-    km, ki = secc_raster(uv, z, faces, attr, 192)
-    pm, pi = secc_raster_plain(uv, z, faces, attr, 192)
-    n_mask = int((km != pm).sum())
-    check(n_mask == 0, f"secc_raster: {n_mask} mask pixels differ")
-    check(0.2 < float(km.mean()) < 0.9, f"secc_raster coverage {float(km.mean())}")
-    fuv = uv[:, faces.long()]                                      # [T,F,3,2]
-    lo = torch.floor(fuv.min(dim=2).values).clamp(0, 191)
-    hi = torch.floor(fuv.max(dim=2).values).clamp(0, 191)
-    box_px = float((hi - lo + 1).clamp_min(0).prod(dim=-1).sum())
-    record("secc_raster", "16x192^2", [(ki, pi)], 1e-6,
-           cuda_ms(lambda: secc_raster(uv, z, faces, attr, 192)),
-           cuda_ms(lambda: secc_raster_plain(uv, z, faces, attr, 192), reps=5),
-           (nbytes(uv, z, faces, attr, km, ki), 25 * box_px + 20 * km.numel(), f32),
-           launch_ms=(device_ms(lambda: secc_raster(uv, z, faces, attr, 192)), None),
-           extra=f"coverage {float(km.mean()):.3f} ")
+    for t in (1, 16):
+        verts = verts16[:t].contiguous()
+        cam = (1015.0, 112.0, 192, 5.0, 15.0)
+        km, ki = rasterize_verts(verts, faces, attr, *cam)
+        pm, pi = rasterize_verts_plain(verts, faces, attr, *cam)
+        n_mask = int((km != pm).sum())
+        check(n_mask == 0, f"secc_raster: {n_mask} mask pixels differ")
+        check(0.2 < float(km.mean()) < 0.9, f"secc_raster coverage {float(km.mean())}")
+        fuv = project_to_screen(verts, 1015.0, 112.0, 192)[0][:, faces.long()]  # [T,F,3,2]
+        lo = torch.floor(fuv.min(dim=2).values).clamp(0, 191)
+        hi = torch.floor(fuv.max(dim=2).values).clamp(0, 191)
+        box_px = float((hi - lo + 1).clamp_min(0).prod(dim=-1).sum())
+        record("secc_raster", f"{t}x192^2", [(ki, pi)], 1e-6,
+               cuda_ms(lambda: rasterize_verts(verts, faces, attr, *cam)),
+               cuda_ms(lambda: rasterize_verts_plain(verts, faces, attr, *cam), reps=5),
+               (nbytes(verts, faces, attr, km, ki), 25 * box_px + 20 * km.numel(), f32),
+               launch_ms=(device_ms(lambda: rasterize_verts(verts, faces, attr, *cam)), None),
+               extra=f"coverage {float(km.mean()):.3f} ")
+    del verts16, verts
 
     # K5a: the compressed volume of one 512^2 frame [1,16,64,64,4] and 4 of
     # the 68 keypoints, uniform in [-0.8,0.8]; then offsets up to 3.2 that

@@ -14,12 +14,21 @@
 //
 // What bounds them on an H100: neither does enough arithmetic to matter
 // (tens of flops per sample). K2 reads 2 x S_c floats and writes S_f floats
-// per ray: a latency-bound sequential scan along a short sample axis. Design:
-// one warp per ray, and no one-hot matrix or permutation is materialised;
-// the march and cdf scans are short, so every lane runs them redundantly on
-// values that the warp reads from the same addresses (one transaction per
-// load), and each lane then takes its own fine samples for the inverse-CDF
-// lookup.
+// per ray (u is one row for every ray on the deterministic path, read
+// through a ray stride of 0), 1-2 us of HBM time for a frame: it is bound
+// by latency, the chain of scans along a short sample axis. Design: a
+// group of W lanes a ray (W = 16, two rays a warp, where the ray has at most
+// 16 intervals; else W = 32), its S - 1 intervals spread over the lanes,
+// ceil((S - 1) / W) a lane, every value in registers. Each lane computes
+// its own deltas, midpoint densities and alphas; the transmittance is a
+// product scan across the group (shuffles, carried from one slot of W
+// intervals to the next), the max-pool / avg-pool smoothing reads its
+// neighbours through shuffles, the pdf's total is a group reduction and the
+// CDF a sum scan. The CDF and the bin midpoints go to the group's slice of
+// shared memory, and each lane finds its fine samples' bins by a binary
+// search of ceil(log2(s + 1)) fixed steps (the count of cdf <= u, which is
+// searchsorted's side='right' on the non-decreasing CDF), then
+// interpolates in the plain version's order of operations.
 //
 // K3 reads the fat colour tensors, (S_c + S_f) x 32 fp32 per ray (6-12 KB,
 // ~100 MB a frame at 16+32): it is bound by those bytes, 0.03-0.07 ms at
@@ -44,76 +53,129 @@ namespace {
 
 constexpr int kMaxS = 128;  // longest per-ray sample list a kernel takes
 
-// Volume-rendering weights of one ray (march_weights): midpoint density
-// softplus(sigma - 1), alpha = 1 - exp(-sigma * delta), transmittance
-// cumprod of (1 - alpha + 1e-10). Writes S-1 weights, returns their sum.
-__device__ __forceinline__ float march(const float* d, const float* sg, int S,
-                                       float* w) {
-  float trans = 1.0f, total = 0.0f;
-  for (int i = 0; i < S - 1; ++i) {
-    float delta = d[i + 1] - d[i];
-    float dens = r3dp_softplus((sg[i] + sg[i + 1]) / 2.0f - 1.0f);
-    float alpha = 1.0f - expf(-(dens * delta));
-    w[i] = alpha * trans;
-    total += w[i];
-    trans *= 1.0f - alpha + 1e-10f;
-  }
-  return total;
-}
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSampleThreads = 128;  // threads a block of importance_sample
 
-__global__ void importance_sample_kernel(const float* __restrict__ depths,
-                                         const float* __restrict__ sigma,
-                                         const float* __restrict__ u, int R,
-                                         int S, int NF,
-                                         float* __restrict__ fine) {
-  long long ray = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (ray >= R) return;
-  const float* d = depths + ray * S;
-  const float* sg = sigma + ray * S;
+// K2: a group of W lanes a ray, kSlots intervals a lane (W * kSlots >= S - 1).
+// Every shuffle runs on the whole warp (a group whose ray lies past R
+// computes on ray 0's samples and stores nothing), so the full mask holds.
+template <int W, int kSlots>
+__global__ void __launch_bounds__(kSampleThreads) importance_sample_kernel(
+    const float* __restrict__ depths, const float* __restrict__ sigma,
+    const float* __restrict__ u, long long u_stride, int R, int S, int NF,
+    float* __restrict__ fine) {
+  constexpr int kGroups = kSampleThreads / W;
+  __shared__ float sh_cdf[kGroups][W * kSlots];
+  __shared__ float sh_mid[kGroups][W * kSlots];
+  const int group = threadIdx.x / W, lane = threadIdx.x % W;
+  const long long ray = (long long)blockIdx.x * kGroups + group;
+  const bool live = ray < R;
+  const float* d = depths + (live ? ray : 0) * S;
+  const float* sg = sigma + (live ? ray : 0) * S;
+  float* cdf = sh_cdf[group];
+  float* mid = sh_mid[group];
+  const int n_int = S - 1;  // intervals; interval k lies between samples k, k + 1
+  const int s = S - 3;      // smoothed weights that enter the pdf: k = 1 .. s
   const float eps = 1e-5f;
 
-  float w[kMaxS];
-  march(d, sg, S, w);
+  // march: lane l of slot q takes interval k = q * W + l; alpha, then the
+  // transmittance cumprod of (1 - alpha + 1e-10) as a product scan
+  float w[kSlots];
+  float trans = 1.0f;
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    w[q] = 0.0f;
+    if (q * W >= n_int) continue;  // the same for every lane of the warp
+    const int k = q * W + lane;
+    const bool on = k < n_int;
+    float alpha = 0.0f;
+    if (on) {
+      const float d0 = d[k], d1 = d[k + 1];
+      const float dens = r3dp_softplus((sg[k] + sg[k + 1]) / 2.0f - 1.0f);
+      alpha = 1.0f - expf(-(dens * (d1 - d0)));
+      mid[k] = (d0 + d1) / 2.0f;
+    }
+    float incl = on ? 1.0f - alpha + 1e-10f : 1.0f;
+#pragma unroll
+    for (int off = 1; off < W; off <<= 1) {
+      const float o = __shfl_up_sync(kFull, incl, off, W);
+      if (lane >= off) incl *= o;
+    }
+    float excl = __shfl_up_sync(kFull, incl, 1, W);
+    if (lane == 0) excl = 1.0f;
+    w[q] = alpha * (trans * excl);
+    trans *= __shfl_sync(kFull, incl, W - 1, W);
+  }
 
-  // _smooth_weights: max-pool(2, pad -inf) then avg-pool(2) then +0.01;
-  // _sample_pdf uses the S-3 interior values k = 1 .. S-3.
-  int s = S - 3;
-  float pw[kMaxS];
+  // _smooth_weights at k = 1 .. s: (max(w[k-1], w[k]) + max(w[k], w[k+1]))
+  // / 2 + 0.01, then _sample_pdf's + eps; the neighbours through shuffles
+  float pw[kSlots];
   float total = 0.0f;
-  for (int j = 0; j < s; ++j) {
-    int k = j + 1;
-    float m0 = fmaxf(w[k - 1], w[k]);
-    float m1 = (k + 1 <= S - 2) ? fmaxf(w[k], w[k + 1]) : w[k];
-    pw[j] = (m0 + m1) / 2.0f + 0.01f + eps;
-    total += pw[j];
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    float prev = __shfl_up_sync(kFull, w[q], 1, W);
+    float next = __shfl_down_sync(kFull, w[q], 1, W);
+    if (q > 0) {
+      const float o = __shfl_sync(kFull, w[q - 1], W - 1, W);
+      if (lane == 0) prev = o;
+    }
+    if (q + 1 < kSlots) {
+      const float o = __shfl_sync(kFull, w[q + 1], 0, W);
+      if (lane == W - 1) next = o;
+    }
+    const int k = q * W + lane;
+    pw[q] = (k >= 1 && k <= s)
+                ? (fmaxf(prev, w[q]) + fmaxf(w[q], next)) / 2.0f + 0.01f + eps
+                : 0.0f;
+    total += pw[q];
   }
-  float cdf[kMaxS];
-  cdf[0] = 0.0f;
-  float acc = 0.0f;
-  for (int j = 0; j < s; ++j) {
-    acc += pw[j] / total;
-    cdf[j + 1] = acc;
-  }
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1) total += __shfl_xor_sync(kFull, total, off, W);
 
-  for (int j = lane; j < NF; j += 32) {
-    float uu = u[ray * NF + j];
-    // searchsorted(cdf, u, side='right') as a count of cdf <= u
-    int inds = 0;
-    for (int t = 0; t <= s; ++t) inds += (cdf[t] <= uu) ? 1 : 0;
-    int below = max(inds - 1, 0);
-    int above = min(below + 1, s);
-    float cdf_b = cdf[below], cdf_a = cdf[above];
-    float bins_b = (d[below] + d[below + 1]) / 2.0f;
-    float bins_a = (d[above] + d[above + 1]) / 2.0f;
-    float denom = cdf_a - cdf_b;
+  // cdf[k] = pdf[1] + ... + pdf[k] (cdf[0] = 0): a sum scan of each pdf
+  // term, carried from slot to slot
+  float carry = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    if (q * W > s) continue;
+    const int k = q * W + lane;
+    float v = (k >= 1 && k <= s) ? pw[q] / total : 0.0f;
+#pragma unroll
+    for (int off = 1; off < W; off <<= 1) {
+      const float o = __shfl_up_sync(kFull, v, off, W);
+      if (lane >= off) v += o;
+    }
+    v += carry;
+    if (k <= s) cdf[k] = v;
+    carry = __shfl_sync(kFull, v, W - 1, W);
+  }
+  __syncwarp();
+  if (!live) return;
+
+  // inverse CDF: below = max(#(cdf <= u) - 1, 0), above = min(below + 1, s)
+  const int n_cdf = s + 1;
+  const int top = 1 << (31 - __clz(n_cdf));
+  const float* ur = u + ray * u_stride;
+  for (int j = lane; j < NF; j += W) {
+    const float uu = ur[j];
+    int cnt = 0;
+    for (int step = top; step > 0; step >>= 1) {
+      const int k = cnt + step;
+      if (k <= n_cdf && cdf[k - 1] <= uu) cnt = k;
+    }
+    const int below = max(cnt - 1, 0);
+    const int above = min(below + 1, s);
+    const float cdf_b = cdf[below], cdf_a = cdf[above];
+    const float bins_b = mid[below], bins_a = mid[above];
+    float denom = __fsub_rn(cdf_a, cdf_b);
     if (denom < eps) denom = 1.0f;
-    fine[ray * NF + j] = bins_b + (uu - cdf_b) / denom * (bins_a - bins_b);
+    fine[ray * NF + j] = __fadd_rn(bins_b, __fmul_rn(__fdiv_rn(__fsub_rn(uu, cdf_b), denom),
+                                                     __fsub_rn(bins_a, bins_b)));
   }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
@@ -331,15 +393,24 @@ __global__ void __launch_bounds__(32 * kMergeWarps, 2) merge_composite_kernel(
 
 }  // namespace
 
-// depths, sigma [R,S] (S <= 128, sorted depths); u [R,NF] in [0,1];
-// fine [R,NF].
+// depths, sigma [R,S] (4 <= S <= 128, sorted depths); u: ray r's NF values
+// in [0,1] at u + r * u_stride (u_stride 0: one row for every ray); fine
+// [R,NF].
 R3DP_EXPORT int r3dp_importance_sample(const float* depths, const float* sigma,
-                                       const float* u, int R, int S, int NF,
-                                       float* fine, cudaStream_t stream) {
-  const int threads = 128;
-  if (R > 0)
-    importance_sample_kernel<<<r3dp_blocks((long long)R * 32, threads), threads,
-                               0, stream>>>(depths, sigma, u, R, S, NF, fine);
+                                       const float* u, long long u_stride, int R, int S,
+                                       int NF, float* fine, cudaStream_t stream) {
+  if (S < 4 || S > kMaxS) return (int)cudaErrorInvalidValue;
+  if (R > 0) {
+    if (S - 1 <= 16)
+      importance_sample_kernel<16, 1><<<r3dp_blocks(R, kSampleThreads / 16), kSampleThreads, 0,
+                                        stream>>>(depths, sigma, u, u_stride, R, S, NF, fine);
+    else if (S - 1 <= 64)
+      importance_sample_kernel<32, 2><<<r3dp_blocks(R, kSampleThreads / 32), kSampleThreads, 0,
+                                        stream>>>(depths, sigma, u, u_stride, R, S, NF, fine);
+    else
+      importance_sample_kernel<32, 4><<<r3dp_blocks(R, kSampleThreads / 32), kSampleThreads, 0,
+                                        stream>>>(depths, sigma, u, u_stride, R, S, NF, fine);
+  }
   return (int)cudaGetLastError();
 }
 

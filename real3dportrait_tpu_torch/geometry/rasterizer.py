@@ -13,8 +13,12 @@ The JAX package quantises depth to the key's low bits and breaks ties in no
 fixed order, so at pixels where two faces' depths agree to within that
 quantum the two packages may pick different (adjacent) faces.
 
-:func:`secc_raster` is the wrapper of kernel K4 (``csrc/secc_raster.cu``);
-:func:`secc_raster_plain` is its plain PyTorch version.
+:func:`rasterize_verts` is the wrapper of kernel K4 (``csrc/secc_raster.cu``),
+which projects the camera-space vertices itself, as the JAX
+``rasterize_grouped`` does; its plain PyTorch version,
+:func:`rasterize_verts_plain`, is :func:`project_to_screen` followed by
+:func:`secc_raster_plain`, with the map taken from [0,1] to the SECC
+renderer's [-1,1].
 """
 
 from __future__ import annotations
@@ -69,9 +73,10 @@ def secc_raster_plain(uv: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
     for t in range(t_frames):
         fuv = uv[t][faces_l]                                  # [F,3,2]
         fz = z[t][faces_l]                                    # [F,3]
-        lo = torch.floor(fuv.min(dim=1).values)               # [F,2]
-        hi = torch.floor(fuv.max(dim=1).values)
-        k = int((hi - lo).max().clamp(0, image_size - 1).item()) + 1
+        # each face's pixel box, clipped to the image
+        lo = torch.floor(fuv.min(dim=1).values).clamp(min=0)  # [F,2]
+        hi = torch.floor(fuv.max(dim=1).values).clamp(max=image_size - 1)
+        k = int((hi - lo).nan_to_num(0.0).max().clamp(0, image_size - 1).item()) + 1
         offs = torch.arange(k, device=uv.device, dtype=uv.dtype)
         xs = lo[:, 0, None, None] + offs[None, None, :]       # [F,1,K]
         ys = lo[:, 1, None, None] + offs[None, :, None]       # [F,K,1]
@@ -98,53 +103,74 @@ def secc_raster_plain(uv: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
         wb0, wb1, wb2, _ = _barycentric(uv[t][wf], cx, cy)
         a = attr[wf]                                          # [HW,3,C]
         img = wb0[:, None] * a[:, 0] + wb1[:, None] * a[:, 1] + wb2[:, None] * a[:, 2]
-        m = covered.to(uv.dtype)
-        masks.append(m.reshape(image_size, image_size))
-        images.append((img * m[:, None]).reshape(image_size, image_size, -1))
+        masks.append(covered.to(uv.dtype).reshape(image_size, image_size))
+        img = torch.where(covered[:, None], img, torch.zeros_like(img))
+        images.append(img.reshape(image_size, image_size, -1))
     return torch.stack(masks), torch.stack(images)
 
 
-def secc_raster(uv: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
-                attr: torch.Tensor, image_size: int, znear: float = 5.0,
-                zfar: float = 15.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4 wrapper: same contract as :func:`secc_raster_plain`.
+def rasterize_verts_plain(verts_cam: torch.Tensor, faces: torch.Tensor, attr: torch.Tensor,
+                          focal: float = 1015.0, center: float = 112.0, image_size: int = 512,
+                          znear: float = 5.0, zfar: float = 15.0
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K4: camera-space verts [T,N,3], faces [F,3] int, attr
+    [N,3] in [0,1] -> (mask [T,H,W], SECC map [T,H,W,3] in [-1,1]):
+    :func:`project_to_screen`, :func:`secc_raster_plain`, then
+    ``image * 2 - 1`` (-1 outside the mask)."""
+    uv, z = project_to_screen(verts_cam, focal, center, image_size)
+    mask, image = secc_raster_plain(uv, z, faces, attr, image_size, znear, zfar)
+    return mask, image * 2.0 - 1.0
+
+
+# one z-buffer per (device, size, stream), as many frames as the largest
+# call so far, all EMPTY between calls: the kernel's resolve cleans every
+# word that its z-test wrote
+_ZBUFFERS: dict[tuple, torch.Tensor] = {}
+
+
+def rasterize_verts(verts_cam: torch.Tensor, faces: torch.Tensor, attr: torch.Tensor,
+                    focal: float = 1015.0, center: float = 112.0, image_size: int = 512,
+                    znear: float = 5.0, zfar: float = 15.0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 wrapper: same contract as :func:`rasterize_verts_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``faces`` int32 [F,3], ``attr`` [N,3]) or raise. The kernel does not
-    bounds-check ``faces``: every index must lie in [0, N), as ``geometry.bfm``
-    checks for the ``face_buf`` of every mesh it loads or synthesises.
+    (``verts_cam`` fp32 [T,N,3], ``faces`` int32 [F,3], ``attr`` fp32
+    [N,3], ``znear >= 0``) or raise. The kernel does not bounds-check
+    ``faces``: every index must lie in [0, N), as ``geometry.bfm`` checks
+    for the ``face_buf`` of every mesh it loads or synthesises. Calls on one
+    stream share a z-buffer, so call it from one host thread at a time.
     """
-    if uv.device.type == "cpu":
-        return secc_raster_plain(uv, z, faces, attr, image_size, znear, zfar)
+    if verts_cam.device.type == "cpu":
+        return rasterize_verts_plain(verts_cam, faces, attr, focal, center, image_size, znear,
+                                     zfar)
     name = "secc_raster"
-    kernels.require(name, "uv", uv)
-    kernels.require(name, "z", z)
+    verts_cam = verts_cam.contiguous()
+    kernels.require(name, "verts_cam", verts_cam)
     kernels.require(name, "faces", faces, torch.int32)
     kernels.require(name, "attr", attr)
-    t_frames, n = z.shape
-    if uv.shape != (t_frames, n, 2) or faces.dim() != 2 or faces.shape[1] != 3 \
-            or attr.shape != (n, 3):
-        raise ValueError(f"{name}: bad shapes uv {tuple(uv.shape)} z {tuple(z.shape)} "
-                         f"faces {tuple(faces.shape)} attr {tuple(attr.shape)}")
-    hw = image_size * image_size
-    zbuf = torch.full((t_frames, hw), _EMPTY, dtype=torch.int64, device=uv.device)
-    mask = torch.empty((t_frames, image_size, image_size), device=uv.device)
-    image = torch.empty((t_frames, image_size, image_size, 3), device=uv.device)
-    kernels.launch("r3dp_secc_raster", uv, z, t_frames, n, faces, faces.shape[0],
-                   attr, image_size, znear, zfar, zbuf, mask, image)
-    secc_raster.launches += 1
+    t_frames, n = verts_cam.shape[:2]
+    if verts_cam.shape != (t_frames, n, 3) or faces.dim() != 2 or faces.shape[1] != 3 \
+            or attr.shape != (n, 3) or znear < 0:
+        raise ValueError(f"{name}: bad arguments verts {tuple(verts_cam.shape)} faces "
+                         f"{tuple(faces.shape)} attr {tuple(attr.shape)} znear {znear}")
+    dev = verts_cam.device
+    key = (dev.index, image_size, torch.cuda.current_stream(dev).cuda_stream)
+    zbuf = _ZBUFFERS.get(key)
+    if zbuf is None or zbuf.shape[0] < t_frames:
+        zbuf = _ZBUFFERS[key] = torch.full((t_frames, image_size * image_size), _EMPTY,
+                                           dtype=torch.int64, device=dev)
+    mask = torch.empty((t_frames, image_size, image_size), device=dev)
+    image = torch.empty((t_frames, image_size, image_size, 3), device=dev)
+    try:
+        kernels.launch("r3dp_secc_raster", verts_cam, t_frames, n, faces, faces.shape[0], attr,
+                       focal, center, image_size / (2.0 * center), image_size, znear, zfar,
+                       zbuf, mask, image)
+    except RuntimeError:
+        del _ZBUFFERS[key]  # a launch that failed may have left keys in it
+        raise
+    rasterize_verts.launches += 1
     return mask, image
 
 
-secc_raster.launches = 0
-
-
-def rasterize(verts_cam: torch.Tensor, faces: torch.Tensor, attributes: torch.Tensor,
-              focal: float = 1015.0, center: float = 112.0, image_size: int = 512,
-              znear: float = 5.0, zfar: float = 15.0) -> dict:
-    """verts [B,N,3] camera space, faces [F,3], attributes [N,3] ->
-    {'mask' [B,H,W], 'image' [B,H,W,3]} (0 outside the mask)."""
-    uv, z = project_to_screen(verts_cam, focal, center, image_size)
-    mask, image = secc_raster(uv.contiguous(), z.contiguous(), faces, attributes,
-                              image_size, znear, zfar)
-    return {"mask": mask, "image": image}
+rasterize_verts.launches = 0

@@ -5,7 +5,8 @@ coloured with the fixed NCC code and with the eyeball faces removed, is
 rasterized from (id, exp, euler, trans) into a map in [-1, 1] plus a
 coverage mask. The z-buffer runs at ``rasterize_size`` (192² in the
 pipeline) and both maps are bilinearly upsampled to ``output_resolution``.
-The mesh goes through kernel K4 in one call for all frames; no face
+The mesh goes through kernel K4 in one call for all frames, from the
+camera-space vertices, and K4 writes the map in [-1, 1] itself; no face
 bucketing is needed.
 """
 
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 from real3dportrait_tpu_torch import entry_device
 from real3dportrait_tpu_torch.geometry import bfm as bfm_ops
 from real3dportrait_tpu_torch.geometry.bfm import BFMAssets
-from real3dportrait_tpu_torch.geometry.rasterizer import rasterize
+from real3dportrait_tpu_torch.geometry.rasterizer import rasterize_verts
 
 
 def load_eye_free_faces(assets: BFMAssets, bfm_dir: str | None) -> torch.Tensor:
@@ -56,7 +57,8 @@ class SECCRenderer:
         self.faces = load_eye_free_faces(assets, bfm_dir).to(device)
         self.rasterize_size = rasterize_size
         self.output_resolution = output_resolution or rasterize_size
-        # NCC colours are stored in [-1,1]; rasterize in [0,1], then rescale
+        # NCC colours are stored in [-1,1]; the rasterizer interpolates them in
+        # [0,1] and writes its map back in [-1,1]
         self.ncc_01 = ((self.assets.ncc_code + 1.0) / 2.0).contiguous()
 
     def render(self, id_coeff: torch.Tensor, exp_coeff: torch.Tensor,
@@ -64,10 +66,9 @@ class SECCRenderer:
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """[B,C] coeffs -> (mask [B,H,W,1], secc [B,H,W,3] in [-1,1])."""
         verts = bfm_ops.compute_face_vertex(self.assets, id_coeff, exp_coeff, euler, trans)
-        out = rasterize(verts, self.faces, self.ncc_01, image_size=self.rasterize_size)
-        mask = out["mask"][..., None]
-        # the image is 0 outside the mask, so the background maps to -1
-        secc = out["image"] * 2.0 - 1.0
+        mask, secc = rasterize_verts(verts, self.faces, self.ncc_01,
+                                     image_size=self.rasterize_size)
+        mask = mask[..., None]
         if self.output_resolution != self.rasterize_size:
             secc = resize_bilinear_nhwc(secc, self.output_resolution)
             mask = resize_bilinear_nhwc(mask, self.output_resolution)

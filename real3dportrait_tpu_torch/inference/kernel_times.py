@@ -1,8 +1,9 @@
-"""K1, K1-trigrid, K3, K6b and K7b at the shapes of ``chip_smoke.py``'s
-kernel rows, beside their plain versions, and K1-trigrid and K3 on the
-samples of a rendered frame, on a CUDA device.
+"""K1, K1-trigrid, K2, K3, K4, K6b and K7b at the shapes of
+``chip_smoke.py``'s kernel rows, beside their plain versions, and
+K1-trigrid, K2 and K3 on the samples of a rendered frame, on a CUDA device.
 
     python3 real3dportrait_tpu_torch/inference/kernel_times.py [--tree DIR]
+        [--only k1,k2,k3,k4,k6b,k7b]
 
 Per row: the device time of one launch (20 back-to-back calls behind a spin
 kernel, ``kernels.device_ms``: the wrapper's launches, the kernel's and any
@@ -12,14 +13,21 @@ bf16 ulps of the plain output). Inputs as in ``chip_smoke.py``: N(0,1)
 planes with points uniform in the box and a seeded decoder; K6b's
 epilogues with demodulation, noise, bias, lrelu, gain sqrt 2 and a clamp,
 and toRGB's bias alone; K3 on 16,384 rays of stratified coarse depths and
-sorted fine depths with 32 uniform colour channels at 16+32 and 48+48; K7b
-on the frame's [1,32,16,64,64] volume, 4 keypoints uniform in [-0.8, 0.8].
-The frame rows are the coarse and fine passes of the default model
+sorted fine depths with 32 uniform colour channels at 16+32 and 48+48; K2
+on the same rays' coarse samples; K7b on the frame's [1,32,16,64,64]
+volume, 4 keypoints uniform in [-0.8, 0.8]. K4 through ``rasterize_verts``
+(a tree from before it: ``rasterize``; the camera-space vertices in, the
+projection included) on T = 1, 3 and 16
+frames of the 35,709-vertex synthetic mesh at 192^2, each with the
+device kernels of one call from ``torch.profiler`` (launches and time
+each, and the host's share of the call), then the SECC stage at T = 1,
+``SECCRenderer.render`` to 512^2 as ``profile_frame`` times it, split the
+same way. The frame rows are the coarse and fine passes of the default model
 (``configs/secc_img2plane_torso.yaml``, ``fast``, seeded mock weights, the
 35,709-vertex synthetic mesh, the neutral source coefficients), captured
 from ``synthesize``: their samples follow rays, so neighbouring points
-share corner rows, where uniform points do not; K3's frame row merges
-those two passes' samples.
+share corner rows, where uniform points do not; K2's frame row resamples
+the coarse pass's samples and K3's merges those two passes' samples.
 ``--tree DIR`` imports the port from the checkout at DIR instead of this
 one (run the file, not ``-m``), so that one run on the card can time
 two trees in turns.
@@ -44,10 +52,10 @@ K6B_ROWS = [("block1 bf16", (1, 128, 512, 512), "bfloat16", 256.0),
             ("toRGB fp32", (1, 3, 512, 512), "float32", None)]
 
 
-def frame_passes(dev) -> tuple[list, tuple]:
+def frame_passes(dev) -> tuple[list, tuple, tuple]:
     """(planes, coords, box_warp, decoder) of the two K1-trigrid calls, and
-    the arguments of the K3 call, of the second of two frames that the
-    default model synthesises at ``fast``."""
+    the arguments of the K2 and the K3 call, of the second of two frames
+    that the default model synthesises at ``fast``."""
     import numpy as np
     import torch
 
@@ -65,27 +73,34 @@ def frame_passes(dev) -> tuple[list, tuple]:
     rng = np.random.RandomState(0)
     src = rng.randint(0, 256, (512, 512, 3)).astype(np.uint8)
     exp = torch.from_numpy(rng.randn(2, 64).astype(np.float32) * 0.3)
-    calls, merges = [], []
-    kernel, merge = dm.trigrid_decode, renderer.merge_composite
+    calls, samples, merges = [], [], []
+    kernel, sample, merge = dm.trigrid_decode, renderer.importance_sample, \
+        renderer.merge_composite
 
     def capture(planes, coords, box_warp, decoder):
         calls.append((planes, coords, box_warp, decoder))
         return kernel(planes, coords, box_warp, decoder)
+
+    def capture_sample(*args):
+        samples.append(args)
+        return sample(*args)
 
     def capture_merge(*args):
         merges.append(args)
         return merge(*args)
 
     # the wrappers count on the name they are called by
-    capture.launches = capture_merge.launches = 0
-    dm.trigrid_decode, renderer.merge_composite = capture, capture_merge
+    capture.launches = capture_sample.launches = capture_merge.launches = 0
+    dm.trigrid_decode, renderer.importance_sample, renderer.merge_composite = \
+        capture, capture_sample, capture_merge
     try:
         pipe.synthesize(src, exp, pipe.fit_source(None), blink_mode="none",
                         prepare_source_images=False)
     finally:
-        dm.trigrid_decode, renderer.merge_composite = kernel, merge
+        dm.trigrid_decode, renderer.importance_sample, renderer.merge_composite = \
+            kernel, sample, merge
     torch.cuda.synchronize()
-    return calls[-2:], merges[-1]
+    return calls[-2:], samples[-1], merges[-1]
 
 
 def merge_inputs(dev, gen, r: int, s_c: int, s_f: int, c: int) -> tuple:
@@ -106,6 +121,47 @@ def merge_inputs(dev, gen, r: int, s_c: int, s_f: int, c: int) -> tuple:
     c2 = torch.rand((1, r, s_f, c), device=dev, generator=gen)
     s2 = 3 * torch.randn((1, r, s_f, 1), device=dev, generator=gen)
     return depths, c1, sigma, fine, c2, s2
+
+
+def raster_inputs(dev, t: int) -> tuple:
+    """K4's arguments as ``chip_smoke.py`` makes them: the first ``t`` of 16
+    frames of the 35,709-vertex synthetic mesh (seeded expressions, zero
+    pose) in camera space, its faces and NCC colours in [0, 1]."""
+    import numpy as np
+    import torch
+
+    from real3dportrait_tpu_torch.geometry import bfm
+
+    assets = bfm.synthetic_bfm(n_vertices=35709).to(dev)
+    rng = np.random.RandomState(0)
+    idc = torch.from_numpy(np.tile(rng.randn(1, 80).astype(np.float32) * 0.1, (16, 1))).to(dev)
+    exp = torch.from_numpy(rng.randn(16, 64).astype(np.float32) * 0.1).to(dev)
+    zero = torch.zeros((16, 3), device=dev)
+    verts = bfm.compute_face_vertex(assets, idc, exp, zero, zero)[:t].contiguous()
+    return verts, assets.face_buf, ((assets.ncc_code + 1) / 2).contiguous()
+
+
+def device_split(fn, calls: int = 20) -> tuple[str, float, int]:
+    """The device kernels of one call of ``fn`` from ``torch.profiler`` over
+    ``calls`` calls: (a line of name, launches and ms a call for each,
+    kernel ms a call, launches a call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted((x for x in prof.key_averages() if x.device_type == DeviceType.CUDA),
+                  key=lambda x: -x.self_device_time_total)
+    ms = sum(x.self_device_time_total for x in rows) / calls / 1e3
+    n = sum(x.count for x in rows) // calls
+    text = "; ".join(f"{x.key[:70]} x{x.count / calls:g} "
+                     f"{x.self_device_time_total / calls / 1e3:.4f} ms" for x in rows)
+    return text, ms, n
 
 
 def sm_clock_while(fn, calls: int = 2000) -> str:
@@ -131,12 +187,18 @@ def sm_clock_while(fn, calls: int = 2000) -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", help="a checkout of the repo to import the port from")
+    parser.add_argument("--only", default="k1,k2,k3,k4,k6b,k7b",
+                        help="the kernels to time, comma-separated (default: all)")
     args = parser.parse_args()
+    only = set(args.only.split(","))
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.tree or here))
     import torch
 
     from real3dportrait_tpu_torch import kernels
+    from real3dportrait_tpu_torch.geometry import rasterizer
+    from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
+    from real3dportrait_tpu_torch.geometry.secc_renderer import SECCRenderer
     from real3dportrait_tpu_torch.models import decoder as dm
     from real3dportrait_tpu_torch.models import torso
     from real3dportrait_tpu_torch.ops import bias_act as ba
@@ -152,88 +214,155 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    dec = mock_init_(dm.OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
-    for name, shape, n in K1_ROWS:
-        fn, plain = getattr(dm, name), getattr(dm, f"{name}_plain")
-        planes = torch.randn(shape, device=dev, generator=gen)
-        coords = torch.rand((1, n, 3), device=dev, generator=gen) - 0.5
-        with torch.no_grad():
-            got, want = fn(planes, coords, 1.0, dec), plain(planes, coords, 1.0, dec)
+    if "k1" in only:
+        dec = mock_init_(dm.OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
+        for name, shape, n in K1_ROWS:
+            fn, plain = getattr(dm, name), getattr(dm, f"{name}_plain")
+            planes = torch.randn(shape, device=dev, generator=gen)
+            coords = torch.rand((1, n, 3), device=dev, generator=gen) - 0.5
+            with torch.no_grad():
+                got, want = fn(planes, coords, 1.0, dec), plain(planes, coords, 1.0, dec)
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                launch = kernels.device_ms(lambda: fn(planes, coords, 1.0, dec))
+                call = kernels.cuda_ms(lambda: fn(planes, coords, 1.0, dec))
+            print(f"{name} [{n} pts]: per launch {launch:.4f} ms, per call {call:.4f} ms; max abs "
+                  f"err {err:.2e}")
+            del planes, coords, got, want
+
+    frame_args = frame_passes(dev) if only & {"k1", "k2", "k3"} else None
+    if "k1" in only:
+        for tag, (planes, coords, box_warp, dec_f) in zip(("coarse", "fine"), frame_args[0]):
+            with torch.no_grad():
+                got = dm.trigrid_decode(planes, coords, box_warp, dec_f)
+                want = dm.trigrid_decode_plain(planes, coords, box_warp, dec_f)
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                launch = kernels.device_ms(
+                    lambda: dm.trigrid_decode(planes, coords, box_warp, dec_f))
+                call = kernels.cuda_ms(lambda: dm.trigrid_decode(planes, coords, box_warp, dec_f))
+            print(f"trigrid_decode [frame {tag} pass, {coords.shape[1]} pts]: per launch "
+                  f"{launch:.4f} ms, per call {call:.4f} ms; max abs err {err:.2e}")
+            del planes, coords, got, want
+
+    if "k2" in only:
+        k2_rows = []
+        for s_c, s_f in ((16, 32), (48, 48)):
+            depths, _, sigma, _, _, _ = merge_inputs(dev, gen, 16384, s_c, s_f, 32)
+            u = renderer.importance_u(16384, s_f, dev)
+            k2_rows.append((f"{s_c}+{s_f}", (depths, sigma, u)))
+        if frame_args:
+            d_c, _, u_f = frame_args[1]
+            k2_rows.append((f"frame {d_c.shape[2]}+{u_f.shape[1]}", frame_args[1]))
+        for tag, kargs in k2_rows:
+            err = float((renderer.importance_sample(*kargs)
+                         - renderer.importance_sample_plain(*kargs)).abs().max())
+            launch = kernels.device_ms(lambda: renderer.importance_sample(*kargs))
+            call = kernels.cuda_ms(lambda: renderer.importance_sample(*kargs))
+            print(f"importance_sample [{tag}, {kargs[0].shape[1]} rays]: per launch "
+                  f"{launch:.4f} ms, per call {call:.4f} ms; max abs err {err:.2e}")
+        del k2_rows
+
+    if "k3" in only:
+        merge_rows = [(f"{s_c}+{s_f}", merge_inputs(dev, gen, 16384, s_c, s_f, 32))
+                      for s_c, s_f in ((16, 32), (48, 48))]
+        if frame_args:
+            merge_args = frame_args[2]
+            merge_rows.append((f"frame {merge_args[0].shape[2]}+{merge_args[3].shape[2]}",
+                               merge_args))
+        for tag, margs in merge_rows:
+            got = renderer.merge_composite(*margs)
+            want = renderer.merge_composite_plain(*margs)
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            launch = kernels.device_ms(lambda: fn(planes, coords, 1.0, dec))
-            call = kernels.cuda_ms(lambda: fn(planes, coords, 1.0, dec))
-        print(f"{name} [{n} pts]: per launch {launch:.4f} ms, per call {call:.4f} ms; max abs "
-              f"err {err:.2e}")
-        del planes, coords, got, want
+            launch = kernels.device_ms(lambda: renderer.merge_composite(*margs))
+            call = kernels.cuda_ms(lambda: renderer.merge_composite(*margs))
+            print(f"merge_composite [{tag}, {margs[0].shape[1]} rays]: per launch {launch:.4f} ms, "
+                  f"per call {call:.4f} ms; max abs err {err:.2e}")
+        del merge_rows
+    del frame_args
 
-    passes, merge_args = frame_passes(dev)
-    for tag, (planes, coords, box_warp, dec_f) in zip(("coarse", "fine"), passes):
-        with torch.no_grad():
-            got = dm.trigrid_decode(planes, coords, box_warp, dec_f)
-            want = dm.trigrid_decode_plain(planes, coords, box_warp, dec_f)
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            launch = kernels.device_ms(lambda: dm.trigrid_decode(planes, coords, box_warp, dec_f))
-            call = kernels.cuda_ms(lambda: dm.trigrid_decode(planes, coords, box_warp, dec_f))
-        print(f"trigrid_decode [frame {tag} pass, {coords.shape[1]} pts]: per launch "
-              f"{launch:.4f} ms, per call {call:.4f} ms; max abs err {err:.2e}")
-        del planes, coords, got, want
+    if "k4" in only:
+        if hasattr(rasterizer, "rasterize_verts"):
+            entry, plain = rasterizer.rasterize_verts, rasterizer.rasterize_verts_plain
+            tag = "rasterize_verts"
+        else:  # a tree from before it: its map in [0,1]
+            tag = "rasterize"
 
-    del passes
-    merge_rows = [(f"{s_c}+{s_f}", merge_inputs(dev, gen, 16384, s_c, s_f, 32))
-                  for s_c, s_f in ((16, 32), (48, 48))]
-    merge_rows.append((f"frame {merge_args[0].shape[2]}+{merge_args[3].shape[2]}", merge_args))
-    for tag, margs in merge_rows:
-        got = renderer.merge_composite(*margs)
-        want = renderer.merge_composite_plain(*margs)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        launch = kernels.device_ms(lambda: renderer.merge_composite(*margs))
-        call = kernels.cuda_ms(lambda: renderer.merge_composite(*margs))
-        print(f"merge_composite [{tag}, {margs[0].shape[1]} rays]: per launch {launch:.4f} ms, "
-              f"per call {call:.4f} ms; max abs err {err:.2e}")
-    del merge_rows, merge_args
+            def entry(*args, **kw):
+                out = rasterizer.rasterize(*args, **kw)
+                return out["mask"], out["image"]
 
-    c, d, h, w = 32, 16, 64, 64
-    targs = (torch.randn((1, c, d, h, w), device=dev, generator=gen),
-             torch.randn((5, c, 7, 7, 7), device=dev, generator=gen) / (c * 343) ** 0.5,
-             torch.randn((5,), device=dev, generator=gen),
-             torch.randn((2, c * d, 7, 7), device=dev, generator=gen) / (c * d * 49) ** 0.5,
-             torch.randn((2,), device=dev, generator=gen),
-             1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8,
-             1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8)
-    got, want = torso.mfe_tail(*targs), torso.mfe_tail_plain(*targs)
-    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
-    again = torso.mfe_tail(*targs)
-    same = all(torch.equal(g, a) for g, a in zip(got, again))
-    launch = kernels.device_ms(lambda: torso.mfe_tail(*targs))
-    call = kernels.cuda_ms(lambda: torso.mfe_tail(*targs))
-    print(f"mfe_tail [1,{c},{d},{h},{w}] K+1=5: per launch {launch:.4f} ms, per call "
-          f"{call:.4f} ms; max abs err {err:.2e}; two calls {'bit-equal' if same else 'DIFFER'}; "
-          f"while it runs: {sm_clock_while(lambda: torso.mfe_tail(*targs))}")
-    del targs, got, want, again
+            def plain(verts, faces, attr, image_size):
+                uv, z = rasterizer.project_to_screen(verts, 1015.0, 112.0, image_size)
+                return rasterizer.secc_raster_plain(uv, z, faces, attr, image_size)
+        for t in (1, 3, 16):
+            verts, faces, attr = raster_inputs(dev, t)
+            got = entry(verts, faces, attr, image_size=192)
+            want = plain(verts, faces, attr, image_size=192)
+            n_mask = int((got[0] != want[0]).sum())
+            err = float((got[1] - want[1]).abs().max())
+            def k4(verts=verts):
+                return entry(verts, faces, attr, image_size=192)
 
-    for tag, shape, dtype_name, clamp in K6B_ROWS:
-        dtype = getattr(torch, dtype_name)
-        b, c, h, w = shape
-        x = (4 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
-        bias = torch.randn((c,), device=dev, generator=gen)
-        kw = dict(axis=1)
-        if clamp is not None:
-            kw.update(act="lrelu", gain=2 ** 0.5, clamp=clamp,
-                      scale=torch.rand((b, c), device=dev, generator=gen) + 0.5,
-                      noise=0.3 * torch.randn((h, w), device=dev, generator=gen))
-        got, want = ba.bias_act(x, bias, **kw), ba.bias_act_plain(x, bias, **kw)
-        if dtype == torch.bfloat16:
-            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
-            err = f"{float(((got.float() - want.float()).abs() / ulp).max()):g} bf16 ulps" \
-                  f"{', bit-equal' if torch.equal(got, want) else ''}"
-        else:
-            err = f"max abs err {float((got - want).abs().max()):.2e}"
-        launch = kernels.device_ms(lambda: ba.bias_act(x, bias, **kw))
-        call = kernels.cuda_ms(lambda: ba.bias_act(x, bias, **kw))
-        print(f"bias_act {tag} {list(shape)}: per launch {launch:.4f} ms, per call "
-              f"{call:.4f} ms; {err}")
-        del x, got, want
+            launch, call = kernels.device_ms(k4), kernels.cuda_ms(k4)
+            split, kernel_ms, n = device_split(k4)
+            print(f"secc_raster [{tag}, {t} x 192^2]: per launch {launch:.4f} ms, per call "
+                  f"{call:.4f} ms; {n_mask} mask pixels differ, NCC max abs err {err:.2e}; device "
+                  f"kernels a call (profiler): {n} launches, {kernel_ms:.4f} ms, host share of the "
+                  f"call {call - kernel_ms:.4f} ms: {split}")
+        secc = SECCRenderer(synthetic_bfm(n_vertices=35709), rasterize_size=192,
+                            output_resolution=512, device=dev)
+        coeffs = [verts.new_zeros((1, n)) for n in (80, 64, 3, 3)]
+        call = kernels.cuda_ms(lambda: secc.render(*coeffs))
+        split, kernel_ms, n = device_split(lambda: secc.render(*coeffs))
+        print(f"SECC stage [SECCRenderer.render, 1 x 192^2 -> 512^2]: per call {call:.4f} ms; "
+              f"device kernels a call (profiler): {n} launches, {kernel_ms:.4f} ms, host share "
+              f"of the call {call - kernel_ms:.4f} ms: {split}")
+        del verts, faces, attr, got, want, secc
 
+    if "k7b" in only:
+        c, d, h, w = 32, 16, 64, 64
+        targs = (torch.randn((1, c, d, h, w), device=dev, generator=gen),
+                 torch.randn((5, c, 7, 7, 7), device=dev, generator=gen) / (c * 343) ** 0.5,
+                 torch.randn((5,), device=dev, generator=gen),
+                 torch.randn((2, c * d, 7, 7), device=dev, generator=gen) / (c * d * 49) ** 0.5,
+                 torch.randn((2,), device=dev, generator=gen),
+                 1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8,
+                 1.6 * torch.rand((1, 4, 3), device=dev, generator=gen) - 0.8)
+        got, want = torso.mfe_tail(*targs), torso.mfe_tail_plain(*targs)
+        err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+        again = torso.mfe_tail(*targs)
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        launch = kernels.device_ms(lambda: torso.mfe_tail(*targs))
+        call = kernels.cuda_ms(lambda: torso.mfe_tail(*targs))
+        print(f"mfe_tail [1,{c},{d},{h},{w}] K+1=5: per launch {launch:.4f} ms, per call "
+              f"{call:.4f} ms; max abs err {err:.2e}; two calls "
+              f"{'bit-equal' if same else 'DIFFER'}; "
+              f"while it runs: {sm_clock_while(lambda: torso.mfe_tail(*targs))}")
+        del targs, got, want, again
+
+    if "k6b" in only:
+        for tag, shape, dtype_name, clamp in K6B_ROWS:
+            dtype = getattr(torch, dtype_name)
+            b, c, h, w = shape
+            x = (4 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+            bias = torch.randn((c,), device=dev, generator=gen)
+            kw = dict(axis=1)
+            if clamp is not None:
+                kw.update(act="lrelu", gain=2 ** 0.5, clamp=clamp,
+                          scale=torch.rand((b, c), device=dev, generator=gen) + 0.5,
+                          noise=0.3 * torch.randn((h, w), device=dev, generator=gen))
+            got, want = ba.bias_act(x, bias, **kw), ba.bias_act_plain(x, bias, **kw)
+            if dtype == torch.bfloat16:
+                ulp = torch.exp2(
+                    torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+                err = f"{float(((got.float() - want.float()).abs() / ulp).max()):g} bf16 ulps" \
+                      f"{', bit-equal' if torch.equal(got, want) else ''}"
+            else:
+                err = f"max abs err {float((got - want).abs().max()):.2e}"
+            launch = kernels.device_ms(lambda: ba.bias_act(x, bias, **kw))
+            call = kernels.cuda_ms(lambda: ba.bias_act(x, bias, **kw))
+            print(f"bias_act {tag} {list(shape)}: per launch {launch:.4f} ms, per call "
+                  f"{call:.4f} ms; {err}")
+            del x, got, want
 
 if __name__ == "__main__":
     main()

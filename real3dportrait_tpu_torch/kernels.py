@@ -57,9 +57,9 @@ class Upfirdn2dPlan(ctypes.Structure):
 SIGNATURES: dict[str, tuple] = {
     "r3dp_triplane_decode": (_P, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P),
     "r3dp_trigrid_decode": (_P, _I, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P),
-    "r3dp_importance_sample": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "r3dp_importance_sample": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     "r3dp_merge_composite": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "r3dp_secc_raster": (_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P, _P, _P),
+    "r3dp_secc_raster": (_P, _I, _I, _P, _I, _P, _F, _F, _F, _I, _F, _F, _P, _P, _P, _P),
     "r3dp_torso_deform_input": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_torso_warp_volume": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_upfirdn2d": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),

@@ -100,9 +100,9 @@ def _sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
 
 
 def importance_u(n_rays: int, n_importance: int, device: torch.device) -> torch.Tensor:
-    """[R, n] CDF positions of the deterministic path: linspace(0, 1)."""
-    u = torch.linspace(0.0, 1.0, n_importance, device=device)
-    return u.expand(n_rays, n_importance).contiguous()
+    """[R, n] CDF positions of the deterministic path: linspace(0, 1), one
+    row expanded over the rays (a view, ray stride 0)."""
+    return torch.linspace(0.0, 1.0, n_importance, device=device).expand(n_rays, n_importance)
 
 
 def importance_sample_plain(depths: torch.Tensor, densities: torch.Tensor,
@@ -123,7 +123,8 @@ def importance_sample(depths: torch.Tensor, densities: torch.Tensor,
     """K2 wrapper, same contract as :func:`importance_sample_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (fp32, 4 <= S <= 128) or raise.
+    (fp32, 4 <= S <= 128) or raise. ``u`` is read through its ray stride, so
+    the deterministic path's expanded row (stride 0) is never copied.
     """
     if depths.device.type == "cpu":
         return importance_sample_plain(depths, densities, u)
@@ -131,14 +132,17 @@ def importance_sample(depths: torch.Tensor, densities: torch.Tensor,
     b, m, s, _ = depths.shape
     n = u.shape[-1]
     depths, densities = depths.contiguous(), densities.contiguous()
-    for arg, t in (("depths", depths), ("densities", densities), ("u", u)):
+    if n > 1 and u.stride(-1) != 1:
+        u = u.contiguous()
+    for arg, t in (("depths", depths), ("densities", densities)):
         kernels.require(name, arg, t)
-    if densities.shape != depths.shape or u.shape != (b * m, n) \
-            or not 4 <= s <= _MAX_SAMPLES:
-        raise ValueError(f"{name}: bad shapes depths {tuple(depths.shape)} "
-                         f"densities {tuple(densities.shape)} u {tuple(u.shape)}")
+    if not u.is_cuda or u.dtype != torch.float32 or densities.shape != depths.shape \
+            or u.shape != (b * m, n) or not 4 <= s <= _MAX_SAMPLES:
+        raise ValueError(f"{name}: bad arguments depths {tuple(depths.shape)} densities "
+                         f"{tuple(densities.shape)} u {tuple(u.shape)} {u.dtype} {u.device}")
     fine = torch.empty((b, m, n, 1), device=depths.device)
-    kernels.launch("r3dp_importance_sample", depths, densities, u, b * m, s, n, fine)
+    kernels.launch("r3dp_importance_sample", depths, densities, u, u.stride(0), b * m, s, n,
+                   fine)
     importance_sample.launches += 1
     return fine
 

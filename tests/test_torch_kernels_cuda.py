@@ -27,8 +27,8 @@ import torch
 from real3dportrait_tpu_torch.geometry import bfm
 from real3dportrait_tpu_torch.geometry.rasterizer import (
     project_to_screen,
-    secc_raster,
-    secc_raster_plain,
+    rasterize_verts,
+    rasterize_verts_plain,
 )
 from real3dportrait_tpu_torch.models import torso
 from real3dportrait_tpu_torch.models.decoder import (
@@ -110,10 +110,13 @@ def test_k1_trigrid_depths_odd_sizes_points_outside(dev, b, dhw):
 
 def _device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` launches (the
-    profiler's CUDA events: kernels, copies, memsets)."""
+    profiler's CUDA events: kernels, copies, memsets). The CPU activity is
+    traced too: with the CUDA activity alone, the profiler sometimes
+    records no device event at all (``tests/cuda_profiler_probe.py``)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -237,6 +240,27 @@ def test_k2_ragged_rays_and_sample_counts(dev, r, s, n):
            1e-4, "fine depths")
 
 
+@pytest.mark.parametrize("n", [1, 32, 48, 100])
+@pytest.mark.parametrize("s", [4, 5, 16, 31, 32, 33, 48, 127, 128])
+def test_k2_sample_counts_and_u_strides(dev, s, n):
+    # every group width and slot count (W = 16 to 16 intervals, W = 32 with
+    # 2 or 4 slots), ragged ray counts, the deterministic u (one row, ray
+    # stride 0, with u = 0 and 1) and a per-ray sorted u (stride n). Depths
+    # O(2-3), cdf sums in another order: 1e-4 absolute
+    g = torch.Generator(device=dev).manual_seed(100 * s + n)
+    r = 61 + s
+    start = 2.0 + 0.2 * torch.rand((1, r, 1, 1), device=dev, generator=g)
+    depths = start + 0.8 * (torch.arange(s, device=dev) + 0.5)[None, None, :, None] / s
+    sigma = 3 * torch.randn((1, r, s, 1), device=dev, generator=g)
+    shared = importance_u(r, n, dev)
+    assert shared.stride(0) == 0
+    per_ray = torch.sort(torch.rand((r, n), device=dev, generator=g), dim=-1).values
+    for u in (shared, per_ray):
+        got = importance_sample(depths, sigma, u)
+        assert torch.isfinite(got).all()
+        _close(got, importance_sample_plain(depths, sigma, u), 1e-4, f"fine depths, S {s} n {n}")
+
+
 @pytest.mark.parametrize("white_back", [False, True])
 def test_k3_ragged_rays_wide_channels_and_ties(dev, white_back):
     # composite sums in another order: 1e-4 absolute
@@ -321,14 +345,76 @@ def test_k4_posed_frames_match_plain_bit_for_bit(dev):
                 for n in (80, 64))
     euler = torch.from_numpy(rng.uniform(-0.4, 0.4, (3, 3)).astype(np.float32)).to(dev)
     trans = torch.from_numpy(rng.uniform(-0.3, 0.3, (3, 3)).astype(np.float32)).to(dev)
-    uv, z = project_to_screen(bfm.compute_face_vertex(assets, idc, exp, euler, trans),
-                              1015.0, 112.0, 64)
-    uv, z = uv.contiguous(), z.contiguous()
+    verts = bfm.compute_face_vertex(assets, idc, exp, euler, trans)
     attr = ((assets.ncc_code + 1) / 2).contiguous()
-    km, ki = secc_raster(uv, z, assets.face_buf, attr, 64)
-    pm, pi = secc_raster_plain(uv, z, assets.face_buf, attr, 64)
+    km, ki = rasterize_verts(verts, assets.face_buf, attr, 1015.0, 112.0, 64)
+    pm, pi = rasterize_verts_plain(verts, assets.face_buf, attr, 1015.0, 112.0, 64)
     assert torch.equal(km, pm) and 0.2 < float(km.mean()) < 0.9
     _close(ki, pi, 1e-6, "NCC")
+
+
+def _k4_scene(dev, t: int, seed: int):
+    """``t`` posed frames of the 2000-vertex synthetic mesh, every other one
+    (the only one at t = 1) pulled towards the camera to z 4.4-6.6, where
+    its faces cross znear = 5 and grow to 30-60 px at 512^2, with 16 large
+    faces (two vertices 25-60 px from a third in frame 0, at most 150 px
+    wide in every frame, which bounds the plain version's patch) added to
+    the mesh; its faces and NCC colours in [0, 1]."""
+    assets = bfm.synthetic_bfm(2000).to(dev)
+    rng = np.random.RandomState(seed)
+    idc, exp = (torch.from_numpy((rng.randn(t, n) * 0.3).astype(np.float32)).to(dev)
+                for n in (80, 64))
+    euler = torch.from_numpy(rng.uniform(-0.4, 0.4, (t, 3)).astype(np.float32)).to(dev)
+    trans = torch.from_numpy(rng.uniform(-0.3, 0.3, (t, 3)).astype(np.float32)).to(dev)
+    verts = bfm.compute_face_vertex(assets, idc, exp, euler, trans).clone()
+    verts[slice(1, None, 2) if t > 1 else slice(0, 1), :, 2] -= 4.5
+    uv = project_to_screen(verts, 1015.0, 112.0, 512)[0]            # [T,N,2]
+    big = []
+    for a in rng.permutation(assets.n_vertices):
+        near = torch.nonzero(((uv[0] - uv[0, a]).norm(dim=-1) - 42.5).abs() < 17.5).flatten()
+        if len(near) < 2:
+            continue
+        face = [int(a), int(near[0]), int(near[-1])]
+        corners = uv[:, face]                                      # [T,3,2]
+        if float((corners.amax(1) - corners.amin(1)).max()) <= 150:
+            big.append(face)
+        if len(big) == 16:
+            break
+    faces = torch.cat([assets.face_buf, torch.tensor(big, dtype=torch.int32, device=dev)])
+    return verts.contiguous(), faces.contiguous(), ((assets.ncc_code + 1) / 2).contiguous()
+
+
+@pytest.mark.parametrize("t", [1, 3, 16])
+def test_k4_frames_512_large_faces_and_faces_across_znear(dev, t):
+    # bit-equal to the plain version (equal masks, NCC within 1e-6) for
+    # posed frames at 512^2, added faces 20-150 px wide, faces cut by znear
+    # (5, and 5.5 with zfar 6, which also leaves the unmoved frames empty)
+    verts, faces, attr = _k4_scene(dev, t, seed=20 + t)
+    z = verts[..., 2][:, faces.long()]                             # [T,F,3]
+    for znear, zfar in ((5.0, 15.0), (5.5, 6.0)):
+        crossing = ((z.min(-1).values < znear) & (z.max(-1).values > znear)).sum()
+        assert int(crossing) > 0
+        args = (verts, faces, attr, 1015.0, 112.0, 512, znear, zfar)
+        km, ki = rasterize_verts(*args)
+        pm, pi = rasterize_verts_plain(*args)
+        assert torch.equal(km, pm) and 0.01 < float(km.mean()) < 0.99
+        _close(ki, pi, 1e-6, f"NCC, znear {znear}")
+
+
+def test_k4_two_meshes_in_a_row_and_bit_equal_launches(dev):
+    # the wrapper keeps one z-buffer per (size, stream), as many frames as
+    # the largest call, and the resolve cleans it: a call on another mesh or
+    # on fewer frames is the plain version's too, and a launch repeats bit
+    # for bit
+    first, second = _k4_scene(dev, 3, seed=30), _k4_scene(dev, 3, seed=31)
+    one = tuple(a[:1].contiguous() if i == 0 else a for i, a in enumerate(second))
+    for args in (first, second, one, first):
+        km, ki = rasterize_verts(*args, 1015.0, 112.0, 192)
+        pm, pi = rasterize_verts_plain(*args, 1015.0, 112.0, 192)
+        assert torch.equal(km, pm)
+        _close(ki, pi, 1e-6, "NCC")
+        again = rasterize_verts(*args, 1015.0, 112.0, 192)
+        assert torch.equal(again[0], km) and torch.equal(again[1], ki)
 
 
 @pytest.mark.parametrize("b,k,dhw,offset", [(2, 9, (3, 7, 5), 0.3), (1, 4, (5, 9, 11), 0.0),

@@ -14,7 +14,7 @@ from real3dportrait_tpu.geometry.secc_renderer import SECCRenderer as JaxSECCRen
 from real3dportrait_tpu_torch.geometry import bfm, camera
 from real3dportrait_tpu_torch.geometry.rasterizer import (
     project_to_screen,
-    secc_raster,
+    rasterize_verts,
     secc_raster_plain,
 )
 from real3dportrait_tpu_torch.geometry.secc_renderer import (
@@ -118,16 +118,19 @@ def test_secc_renderer_upsample_matches_jax_resize():
 
 
 def test_secc_raster_wrapper_uses_plain_on_cpu_and_rejects_other_devices():
+    # K4's wrapper takes camera-space vertices; on CPU tensors it is its
+    # plain version, project_to_screen + secc_raster_plain, its map taken
+    # from [0,1] to [-1,1]
     ta = bfm.synthetic_bfm(512)
     verts = bfm.compute_face_vertex(ta, *(torch.zeros((1, n)) for n in (80, 64, 3, 3)))
     uv, z = project_to_screen(verts, 1015.0, 112.0, 48)
     attr = ((ta.ncc_code + 1) / 2).contiguous()
-    m1, i1 = secc_raster(uv, z, ta.face_buf, attr, 48)
+    m1, i1 = rasterize_verts(verts, ta.face_buf, attr, 1015.0, 112.0, 48)
     m2, i2 = secc_raster_plain(uv, z, ta.face_buf, attr, 48)
-    assert torch.equal(m1, m2) and torch.equal(i1, i2)
+    assert torch.equal(m1, m2) and torch.equal(i1, i2 * 2.0 - 1.0)
     with pytest.raises(ValueError):
-        secc_raster(uv.to("meta"), z.to("meta"), ta.face_buf.to("meta"),
-                    attr.to("meta"), 48)
+        rasterize_verts(verts.to("meta"), ta.face_buf.to("meta"), attr.to("meta"),
+                        1015.0, 112.0, 48)
 
 
 @pytest.mark.parametrize("bad", [-1, 512])
