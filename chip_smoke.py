@@ -13,8 +13,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    from identical sources (registers and spills from ptxas are printed
    either way, and, where the toolkit has ``cuobjdump``, the count of
    tensor-core ``HMMA`` instructions in the SASS of K7a and of K1 /
-   K1-trigrid, which must not be 0; K3 and K7b must not spill, K2 and K4
-   must keep no stack frame and not spill);
+   K1-trigrid, which must not be 0; K3 and K7b must not spill, K2, K4, K5a
+   and K5b must keep no stack frame and not spill);
 3. each kernel (K1, K1-trigrid, K2-K7b; K2 also on a rendered frame's
    coarse samples; K4 at one frame, as ``run`` calls it, and at 16; K6a/K6b
    in fp32 and bf16; K7a at every distinct 3D conv of the standard torso)
@@ -213,15 +213,17 @@ def phase_build() -> None:
         if "Function properties" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     # K3 and K7b's main kernel keep every value in registers: no spills;
-    # K2's and K4's kernels neither spill nor keep a stack frame (K2's
-    # per-ray values live in registers and shared memory)
+    # K2's, K4's, K5a's and K5b's kernels neither spill nor keep a stack
+    # frame (K2's per-ray values live in registers and shared memory; K5b
+    # fits 32 registers for 8 CTAs an SM)
     for i, line in enumerate(lines):
         if "Function properties for" in line and any(
                 k in line for k in ("merge_composite_kernel", "mfe_tail_kernel")):
             check(" 0 bytes spill stores, 0 bytes spill loads" in lines[i + 1],
                   f"ptxas spills in {line.split()[-1]}: {lines[i + 1].strip()}")
         if "Function properties for" in line and any(k in line for k in (
-                "importance_sample_kernel", "secc_zbuffer_kernel", "secc_resolve_kernel")):
+                "importance_sample_kernel", "secc_zbuffer_kernel", "secc_resolve_kernel",
+                "deform_input_kernel", "warp_volume_kernel")):
             check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
                   in lines[i + 1],
                   f"ptxas stack frame or spills in {line.split()[-1]}: {lines[i + 1].strip()}")
@@ -421,26 +423,34 @@ def phase_kernels(dev: torch.device) -> dict:
 
     # K5a: the compressed volume of one 512^2 frame [1,16,64,64,4] and 4 of
     # the 68 keypoints, uniform in [-0.8,0.8]; then offsets up to 3.2 that
-    # push samples outside the volume (zero padding). The plain version's
-    # grid coordinates are i * (1 / (n-1)) (torch's CUDA division by a
-    # scalar), the kernel's i / (n-1): one rounding of a coordinate moves a
-    # sample by up to ~4e-6 voxel at n = 64, and neighbouring voxels of the
-    # N(0,1) volume differ by up to ~6, so the two differ by up to ~3e-5
-    # (each is ~2-4e-5 off a float64 evaluation): tolerance 1e-4 absolute.
-    # Operations per voxel: 8 gaussians of ~10 and, per candidate, 8 corners
-    # of 4 channels (2 each) and ~20 for the weights.
+    # push samples outside the volume (zero padding); then source keypoints
+    # within 0.1 of the driving ones, near the identity as a frame's are.
+    # The kernel rounds the grid coordinates (i * fp32(1 / (n-1)), torch's
+    # CUDA division by a scalar), the gaussians and the sparse motions as
+    # the plain version does on the card, with no FMA contraction, and sums
+    # the corners in its order: expected equal; tolerance 1e-4 absolute
+    # (the kernel's former i / (n-1) coordinates left it up to ~4e-5 off).
+    # Operations per voxel: 8 gaussians of ~10 and, per candidate, 8
+    # corners of 4 channels (2 each) and ~20 for the weights.
     # K5b: the appearance volume [1,16,64,64,32], deformation uniform in
-    # [-1.2,1.2] (border clamp); the same coordinates reach both versions:
-    # 1e-5 absolute. Operations per voxel: 8 corners of 32 channels, 2 each,
-    # and ~20 for the weights. F.grid_sample (5-D, border) computes the
-    # same function, on the volume's NCDHW view. K5a and K5b per call and
-    # per launch, the library call too.
+    # [-1.2,1.2] (border clamp), then within 0.02 of the identity grid, as
+    # a frame's; the same coordinates reach both versions: 1e-5 absolute.
+    # Operations per voxel: 8 corners of 32 channels, 2 each, and ~20 for
+    # the weights. F.grid_sample (5-D, border) computes the same function,
+    # on the volume's NCDHW view. K5a and K5b per call and per launch, the
+    # library call too.
     from real3dportrait_tpu_torch.models import torso
 
     fs = torch.randn((1, 16, 64, 64, 4), device=dev, generator=gen)
+    k5a_rows = []
     for tag, reach in (("kp 0.8", 0.8), ("kp 1.6, outside", 1.6)):
         kp_s = reach * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
         kp_d = reach * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+        k5a_rows.append((tag, kp_s, kp_d))
+    kp_d = 0.8 * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+    kp_s = kp_d + 0.1 * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+    k5a_rows.append(("kp 0.8, near identity", kp_s, kp_d))
+    for tag, kp_s, kp_d in k5a_rows:
         got = torso.torso_deform_input(fs, kp_s, kp_d)
         record("torso_deform_input", f"[1,16,64,64,4] {tag}",
                [(got, torso.torso_deform_input_plain(fs, kp_s, kp_d))], 1e-4,
@@ -449,24 +459,27 @@ def phase_kernels(dev: torch.device) -> dict:
                (nbytes(fs, kp_s, kp_d, got), 65536 * (80 + 5 * (8 * 4 * 2 + 20)), f32),
                launch_ms=(device_ms(lambda: torso.torso_deform_input(fs, kp_s, kp_d)), None))
     vol = torch.randn((1, 16, 64, 64, 32), device=dev, generator=gen)
-    grid = 2.4 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1.2
-    got = torso.torso_warp_volume(vol, grid)
-    plain = torso.torso_warp_volume_plain(vol, grid)
+    uniform = 2.4 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1.2
+    near = torso.make_coordinate_grid_3d(16, 64, 64, dev)[None] \
+        + 0.02 * (2 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1)
+    for tag, grid in (("", uniform), (" near identity", near)):
+        got = torso.torso_warp_volume(vol, grid)
+        plain = torso.torso_warp_volume_plain(vol, grid)
 
-    def k5b_library():
-        return F.grid_sample(vol.permute(0, 4, 1, 2, 3), grid, mode="bilinear",
-                             padding_mode="border", align_corners=True)
+        def k5b_library():
+            return F.grid_sample(vol.permute(0, 4, 1, 2, 3), grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
 
-    check(max_err(k5b_library().reshape(plain.shape), plain) <= 1e-5,
-          "torso_warp_volume: F.grid_sample computes another function")
-    record("torso_warp_volume", "[1,16,64,64,32]", [(got, plain)], 1e-5,
-           cuda_ms(lambda: torso.torso_warp_volume(vol, grid)),
-           cuda_ms(lambda: torso.torso_warp_volume_plain(vol, grid)),
-           (nbytes(vol, grid, got), 65536 * (8 * 32 * 2 + 20), f32),
-           library=cuda_ms(k5b_library),
-           launch_ms=(device_ms(lambda: torso.torso_warp_volume(vol, grid)),
-                      device_ms(k5b_library)))
-    del fs, vol, grid, got, plain
+        check(max_err(k5b_library().reshape(plain.shape), plain) <= 1e-5,
+              "torso_warp_volume: F.grid_sample computes another function")
+        record("torso_warp_volume", f"[1,16,64,64,32]{tag}", [(got, plain)], 1e-5,
+               cuda_ms(lambda: torso.torso_warp_volume(vol, grid)),
+               cuda_ms(lambda: torso.torso_warp_volume_plain(vol, grid)),
+               (nbytes(vol, grid, got), 65536 * (8 * 32 * 2 + 20), f32),
+               library=cuda_ms(k5b_library),
+               launch_ms=(device_ms(lambda: torso.torso_warp_volume(vol, grid)),
+                          device_ms(k5b_library)))
+    del fs, vol, uniform, near, grid, got, plain
 
     # K6a: the FIR after block1's and block0's up-convolutions (4x4 taps,
     # gain 4) in bf16, the blocks' working type on the default model, then

@@ -6,13 +6,13 @@
 // (ops/grid_sample.py pack_trigrid_cells + grid_sample_3d_prepacked, the
 // TPU's packing of each 2x2x2 cell into one wide gather row, shared by the
 // K+1 candidates) and the concat/transpose into the estimator's input.
-// Per voxel g = (x_w, y_h, z_d) of the D x H x W grid (coordinates
-// 2 i / (n - 1) - 1) and per candidate k = 0..K it writes the heatmap
-// (0 for k = 0, else G(g - kp_d[k]) - G(g - kp_s[k]) with the separable
-// gaussian exp(-d^2 / 0.02) per axis) and the C channels of the compressed
-// volume sampled at g (k = 0) or g - kp_d[k] + kp_s[k], trilinear with
-// align_corners=True and zero padding, to channel k * (1 + C) + j of an
-// NCDHW output, the layout the estimator's first Conv3d reads.
+// Per voxel g = (x_w, y_h, z_d) of the D x H x W grid and per candidate
+// k = 0..K it writes the heatmap (0 for k = 0, else G(g - kp_d[k]) -
+// G(g - kp_s[k]) with the separable gaussian exp(-0.5 d^2 / 0.01) per axis)
+// and the C = 4 channels of the compressed volume sampled at g (k = 0) or
+// g - kp_d[k] + kp_s[k], trilinear with align_corners=True and zero
+// padding, to channel k * (1 + C) + j of an NCDHW output, the layout the
+// estimator's first Conv3d reads.
 //
 // K5b torso_warp_volume replaces models/torso.py WarpGenerator lines 500-505
 // (ops/grid_sample.py grid_sample_3d_packed, border padding) and the C-major
@@ -22,177 +22,299 @@
 // and writes channel c * D + d of an NCHW [B, C*D, H, W] output, the input
 // of the generator's first Conv2d.
 //
-// What bounds them on an H100: bytes. Both volumes are small (K5a reads a
-// 1 MB channels-last [16,64,64,4] volume, K5b an 8 MB [16,64,64,32] one),
-// so every corner row comes from L2 after its first touch; the outputs
-// (6.5 MB and 8 MB) are written once. The TPU needed the cell packing
-// because its gather unit is transaction-bound on 16-32 B rows; here a
-// corner of the channels-last volume is one 16 B (C = 4) or 128 B (C = 32)
-// contiguous row, read as float4 loads. Design: one thread per voxel,
-// looping over the candidates (K5a) or carrying all C channels in registers
-// (K5b); neighbouring threads take neighbouring w, so the strided NCDHW /
-// NCHW stores of each channel are coalesced, and the transpose the JAX
-// code runs as a separate pass costs nothing.
+// What bounds them on an H100: bytes. K5a reads a 1 MB channels-last
+// [16,64,64,4] volume and writes 6.5 MB; K5b reads an 8 MB [16,64,64,32]
+// volume and a 0.8 MB deformation and writes 8 MB. Every corner row comes
+// from L2 or L1 after its first touch, so what the card has to keep up is
+// the latency of those reads: enough of them in flight, each fetching whole
+// lines, and stores of whole lines. At a deformation uniform over the
+// volume each K5b voxel reads 8 corner lines of 128 B that no neighbour
+// shares, 64 MB from L2 a launch: there L2's rate bounds it.
+//
+// K5b: a CTA owns a 32-voxel tile of one (b, d, h) row along w and all C
+// channels. Each voxel's clamped coordinate, corner steps and 8 weights are
+// computed once, by one thread, into shared memory. For C = 32, 8 lanes
+// share a voxel and each reads its 16 B quarter of the voxel's 128 B
+// corner row, so one warp-wide load fetches 4 voxels' rows as 4 whole
+// lines; all 8 corners are loaded before the FMAs. The sums go through a
+// padded shared tile [C][33] and leave as rows c*D + d of the NCHW fold,
+// 16 B a lane where W is a multiple of 4. 256 threads at 32 registers, 8
+// CTAs an SM: the 1024 CTAs of [1,16,64,64] run as one wave. For C = 4
+// (the tiny preset) a lane is a voxel, one float4 a corner, and stores its
+// 4 channels straight out, lanes along w.
+//
+// K5a: one thread per (voxel, candidate), lanes along w, two warps a
+// candidate of a 64-voxel tile; a CTA holds min(K + 1, 8) candidates and
+// `rows` rows h (models/torso.py torso_deform_plan), the ragged lanes past
+// W computing the last voxel and storing nothing. The gaussians are
+// separable: each lane computes the x factors of its voxel once for its
+// rows, and the warp's table of z * y factors (uniform over a row) sits one
+// entry a lane, (row, driving or source), read by shuffle: 4 exps a thread
+// for all its rows, none a voxel, no shared memory and no barrier. A
+// candidate's 1 + C stores are one 128 B line a warp each. The grid
+// coordinates and gaussians are rounded as torch rounds them on the card
+// (the division by the scalar n - 1 a multiply by fp32(1 / (n - 1)), `* 2`
+// and `- 1` apart, the division by the variance a multiply by
+// fp32(1 / 0.01) = 100, products gz gy gx, driving minus source), with no
+// contraction into FMAs, so the kernel gives the plain version's values.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kDeformTile = 64;  // K5a: voxels along w of a CTA, two warps
+constexpr int kWarpTile = 32;    // K5b: voxels along w of a CTA
 
 // torch grid_sample unnormalisation with align_corners=True
 __device__ __forceinline__ float unnorm_ac(float c, int n) {
   return (c + 1.0f) / 2.0f * (float)(n - 1);
 }
 
-// acc[0..C) += trilinear sample of a channels-last [D,H,W,C] volume at
-// voxel coordinates (x, y, z); corners outside the volume weigh nothing.
-template <int C>
-__device__ __forceinline__ void trilinear_add(float* acc, const float* vol, int D,
-                                              int H, int W, float x, float y, float z) {
-  float x0 = floorf(x), y0 = floorf(y), z0 = floorf(z);
-  float wx1 = x - x0, wy1 = y - y0, wz1 = z - z0;
-  float wx0 = 1.0f - wx1, wy0 = 1.0f - wy1, wz0 = 1.0f - wz1;
+// 2 * (i / (n - 1)) - 1 as torch evaluates it on the card; inv is
+// fp32(1 / (n - 1))
+__device__ __forceinline__ float grid_axis(int i, float inv) {
+  return __fsub_rn(__fmul_rn(2.0f, __fmul_rn((float)i, inv)), 1.0f);
+}
+
+// kp2gaussian_3d's factor exp(-0.5 (a - kp)^2 / 0.01) with torch's roundings
+__device__ __forceinline__ float gauss1(float a, float kp) {
+  float t = __fsub_rn(a, kp);
+  return expf(__fmul_rn(__fmul_rn(-0.5f, __fmul_rn(t, t)), 100.0f));
+}
+
+// one axis of a zero-padded trilinear sample: the two corners' indices,
+// clamped into [0, n) (a corner outside weighs 0, so its clamped read adds
+// nothing), and their weights as torch computes them, (f + 1) - x and x - f
+struct Lerp {
+  int i0, i1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Lerp lerp_zeros(float c, int n) {
+  float x = unnorm_ac(c, n);
+  float f = floorf(x), top = (float)(n - 1);
+  Lerp l;
+  l.w0 = (f >= 0.0f && f <= top) ? __fsub_rn(f + 1.0f, x) : 0.0f;
+  l.w1 = (f + 1.0f >= 0.0f && f + 1.0f <= top) ? __fsub_rn(x, f) : 0.0f;
+  l.i0 = (int)fminf(fmaxf(f, 0.0f), top);
+  l.i1 = (int)fminf(fmaxf(f + 1.0f, 0.0f), top);
+  return l;
+}
+
+// acc = sum over the corners, in torch's order (z, then y, then x, low
+// corner first), of value * ((wx * wy) * wz), each term one FMA
+__device__ __forceinline__ float4 lerp_corners(const float4 (&v)[8], const float (&w)[8]) {
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    float zi = z0 + (float)dz;
-    if (zi < 0.0f || zi > (float)(D - 1)) continue;
-    float wz = dz ? wz1 : wz0;
+  for (int i = 0; i < 8; ++i) {
+    acc.x = fmaf(v[i].x, w[i], acc.x);
+    acc.y = fmaf(v[i].y, w[i], acc.y);
+    acc.z = fmaf(v[i].z, w[i], acc.z);
+    acc.w = fmaf(v[i].w, w[i], acc.w);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void corner_weights(float (&w)[8], float x0, float x1, float y0,
+                                               float y1, float z0, float z1) {
+  w[0] = __fmul_rn(__fmul_rn(x0, y0), z0);
+  w[1] = __fmul_rn(__fmul_rn(x1, y0), z0);
+  w[2] = __fmul_rn(__fmul_rn(x0, y1), z0);
+  w[3] = __fmul_rn(__fmul_rn(x1, y1), z0);
+  w[4] = __fmul_rn(__fmul_rn(x0, y0), z1);
+  w[5] = __fmul_rn(__fmul_rn(x1, y0), z1);
+  w[6] = __fmul_rn(__fmul_rn(x0, y1), z1);
+  w[7] = __fmul_rn(__fmul_rn(x1, y1), z1);
+}
+
+// K5a. blockDim (kDeformTile, cand); grid (ceil(W / kDeformTile), ceil(H / rows),
+// B * D); rows <= 16.
+__global__ void __launch_bounds__(512)
+deform_input_kernel(const float4* __restrict__ vol, const float* __restrict__ kp_s,
+                    const float* __restrict__ kp_d, int K, int D, int H, int W, int rows,
+                    float* __restrict__ out) {
+  const int bd = blockIdx.z, b = bd / D, d = bd - b * D;
+  const int h0 = blockIdx.y * rows, nrows = min(rows, H - h0);
+  // lanes past W compute the last voxel's values (they take part in the
+  // shuffles) and store nothing
+  const int w = blockIdx.x * kDeformTile + threadIdx.x, wc = min(w, W - 1);
+  const int lane = threadIdx.x & 31, hw = H * W;
+  const float inv_h = __frcp_rn((float)(H - 1));
+  const float gx = grid_axis(wc, __frcp_rn((float)(W - 1)));
+  const float gz = grid_axis(d, __frcp_rn((float)(D - 1)));
+  const float4* vb = vol + (long long)b * D * hw;
+  const long long vox = (long long)D * hw;
+  for (int k = threadIdx.y; k <= K; k += blockDim.y) {
+    float kd[3] = {0.0f, 0.0f, 0.0f}, ks[3] = {0.0f, 0.0f, 0.0f};
+    float hxd = 0.0f, hxs = 0.0f, gzy = 0.0f, sx = gx, sz = gz;
+    if (k > 0) {
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      float yi = y0 + (float)dy;
-      if (yi < 0.0f || yi > (float)(H - 1)) continue;
-      float wy = dy ? wy1 : wy0;
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        float xi = x0 + (float)dx;
-        if (xi < 0.0f || xi > (float)(W - 1)) continue;
-        float wgt = (dx ? wx1 : wx0) * wy * wz;
-        const float4* row = reinterpret_cast<const float4*>(
-            vol + (((long long)zi * H + (long long)yi) * W + (long long)xi) * C);
-#pragma unroll
-        for (int q = 0; q < C / 4; ++q) {
-          float4 v = __ldg(row + q);
-          acc[4 * q + 0] += v.x * wgt;
-          acc[4 * q + 1] += v.y * wgt;
-          acc[4 * q + 2] += v.z * wgt;
-          acc[4 * q + 3] += v.w * wgt;
-        }
+      for (int a = 0; a < 3; ++a) {
+        kd[a] = __ldg(kp_d + (b * K + k - 1) * 3 + a);
+        ks[a] = __ldg(kp_s + (b * K + k - 1) * 3 + a);
+      }
+      // the table of the warp's rows: lane 2 r + s holds gz * gy of row
+      // h0 + r for the driving (s = 0) or source (s = 1) keypoint
+      const bool src = lane & 1;
+      const float gy = grid_axis(min(h0 + (lane >> 1), H - 1), inv_h);
+      gzy = __fmul_rn(gauss1(gz, src ? ks[2] : kd[2]), gauss1(gy, src ? ks[1] : kd[1]));
+      hxd = gauss1(gx, kd[0]);
+      hxs = gauss1(gx, ks[0]);
+      sx = __fadd_rn(__fsub_rn(gx, kd[0]), ks[0]);
+      sz = __fadd_rn(__fsub_rn(gz, kd[2]), ks[2]);
+    }
+    const Lerp lx = lerp_zeros(sx, W), lz = lerp_zeros(sz, D);
+    const int z0 = lz.i0 * hw, z1 = lz.i1 * hw;
+    float* ok = out + (long long)(b * (K + 1) + k) * 5 * vox + d * hw + w;
+    for (int r = 0; r < nrows; ++r) {
+      const int h = h0 + r;
+      const float gy = grid_axis(h, inv_h);
+      const Lerp ly = lerp_zeros(k > 0 ? __fadd_rn(__fsub_rn(gy, kd[1]), ks[1]) : gy, H);
+      const int y0 = ly.i0 * W, y1 = ly.i1 * W;
+      const float4 v[8] = {__ldg(vb + z0 + y0 + lx.i0), __ldg(vb + z0 + y0 + lx.i1),
+                           __ldg(vb + z0 + y1 + lx.i0), __ldg(vb + z0 + y1 + lx.i1),
+                           __ldg(vb + z1 + y0 + lx.i0), __ldg(vb + z1 + y0 + lx.i1),
+                           __ldg(vb + z1 + y1 + lx.i0), __ldg(vb + z1 + y1 + lx.i1)};
+      const float gzy_d = __shfl_sync(0xffffffffu, gzy, 2 * r);
+      const float gzy_s = __shfl_sync(0xffffffffu, gzy, 2 * r + 1);
+      const float heat = k > 0 ? __fsub_rn(__fmul_rn(gzy_d, hxd), __fmul_rn(gzy_s, hxs)) : 0.0f;
+      float wgt[8];
+      corner_weights(wgt, lx.w0, lx.w1, ly.w0, ly.w1, lz.w0, lz.w1);
+      const float4 acc = lerp_corners(v, wgt);
+      if (w < W) {
+        float* o = ok + h * W;
+        o[0] = heat;
+        o[vox] = acc.x;
+        o[2 * vox] = acc.y;
+        o[3 * vox] = acc.z;
+        o[4 * vox] = acc.w;
       }
     }
   }
 }
 
-// separable keypoint gaussian, variance 0.01: exp(-0.5 d^2 / 0.01) per axis
-__device__ __forceinline__ float gauss1(float g, float k) {
-  float d = g - k;
-  return expf(-0.5f * (d * d) / 0.01f);
-}
-
+// K5b's CTA: a tile of kWarpTile voxels, C / 4 lanes a voxel (one float4
+// of channels each): C = 32, 256 threads; C = 4, one warp.
 template <int C>
-__global__ void __launch_bounds__(256)
-deform_input_kernel(const float* __restrict__ vol, const float* __restrict__ kp_s,
-                    const float* __restrict__ kp_d, int B, int K, int D, int H, int W,
-                    float* __restrict__ out) {
-  long long vox = (long long)D * H * W;
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)B * vox) return;
-  int b = (int)(n / vox);
-  long long r = n - (long long)b * vox;
-  int d = (int)(r / ((long long)H * W));
-  int hw = (int)(r - (long long)d * H * W);
-  int h = hw / W, w = hw - (hw / W) * W;
-  float gx = 2.0f * ((float)w / (float)(W - 1)) - 1.0f;
-  float gy = 2.0f * ((float)h / (float)(H - 1)) - 1.0f;
-  float gz = 2.0f * ((float)d / (float)(D - 1)) - 1.0f;
+struct WarpTile {
+  static constexpr int kLanes = C / 4;
+  static constexpr int kThreads = kWarpTile * kLanes;
+  static constexpr int kMinBlocks = 2048 / kThreads < 32 ? 2048 / kThreads : 32;
+};
 
-  const float* vb = vol + (long long)b * vox * C;
-  float* ob = out + (long long)b * (K + 1) * (1 + C) * vox + r;
-  for (int k = 0; k <= K; ++k) {
-    float sx = gx, sy = gy, sz = gz, heat = 0.0f;
-    if (k > 0) {
-      const float* pd = kp_d + ((long long)b * K + (k - 1)) * 3;
-      const float* ps = kp_s + ((long long)b * K + (k - 1)) * 3;
-      sx = (gx - pd[0]) + ps[0];
-      sy = (gy - pd[1]) + ps[1];
-      sz = (gz - pd[2]) + ps[2];
-      float hd = gauss1(gz, pd[2]) * gauss1(gy, pd[1]) * gauss1(gx, pd[0]);
-      float hs = gauss1(gz, ps[2]) * gauss1(gy, ps[1]) * gauss1(gx, ps[0]);
-      heat = hd - hs;
+// K5b. grid (ceil(W / kWarpTile), H, B * D); 8 CTAs of 256 threads an SM
+// for C = 32 (32 registers).
+template <int C>
+__global__ void __launch_bounds__(WarpTile<C>::kThreads, WarpTile<C>::kMinBlocks)
+warp_volume_kernel(const float4* __restrict__ vol, const float* __restrict__ grid, int D,
+                   int H, int W, float* __restrict__ out) {
+  using T = WarpTile<C>;
+  __shared__ float4 s_wgt[kWarpTile][2];
+  __shared__ int4 s_step[kWarpTile];  // first corner, x, y and z steps, in float4s
+  __shared__ float s_out[C == 32 ? C : 1][kWarpTile + 1];
+  const int bd = blockIdx.z, b = bd / D, d = bd - b * D, h = blockIdx.y;
+  const int w0 = blockIdx.x * kWarpTile, t = threadIdx.x;
+  const int nvox = min(kWarpTile, W - w0);
+  const long long hw = (long long)H * W, vox = D * hw;
+
+  // each voxel's clamped coordinate, corner steps and weights, once
+  if (t < kWarpTile) {
+    float wgt[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    int4 step = make_int4(0, 0, 0, 0);
+    if (t < nvox) {
+      const float* g = grid + ((bd * (long long)H + h) * W + w0 + t) * 3;
+      // border padding: clamp the continuous coordinate, then weigh
+      const float x = fminf(fmaxf(unnorm_ac(g[0], W), 0.0f), (float)(W - 1));
+      const float y = fminf(fmaxf(unnorm_ac(g[1], H), 0.0f), (float)(H - 1));
+      const float z = fminf(fmaxf(unnorm_ac(g[2], D), 0.0f), (float)(D - 1));
+      const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
+      const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+      // the upper corner past the last voxel weighs x - f = 0: read the
+      // lower one again
+      step = make_int4(((iz * H + iy) * W + ix) * T::kLanes, ix < W - 1 ? T::kLanes : 0,
+                       iy < H - 1 ? W * T::kLanes : 0, iz < D - 1 ? H * W * T::kLanes : 0);
+      corner_weights(wgt, __fsub_rn(fx + 1.0f, x), __fsub_rn(x, fx),
+                     __fsub_rn(fy + 1.0f, y), __fsub_rn(y, fy), __fsub_rn(fz + 1.0f, z),
+                     __fsub_rn(z, fz));
     }
-    float acc[C];
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[j] = 0.0f;
-    trilinear_add<C>(acc, vb, D, H, W, unnorm_ac(sx, W), unnorm_ac(sy, H),
-                     unnorm_ac(sz, D));
-    float* ok = ob + (long long)k * (1 + C) * vox;
-    ok[0] = heat;
-#pragma unroll
-    for (int j = 0; j < C; ++j) ok[(long long)(1 + j) * vox] = acc[j];
+    s_step[t] = step;
+    s_wgt[t][0] = make_float4(wgt[0], wgt[1], wgt[2], wgt[3]);
+    s_wgt[t][1] = make_float4(wgt[4], wgt[5], wgt[6], wgt[7]);
+  }
+  __syncthreads();
+
+  const int q = t % T::kLanes, v = t / T::kLanes;
+  const int4 s = s_step[v];
+  const float4 wa = s_wgt[v][0], wb = s_wgt[v][1];
+  const float4* p = vol + b * vox * T::kLanes + s.x + q;
+  const float4 c[8] = {__ldg(p), __ldg(p + s.y), __ldg(p + s.z), __ldg(p + s.z + s.y),
+                       __ldg(p + s.w), __ldg(p + s.w + s.y), __ldg(p + s.w + s.z),
+                       __ldg(p + s.w + s.z + s.y)};
+  const float wgt[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+  const float4 acc = lerp_corners(c, wgt);
+  float* ob = out + ((long long)b * C * D + d) * hw + (long long)h * W + w0;
+  if constexpr (C == 4) {
+    if (v < nvox) {
+      ob[v] = acc.x;
+      ob[vox + v] = acc.y;
+      ob[2 * vox + v] = acc.z;
+      ob[3 * vox + v] = acc.w;
+    }
+  } else {
+    s_out[4 * q + 0][v] = acc.x;
+    s_out[4 * q + 1][v] = acc.y;
+    s_out[4 * q + 2][v] = acc.z;
+    s_out[4 * q + 3][v] = acc.w;
+    __syncthreads();
+    // rows c * D + d of the fold: 16 B a lane where W keeps them aligned
+    if ((W & 3) == 0) {
+      const int ch = t / (kWarpTile / 4), x = (t % (kWarpTile / 4)) * 4;
+      if (x < nvox)
+        *reinterpret_cast<float4*>(ob + ch * vox + x) =
+            make_float4(s_out[ch][x], s_out[ch][x + 1], s_out[ch][x + 2], s_out[ch][x + 3]);
+    } else {
+      for (int i = t; i < C * kWarpTile; i += T::kThreads) {
+        const int ch = i / kWarpTile, x = i % kWarpTile;
+        if (x < nvox) ob[ch * vox + x] = s_out[ch][x];
+      }
+    }
   }
 }
 
 template <int C>
-__global__ void __launch_bounds__(128)
-warp_volume_kernel(const float* __restrict__ vol, const float* __restrict__ grid, int B,
-                   int D, int H, int W, float* __restrict__ out) {
-  long long vox = (long long)D * H * W;
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)B * vox) return;
-  int b = (int)(n / vox);
-  long long r = n - (long long)b * vox;
-  int d = (int)(r / ((long long)H * W));
-  long long hw = r - (long long)d * H * W;
-
-  const float* g = grid + n * 3;
-  // border padding: clamp the continuous coordinate, then weigh the corners
-  float x = fminf(fmaxf(unnorm_ac(g[0], W), 0.0f), (float)(W - 1));
-  float y = fminf(fmaxf(unnorm_ac(g[1], H), 0.0f), (float)(H - 1));
-  float z = fminf(fmaxf(unnorm_ac(g[2], D), 0.0f), (float)(D - 1));
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  trilinear_add<C>(acc, vol + (long long)b * vox * C, D, H, W, x, y, z);
-
-  // NCHW [B, C*D, H, W], channel c * D + d
-  float* ob = out + (long long)b * C * vox + (long long)d * H * W + hw;
-#pragma unroll
-  for (int c = 0; c < C; ++c) ob[(long long)c * vox] = acc[c];
-}
-
-template <int C>
-int launch_deform(const float* vol, const float* kp_s, const float* kp_d, int B, int K,
-                  int D, int H, int W, float* out, cudaStream_t stream) {
-  long long total = (long long)B * D * H * W;
-  if (total > 0)
-    deform_input_kernel<C><<<r3dp_blocks(total, 256), 256, 0, stream>>>(
-        vol, kp_s, kp_d, B, K, D, H, W, out);
-  return (int)cudaGetLastError();
-}
-
-template <int C>
-int launch_warp(const float* vol, const float* grid, int B, int D, int H, int W,
-                float* out, cudaStream_t stream) {
-  long long total = (long long)B * D * H * W;
-  if (total > 0)
-    warp_volume_kernel<C><<<r3dp_blocks(total, 128), 128, 0, stream>>>(vol, grid, B, D,
-                                                                       H, W, out);
+int launch_warp(const float* vol, const float* grid, int B, int D, int H, int W, float* out,
+                cudaStream_t stream) {
+  dim3 blocks((W + kWarpTile - 1) / kWarpTile, H, B * D);
+  warp_volume_kernel<C><<<blocks, WarpTile<C>::kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(vol), grid, D, H, W, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // vol [B,D,H,W,4] fp32 channels-last (the estimator's compressed width);
-// kp_s, kp_d [B,K,3]; out [B,(K+1)*5,D,H,W]. D, H, W >= 2.
+// kp_s, kp_d [B,K,3]; out [B,(K+1)*5,D,H,W]. D, H, W >= 2; B * D and
+// ceil(H / rows) at most 65535, 1 <= rows <= 16 rows and 1 <= cand <=
+// min(K + 1, 8) candidates a CTA (models/torso.py torso_deform_plan).
 R3DP_EXPORT int r3dp_torso_deform_input(const float* vol, const float* kp_s,
                                         const float* kp_d, int B, int K, int D, int H,
-                                        int W, int C, float* out, cudaStream_t stream) {
-  if (C != 4) return (int)cudaErrorInvalidValue;
-  return launch_deform<4>(vol, kp_s, kp_d, B, K, D, H, W, out, stream);
+                                        int W, int C, int rows, int cand, float* out,
+                                        cudaStream_t stream) {
+  if (C != 4 || rows < 1 || rows > 16 || cand < 1 || cand > 8 || cand > K + 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * D * H * W == 0) return (int)cudaGetLastError();
+  dim3 blocks((W + kDeformTile - 1) / kDeformTile, (H + rows - 1) / rows, B * D);
+  deform_input_kernel<<<blocks, dim3(kDeformTile, cand), 0, stream>>>(
+      reinterpret_cast<const float4*>(vol), kp_s, kp_d, K, D, H, W, rows, out);
+  return (int)cudaGetLastError();
 }
 
 // vol [B,D,H,W,C] fp32 channels-last, C = 32 (released preset) or 4 (tiny);
-// grid [B,D,H,W,3] (x, y, z) in [-1,1]; out [B,C*D,H,W]. D, H, W >= 2.
+// grid [B,D,H,W,3] (x, y, z) in [-1,1]; out [B,C*D,H,W]. D, H, W >= 2;
+// B * D and H at most 65535; D * H * W * C < 2^31.
 R3DP_EXPORT int r3dp_torso_warp_volume(const float* vol, const float* grid, int B, int D,
                                        int H, int W, int C, float* out,
                                        cudaStream_t stream) {
+  if ((long long)B * D * H * W == 0) return (int)cudaGetLastError();
   if (C == 32) return launch_warp<32>(vol, grid, B, D, H, W, out, stream);
   if (C == 4) return launch_warp<4>(vol, grid, B, D, H, W, out, stream);
   return (int)cudaErrorInvalidValue;

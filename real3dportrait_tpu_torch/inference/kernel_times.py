@@ -1,9 +1,10 @@
-"""K1, K1-trigrid, K2, K3, K4, K6b and K7b at the shapes of
+"""K1, K1-trigrid, K2, K3, K4, K5a, K5b, K6b and K7b at the shapes of
 ``chip_smoke.py``'s kernel rows, beside their plain versions, and
-K1-trigrid, K2 and K3 on the samples of a rendered frame, on a CUDA device.
+K1-trigrid, K2, K3, K5a and K5b on the inputs of a rendered frame, on a
+CUDA device.
 
     python3 real3dportrait_tpu_torch/inference/kernel_times.py [--tree DIR]
-        [--only k1,k2,k3,k4,k6b,k7b]
+        [--only k1,k2,k3,k4,k5a,k5b,k6b,k7b]
 
 Per row: the device time of one launch (20 back-to-back calls behind a spin
 kernel, ``kernels.device_ms``: the wrapper's launches, the kernel's and any
@@ -15,7 +16,13 @@ epilogues with demodulation, noise, bias, lrelu, gain sqrt 2 and a clamp,
 and toRGB's bias alone; K3 on 16,384 rays of stratified coarse depths and
 sorted fine depths with 32 uniform colour channels at 16+32 and 48+48; K2
 on the same rays' coarse samples; K7b on the frame's [1,32,16,64,64]
-volume, 4 keypoints uniform in [-0.8, 0.8]. K4 through ``rasterize_verts``
+volume, 4 keypoints uniform in [-0.8, 0.8]. K5a on the [1,16,64,64,4]
+compressed volume with 4 keypoints uniform in [-0.8, 0.8], in [-1.6,
+1.6] (samples outside the volume) and source keypoints within 0.1 of the
+driving ones (near the identity); K5b on the [1,16,64,64,32] appearance
+volume with a deformation uniform in [-1.2, 1.2] and one within 0.02 of
+the identity grid, beside ``F.grid_sample`` (5-D, border); both also
+check two launches bit-equal. K4 through ``rasterize_verts``
 (a tree from before it: ``rasterize``; the camera-space vertices in, the
 projection included) on T = 1, 3 and 16
 frames of the 35,709-vertex synthetic mesh at 192^2, each with the
@@ -52,10 +59,10 @@ K6B_ROWS = [("block1 bf16", (1, 128, 512, 512), "bfloat16", 256.0),
             ("toRGB fp32", (1, 3, 512, 512), "float32", None)]
 
 
-def frame_passes(dev) -> tuple[list, tuple, tuple]:
+def frame_passes(dev) -> tuple[list, tuple, tuple, tuple, tuple]:
     """(planes, coords, box_warp, decoder) of the two K1-trigrid calls, and
-    the arguments of the K2 and the K3 call, of the second of two frames
-    that the default model synthesises at ``fast``."""
+    the arguments of the K2, the K3, the K5a and the K5b call, of the second
+    of two frames that the default model synthesises at ``fast``."""
     import numpy as np
     import torch
 
@@ -63,6 +70,7 @@ def frame_passes(dev) -> tuple[list, tuple, tuple]:
     from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
     from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
     from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.models import torso
     from real3dportrait_tpu_torch.rendering import renderer
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(dm.__file__))))
@@ -73,9 +81,10 @@ def frame_passes(dev) -> tuple[list, tuple, tuple]:
     rng = np.random.RandomState(0)
     src = rng.randint(0, 256, (512, 512, 3)).astype(np.uint8)
     exp = torch.from_numpy(rng.randn(2, 64).astype(np.float32) * 0.3)
-    calls, samples, merges = [], [], []
+    calls, samples, merges, deforms, warps = [], [], [], [], []
     kernel, sample, merge = dm.trigrid_decode, renderer.importance_sample, \
         renderer.merge_composite
+    deform, warp = torso.torso_deform_input, torso.torso_warp_volume
 
     def capture(planes, coords, box_warp, decoder):
         calls.append((planes, coords, box_warp, decoder))
@@ -89,18 +98,62 @@ def frame_passes(dev) -> tuple[list, tuple, tuple]:
         merges.append(args)
         return merge(*args)
 
+    def capture_deform(*args):
+        deforms.append(args)
+        return deform(*args)
+
+    def capture_warp(*args):
+        warps.append(args)
+        return warp(*args)
+
     # the wrappers count on the name they are called by
     capture.launches = capture_sample.launches = capture_merge.launches = 0
+    capture_deform.launches = capture_warp.launches = 0
     dm.trigrid_decode, renderer.importance_sample, renderer.merge_composite = \
         capture, capture_sample, capture_merge
+    torso.torso_deform_input, torso.torso_warp_volume = capture_deform, capture_warp
     try:
         pipe.synthesize(src, exp, pipe.fit_source(None), blink_mode="none",
                         prepare_source_images=False)
     finally:
         dm.trigrid_decode, renderer.importance_sample, renderer.merge_composite = \
             kernel, sample, merge
+        torso.torso_deform_input, torso.torso_warp_volume = deform, warp
     torch.cuda.synchronize()
-    return calls[-2:], samples[-1], merges[-1]
+    return calls[-2:], samples[-1], merges[-1], deforms[-1], warps[-1]
+
+
+def k5_rows(dev, gen, frame: tuple | None) -> tuple[list, list]:
+    """K5a's and K5b's (tag, arguments) rows: ``chip_smoke.py``'s inputs
+    (see the module's note), then a frame's own calls where ``frame``
+    holds them."""
+    import torch
+
+    from real3dportrait_tpu_torch.models import torso
+
+    fs = torch.randn((1, 16, 64, 64, 4), device=dev, generator=gen)
+    k5a = []
+    for tag, reach in (("kp 0.8", 0.8), ("kp 1.6, outside", 1.6)):
+        kp_s = reach * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+        kp_d = reach * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+        k5a.append((tag, (fs, kp_s, kp_d)))
+    kp_d = 0.8 * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+    kp_s = kp_d + 0.1 * (2 * torch.rand((1, 4, 3), device=dev, generator=gen) - 1)
+    k5a.append(("near identity, kp offsets <= 0.1", (fs, kp_s, kp_d)))
+    vol = torch.randn((1, 16, 64, 64, 32), device=dev, generator=gen)
+    uniform = 2.4 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1.2
+    near = torso.make_coordinate_grid_3d(16, 64, 64, dev)[None] \
+        + 0.02 * (2 * torch.rand((1, 16, 64, 64, 3), device=dev, generator=gen) - 1)
+    k5b = [("uniform in [-1.2,1.2]", (vol, uniform)), ("identity + 0.02", (vol, near))]
+    if frame is not None:
+        (fs_f, kps_f, kpd_f), (vol_f, def_f) = frame
+        ident = torso.make_coordinate_grid_3d(*def_f.shape[1:4], dev)[None]
+        k5a.append((f"frame, kp offsets <= {float((kps_f - kpd_f).abs().max()):.3f}",
+                    (fs_f, kps_f, kpd_f)))
+        dist = (def_f - ident).abs()
+        k5b.append((f"frame, |deformation - identity| max {float(dist.max()):.3f} mean "
+                    f"{float(dist.mean()):.4f}", (vol_f, def_f)))
+    return k5a, k5b
 
 
 def merge_inputs(dev, gen, r: int, s_c: int, s_f: int, c: int) -> tuple:
@@ -187,7 +240,7 @@ def sm_clock_while(fn, calls: int = 2000) -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", help="a checkout of the repo to import the port from")
-    parser.add_argument("--only", default="k1,k2,k3,k4,k6b,k7b",
+    parser.add_argument("--only", default="k1,k2,k3,k4,k5a,k5b,k6b,k7b",
                         help="the kernels to time, comma-separated (default: all)")
     args = parser.parse_args()
     only = set(args.only.split(","))
@@ -229,7 +282,7 @@ def main() -> None:
                   f"err {err:.2e}")
             del planes, coords, got, want
 
-    frame_args = frame_passes(dev) if only & {"k1", "k2", "k3"} else None
+    frame_args = frame_passes(dev) if only & {"k1", "k2", "k3", "k5a", "k5b"} else None
     if "k1" in only:
         for tag, (planes, coords, box_warp, dec_f) in zip(("coarse", "fine"), frame_args[0]):
             with torch.no_grad():
@@ -277,6 +330,35 @@ def main() -> None:
             print(f"merge_composite [{tag}, {margs[0].shape[1]} rays]: per launch {launch:.4f} ms, "
                   f"per call {call:.4f} ms; max abs err {err:.2e}")
         del merge_rows
+
+    if only & {"k5a", "k5b"}:
+        import torch.nn.functional as F
+
+        k5a, k5b = k5_rows(dev, gen, frame_args[3:] if frame_args else None)
+        if "k5a" in only:
+            for tag, kargs in k5a:
+                got = torso.torso_deform_input(*kargs)
+                same = torch.equal(got, torso.torso_deform_input(*kargs))
+                err = float((got - torso.torso_deform_input_plain(*kargs)).abs().max())
+                launch = kernels.device_ms(lambda: torso.torso_deform_input(*kargs))
+                call = kernels.cuda_ms(lambda: torso.torso_deform_input(*kargs))
+                print(f"torso_deform_input {list(kargs[0].shape)} K={kargs[1].shape[1]} [{tag}]: "
+                      f"per launch {launch:.4f} ms, per call {call:.4f} ms; max abs err "
+                      f"{err:.2e}; two launches {'bit-equal' if same else 'DIFFER'}")
+        if "k5b" in only:
+            for tag, (vol, grid) in k5b:
+                got = torso.torso_warp_volume(vol, grid)
+                same = torch.equal(got, torso.torso_warp_volume(vol, grid))
+                err = float((got - torso.torso_warp_volume_plain(vol, grid)).abs().max())
+                launch = kernels.device_ms(lambda: torso.torso_warp_volume(vol, grid))
+                call = kernels.cuda_ms(lambda: torso.torso_warp_volume(vol, grid))
+                lib = kernels.device_ms(lambda: F.grid_sample(
+                    vol.permute(0, 4, 1, 2, 3), grid, mode="bilinear", padding_mode="border",
+                    align_corners=True))
+                print(f"torso_warp_volume {list(vol.shape)} [{tag}]: per launch {launch:.4f} "
+                      f"ms, per call {call:.4f} ms, F.grid_sample per launch {lib:.4f} ms; max "
+                      f"abs err {err:.2e}; two launches {'bit-equal' if same else 'DIFFER'}")
+        del k5a, k5b
     del frame_args
 
     if "k4" in only:

@@ -60,7 +60,7 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_importance_sample": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     "r3dp_merge_composite": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "r3dp_secc_raster": (_P, _I, _I, _P, _I, _P, _F, _F, _F, _I, _F, _F, _P, _P, _P, _P),
-    "r3dp_torso_deform_input": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "r3dp_torso_deform_input": (_P, _P, _P, *(_I,) * 8, _P, _P),
     "r3dp_torso_warp_volume": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "r3dp_upfirdn2d": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),
     "r3dp_upfirdn2d_bf16": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),

@@ -194,13 +194,26 @@ def torso_deform_input_plain(fs: torch.Tensor, kp_s: torch.Tensor,
     return out.permute(0, 1, 5, 2, 3, 4).reshape(b, k1 * (1 + c), d, h, w)
 
 
+def torso_deform_plan(b: int, k: int, d: int, h: int, w: int) -> dict:
+    """K5a's launch: CTAs of ``tile_w`` = 64 voxels along w (two warps a
+    candidate) by ``cand`` = min(k + 1, 8) candidates (a thread loops over
+    the rest), each over ``rows`` = 4 rows h of one (b, d), the last row
+    group and tile ragged; ``grid`` is (w tiles, row groups, b * d). At
+    [1,16,64,64] with k = 4 that is 256 CTAs of 320 threads, two an SM at
+    the kernel's registers: one wave, each thread's x gaussians reused over
+    4 rows (1, 2, 3, 5 and 8 rows ran slower on an H100, PERF.md)."""
+    rows = 4
+    return dict(tile_w=64, rows=rows, cand=min(k + 1, 8),
+                grid=(math.ceil(w / 64), math.ceil(h / rows), b * d))
+
+
 def torso_deform_input(fs: torch.Tensor, kp_s: torch.Tensor,
                        kp_d: torch.Tensor) -> torch.Tensor:
     """K5a wrapper, same contract as :func:`torso_deform_input_plain`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes fp32 volumes of 4 channels (the estimator's compressed
-    width) with D, H, W >= 2, or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (:func:`torso_deform_plan`), which takes fp32 volumes of 4 channels (the
+    estimator's compressed width) with D, H, W >= 2, or raise.
     """
     if fs.device.type == "cpu":
         return torso_deform_input_plain(fs, kp_s, kp_d)
@@ -210,13 +223,16 @@ def torso_deform_input(fs: torch.Tensor, kp_s: torch.Tensor,
         kernels.require(name, arg, t)
     b, d, h, w, c = fs.shape
     k = kp_s.shape[1]
+    plan = torso_deform_plan(b, k, d, h, w)
     if c != 4 or min(d, h, w) < 2 or tuple(kp_s.shape) != (b, k, 3) \
-            or kp_d.shape != kp_s.shape:
-        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4] (D,H,W >= 2) and "
-                         f"keypoints [B,K,3]; got fs {tuple(fs.shape)}, kp_s "
+            or kp_d.shape != kp_s.shape or max(plan["grid"][1:]) > 65535 \
+            or d * h * w * c >= 2 ** 31:
+        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4] (D,H,W >= 2, B*D <= 65535) "
+                         f"and keypoints [B,K,3]; got fs {tuple(fs.shape)}, kp_s "
                          f"{tuple(kp_s.shape)}, kp_d {tuple(kp_d.shape)}")
     out = torch.empty((b, (k + 1) * (1 + c), d, h, w), device=fs.device)
-    kernels.launch("r3dp_torso_deform_input", fs, kp_s, kp_d, b, k, d, h, w, c, out)
+    kernels.launch("r3dp_torso_deform_input", fs, kp_s, kp_d, b, k, d, h, w, c, plan["rows"],
+                   plan["cand"], out)
     torso_deform_input.launches += 1
     return out
 
@@ -248,9 +264,10 @@ def torso_warp_volume(fs: torch.Tensor, deformation: torch.Tensor) -> torch.Tens
     kernels.require(name, "deformation", deformation)
     b, d, h, w, c = fs.shape
     if c not in (4, 32) or min(d, h, w) < 2 \
-            or tuple(deformation.shape) != (b, d, h, w, 3):
-        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4|32] (D,H,W >= 2) and "
-                         f"deformation [B,D,H,W,3]; got fs {tuple(fs.shape)}, "
+            or tuple(deformation.shape) != (b, d, h, w, 3) or max(b * d, h) > 65535 \
+            or d * h * w * c >= 2 ** 31:
+        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4|32] (D,H,W >= 2, B*D and H "
+                         f"<= 65535) and deformation [B,D,H,W,3]; got fs {tuple(fs.shape)}, "
                          f"deformation {tuple(deformation.shape)}")
     out = torch.empty((b, c * d, h, w), device=fs.device)
     kernels.launch("r3dp_torso_warp_volume", fs, deformation, b, d, h, w, c, out)

@@ -7,7 +7,9 @@ posed meshes; tri-grids of depth 1-3 with odd H != W and
 points outside the box; point counts around the decode tile, points all
 outside, features of 1e3 beside 1e-3, decoder weights that change between
 calls; warps with samples exactly on and far beyond the
-volume's faces, K = 9 keypoints, odd volume sizes; every resampling and
+volume's faces, K = 9 keypoints, odd volume sizes, the path's shape, ragged
+tiles at B = 2, deformations and keypoints near the identity, C = 4, two
+launches bit-equal; every resampling and
 epilogue option, in fp32 and bf16, rows no multiple of the vector and
 misaligned views, with no launch but the kernel's; 3D convolutions of kernel 3 and 7 at odd
 sizes, input channels that are no multiple of the step's 8, output
@@ -461,6 +463,62 @@ def test_k5b_edge_cases(dev, c, dhw, mode):
     _close(got, torso.torso_warp_volume_plain(fs, grid), 1e-5, "K5b")
     with pytest.raises(ValueError):
         torso.torso_warp_volume(fs[..., :3].contiguous(), grid)
+
+
+@pytest.mark.parametrize("b,dhw,reach,near", [
+    (1, (16, 64, 64), 0.8, False), (1, (16, 64, 64), 0.8, True), (2, (2, 5, 70), 0.8, False),
+    (2, (2, 7, 5), 0.8, True), (2, (2, 3, 68), 1.6, False)],
+    ids=["path", "path_near_identity", "b2_w70", "b2_w5_near_identity", "b2_w68_outside"])
+def test_k5a_path_shape_and_ragged(dev, b, dhw, reach, near):
+    # the kernel rounds the grid coordinates and gaussians as the plain
+    # version does on the card (i * fp32(1 / (n - 1)), where i / (n - 1)
+    # moves 27 of 64 coordinates): 1e-5 absolute at the path's 64 voxels a
+    # side; near the identity the source keypoints lie within 0.1 of the
+    # driving ones. Two launches are bit-equal.
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, h, w = dhw
+    fs = torch.randn((b, d, h, w, 4), device=dev, generator=g)
+    kp_d = reach * (2 * torch.rand((b, 4, 3), device=dev, generator=g) - 1)
+    kp_s = reach * (2 * torch.rand((b, 4, 3), device=dev, generator=g) - 1)
+    if near:
+        kp_s = kp_d + 0.1 * (2 * torch.rand((b, 4, 3), device=dev, generator=g) - 1)
+    before = torso.torso_deform_input.launches
+    got = torso.torso_deform_input(fs, kp_s, kp_d)
+    again = torso.torso_deform_input(fs, kp_s, kp_d)
+    want = torso.torso_deform_input_plain(fs, kp_s, kp_d)
+    torch.cuda.synchronize()
+    assert torso.torso_deform_input.launches == before + 2
+    _close(got, want, 1e-5, "K5a")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,c,dhw,near", [
+    (1, 32, (16, 64, 64), True), (2, 32, (2, 3, 70), False), (2, 32, (2, 4, 5), True),
+    (2, 32, (2, 3, 68), False), (1, 4, (16, 64, 64), True), (2, 4, (2, 5, 70), False),
+    (2, 4, (2, 3, 5), True)],
+    ids=["path_near_identity", "b2_w70", "b2_w5_near_identity", "b2_w68", "c4_near_identity",
+         "c4_b2_w70", "c4_b2_w5_near_identity"])
+def test_k5b_path_shape_and_ragged(dev, b, c, dhw, near):
+    # C = 32 (8 lanes a voxel, the shared-memory fold, 16 B stores where W
+    # is a multiple of 4, else scalar) and C = 4 (a lane a voxel); ragged
+    # tiles at W = 5, 68 and 70; near the identity the deformation lies
+    # within 0.02 of the grid, else uniform in [-1.2, 1.2]. The same
+    # coordinates reach both versions: 1e-5 absolute. Two launches are
+    # bit-equal.
+    g = torch.Generator(device=dev).manual_seed(8)
+    d, h, w = dhw
+    fs = torch.randn((b, d, h, w, c), device=dev, generator=g)
+    grid = 2.4 * torch.rand((b, d, h, w, 3), device=dev, generator=g) - 1.2
+    if near:
+        grid = torso.make_coordinate_grid_3d(d, h, w, dev)[None] + 0.02 * (
+            2 * torch.rand((b, d, h, w, 3), device=dev, generator=g) - 1)
+    before = torso.torso_warp_volume.launches
+    got = torso.torso_warp_volume(fs, grid)
+    again = torso.torso_warp_volume(fs, grid)
+    torch.cuda.synchronize()
+    assert torso.torso_warp_volume.launches == before + 2
+    _close(got, torso.torso_warp_volume_plain(fs, grid), 1e-5, "K5b")
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("up,down,padding,hw,fsize", [
