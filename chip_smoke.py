@@ -844,6 +844,312 @@ def phase_run(dev: torch.device, out_dir: str) -> dict:
     return counts
 
 
+def seeded_landmarks(assets, n_frames: int, seed: int) -> np.ndarray:
+    """[T,68,2] normalised landmarks of the morphable model at seeded
+    coefficients (numpy seed): one identity, an expression and a pose that
+    drift smoothly over the frames."""
+    from real3dportrait_tpu_torch.geometry.face3d_helper import reconstruct_lm2d
+
+    rng = np.random.RandomState(seed)
+    phase = np.linspace(0, 1, n_frames, dtype=np.float32)[:, None]
+    idc = np.tile(rng.randn(1, 80) * 0.3, (n_frames, 1))
+    exp = rng.randn(1, 64) * 0.2 + rng.randn(1, 64) * 0.1 * np.sin(2 * np.pi * phase)
+    euler = rng.uniform(-0.1, 0.1, (1, 3)) + 0.05 * np.sin(3 * phase)
+    trans = rng.uniform(-0.05, 0.05, (1, 3)) + 0.03 * phase
+    coeffs = [torch.from_numpy(np.asarray(c, np.float32)) for c in (idc, exp, euler, trans)]
+    return reconstruct_lm2d(assets, *coeffs).numpy()
+
+
+def reprojection_err(assets, fit, lm: torch.Tensor) -> float:
+    """Mean |landmarks of the fitted coefficients - lm| (normalised frame)."""
+    from real3dportrait_tpu_torch.geometry.face3d_helper import reconstruct_lm2d
+
+    pred = reconstruct_lm2d(assets, fit.id.expand(len(lm), 80), fit.exp, fit.euler, fit.trans)
+    return float((pred - lm).abs().mean())
+
+
+def fit_launches(assets, lm: torch.Tensor, dev, out_dir: str, step_ms: float,
+                 steps: int = 10) -> str:
+    """Per Adam step of a ``steps`` + ``steps`` fit, from ``torch.profiler``
+    (``utils/profiling.trace_to``, host and device activity): the device
+    operations (kernels, memsets, copies) and their device time, its share
+    of ``step_ms`` (the step's time measured without the profiler), the
+    host's kernel launches and its synchronisations."""
+    from real3dportrait_tpu_torch.geometry.fit_3dmm import fit_coeffs
+    from real3dportrait_tpu_torch.utils.profiling import trace_to
+
+    with trace_to(os.path.join(out_dir, "fit_trace")) as prof:
+        fit_coeffs(assets, lm, n_pose_iters=steps, n_joint_iters=steps, device=dev)
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_device = sum(e.count for e in device)
+    device_ms = sum(e.device_time_total for e in device) / 1e3
+    launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel",
+                                                                 "cuLaunchKernel")))
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    n = 2 * steps
+    return (f"{on_device / n:.1f} device operations taking {device_ms / n:.4f} ms of device "
+            f"time ({device_ms / n / step_ms:.1%} of the step), {launches / n:.1f} kernel "
+            f"launches and {syncs / n:.2f} synchronisations a step (profiler, {n} steps)")
+
+
+def face_video(n_frames: int, res: int, seed: int) -> np.ndarray:
+    """[T,res,res,3] uint8 driving frames: a face disc in the face band and
+    a body block below it drifting sideways over a still, slightly noisy
+    background (the JAX package's test video at full size)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:res, :res]
+    frames = rng.randint(0, 8, (n_frames, res, res, 3)).astype(np.uint8)
+    offset = rng.uniform(0, 2 * np.pi)
+    for i in range(n_frames):
+        cx = res // 2 + int(0.1 * res * np.sin(2 * np.pi * i / 50 + offset))
+        frames[i][(xx - cx) ** 2 + (yy - 0.35 * res) ** 2 < (res / 6) ** 2] = (150, 170, 200)
+        frames[i][(yy >= 0.6 * res) & (abs(xx - cx) < res / 4)] = (160, 90, 90)
+    return frames
+
+
+def phase_fit(dev: torch.device, out_dir: str, n_vertices: int = 35709) -> None:
+    """The 3DMM fit on the card (the default model's 35,709-vertex
+    synthetic morphable model): ``fit_source`` of 68 landmarks made at
+    seeded coefficients must reproject within 0.01 (mean abs, normalised
+    frame: the JAX package's criterion) and agree with the CPU fit of the
+    same landmarks (5e-3 max, 5e-4 mean, absolute: fp32 gradients in
+    another order through 400 Adam steps move weakly held expression
+    directions by ~2e-3). The fit runs under ``torch.cuda``'s sync debug
+    mode "error", so no step waits for the device. Then a 100-frame
+    sequence (the smoothness terms on). Times, steps and launches a step
+    for T = 1 and T = 100."""
+    from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
+    from real3dportrait_tpu_torch.geometry.fit_3dmm import fit_coeffs
+
+    cpu_assets = synthetic_bfm(n_vertices=n_vertices)
+    assets = cpu_assets.to(dev)
+    steps = 400
+    for n_frames in (1, 100):
+        lm = seeded_landmarks(cpu_assets, n_frames, seed=n_frames)
+        lm_dev = torch.from_numpy(lm).to(dev)
+        fit_coeffs(assets, lm_dev, device=dev)  # warm-up: cuBLAS, the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fit = fit_coeffs(assets, lm_dev, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = reprojection_err(assets, fit, lm_dev)
+        check(all(bool(torch.isfinite(getattr(fit, k)).all()) for k in fit._fields),
+              f"fit T={n_frames}: non-finite coefficients")
+        line = (f"fit[T={n_frames}, {n_vertices:,}-vertex synthetic model]: {ms:.1f} ms for "
+                f"{steps} Adam steps ({ms / steps:.3f} ms a step), loss {float(fit.loss):.3e}, "
+                f"reprojection {err:.2e}; "
+                f"{fit_launches(assets, lm_dev, dev, out_dir, ms / steps)}")
+        if n_frames == 1:
+            check(err < 0.01, f"fit: the source landmarks reproject at {err:.3e} (limit 0.01)")
+            cpu = fit_coeffs(cpu_assets, lm, device="cpu")
+            errs = {k: (getattr(fit, k).cpu() - getattr(cpu, k)).abs() for k in fit._fields[:4]}
+            worst = max(float(e.max()) for e in errs.values())
+            mean = max(float(e.mean()) for e in errs.values())
+            check(worst <= 5e-3 and mean <= 5e-4,
+                  f"fit: GPU and CPU coefficients differ by {worst:.3e} max, {mean:.3e} mean")
+            line += f"; GPU vs CPU coefficients max {worst:.2e}, mean {mean:.2e} (5e-3 / 5e-4)"
+        print(line)
+
+
+def http_request(port: int, method: str, path: str, fields: dict | None = None):
+    """(status, headers, body) of one request to the local server; a
+    (filename, bytes) field is a file part of a multipart form."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        headers, body = {}, None
+        if fields is not None:
+            boundary = "----r3dp-chip-smoke"
+            parts = []
+            for name, value in fields.items():
+                disp = f'form-data; name="{name}"'
+                if isinstance(value, tuple):
+                    disp, value = disp + f'; filename="{value[0]}"', value[1]
+                else:
+                    value = value.encode()
+                parts.append(f"--{boundary}\r\nContent-Disposition: {disp}\r\n\r\n".encode()
+                             + value + b"\r\n")
+            body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+            headers = {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_video(dev: torch.device, out_dir: str, n_vertices: int = 35709,
+                **overrides) -> dict:
+    """The video-driven ``run`` on the default model at 512^2: 100 seeded
+    driving frames in memory -> ``naive_landmark_extractor`` ->
+    ``motion_from_video_landmarks`` (the fit on the card, smoothing on) ->
+    ``run(src, drv_motion=..., pose_seq=(euler, trans), src_lm2d=...,
+    out_path=...)`` with the launch counters from 0: 100 finite frames on
+    the GPU through every default-path kernel, K1 not launched. Then the
+    same call with stage timings, and, where cv2 imports, the frames as an
+    .mp4 driving the CLI as ``--drv_aud`` and ``--drv_pose``."""
+    from real3dportrait_tpu_torch.inference import cli
+    from real3dportrait_tpu_torch.inference.infer_utils import motion_from_video_landmarks
+    from real3dportrait_tpu_torch.preprocess.pipeline import naive_landmark_extractor
+
+    pipe = make_pipeline(DEFAULT_CONFIG, "fast", dev, n_vertices=n_vertices, **overrides)
+    res = pipe.res
+    drv = face_video(100, res, seed=3)
+    t0 = time.perf_counter()
+    lm_seq = naive_landmark_extractor(drv)
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    motion_from_video_landmarks(pipe.secc_renderer.assets, lm_seq[:8], device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    motion = motion_from_video_landmarks(pipe.secc_renderer.assets, lm_seq, device=dev)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(motion["exp"].shape) == (100, 64) and motion["exp"].is_cuda,
+          f"video motion exp {tuple(motion['exp'].shape)}")
+    spread = float(motion["trans"].std(0).max())
+    check(spread > 1e-4, f"the drifting face must move the fitted pose ({spread:.2e})")
+    src = np.random.RandomState(0).randint(0, 256, (res, res, 3)).astype(np.uint8)
+    src_lm = seeded_landmarks(pipe.assets, 1, seed=1)[0]
+    pose = (motion["euler"], motion["trans"])
+    path = os.path.join(out_dir, "video.mp4")
+    warm = {k: v[:8] for k, v in motion.items()}
+    pipe.run(src, drv_motion=warm, pose_seq=(warm["euler"], warm["trans"]), src_lm2d=src_lm,
+             out_path=os.path.join(out_dir, "warm.mp4"))
+    torch.cuda.synchronize()
+    every = set(read_launches())
+    expect = every - {"triplane_decode"}
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = pipe.run(src, drv_motion=motion, pose_seq=pose, src_lm2d=src_lm, out_path=path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    check(tuple(frames.shape) == (100, res, res, 3), f"video run frames {tuple(frames.shape)}")
+    check(frames.is_cuda and bool(torch.isfinite(frames).all()),
+          "video run frames must be finite and on the GPU")
+    check(all(counts[k] > 0 for k in expect), f"video run: a kernel was not launched: {counts}")
+    check(counts["triplane_decode"] == 0, f"video run: a kernel of another path ran: {counts}")
+    check(os.path.getsize(path) > 0 if os.path.exists(path) else
+          os.path.getsize(path + ".raw") > 0, "video run wrote no video")
+    print(f"video[default, 100 driving frames of {res}^2, source landmarks]: frames "
+          f"{tuple(frames.shape)}, wall {wall:.2f} s ({1e3 * wall / len(frames):.2f} ms/frame, "
+          f"the source fit, source preparation, caches and video writing included); "
+          f"landmark extractor {extract_ms:.1f} ms (host), driving fit {fit_ms:.1f} ms "
+          f"(T=100, 400 steps, smoothing included), launches {counts}")
+    del frames
+    tm: dict = {}
+    frames = pipe.run(src, drv_motion=motion, pose_seq=pose, src_lm2d=src_lm, timings=tm)
+    torch.cuda.synchronize()
+    p50 = statistics.median(tm["frame_ms"])
+    stages = ", ".join(f"{k[:-3]} {tm[k]:.2f} ms" for k in (
+        "fit_ms", "prep_ms", "cano_ms", "appearance_ms", "bg_ms"))
+    print(f"video stages (synchronised): {stages}; frame p50 {p50:.2f} ms "
+          f"({1e3 / p50:.2f} fps)")
+    del frames, pipe
+    torch.cuda.empty_cache()
+
+    try:
+        import cv2
+    except ImportError:
+        print("video[cli]: cv2 does not import here, so no .mp4 was written and the CLI's "
+              ".mp4 drivers were not run; the in-memory drive above was")
+        return counts
+    mp4 = os.path.join(out_dir, "drv.mp4")
+    vw = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 25, (res, res))
+    check(vw.isOpened(), "cv2 imports but its mp4v writer does not open")
+    for f in drv:
+        vw.write(np.ascontiguousarray(f[..., ::-1]))
+    vw.release()
+    src_path, out = os.path.join(out_dir, "src.npy"), os.path.join(out_dir, "cli.mp4")
+    np.save(src_path, src)
+    t0 = time.perf_counter()
+    cli.main(["--src_img", src_path, "--drv_aud", mp4, "--drv_pose", mp4, "--out_name", out,
+              "--seed", "0", "--device", str(dev)]
+             + (["--hparams", ",".join(f"{k}={v}" for k, v in overrides.items())]
+                if overrides else []))
+    torch.cuda.synchronize()
+    check(os.path.exists(out) and os.path.getsize(out) > 0, "the CLI wrote no video")
+    print(f"video[cli]: the CLI (default model, cuda) drove by {mp4!r} as --drv_aud and "
+          f"--drv_pose wrote {os.path.getsize(out)} B in {time.perf_counter() - t0:.2f} s "
+          f"(pipeline build, two fits and 100 frames)")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_server(dev: torch.device, n_vertices: int = 35709, **overrides) -> None:
+    """``inference/server.py`` on the default model (full width, ``fast``,
+    the 35,709-vertex synthetic mesh) on the card: ``ThreadingHTTPServer``
+    on a free local port in a thread; three ``POST /synthesize`` requests
+    (a 512^2 png, a 1 s seeded wav, temperature 0) must answer 200 with a
+    body, the second and third bodies equal; ``/health`` reports the model
+    loaded after the first."""
+    import io
+    import threading
+    import wave
+    from http.server import ThreadingHTTPServer
+
+    from PIL import Image
+
+    from real3dportrait_tpu_torch.config import load_config
+    from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
+    from real3dportrait_tpu_torch.inference import server
+
+    server._State.pipeline = None
+    server._State.build_kwargs = dict(
+        cfg=load_config(os.path.join(ROOT, "configs", DEFAULT_CONFIG),
+                        dict(sampling_preset="fast", **overrides)),
+        assets=synthetic_bfm(n_vertices=n_vertices), seed=0, device=dev)
+    img = np.random.RandomState(6).randint(0, 256, (512, 512, 3)).astype(np.uint8)
+    png = io.BytesIO()
+    Image.fromarray(img).save(png, format="PNG")
+    wav = io.BytesIO()
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((seeded_wav(1.0, seed=7) * 32767).astype("<i2").tobytes())
+    fields = {"src_img": ("src.png", png.getvalue()), "drv_aud": ("drv.wav", wav.getvalue()),
+              "temperature": "0"}
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.Handler)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        health = json.loads(http_request(port, "GET", "/health")[2])
+        check(health == {"status": "ok", "model_loaded": False}, f"/health {health}")
+        bodies, walls = [], []
+        for i in range(3):
+            t0 = time.perf_counter()
+            code, headers, body = http_request(port, "POST", "/synthesize", fields)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200 and len(body) > 0,
+                  f"server request {i}: {code}, {body[:300]!r}")
+            bodies.append(body)
+            if i == 0:
+                health = json.loads(http_request(port, "GET", "/health")[2])
+                check(health["model_loaded"] is True, f"/health after a request: {health}")
+        check(bodies[1] == bodies[2], "server: two requests with the same inputs at "
+                                      "temperature 0 gave different bodies")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        server._State.pipeline = None
+    check(not thread.is_alive(), "the server thread did not stop")
+    print(f"server[default, 512^2 png, 1 s wav, temperature 0]: 3 requests answered 200 with "
+          f"{headers['Content-Type']} bodies of {[len(b) for b in bodies]} B, request wall ms "
+          f"{[round(w, 1) for w in walls]} (the first builds the pipeline), the first body "
+          f"{'equal to' if bodies[0] == bodies[1] else 'unlike'} the others")
+    torch.cuda.empty_cache()
+
+
 def phase_checkpoint(dev: torch.device, out_dir: str, n_vertices: int = 35709,
                      **overrides) -> None:
     """The default model from checkpoints that the port reads: the seeded
@@ -1051,6 +1357,13 @@ def main() -> int:
         run_counts = phase_run(dev, out_dir)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as out_dir:
+        phase_fit(dev, out_dir)
+        torch.cuda.synchronize()
+        video_counts = phase_video(dev, out_dir)
+    torch.cuda.synchronize()
+    phase_server(dev)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as out_dir:
         phase_checkpoint(dev, out_dir)
     torch.cuda.synchronize()
     slice_counts = phase_slice(dev)
@@ -1068,7 +1381,7 @@ def main() -> int:
         path, counts = "run", run_counts
         if counts[k] == 0:
             path, counts = "released torso fast", slice_counts["released torso fast"]
-        launches[k] = dict(launches=counts[k], path=path)
+        launches[k] = dict(launches=counts[k], path=path, video_run_launches=video_counts[k])
         if k in BF16_COUNTED:
             launches[k]["launches_bf16"] = counts[f"{k} bf16"]
     check(all(v["launches"] > 0 for v in launches.values()), f"kernels launched: {launches}")

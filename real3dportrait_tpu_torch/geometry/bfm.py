@@ -14,6 +14,7 @@ Conventions (shared with the reference ``ParametricFaceModel``):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -218,10 +219,14 @@ def compute_key_shape(assets: BFMAssets, id_coeff: torch.Tensor,
     return flat.reshape(id_coeff.shape[0], -1, 3)
 
 
+@functools.lru_cache(maxsize=16)
 def perspective_projection_matrix(focal: float = DEFAULT_FOCAL,
                                   center: float = DEFAULT_CENTER,
                                   device: torch.device | str = "cpu") -> torch.Tensor:
-    """Row-vector projection matrix P with pts @ P semantics."""
+    """Row-vector projection matrix P with pts @ P semantics; made once per
+    (focal, center, device): copying it from the host to a CUDA device
+    would wait for the device on every call (the fit's loop calls it every
+    step). Callers must not write to it."""
     return torch.tensor([[focal, 0, center], [0, focal, center], [0, 0, 1]],
                         dtype=torch.float32, device=device).T
 

@@ -7,14 +7,17 @@ and ``--device``):
         [--hubert_path hubert.msgpack] [--temperature 0.2] [--device cuda]
 
 The source image is any RGB image (or .npy); the driving audio a 16 kHz
-wav, or an .npy of HuBERT features or of a motion-coefficient dict.
+wav, an .npy of HuBERT features or of a motion-coefficient dict, or an
+.mp4 whose frames' fitted expression drives the face; ``--drv_pose`` takes
+an .npy coefficient dict or an .mp4 whose fitted euler and trans drive the
+head pose (the fit: ``geometry/fit_3dmm.py`` on the naive landmark
+extractor, on ``--device``).
 Weights are seeded mock weights unless both ``--a2m_ckpt`` and
 ``--s2v_ckpt`` are given and ``--mock_weights`` is not (the JAX CLI's
 rule): directories of the JAX package's msgpack checkpoints, such as
 ``tools/convert_torch_ckpt.py --out DIR`` writes from the released torch
 checkpoints (``DIR/audio2secc``, ``DIR/secc2video``). ``--hubert_path``
-takes the ``.msgpack`` tree of ``convert_hubert``. A driving video (.mp4)
-is not ported yet.
+takes the ``.msgpack`` tree of ``convert_hubert``.
 """
 
 from __future__ import annotations
@@ -58,9 +61,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--src_img", required=True)
     p.add_argument("--drv_aud", required=True,
-                   help="16 kHz wav, or .npy (HuBERT features or a motion-coeff dict)")
+                   help="16 kHz wav, .npy (HuBERT features or a motion-coeff dict), or .mp4 "
+                        "(the expression fitted to a driving video)")
     p.add_argument("--drv_pose", default="static",
-                   help="'static' or an .npy coeff dict with euler and trans")
+                   help="'static', an .npy coeff dict with euler and trans, or .mp4 (the pose "
+                        "fitted to a driving video)")
     p.add_argument("--map_to_init_pose", default="True",
                    help="offset the driving pose so that frame 0 matches the source")
     p.add_argument("--bg_img", default="")
@@ -124,24 +129,27 @@ def pipeline_from_args(args: argparse.Namespace):
 
 def main(argv: list[str] | None = None) -> None:
     from real3dportrait_tpu_torch.inference.infer_utils import load_motion_coeff_npy
-    from real3dportrait_tpu_torch.inference.pipeline import _not_ported
 
     args = parse_args(argv)
-    if args.drv_aud.endswith(".mp4") or args.drv_pose.endswith(".mp4"):
-        raise _not_ported("driving from a video (3DMM fitting of its frames)",
-                          "next order, modules")
     pipe = pipeline_from_args(args)
 
     src = load_image(args.src_img)
     wav = hubert = drv_motion = None
-    if args.drv_aud.endswith(".npy"):
+    if args.drv_aud.endswith(".mp4"):
+        drv_motion = pipe.motion_from_video(args.drv_aud)
+        print(f"| extracted {len(drv_motion['exp'])} exp frames from {args.drv_aud}")
+    elif args.drv_aud.endswith(".npy"):
         drv_motion = load_motion_coeff_npy(args.drv_aud)
         if drv_motion is None:  # a plain array: precomputed HuBERT features
             hubert = np.load(args.drv_aud).astype(np.float32)
     else:
         wav = load_wav(args.drv_aud)
     pose = None
-    if args.drv_pose not in ("", "static"):
+    if args.drv_pose.endswith(".mp4"):
+        pose_coeffs = pipe.motion_from_video(args.drv_pose)
+        pose = (pose_coeffs["euler"], pose_coeffs["trans"])
+        print(f"| extracted {len(pose[0])} pose frames from {args.drv_pose}")
+    elif args.drv_pose not in ("", "static"):
         pose_arr = np.load(args.drv_pose, allow_pickle=True)
         if isinstance(pose_arr, np.ndarray) and pose_arr.dtype == object:
             pose_arr = pose_arr.item()

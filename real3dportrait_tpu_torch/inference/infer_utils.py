@@ -1,12 +1,16 @@
 """Inference helpers (port of ``real3dportrait_tpu/inference/infer_utils.py``):
-temporal smoothing of feature sequences, motion-coefficient files and the
-driving-pose normalisation."""
+temporal smoothing of feature sequences, the video-driven motion (a driving
+video's landmarks fitted to 3DMM coefficients), motion-coefficient files
+and the driving-pose normalisation."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from real3dportrait_tpu_torch.geometry.fit_3dmm import fit_coeffs
+from real3dportrait_tpu_torch.preprocess.pipeline import naive_landmark_extractor, resample_video
 
 
 def smooth_features_1d(x: torch.Tensor, kernel_size: int = 7,
@@ -26,6 +30,37 @@ def smooth_features_1d(x: torch.Tensor, kernel_size: int = 7,
     padded = torch.cat([flat[1:half + 1].flip(0), flat, flat[t - 1 - half:t - 1].flip(0)])
     sm = F.conv1d(padded.T[:, None], g.flip(0)[None, None].to(flat.dtype))[:, 0].T
     return sm.reshape(x.shape)
+
+
+def motion_from_video_landmarks(assets, lm2d_seq: np.ndarray, smooth: bool = True,
+                                device: torch.device | str = "cuda") -> dict:
+    """Driving-video landmarks [T,68,2] -> {exp, euler, trans, id}
+    coefficient sequences on ``device``, fitted by
+    :func:`~real3dportrait_tpu_torch.geometry.fit_3dmm.fit_coeffs`; with
+    ``smooth`` and more than 7 frames, exp is smoothed over time with a
+    kernel of 5 at sigma 1 and the pose with the defaults (7, sigma 2)."""
+    fit = fit_coeffs(assets, lm2d_seq, device=device)
+    exp, euler, trans = fit.exp, fit.euler, fit.trans
+    if smooth and len(exp) > 7:
+        exp = smooth_features_1d(exp, kernel_size=5, sigma=1.0)
+        euler = smooth_features_1d(euler)
+        trans = smooth_features_1d(trans)
+    return {"exp": exp, "euler": euler, "trans": trans, "id": fit.id}
+
+
+def motion_from_video(video_path: str, assets, landmark_extractor=None,
+                      max_frames: int | None = None, smooth: bool = True,
+                      device: torch.device | str = "cuda") -> dict:
+    """Driving video file -> {exp, euler, trans, id} coefficient sequences:
+    decoded and resampled to 25 fps, 68 landmarks a frame
+    (``landmark_extractor``, by default the naive box-template one), then
+    :func:`motion_from_video_landmarks`."""
+    frames = resample_video(video_path, max_frames=max_frames)
+    if len(frames) == 0:
+        raise ValueError(f"no frames decoded from {video_path}")
+    extractor = landmark_extractor or naive_landmark_extractor
+    lm2d_seq = np.asarray(extractor(frames))
+    return motion_from_video_landmarks(assets, lm2d_seq, smooth=smooth, device=device)
 
 
 def load_motion_coeff_npy(path: str) -> dict | None:

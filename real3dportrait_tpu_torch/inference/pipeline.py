@@ -15,6 +15,12 @@ resampling are kernels K6a/K6b; the torso head adds the warped torso:
 kernels K5a/K5b, every 3D convolution K7a and the motion field's tail
 K7b).
 
+The source's 3DMM coefficients come from its landmarks where ``run`` gets
+them (``src_lm2d``: a crop to the face, then the fit of
+``geometry/fit_3dmm.py`` on the device), else they are neutral; a driving
+video's fitted motion (:meth:`~Real3DPortraitPipeline.motion_from_video`)
+drives the expression and the pose in place of the audio.
+
 Source preparation (the default, as in JAX) segments the source, splits it
 into head (the canonical plane's input), inpainted torso and background,
 and drives the torso warp with keypoints reconstructed from the
@@ -64,6 +70,7 @@ from real3dportrait_tpu_torch.geometry.camera import (
     smooth_camera_sequence,
 )
 from real3dportrait_tpu_torch.geometry.face3d_helper import reconstruct_lm2d
+from real3dportrait_tpu_torch.geometry.fit_3dmm import fit_coeffs
 from real3dportrait_tpu_torch.geometry.secc_renderer import SECCRenderer
 from real3dportrait_tpu_torch.inference.edit_secc import (
     blink_eye_for_secc,
@@ -71,6 +78,7 @@ from real3dportrait_tpu_torch.inference.edit_secc import (
 )
 from real3dportrait_tpu_torch.inference.infer_utils import (
     map_pose_to_source,
+    motion_from_video,
     smooth_features_1d,
 )
 from real3dportrait_tpu_torch.models.audio2motion import PitchContourVAEModel
@@ -275,11 +283,25 @@ class Real3DPortraitPipeline:
                 print(f"| loaded secc2video from {path}")
 
     def fit_source(self, src_lm2d: np.ndarray | None) -> dict:
-        """Source 3DMM coefficients; only the neutral mock (``None``) is ported."""
-        if src_lm2d is not None:
-            raise _not_ported("3DMM fitting from landmarks", "queue 1 item 9")
-        z = lambda n: torch.zeros((1, n), device=self.device)  # noqa: E731
-        return {"id": z(80), "exp": z(64), "euler": z(3), "trans": z(3)}
+        """Source 3DMM coefficients on the device: the neutral ones for
+        ``None``, else the fit (:func:`fit_coeffs`) of 68 normalised
+        landmarks [K,2] or [T,K,2], its first frame."""
+        if src_lm2d is None:
+            z = lambda n: torch.zeros((1, n), device=self.device)  # noqa: E731
+            return {"id": z(80), "exp": z(64), "euler": z(3), "trans": z(3)}
+        lm = torch.as_tensor(np.asarray(src_lm2d), dtype=torch.float32)
+        fit = fit_coeffs(self.secc_renderer.assets, lm[None] if lm.dim() == 2 else lm,
+                         device=self.device)
+        return {"id": fit.id, "exp": fit.exp[:1], "euler": fit.euler[:1],
+                "trans": fit.trans[:1]}
+
+    def motion_from_video(self, video_path: str, landmark_extractor: Callable | None = None,
+                          max_frames: int | None = None) -> dict:
+        """{exp, euler, trans, id} on the device, fitted to a driving
+        video's landmarks (``infer_utils.motion_from_video``)."""
+        return motion_from_video(video_path, self.secc_renderer.assets,
+                                 landmark_extractor=landmark_extractor,
+                                 max_frames=max_frames, device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -413,10 +435,10 @@ class Real3DPortraitPipeline:
         if blink_mode not in ("periodic", "none"):
             raise ValueError(f"blink_mode must be 'periodic' or 'none', got {blink_mode!r}")
         if frame_batch != 1:
-            raise _not_ported("frame batching", "next order, modules")
+            raise _not_ported("frame batching", "queue 1 item 3")
         src_np = src_img.cpu().numpy() if torch.is_tensor(src_img) else np.asarray(src_img)
         if src_np.ndim == 4:
-            raise _not_ported("the batched multi-identity mode", "next order, modules")
+            raise _not_ported("the batched multi-identity mode", "queue 1 item 3")
         dev = self.device
         src = self._host_image(src_np)
         img = torch.from_numpy(src).to(dev)[None]
@@ -543,14 +565,19 @@ class Real3DPortraitPipeline:
         """Audio- or motion-driven synthesis; frames [T,H,W,3] in [-1,1] on
         the device (empty with ``low_memory`` and ``out_path``).
 
-        ``drv_motion`` ({"exp": [T,64], ...}) drives the expression
-        directly; otherwise ``wav`` (16 kHz) or ``hubert`` features go
-        through the audio-to-motion model, its prior noise drawn from the
-        pipeline's seed. With ``out_path`` the frames stream into a video
-        writer as they are made (cv2, else imageio, else raw uint8 frames
-        beside a JSON header); the wav is muxed in or written next to the
-        video unless ``low_memory``. ``timings`` receives ``features_ms``
-        and ``a2m_ms`` beside :meth:`synthesize`'s keys.
+        ``src_lm2d`` (the source's 68 landmarks [K,2], normalised or in
+        pixels) crops the source so that the face covers at least
+        ``min_face_area_percent`` of it, and its 3DMM fit gives the source
+        coefficients; without it they are neutral. ``drv_motion`` ({"exp":
+        [T,64], ...}, numpy or tensors, such as :meth:`motion_from_video`
+        gives) drives the expression directly; otherwise ``wav`` (16 kHz) or
+        ``hubert`` features go through the audio-to-motion model, its prior
+        noise drawn from the pipeline's seed. With ``out_path`` the frames
+        stream into a video writer as they are made (cv2, else imageio,
+        else raw uint8 frames beside a JSON header); the wav is muxed in or
+        written next to the video unless ``low_memory``. ``timings``
+        receives ``fit_ms`` (with ``src_lm2d``), ``features_ms`` and
+        ``a2m_ms`` (audio-driven) beside :meth:`synthesize`'s keys.
         """
         if src_lm2d is not None and np.asarray(src_img).ndim == 3:
             lm_px = np.asarray(src_lm2d)
@@ -558,9 +585,13 @@ class Real3DPortraitPipeline:
                 lm_px = lm_px * np.array(np.asarray(src_img).shape[:2][::-1])
             src_img = crop_on_face_area(np.asarray(src_img), lm_px,
                                         min_percent=min_face_area_percent)
+        t0 = time.perf_counter()
         coeffs = self.fit_source(src_lm2d)
+        if timings is not None and src_lm2d is not None:
+            self._sync()
+            timings["fit_ms"] = (time.perf_counter() - t0) * 1e3
         if drv_motion is not None:
-            exp_seq = torch.as_tensor(np.asarray(drv_motion["exp"], np.float32))
+            exp_seq = torch.as_tensor(drv_motion["exp"], dtype=torch.float32)
         else:
             t0 = time.perf_counter()
             feats, f0 = self.audio_to_features(wav, hubert)

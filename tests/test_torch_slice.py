@@ -155,13 +155,15 @@ def test_pipeline_synthesize_two_frames_on_cpu(tiny_pipeline):
 
 
 @pytest.mark.parametrize("kwargs", [dict(src_shape=(2, 64, 64, 3)),
-                                    dict(src_lm2d=np.zeros((68, 2))),
+                                    dict(src_lm2d=np.zeros((68, 2)), frame_batch=2),
                                     dict(frame_batch=2)],
                          ids=["multi_identity", "fit_source", "batch"])
 def test_pipeline_raises_on_unported_modes(tiny_pipeline, kwargs):
-    # the blink edit and source preparation are ported (test_torch_run.py)
+    # the blink edit and source preparation are ported (test_torch_run.py),
+    # and so is the source fit (test_torch_fit_video.py): run(src_lm2d=...)
+    # gets past the crop and the fit to the frame batching, not ported
     src = np.zeros(kwargs.pop("src_shape", (64, 64, 3)), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1 item 3"):
         if "src_lm2d" in kwargs:
             tiny_pipeline.run(src, wav=np.zeros(8000, np.float32), **kwargs)
         else:
@@ -184,7 +186,8 @@ def test_port_imports_leave_jax_out():
         "       'models.stylegan2', 'rendering.renderer', 'weights', 'ops.conv3d',\n"
         "       'models.audio2motion', 'audio.features', 'audio.hubert', 'inference.cli',\n"
         "       'inference.edit_secc', 'inference.infer_utils', 'geometry.face3d_helper',\n"
-        "       'preprocess.segment_utils', 'preprocess.pipeline', 'utils.visualization'}\n"
+        "       'preprocess.segment_utils', 'preprocess.pipeline', 'utils.visualization',\n"
+        "       'geometry.fit_3dmm', 'inference.server', 'utils.profiling'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
