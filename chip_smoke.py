@@ -34,6 +34,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (the counts the kernels line reports); then its stage times,
    ``synthesize`` with an explicit seeded segmap, and ``hubert_large``
    (seeded weights) on the same wav;
+4a. batching (the kernels right after phase 3, the runs right after
+   phase 4): each kernel against its plain version at 8 frames a step (K6a,
+   K6b and K7a also at 16, on the 2^31-byte fp32 shapes), per launch beside
+   B = 1; then ``run`` at ``frame_batch`` 1, 4, 8 and 16 (after a memory
+   reckoning), whose frames must agree with fb = 1's and whose launches
+   must be a count a video plus a count a step, and the multi-identity
+   mode with 4 sources against each source alone;
 4b. checkpoints: the default model's seeded weights written in the JAX
    package's msgpack format and read back by
    ``Real3DPortraitPipeline(mock_weights=False, ...)``, whose ``run``
@@ -89,6 +96,8 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32 products on the tensor cores in split TF32: 3 TF32 products (dense
 # peak 495 TFLOP/s) for each
 SPLIT_TF32_RATE = 495e12 / 3
+# frames through the default model's two bf16 SR blocks: max / mean of scale
+BF16_TOL = (3e-2, 3e-3)
 REPLACES = {
     "triplane_decode": "real3dportrait_tpu/rendering/renderer.py:113",
     "trigrid_decode": "real3dportrait_tpu/rendering/renderer.py:81",
@@ -646,6 +655,225 @@ def kernels_k7(dev: torch.device, gen: torch.Generator, record) -> None:
            extra=f"cuDNN mask_conv 7^3 alone {mask_ms:.4f} ms ")
 
 
+def phase_batch_kernels(dev: torch.device, fb: int = 8, big: int = 16) -> dict:
+    """Each of the eleven kernels against its plain version at ``fb``
+    frames a step (the default model at ``fast``; K1 on the released
+    geometry's tri-planes), with ``phase_kernels``' tolerances; K6a and K6b
+    also at ``big`` frames on the fp32 block1 shapes, whose [big,128,512^2]
+    tensors hold 2^31 bytes, and K7a at ``big`` at every torso shape. Each
+    row gives the device time of one launch (10 back-to-back behind a spin
+    kernel) at the batch and at B = 1 on the batch's first frame, and the
+    bound at the batch's shape, reckoned as in ``phase_kernels``. Returns
+    the first ``fb`` row of each kernel, by name."""
+    from real3dportrait_tpu_torch.geometry import bfm
+    from real3dportrait_tpu_torch.geometry.rasterizer import (
+        project_to_screen, rasterize_verts, rasterize_verts_plain)
+    from real3dportrait_tpu_torch.inference.k7_shapes import TORSO_CONV3D_SHAPES
+    from real3dportrait_tpu_torch.models import torso
+    from real3dportrait_tpu_torch.models.decoder import (
+        OSGDecoder, k1_cost, trigrid_decode, trigrid_decode_plain, triplane_decode,
+        triplane_decode_plain)
+    from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.ops import conv3d as c3d
+    from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+    from real3dportrait_tpu_torch.rendering.renderer import (
+        importance_sample, importance_sample_plain, importance_u, merge_composite,
+        merge_composite_plain)
+    from real3dportrait_tpu_torch.weights import mock_init_
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows: dict = {}
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    def hold(name, tag, n, call, plain, one, tol, cost, ulps=None):
+        """``call()`` (the kernel at batch ``n``) against ``plain()``, tuples
+        element by element; ``one()``: the kernel on the batch's first
+        frame."""
+        with torch.no_grad():
+            got, want = call(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_err(k, p) for k, p in zip(got, want))
+            u = None if ulps is None else max(bf16_ulps(k, p) for k, p in zip(got, want))
+            del got, want
+            ms = device_ms(call, launches=10, reps=3, warmup=1)
+            ms1 = device_ms(one, launches=10, reps=3, warmup=1)
+        if ulps is None:
+            check(err <= tol, f"{name}[{tag}] disagrees with its plain version: {err} > {tol}")
+            tol_text = f"tol {tol:g}"
+        else:
+            check(u <= ulps, f"{name}[{tag}] is {u} bf16 ulps from its plain version")
+            tol_text = f"{u:g} bf16 ulps, tol {ulps} ulps"
+        bound_ms, bound_by = bound(*cost)
+        print(f"batch {name}[{tag}]: max_abs_err {err:.3e} ({tol_text}); per launch "
+              f"{ms:.4f} ms at B={n}, {ms1:.4f} ms at B=1 ({ms / (n * ms1):.3f} of B=1 a "
+              f"frame); bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
+        if n == fb:
+            rows.setdefault(name, dict(fb=n, shape=tag, launch_ms=ms, b1_launch_ms=ms1,
+                                       bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+
+    # K1-trigrid: the default model's tri-grids of fb frames, the coarse and
+    # fine passes' points (uniform in the box); K1: the released geometry's
+    # tri-planes and its coarse pass. Cost: decoder.k1_cost, as phase_kernels
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(1)).to(dev)
+    for name, shape, fn, plain, counts in (
+            ("trigrid_decode", (fb, 3, 3, 256, 256, 32), trigrid_decode, trigrid_decode_plain,
+             (262144, 524288)),
+            ("triplane_decode", (fb, 3, 256, 256, 32), triplane_decode, triplane_decode_plain,
+             (262144,))):
+        planes = randn(*shape)
+        for n in counts:
+            coords = rand(fb, n, 3) - 0.5
+            c = k1_cost(shape, fb * n)
+            hold(name, f"{list(shape)}, {n} points a frame", fb,
+                 lambda: fn(planes, coords, 1.0, dec), lambda: plain(planes, coords, 1.0, dec),
+                 lambda: fn(planes[:1], coords[:1], 1.0, dec), 1e-4,
+                 (c["bytes"], c["mma_ops"], f32, SPLIT_TF32_RATE,
+                  ((c["fp32_ops"], PEAK_OPS[f32]),)))
+            del coords
+        del planes
+
+    # K2 / K3 at 16+32 on fb frames of 128^2 rays, u the stride-0 row
+    r = fb * 16384
+    start = 2.0 + 0.2 * rand(fb, 16384, 1, 1)
+    depths = start + 0.8 * ((torch.arange(16, device=dev) + 0.5)[None, None, :, None] / 16)
+    sigma = 3 * randn(fb, 16384, 16, 1)
+    u = importance_u(r, 32, dev)
+    hold("importance_sample", f"[{fb},16384,16,1] 16+32", fb,
+         lambda: importance_sample(depths, sigma, u),
+         lambda: importance_sample_plain(depths, sigma, u),
+         lambda: importance_sample(depths[:1], sigma[:1], u[:16384]), 1e-4,
+         (nbytes(depths, sigma, u) + 4 * r * 32, r * (16 * 16 + 32 * (2 * 4 + 10)), f32))
+    args = (depths, rand(fb, 16384, 16, 32), sigma, importance_sample(depths, sigma, u),
+            rand(fb, 16384, 32, 32), 3 * randn(fb, 16384, 32, 1))
+    hold("merge_composite", f"[{fb},16384] 16+32, 32 channels", fb,
+         lambda: merge_composite(*args), lambda: merge_composite_plain(*args),
+         lambda: merge_composite(*(a[:1] for a in args)), 1e-4,
+         (nbytes(*args) + 4 * r * (32 + 1 + 47), r * 48 * (2 * 32 + 20), f32))
+    del depths, sigma, args
+
+    # K4: fb frames of the 35,709-vertex synthetic mesh at 192^2 in one
+    # call, as a batched step rasterizes its target maps
+    assets = bfm.synthetic_bfm(n_vertices=35709).to(dev)
+    rng = np.random.RandomState(8)
+    idc = torch.from_numpy(np.tile(rng.randn(1, 80).astype(np.float32) * 0.1, (fb, 1))).to(dev)
+    exp = torch.from_numpy(rng.randn(fb, 64).astype(np.float32) * 0.1).to(dev)
+    zero = torch.zeros((fb, 3), device=dev)
+    verts = bfm.compute_face_vertex(assets, idc, exp, zero, zero).contiguous()
+    attr, faces = ((assets.ncc_code + 1) / 2).contiguous(), assets.face_buf
+    cam = (1015.0, 112.0, 192, 5.0, 15.0)
+    km = rasterize_verts(verts, faces, attr, *cam)[0]
+    n_mask = int((km != rasterize_verts_plain(verts, faces, attr, *cam)[0]).sum())
+    check(n_mask == 0, f"secc_raster at {fb} frames: {n_mask} mask pixels differ")
+    fuv = project_to_screen(verts, 1015.0, 112.0, 192)[0][:, faces.long()]
+    lo = torch.floor(fuv.min(dim=2).values).clamp(0, 191)
+    hi = torch.floor(fuv.max(dim=2).values).clamp(0, 191)
+    box_px = float((hi - lo + 1).clamp_min(0).prod(dim=-1).sum())
+    hold("secc_raster", f"{fb}x192^2", fb, lambda: rasterize_verts(verts, faces, attr, *cam),
+         lambda: rasterize_verts_plain(verts, faces, attr, *cam),
+         lambda: rasterize_verts(verts[:1], faces, attr, *cam), 1e-6,
+         (nbytes(verts, faces, attr) + 4 * km.numel() * 4, 25 * box_px + 20 * km.numel(), f32))
+    del verts, km, fuv
+
+    # K5a / K5b on fb frames' volumes; K5b near the identity grid, as a
+    # frame's deformation
+    fs = randn(fb, 16, 64, 64, 4)
+    kp_s, kp_d = (0.8 * (2 * rand(fb, 4, 3) - 1) for _ in range(2))
+    hold("torso_deform_input", f"[{fb},16,64,64,4] kp 0.8", fb,
+         lambda: torso.torso_deform_input(fs, kp_s, kp_d),
+         lambda: torso.torso_deform_input_plain(fs, kp_s, kp_d),
+         lambda: torso.torso_deform_input(fs[:1], kp_s[:1], kp_d[:1]), 1e-4,
+         (nbytes(fs, kp_s, kp_d) + 4 * fb * 25 * 65536,
+          fb * 65536 * (80 + 5 * (8 * 4 * 2 + 20)), f32))
+    vol = randn(fb, 16, 64, 64, 32)
+    grid = torso.make_coordinate_grid_3d(16, 64, 64, dev)[None] + 0.02 * (
+        2 * rand(fb, 16, 64, 64, 3) - 1)
+    hold("torso_warp_volume", f"[{fb},16,64,64,32] near identity", fb,
+         lambda: torso.torso_warp_volume(vol, grid),
+         lambda: torso.torso_warp_volume_plain(vol, grid),
+         lambda: torso.torso_warp_volume(vol[:1], grid[:1]), 1e-5,
+         (2 * nbytes(vol) + nbytes(grid), fb * 65536 * (8 * 32 * 2 + 20), f32))
+    del fs, vol, grid
+
+    # K6a: the default model's bf16 block FIRs, the skip image's fp32 up2
+    # and a crop at fb; the fp32 block FIRs at big ([big,128,512^2] out,
+    # 2^31 B). Operations: 2 per tap that lands on the input
+    f = ufd.setup_filter([1, 3, 3, 1], device=dev)
+    fir = dict(gain=4)
+    for n, shape, dtype, kw in (
+            (fb, (128, 515, 515), bf16, fir), (fb, (256, 259, 259), bf16, fir),
+            (fb, (3, 128, 128), f32, dict(up=2, padding=(2, 1, 2, 1), gain=4)),
+            (fb, (3, 256, 256), f32, dict(up=2, padding=(2, 1, 2, 1), gain=4)),
+            (fb, (8, 99, 99), f32, dict(up=2, down=2, padding=(-3, 1, 2, -2))),
+            (big, (128, 515, 515), f32, fir), (big, (256, 259, 259), f32, fir)):
+        x = randn(n, *shape).to(dtype)
+        y_numel = n * math.prod(ufd.upfirdn2d(x[:1], f, **kw).shape)
+        taps = 16 // (kw.get("up", 1) ** 2)
+        hold("upfirdn2d", f"[{n},{','.join(map(str, shape))}] {str(dtype)[6:]} "
+             f"{'up2' if kw.get('up') else 'FIR'}{' crop' if 'down' in kw else ''}", n,
+             lambda: ufd.upfirdn2d(x, f, **kw), lambda: ufd.upfirdn2d_plain(x, f, **kw),
+             lambda: ufd.upfirdn2d(x[:1], f, **kw), 1e-5,
+             (nbytes(x) + y_numel * x.element_size(), 2 * taps * y_numel, dtype),
+             ulps=2 if dtype == bf16 else None)
+        del x
+
+    # K6b: the bf16 block epilogues (demodulation, noise, bias, lrelu, gain,
+    # clamp 256), the fp32 one (clamp 4) and toRGB (bias only) at fb; the
+    # fp32 [big,128,512^2] one (2^31 B each way)
+    for n, (c, h, w), dtype, clamp in ((fb, (128, 512, 512), bf16, 256.0),
+                                       (fb, (256, 256, 256), bf16, 256.0),
+                                       (fb, (128, 512, 512), f32, 4.0),
+                                       (fb, (3, 512, 512), f32, None),
+                                       (big, (128, 512, 512), f32, 4.0)):
+        x = (4 * randn(n, c, h, w)).to(dtype)
+        bias = randn(c)
+        kw = dict(axis=1) if clamp is None else dict(
+            act="lrelu", gain=2 ** 0.5, clamp=clamp, axis=1, scale=rand(n, c) + 0.5,
+            noise=0.3 * randn(h, w))
+        kw1 = dict(kw, scale=kw["scale"][:1]) if "scale" in kw else kw
+        hold("bias_act", f"[{n},{c},{h},{w}] {str(dtype)[6:]}"
+             f"{' toRGB' if clamp is None else ''}", n,
+             lambda: ba.bias_act(x, bias, **kw), lambda: ba.bias_act_plain(x, bias, **kw),
+             lambda: ba.bias_act(x[:1], bias, **kw1), 1e-6,
+             (2 * nbytes(x) + nbytes(bias, kw.get("scale"), kw.get("noise")),
+              (1 if clamp is None else 7) * x.numel(), dtype),
+             ulps=2 if dtype == bf16 else None)
+        del x
+
+    # K7a at every torso shape at fb and big (plain: cuDNN's F.conv3d, TF32
+    # off); K7b on fb frames of the estimator's [32,16,64,64] with 4
+    # keypoints uniform in [-0.8, 0.8]
+    for n in (fb, big):
+        for tag, (ci, co, k, dhw) in TORSO_CONV3D_SHAPES:
+            x = randn(n, ci, *dhw)
+            w = randn(co, ci, k, k, k) / (ci * k ** 3) ** 0.5
+            b = randn(co)
+            hold("conv3d", tag.replace("[1,", f"[{n},"), n, lambda: c3d.conv3d(x, w, b),
+                 lambda: c3d.conv3d_plain(x, w, b), lambda: c3d.conv3d(x[:1], w, b), 3e-4,
+                 (nbytes(x, w, b) + 4 * n * co * math.prod(dhw),
+                  c3d.conv3d_ops(ci, co, *dhw, k, b=n), f32, SPLIT_TF32_RATE))
+            del x, w, b
+    c, d, h, w_ = 32, 16, 64, 64
+    args = (randn(fb, c, d, h, w_), randn(5, c, 7, 7, 7) / (c * 343) ** 0.5, randn(5),
+            randn(2, c * d, 7, 7) / (c * d * 49) ** 0.5, randn(2),
+            1.6 * rand(fb, 4, 3) - 0.8, 1.6 * rand(fb, 4, 3) - 0.8)
+    one = (args[0][:1], *args[1:5], args[5][:1], args[6][:1])
+    ops = c3d.conv3d_ops(c, 5, d, h, w_, 7, b=fb) + c3d.conv3d_ops(c * d, 2, 1, h, w_, 7, b=fb)
+    hold("mfe_tail", f"[{fb},32,16,64,64] K+1=5", fb, lambda: torso.mfe_tail(*args),
+         lambda: torso.mfe_tail_plain(*args), lambda: torso.mfe_tail(*one), 1e-4,
+         (nbytes(*args) + 4 * fb * (d * h * w_ * 3 + 2 * h * w_), ops, f32))
+    del args, one
+    torch.cuda.empty_cache()
+    check(set(rows) == set(REPLACES), f"kernels held at {fb} frames: {sorted(rows)}")
+    return rows
+
+
 def make_pipeline(config: str, preset: str, dev, use_torso: bool = True,
                   n_vertices: int = 35709, **overrides):
     """The pipeline of ``configs/<config>`` (torso model or head only) on the
@@ -842,6 +1070,143 @@ def phase_run(dev: torch.device, out_dir: str) -> dict:
     del hub
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_batch(dev: torch.device, out_dir: str, n_vertices: int = 35709,
+                seconds: float = 4.0, batches: tuple = (1, 4, 8, 16), n_ident: int = 4,
+                **overrides) -> dict:
+    """``run`` with frame batching and the multi-identity mode on the default
+    model (``fast``, seeded mock weights): the main path's call, from the 4 s
+    seeded wav to 100 frames and a video, at temperature 0 (every call the
+    same motion), at each ``frame_batch`` of ``batches`` after a warm-up at
+    that batch on 0.64 s. First the memory reckoning: fb = 1's
+    ``max_memory_allocated`` times each fb against the card's memory; the
+    batches end at the largest that fits. Per fb: wall ms/frame, the frame
+    steps' ms (synchronised; a second call with timings), the peak memory,
+    the launch counts, which must be a fixed count a video plus a fixed
+    count a step (K4: one a step and the two per-video maps), and the
+    frames, which must agree with fb = 1's (3e-2 / 3e-3 of scale); the
+    largest batch also with a seeded pose sequence, each frame its own
+    camera, against fb = 1 on the same poses. Then ``n_ident`` seeded sources share the wav (``run`` without a video, the
+    writer takes one identity a frame): ms per identity-frame, and each
+    identity's frames against ``synthesize`` of its source alone without
+    preparation, on the same motion."""
+    pipe = make_pipeline(DEFAULT_CONFIG, "fast", dev, n_vertices=n_vertices, **overrides)
+    res = pipe.res
+    src = np.random.RandomState(0).randint(0, 256, (res, res, 3)).astype(np.uint8)
+    wav, warm = seeded_wav(seconds), seeded_wav(0.64, seed=1)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    path = os.path.join(out_dir, "batch.mp4")
+    ref, stats, fits = None, {}, batches
+    for fb in batches:
+        if fb not in fits:
+            continue
+        pipe.run(src, wav=warm, temperature=0.0, frame_batch=fb,
+                 out_path=os.path.join(out_dir, "warm.mp4"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        frames = pipe.run(src, wav=wav, temperature=0.0, frame_batch=fb, out_path=path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, peak = read_launches(), torch.cuda.max_memory_allocated()
+        n = len(frames)
+        check(tuple(frames.shape) == (n, res, res, 3) and n > 0 and frames.is_cuda
+              and bool(torch.isfinite(frames).all()), f"batch run fb={fb}: frames "
+              f"{tuple(frames.shape)} not finite, on the host or of the wrong shape")
+        check(os.path.getsize(path if os.path.exists(path) else path + ".raw") > 0,
+              f"batch run fb={fb} wrote no video")
+        tm: dict = {}
+        pipe.run(src, wav=wav, temperature=0.0, frame_batch=fb, timings=tm)
+        torch.cuda.synchronize()
+        steps = -(-n // fb)
+        check(len(tm["frame_ms"]) == steps, f"fb={fb}: {len(tm['frame_ms'])} step times")
+        if ref is None:
+            ref, agree_text = frames, "the reference"
+            fits = [b for b in batches if b * peak <= total]
+            print(f"batch memory reckoning: fb=1 peak {peak / 2**30:.2f} GiB x fb against the "
+                  f"card's {total / 2**30:.2f} GiB: "
+                  + ", ".join(f"fb={b} {b * peak / 2**30:.2f} GiB" for b in batches)
+                  + f"; runs fb in {fits}")
+        else:
+            agree_text = "vs fb=1 " + compare(f"batch run fb={fb} frames vs fb=1", frames,
+                                              ref, BF16_TOL)
+        del frames
+        stats[fb] = dict(steps=steps, counts=counts, frames=n)
+        p50 = statistics.median(tm["frame_ms"])
+        print(f"batch run[fb={fb}, {seconds} s wav, temperature 0]: {n} frames, wall "
+              f"{wall:.2f} s ({1e3 * wall / n:.2f} ms/frame), {steps} steps p50 {p50:.2f} ms "
+              f"({p50 / fb:.2f} ms/frame), steps {sum(tm['frame_ms']) / n:.2f} ms/frame in "
+              f"all, peak {peak / 2**30:.2f} GiB, frames {agree_text}, launches {counts}")
+    # launches: a fixed count a video plus a fixed count a step, from the
+    # first two batches, must give every batch's
+    (f1, s1), (f2, s2) = ((b, stats[b]["steps"]) for b in fits[:2])
+    per_step, per_video = {}, {}
+    for k in stats[f1]["counts"]:
+        c1, c2 = stats[f1]["counts"][k], stats[f2]["counts"][k]
+        per_step[k], rem = divmod(c1 - c2, s1 - s2)
+        per_video[k] = c1 - per_step[k] * s1
+        check(rem == 0 and per_step[k] >= 0 and per_video[k] >= 0,
+              f"{k}: launches {c1} at fb={f1}, {c2} at fb={f2} are not a count a step")
+        for b in fits:
+            check(stats[b]["counts"][k] == per_video[k] + per_step[k] * stats[b]["steps"],
+                  f"{k}: {stats[b]['counts'][k]} launches at fb={b}, not {per_video[k]} + "
+                  f"{per_step[k]} x {stats[b]['steps']} steps")
+    check(per_step["secc_raster"] == 1 and per_video["secc_raster"] == 2,
+          f"K4: {per_step['secc_raster']} launches a step, {per_video['secc_raster']} a video")
+    check(all(per_step[k] > 0 for k in per_step if k != "triplane_decode"),
+          f"batch run: a kernel does not launch every step: {per_step}")
+    print(f"batch launches a step at every fb in {fits}: {per_step}; a video: {per_video}")
+
+    # a moving head: every frame of a step has its own camera, and the last
+    # step of the largest batch is padded
+    n, fb = stats[fits[0]]["frames"], fits[-1]
+    phase = 2 * np.pi * np.arange(n)[:, None] / 50 + np.arange(3)
+    pose = ((0.15 * np.sin(phase)).astype(np.float32),
+            (0.03 * np.sin(phase + 1)).astype(np.float32))
+    posed = [pipe.run(src, wav=wav, temperature=0.0, pose_seq=pose, frame_batch=b)
+             for b in (1, fb)]
+    text = compare(f"batch run fb={fb} with a pose sequence vs fb=1", posed[1], posed[0],
+                   BF16_TOL)
+    print(f"batch run[fb={fb}, a pose sequence of {n} frames]: frames vs fb=1 {text}")
+    del posed
+
+    # the multi-identity mode: n_ident sources share the wav's motion
+    srcs = np.stack([np.random.RandomState(10 + k).randint(0, 256, (res, res, 3))
+                     .astype(np.uint8) for k in range(n_ident)])
+    pipe.run(srcs, wav=warm, temperature=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    multi = pipe.run(srcs, wav=wav, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = read_launches(), torch.cuda.max_memory_allocated()
+    n = len(multi)
+    check(tuple(multi.shape) == (n, n_ident, res, res, 3) and n > 0
+          and bool(torch.isfinite(multi).all()), f"multi-identity frames {tuple(multi.shape)}")
+    check(counts["secc_raster"] == n + 2, f"multi-identity: K4 launched {counts['secc_raster']}")
+    exp = pipe.audio_to_motion(*pipe.audio_to_features(wav), temperature=0.0)
+    texts, alone_ms = [], []
+    for k in range(n_ident):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = pipe.synthesize(srcs[k], exp, pipe.fit_source(None),
+                                prepare_source_images=False)
+        torch.cuda.synchronize()
+        alone_ms.append(1e3 * (time.perf_counter() - t0) / len(alone))
+        texts.append(compare(f"identity {k} of {n_ident}", multi[:, k], alone, BF16_TOL))
+        del alone
+    print(f"batch multi-identity[N={n_ident}, {seconds} s wav, temperature 0]: frames "
+          f"{tuple(multi.shape)}, wall {wall:.2f} s ({1e3 * wall / (n * n_ident):.2f} ms per "
+          f"identity-frame), peak {peak / 2**30:.2f} GiB, launches {counts}; each source alone "
+          f"(synthesize, no preparation) {[round(x, 2) for x in alone_ms]} ms/frame; identities "
+          f"vs alone: {'; '.join(texts)}")
+    del multi, pipe
+    torch.cuda.empty_cache()
+    return stats
 
 
 def seeded_landmarks(assets, n_frames: int, seed: int) -> np.ndarray:
@@ -1242,17 +1607,21 @@ def phase_flagship(dev: torch.device, steps: int = 16) -> None:
           f"launches per step {({k: v // steps for k, v in counts.items()})}")
 
 
-def compare(tag: str, gpu: torch.Tensor, cpu: torch.Tensor, tol: tuple = (1e-3, 1e-4)) -> None:
-    """Scale-normalised GPU vs CPU check, max and mean: fp32 through ~100
-    layers of random weights, convs and sums in another order, 1e-3 / 1e-4;
-    through bf16 SR blocks (cuDNN's bf16 convolutions round their fp32 sums
-    once, at other points than the CPU's), 3e-2 / 3e-3."""
-    scale = max(float(cpu.abs().max()), 1e-6)
-    err, merr = max_err(gpu.cpu(), cpu) / scale, mean_err(gpu.cpu(), cpu) / scale
-    print(f"reference[{tag}]: GPU vs CPU max_err/scale {err:.3e} "
-          f"mean {merr:.3e} (tol {tol[0]:g} / {tol[1]:g})")
-    check(err <= tol[0] and merr <= tol[1], f"GPU {tag} disagrees with the CPU reference")
-
+def compare(tag: str, got: torch.Tensor, want: torch.Tensor,
+            tol: tuple = (1e-3, 1e-4)) -> str:
+    """Scale-normalised check of ``got`` against ``want`` (on any devices),
+    max and mean: fp32 through ~100 layers of random weights, convs and sums
+    in another order, 1e-3 / 1e-4; through bf16 SR blocks (cuDNN's bf16
+    convolutions round their fp32 sums once, at other points than the CPU's
+    or another batch's), ``BF16_TOL``. Returns the errors as text."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{tag}: shape {tuple(got.shape)} against {tuple(want.shape)}")
+    got = got.to(want.device)
+    scale = max(float(want.abs().max()), 1e-6)
+    err, merr = max_err(got, want) / scale, mean_err(got, want) / scale
+    text = f"max_err/scale {err:.3e} mean {merr:.3e} (tol {tol[0]:g} / {tol[1]:g})"
+    check(err <= tol[0] and merr <= tol[1], f"{tag} disagrees: {text}")
+    return text
 
 def phase_reference(dev: torch.device) -> None:
     """Small configurations on the GPU (kernels) and on the CPU (plain
@@ -1279,7 +1648,6 @@ def phase_reference(dev: torch.device) -> None:
     euler = torch.tensor([[0.05, 0.2, 0.0]])
     _, c2w, intr = camera.convert_eg3d_convention(euler, torch.zeros((1, 3)))
     cam = camera.pack_camera(c2w, intr[0])
-    bf16_tol = (3e-2, 3e-3)
     for label, config, use_torso in (("default torso", DEFAULT_CONFIG, True),
                                      ("released torso", RELEASED_CONFIG, True),
                                      ("released head-only", RELEASED_CONFIG, False)):
@@ -1309,8 +1677,9 @@ def phase_reference(dev: torch.device) -> None:
             outs.append({"frames": frames, **{k: step[k] for k in keys}})
         bf16 = config == DEFAULT_CONFIG
         for k, gpu in outs[0].items():
-            tol = bf16_tol if bf16 and k in ("frames", "image") else (1e-3, 1e-4)
-            compare(f"{label} {k}", gpu, outs[1][k], tol)
+            tol = BF16_TOL if bf16 and k in ("frames", "image") else (1e-3, 1e-4)
+            print(f"reference[{label} {k}]: GPU vs CPU "
+                  f"{compare(f'GPU {label} {k}', gpu, outs[1][k], tol)}")
 
     # the audio path: the full-width audio-to-motion model on 1 s of the
     # mel tiled to 1024 channels, with the same prior noise (drawn on the
@@ -1333,7 +1702,9 @@ def phase_reference(dev: torch.device) -> None:
         outs.append({"audio-to-motion (full width)": exp, "HuBERT 2x256": hid,
                      "run frames": frames})
     for k, gpu in outs[0].items():
-        compare(f"default {k}", gpu, outs[1][k], bf16_tol if k == "run frames" else (1e-3, 1e-4))
+        text = compare(f"GPU default {k}", gpu, outs[1][k],
+                       BF16_TOL if k == "run frames" else (1e-3, 1e-4))
+        print(f"reference[default {k}]: GPU vs CPU {text}")
 
 
 def main() -> int:
@@ -1353,8 +1724,12 @@ def main() -> int:
     torch.cuda.synchronize()
     rows = phase_kernels(dev)
     torch.cuda.synchronize()
+    batch_rows = phase_batch_kernels(dev)
+    torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as out_dir:
         run_counts = phase_run(dev, out_dir)
+        torch.cuda.synchronize()
+        phase_batch(dev, out_dir)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_fit(dev, out_dir)
@@ -1381,7 +1756,9 @@ def main() -> int:
         path, counts = "run", run_counts
         if counts[k] == 0:
             path, counts = "released torso fast", slice_counts["released torso fast"]
-        launches[k] = dict(launches=counts[k], path=path, video_run_launches=video_counts[k])
+        launches[k] = dict(launches=counts[k], path=path, video_run_launches=video_counts[k],
+                           **{f"fb8_{m}": batch_rows[k][m] for m in (
+                               "launch_ms", "b1_launch_ms", "bound_ms", "max_abs_err")})
         if k in BF16_COUNTED:
             launches[k]["launches_bf16"] = counts[f"{k} bf16"]
     check(all(v["launches"] > 0 for v in launches.values()), f"kernels launched: {launches}")

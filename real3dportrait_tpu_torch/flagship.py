@@ -17,6 +17,12 @@ so that the torso warps interpolate for real (the pipeline without source
 preparation drives them with zero keypoints). The canonical plane, the
 torso appearance volume and the background feature are computed once.
 
+``frame_batch`` b > 1 renders b frames a step, as the JAX flagship does
+under ``BENCH_FRAME_BATCH``: the source image is one image broadcast over
+the batch, the SECC maps, cameras and keypoints are drawn at b, and the
+canonical plane and the per-video caches are computed for one frame and
+broadcast along the batch as views.
+
 ``tiny=True`` is the JAX tiny flagship's model, :data:`TINY_MODEL`, for the
 CPU: 64^2 output, 16^2 render, tri-grids of depth 2 x 8 channels (kernel
 K1-trigrid on a card), the SegFormer-b0 canonical backbone with GroupNorm
@@ -50,10 +56,11 @@ TINY_MODEL = dict(
 
 @torch.no_grad()
 def flagship(tiny: bool = False, samples: tuple[int, int] | None = None,
-             device: torch.device | str = "cuda", seed: int = 0):
+             device: torch.device | str = "cuda", seed: int = 0, frame_batch: int = 1):
     """(frame_step, args): ``frame_step(camera, secc, cano_planes, cond)``
-    returns the frame's image [1,res,res,3]; ``frame_step.model`` is the
-    model. ``samples`` (coarse, fine) overrides the sample counts. The same
+    returns the step's images [b,res,res,3] (b = ``frame_batch``);
+    ``frame_step.model`` is the model and ``frame_step.frames_per_call`` is
+    b. ``samples`` (coarse, fine) overrides the sample counts. The same
     seed gives the same weights and inputs on any device."""
     dev = entry_device(device)
     if tiny:
@@ -67,27 +74,33 @@ def flagship(tiny: bool = False, samples: tuple[int, int] | None = None,
     mock_init_(model, torch.Generator().manual_seed(seed))
     model.to(dev).eval()
 
-    res = model.final_resolution
+    res, b = model.final_resolution, max(int(frame_batch), 1)
     gen = torch.Generator().manual_seed(seed + 1)
 
     def uniform(shape, lo=-1.0, hi=1.0):
         return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(dev)
 
+    def tiled(x):
+        return x.expand(b, *x.shape[1:])
+
     img = uniform((1, res, res, 3))
-    secc = uniform((1, res, res, 9))
-    zero = torch.zeros((1,))
-    cam = pack_camera(lookat_pose(zero, zero, torch.zeros((1, 3))), fov_to_intrinsics()).to(dev)
+    secc = uniform((b, res, res, 9))
+    zero = torch.zeros((b,))
+    cam = pack_camera(lookat_pose(zero, zero, torch.zeros((b, 3))), fov_to_intrinsics()).to(dev)
     seg = torch.zeros((1, res, res, 6), device=dev)
     seg[..., 4] = 1.0
-    cond = {"ref_torso_img": img, "bg_img": img, "segmap": seg,
-            "kp_src": uniform((1, 68, 3), -0.8, 0.8), "kp_drv": uniform((1, 68, 3), -0.8, 0.8)}
-    cano = model.cal_cano_plane(img)
-    cond["torso_appearance"] = model.cal_torso_appearance(cond)
-    cond["bg_feat"] = model.cal_bg_feat(cond)
+    cond = {"ref_torso_img": img, "bg_img": img, "segmap": seg}
+    cano = tiled(model.cal_cano_plane(img))
+    appearance = tiled(model.cal_torso_appearance(cond))
+    bg_feat = tuple(tiled(x) for x in model.cal_bg_feat(cond))
+    cond = {k: tiled(v) for k, v in cond.items()}
+    cond.update(kp_src=uniform((b, 68, 3), -0.8, 0.8), kp_drv=uniform((b, 68, 3), -0.8, 0.8),
+                torso_appearance=appearance, bg_feat=bg_feat)
 
     @torch.no_grad()
     def frame_step(camera, secc, cano_planes, cond):
         return model.synthesis(None, camera, cond, secc=secc, cano_planes=cano_planes)["image"]
 
     frame_step.model = model
+    frame_step.frames_per_call = b
     return frame_step, (cam, secc, cano, cond)

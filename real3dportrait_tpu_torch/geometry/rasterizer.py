@@ -154,6 +154,9 @@ def rasterize_verts(verts_cam: torch.Tensor, faces: torch.Tensor, attr: torch.Te
             or attr.shape != (n, 3) or znear < 0:
         raise ValueError(f"{name}: bad arguments verts {tuple(verts_cam.shape)} faces "
                          f"{tuple(faces.shape)} attr {tuple(attr.shape)} znear {znear}")
+    if t_frames > 65535:
+        raise ValueError(f"{name}: the kernel puts the frames on the grid's y axis, at most "
+                         f"65535 a call; got {t_frames}")
     dev = verts_cam.device
     key = (dev.index, image_size, torch.cuda.current_stream(dev).cuda_stream)
     zbuf = _ZBUFFERS.get(key)

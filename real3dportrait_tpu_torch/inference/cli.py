@@ -96,7 +96,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="seeded random weights even where both checkpoints are given")
     p.add_argument("--low_memory_usage", action="store_true",
                    help="stream frames to the writer without keeping them")
-    p.add_argument("--frame_batch", type=int, default=1)
+    p.add_argument("--frame_batch", type=int, default=1,
+                   help="frames a device step; on an H100, 2-5 are currently slower than 1 "
+                        "(cuDNN picks an FFT for one conv at those batches), 8 and 16 are not")
     p.add_argument("--head_only", action="store_true", help="no torso/background fusion")
     p.add_argument("--hparams", default="", help="config overrides a.b=1,c=2")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -114,8 +114,11 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 DEFAULT_CONFIG = os.path.join(_ROOT, "configs", "secc_img2plane_torso.yaml")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+def _expand_batch(v, n: int):
+    """``v`` [1,...] (or a tuple of such) as a view of batch ``n``."""
+    if isinstance(v, tuple):
+        return tuple(_expand_batch(x, n) for x in v)
+    return v.expand(n, *v.shape[1:])
 
 
 def mirror_index(idx: torch.Tensor, length: int) -> torch.Tensor:
@@ -320,13 +323,15 @@ class Real3DPortraitPipeline:
         return torch.from_numpy(self._host_image(img)).to(self.device)[None]
 
     def mock_cond(self, img: torch.Tensor, bg_img: torch.Tensor | None = None) -> dict:
-        """The torso cond without source preparation: the source image as
-        torso and background (unless ``bg_img``), an all-torso segmap and
-        zero keypoints."""
-        seg = torch.zeros((1, self.res, self.res, 6), device=self.device)
+        """The torso cond without source preparation for the N source images
+        ``img`` [N,res,res,3]: each image as torso and background (unless
+        ``bg_img`` [1,res,res,3], broadcast over them), an all-torso segmap
+        and zero keypoints."""
+        n = img.shape[0]
+        seg = torch.zeros((n, self.res, self.res, 6), device=self.device)
         seg[..., 4] = 1.0
-        kp = torch.zeros((1, 68, 3), device=self.device)
-        return {"ref_torso_img": img, "bg_img": img if bg_img is None else bg_img,
+        kp = torch.zeros((n, 68, 3), device=self.device)
+        return {"ref_torso_img": img, "bg_img": img if bg_img is None else bg_img.expand_as(img),
                 "segmap": seg, "kp_src": kp, "kp_drv": kp}
 
     # -- audio -----------------------------------------------------------------
@@ -422,26 +427,38 @@ class Real3DPortraitPipeline:
         ``prepare_source_images`` splits the source by ``segmap`` [H,W]
         (classes 0-5), else by ``segmenter`` (frames -> class maps), else by
         the naive segmenter. ``callback(i, frame)`` receives each frame
-        [H,W,3] as float32 numpy: frame t-1's copy to pinned host memory
-        overlaps frame t's kernels. ``stream_only`` keeps no frames (an
-        empty [0,H,W,3] is returned). ``debug_mode`` gives final | raw |
-        depth frames side by side. With ``timings`` (a dict) the device is
-        synchronised around each stage and the dict receives ``prep_ms``
-        (source preparation, host), ``cano_ms``, for the torso model
-        ``appearance_ms`` and ``bg_ms`` (the per-video caches), and
-        ``frame_ms`` (one entry per frame: SECC raster, blink edit, frame
-        step).
+        [H,W,3] as float32 numpy, in order: a step's copy to pinned host
+        memory overlaps the next step's kernels. ``stream_only`` keeps no
+        frames (an empty [0,H,W,3] is returned). ``debug_mode`` gives final |
+        raw | depth frames side by side (one frame a step only, as in JAX).
+
+        ``frame_batch`` fb > 1 renders fb frames a device step: their
+        target SECC maps in one raster call, the canonical plane and the
+        per-video caches broadcast along the batch as views; the last step
+        repeats frame T-1 and delivers only its valid frames. A source
+        [N,H,W,3] is the batched multi-identity mode: N identities share the
+        driving signal, without source preparation (the mock cond at N,
+        ``bg_img`` broadcast over them); frames [T,N,H,W,3], and
+        ``callback(i, [N,H,W,3])``. The two modes do not combine.
+
+        With ``timings`` (a dict) the device is synchronised around each
+        stage and the dict receives ``prep_ms`` (source preparation, host),
+        ``cano_ms``, for the torso model ``appearance_ms`` and ``bg_ms``
+        (the per-video caches), and ``frame_ms`` (one entry per step: SECC
+        raster, blink edit, frame step).
         """
         if blink_mode not in ("periodic", "none"):
             raise ValueError(f"blink_mode must be 'periodic' or 'none', got {blink_mode!r}")
-        if frame_batch != 1:
-            raise _not_ported("frame batching", "queue 1 item 3")
         src_np = src_img.cpu().numpy() if torch.is_tensor(src_img) else np.asarray(src_img)
-        if src_np.ndim == 4:
-            raise _not_ported("the batched multi-identity mode", "queue 1 item 3")
+        batched = src_np.ndim == 4
+        srcs = [self._host_image(s) for s in (src_np if batched else src_np[None])]
+        n_ident, fb = len(srcs), max(int(frame_batch), 1)
+        if fb > 1 and n_ident > 1:
+            raise ValueError(f"frame batching and the multi-identity mode are mutually "
+                             f"exclusive: frame_batch {fb} with {n_ident} sources")
         dev = self.device
-        src = self._host_image(src_np)
-        img = torch.from_numpy(src).to(dev)[None]
+        src = srcs[0]
+        img = torch.from_numpy(np.stack(srcs)).to(dev)
 
         exp_seq = torch.as_tensor(exp_seq, dtype=torch.float32).to(dev)
         t = exp_seq.shape[0]
@@ -477,7 +494,7 @@ class Real3DPortraitPipeline:
             return out
 
         kp_drv = None
-        if prepare_source_images:
+        if prepare_source_images and not batched:
             head_img, cond, kp_drv = timed(
                 "prep_ms", self._prepare_source, src, bg_img, segmap, segmenter, src_coeffs,
                 idc, exp_seq, euler, trans)
@@ -493,47 +510,73 @@ class Real3DPortraitPipeline:
             cond["bg_feat"] = timed("bg_ms", self.model.cal_bg_feat, cond)
         if timings is not None:
             timings["frame_ms"] = []
+        # a step renders nb = fb * n_ident images: the per-video plane and
+        # caches are views of that batch, and the per-frame sequences are
+        # padded once to whole steps (the last step repeats frame t-1)
+        nb = fb * n_ident
+        cano_plane = _expand_batch(cano_plane, nb)
+        cond = {k: _expand_batch(v, nb) for k, v in cond.items()}
+        padded = torch.clamp(torch.arange(-(-t // fb) * fb, device=dev), max=t - 1)
+        idc, exp_seq, cameras = idc[padded], exp_seq[padded], cameras[padded]
+        if kp_drv is not None:
+            kp_drv = kp_drv[padded]
+        zero_fb = torch.zeros((fb, 3), device=dev)
+        debug_mode = debug_mode and fb == 1
 
         frames, pinned, pending = [], [None, None], None
-        shape = (self.res, 3 * self.res, 3) if debug_mode else (self.res, self.res, 3)
+        if debug_mode:
+            shape = (self.res, 3 * self.res, 3)
+        else:
+            shape = ((n_ident,) if batched else ()) + (self.res, self.res, 3)
 
-        def deliver(i, handle):
-            """Hand frame i to the callback once its host copy is done."""
+        def deliver(start, handle, n_valid):
+            """Hand a step's frames to the callback once their host copy is
+            done."""
             buf, done = handle
             if done is not None:
                 done.synchronize()
-            frame = buf.numpy().copy()
-            callback(i, frame)
-            return frame
+            host = buf.numpy()
+            for k in range(n_valid):
+                callback(start + k, host[k].copy())
 
-        for i in range(t):
+        for step, start in enumerate(range(0, t, fb)):
             t0 = time.perf_counter()
-            _, tgt_secc = self.secc_renderer.render(idc[i:i + 1], exp_seq[i:i + 1], zero, zero)
-            if blink[i] > 0:
-                edited = blink_eye_for_secc(tgt_secc[0].cpu().numpy(), float(blink[i]))
-                tgt_secc = torch.from_numpy(edited).to(dev)[None]
-            secc_cond = torch.cat([cano_secc, src_secc, tgt_secc], dim=-1)
+            n_valid = min(fb, t - start)
+            _, tgt_secc = self.secc_renderer.render(idc[start:start + fb],
+                                                    exp_seq[start:start + fb], zero_fb, zero_fb)
+            for k in range(fb):
+                j = min(start + k, t - 1)
+                if blink[j] > 0:
+                    edited = blink_eye_for_secc(tgt_secc[k].cpu().numpy(), float(blink[j]))
+                    tgt_secc[k] = torch.from_numpy(edited).to(dev)
+            secc_cond = _expand_batch(torch.cat([cano_secc.expand_as(tgt_secc),
+                                                 src_secc.expand_as(tgt_secc), tgt_secc],
+                                                dim=-1), nb)
+            cam = _expand_batch(cameras[start:start + fb], nb)
+            if kp_drv is not None:
+                cond = dict(cond, kp_drv=kp_drv[start:start + fb])
             if self.use_torso:
-                if kp_drv is not None:
-                    cond = dict(cond, kp_drv=kp_drv[i:i + 1])
-                out = self.model.synthesis(None, cameras[i:i + 1], cond, secc=secc_cond,
+                out = self.model.synthesis(None, cam, cond, secc=secc_cond,
                                            cano_planes=cano_plane)
             else:
-                out = self.model.synthesis(None, cameras[i:i + 1], secc=secc_cond,
-                                           cano_planes=cano_plane)
-            image = out["image"][0]
+                out = self.model.synthesis(None, cam, secc=secc_cond, cano_planes=cano_plane)
+            # the step's frames [n,...]; in the multi-identity mode one frame
+            # of the N identities
+            image = out["image"]
             if debug_mode:
                 image = torch.from_numpy(side_by_side(
-                    to_uint8(image.cpu().numpy()), to_uint8(out["image_raw"][0].cpu().numpy()),
+                    to_uint8(image[0].cpu().numpy()), to_uint8(out["image_raw"][0].cpu().numpy()),
                     depth_to_colormap(out["image_depth"][0, ..., 0].cpu().numpy()),
-                ).astype(np.float32) / 127.5 - 1.0).to(dev)
+                ).astype(np.float32) / 127.5 - 1.0).to(dev)[None]
+            elif batched:
+                image = image[None]
             if callback is not None:
-                # double-buffered: start frame i's copy, then deliver frame i-1
-                # while the device runs frame i
+                # double-buffered: start this step's copy, then deliver the
+                # step before while the device runs this one
                 if dev.type == "cuda":
-                    buf = pinned[i % 2]
+                    buf = pinned[step % 2]
                     if buf is None or buf.shape != image.shape:
-                        buf = pinned[i % 2] = torch.empty(image.shape, pin_memory=True)
+                        buf = pinned[step % 2] = torch.empty(image.shape, pin_memory=True)
                     buf.copy_(image, non_blocking=True)
                     done = torch.cuda.Event()
                     done.record()
@@ -542,9 +585,9 @@ class Real3DPortraitPipeline:
                     handle = (image, None)
                 if pending is not None:
                     deliver(*pending)
-                pending = (i, handle)
+                pending = (start, handle, n_valid)
             if not stream_only:
-                frames.append(image)
+                frames.append(image[:n_valid])
             if timings is not None:
                 self._sync()
                 timings["frame_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -552,7 +595,8 @@ class Real3DPortraitPipeline:
             deliver(*pending)
         if stream_only or not frames:
             return torch.zeros((0,) + shape, device=dev)
-        return torch.stack(frames)
+        return torch.cat(frames)
+
 
     def run(self, src_img: np.ndarray, wav: np.ndarray | None = None,
             hubert: np.ndarray | None = None, drv_motion: dict | None = None,
@@ -578,7 +622,16 @@ class Real3DPortraitPipeline:
         written next to the video unless ``low_memory``. ``timings``
         receives ``fit_ms`` (with ``src_lm2d``), ``features_ms`` and
         ``a2m_ms`` (audio-driven) beside :meth:`synthesize`'s keys.
+
+        ``frame_batch`` and a source [N,H,W,3] (no crop; frames
+        [T,N,H,W,3]) are :meth:`synthesize`'s. Such a source writes no
+        video: the JAX pipeline's writer fails on a frame of N identities,
+        so ``out_path`` raises ``ValueError`` with it.
         """
+        if np.ndim(src_img) == 4 and out_path:
+            raise ValueError("run with [N,H,W,3] sources writes no video: the JAX pipeline's "
+                             "writer fails on frames of N identities (cv2 takes 2-D images); "
+                             "call it without out_path for the frames [T,N,H,W,3]")
         if src_lm2d is not None and np.asarray(src_img).ndim == 3:
             lm_px = np.asarray(src_lm2d)
             if lm_px.max() <= 1.5:  # normalised landmarks -> pixels

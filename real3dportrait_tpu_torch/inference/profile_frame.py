@@ -1,6 +1,7 @@
 """Where a torso frame's time goes on a CUDA device.
 
     python -m real3dportrait_tpu_torch.inference.profile_frame [--config NAME]
+        [--batches 1,4,8 [--steps 3] [--top 12] [--convs 6]]
 
 For the ``fast`` and ``reference`` presets of ``configs/NAME`` (default
 ``secc_img2plane_torso.yaml``, the pipeline's default model with tri-grids
@@ -27,6 +28,15 @@ source and driving keypoints uniform in [-0.8, 0.8], it prints:
 * a ``torch.profiler`` table of device kernel time per frame and the
   device's busy share: the 20 largest kernels, then every other kernel
   of the port (``csrc/``).
+
+With ``--batches``, it profiles batched steps instead, at the ``fast``
+preset: for each frame batch fb, ``synthesize`` over ``steps`` steps of fb
+frames (no source preparation or blinks), after a warm-up of the same call:
+the wall time per frame, the peak memory allocated, and from
+``torch.profiler`` over a second such call the kernel time per frame, the
+busy share and the ``top`` kernels with their launches a step, then the
+``convs`` cuDNN convolutions that take the most device time, by input
+shape (which modules those kernels belong to).
 
 fp32 with TF32 off, like chip_smoke. An event pair also counts the device
 idling while the host enqueues, so in-place module times include launch
@@ -263,10 +273,51 @@ def profile_preset(config: str, preset: str, dev: torch.device, n_frames: int = 
               f"x{x.count // reps:4d}  {x.key[:100]}")
 
 
+def profile_batch(pipe, fb: int, steps: int, top: int, convs: int = 0) -> None:
+    n = fb * steps
+    rng = np.random.RandomState(0)
+    src = rng.randint(0, 256, (pipe.res, pipe.res, 3)).astype(np.uint8)
+    exp = torch.from_numpy(rng.randn(n, 64).astype(np.float32) * 0.3)
+    coeffs = pipe.fit_source(None)
+    kw = dict(blink_mode="none", prepare_source_images=False, frame_batch=fb)
+    pipe.synthesize(src, exp, coeffs, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.synthesize(src, exp, coeffs, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=convs > 0) as prof:
+        t0 = time.perf_counter()
+        pipe.synthesize(src, exp, coeffs, **kw)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3 / n
+    rows = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
+    busy = sum(x.self_device_time_total for x in rows) / n / 1e3
+    print(f"[fb={fb}] synthesize {n} frames: {wall:.3f} ms/frame of wall, peak "
+          f"{peak:.2f} GiB; profiler: kernel time {busy:.3f} ms/frame in {traced:.3f} ms/frame "
+          f"of wall, busy share {busy / traced:.3f} (the per-video caches and SECC maps once)")
+    for x in sorted(rows, key=lambda x: -x.self_device_time_total)[:top]:
+        print(f"[fb={fb}]   {x.self_device_time_total / n / 1e3:8.3f} ms/frame "
+              f"x{x.count / steps:7.1f} a step  {x.key[:110]}")
+    if convs:
+        ops = [x for x in prof.key_averages(group_by_input_shape=True)
+               if x.key == "aten::cudnn_convolution"]
+        for x in sorted(ops, key=lambda x: -x.device_time_total)[:convs]:
+            print(f"[fb={fb}]   conv {x.device_time_total / n / 1e3:8.3f} ms/frame "
+                  f"x{x.count / steps:5.1f} a step, inputs {x.input_shapes[:2]}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default="secc_img2plane_torso.yaml",
                         help="a file of configs/ (default: the pipeline's default model)")
+    parser.add_argument("--batches", help="frame batches to profile, e.g. 1,4,8")
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--top", type=int, default=12)
+    parser.add_argument("--convs", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device is visible")
@@ -274,6 +325,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card_line()}")
     print(f"config: {args.config}")
+    if args.batches:
+        cfg = load_config(os.path.join(_ROOT, "configs", args.config), {"sampling_preset": "fast"})
+        pipe = Real3DPortraitPipeline(cfg, assets=synthetic_bfm(n_vertices=35709), seed=0,
+                                      device="cuda")
+        for fb in (int(b) for b in args.batches.split(",")):
+            profile_batch(pipe, fb, args.steps, args.top, args.convs)
+            torch.cuda.empty_cache()
+        return
     for preset in ("fast", "reference"):
         profile_preset(args.config, preset, torch.device("cuda"))
         torch.cuda.empty_cache()

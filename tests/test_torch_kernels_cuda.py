@@ -419,6 +419,18 @@ def test_k4_two_meshes_in_a_row_and_bit_equal_launches(dev):
         assert torch.equal(again[0], km) and torch.equal(again[1], ki)
 
 
+def test_k4_names_its_frame_cap(dev):
+    # the frames lie on the grid's y axis: more than 65535 a call raise
+    # ValueError before any launch
+    verts = torch.zeros((65536, 3, 3), device=dev)
+    faces = torch.tensor([[0, 1, 2]], dtype=torch.int32, device=dev)
+    attr = torch.zeros((3, 3), device=dev)
+    launches = rasterize_verts.launches
+    with pytest.raises(ValueError, match="65535"):
+        rasterize_verts(verts, faces, attr, 1015.0, 112.0, 8)
+    assert rasterize_verts.launches == launches
+
+
 @pytest.mark.parametrize("b,k,dhw,offset", [(2, 9, (3, 7, 5), 0.3), (1, 4, (5, 9, 11), 0.0),
                                             (2, 4, (4, 6, 6), 3.0)],
                          ids=["b2_k9_odd", "on_faces", "far_outside"])

@@ -154,23 +154,6 @@ def test_pipeline_synthesize_two_frames_on_cpu(tiny_pipeline):
     assert posed.shape == frames.shape and torch.isfinite(posed).all()
 
 
-@pytest.mark.parametrize("kwargs", [dict(src_shape=(2, 64, 64, 3)),
-                                    dict(src_lm2d=np.zeros((68, 2)), frame_batch=2),
-                                    dict(frame_batch=2)],
-                         ids=["multi_identity", "fit_source", "batch"])
-def test_pipeline_raises_on_unported_modes(tiny_pipeline, kwargs):
-    # the blink edit and source preparation are ported (test_torch_run.py),
-    # and so is the source fit (test_torch_fit_video.py): run(src_lm2d=...)
-    # gets past the crop and the fit to the frame batching, not ported
-    src = np.zeros(kwargs.pop("src_shape", (64, 64, 3)), np.uint8)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1 item 3"):
-        if "src_lm2d" in kwargs:
-            tiny_pipeline.run(src, wav=np.zeros(8000, np.float32), **kwargs)
-        else:
-            tiny_pipeline.synthesize(src, torch.zeros((1, 64)),
-                                     tiny_pipeline.fit_source(None), **kwargs)
-
-
 def test_port_imports_leave_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
