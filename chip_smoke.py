@@ -62,9 +62,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    interpolate;
 7. small configurations of both models, the full-width audio-to-motion
    model, a small HuBERT and a tiny-config ``run`` on both the GPU and the
-   CPU (plain versions), whose outputs must agree.
+   CPU (plain versions), whose outputs must agree;
+8. training (``run_train_phases``): ``training.run`` on
+   ``configs/secc_img2plane.yaml`` at full width and its batch of 4 for 4
+   steps (R1, the density regulariser and src2src at step 0, the
+   conditioning regulariser at step 3) with the launch counters from 0:
+   finite losses, every group moved, every forward and backward kernel
+   launched and no plain version called, the checkpoint reloaded equal,
+   ms/step and peak memory; then each backward kernel (K1-trigrid, K3, K6a
+   through itself, K6b) against its plain version at the run's own calls,
+   K6a's and K6b's second derivatives, and a small training step on the
+   card against the same step on the CPU.
 
-The last lines are the kernels JSON, the card's name and power limit, and
+The last lines are the kernels JSON (the backward kernels with their
+launches a training step), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -86,6 +97,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from real3dportrait_tpu_torch.kernels import card_line, cuda_ms, device_ms  # noqa: E402
+from real3dportrait_tpu_torch.training.profile_step import FULL_STEP_HPARAMS  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEFAULT_CONFIG = "secc_img2plane_torso.yaml"
@@ -1707,6 +1719,584 @@ def phase_reference(dev: torch.device) -> None:
         print(f"reference[default {k}]: GPU vs CPU {text}")
 
 
+# -- the training slice -----------------------------------------------------------
+
+# the four backward kernels: the forward each differentiates (its JAX place
+# is the one the TPU kernel of the forward replaced: jax.grad differentiated
+# it there) and its source
+TRAIN_KERNELS = {
+    "trigrid_decode_backward": "trigrid_decode",
+    "merge_composite_backward": "merge_composite",
+    "upfirdn2d_backward": "upfirdn2d",
+    "bias_act_grad": "bias_act",
+}
+TRAIN_CONFIG = "secc_img2plane.yaml"
+# the full-width run: a full step from the first (the config's batch of 4,
+# every part of the step on, every generator group training from step 1),
+# 4 steps, the conditioning regulariser at step 3
+TRAIN_HPARAMS = FULL_STEP_HPARAMS + (",max_updates=4,tb_log_interval=4,num_sanity_val_steps=0,"
+                                     "val_check_interval=100000")
+
+
+def train_wrappers() -> dict:
+    """The backward kernels' wrappers by name (their launch counts)."""
+    from real3dportrait_tpu_torch.models.decoder import trigrid_decode_backward
+    from real3dportrait_tpu_torch.ops.bias_act import bias_act_grad
+    from real3dportrait_tpu_torch.ops.upfirdn2d import upfirdn2d_backward
+    from real3dportrait_tpu_torch.rendering.renderer import merge_composite_backward
+
+    return {"trigrid_decode_backward": trigrid_decode_backward,
+            "merge_composite_backward": merge_composite_backward,
+            "upfirdn2d_backward": upfirdn2d_backward, "bias_act_grad": bias_act_grad}
+
+
+class CallLog:
+    """Records what the training path hands the kernels' autograd Functions
+    (shapes, dtypes, the other arguments; filters as CPU copies) while
+    patched in, so that the kernels can be held at exactly those calls."""
+
+    def __init__(self):
+        from real3dportrait_tpu_torch.models import decoder as dm
+        from real3dportrait_tpu_torch.ops import bias_act as ba
+        from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+        from real3dportrait_tpu_torch.rendering import renderer as rr
+
+        self.targets = {"trigrid": dm._TrigridDecode, "merge": rr._MergeComposite,
+                        "upfirdn2d": ufd._Upfirdn2d, "bias_act": ba._BiasAct,
+                        "bias_act_grad": ba._BiasActGrad}
+        self.calls: dict = {k: [] for k in self.targets}
+        self.saved: dict = {}
+
+    @staticmethod
+    def _meta(a):
+        if isinstance(a, torch.Tensor):
+            if a.numel() <= 64 and a.dim() <= 2:
+                return ("small", a.detach().cpu().clone())
+            return ("T", tuple(a.shape), a.dtype)
+        if callable(a):
+            return ("fn", a.__name__)
+        return a
+
+    def __enter__(self):
+        for key, cls in self.targets.items():
+            self.saved[key] = cls.__dict__.get("apply")
+            orig = cls.apply
+
+            def rec(*args, _orig=orig, _key=key):
+                self.calls[_key].append(tuple(self._meta(a) for a in args))
+                return _orig(*args)
+            cls.apply = rec
+        return self
+
+    def __exit__(self, *exc):
+        for key, cls in self.targets.items():
+            if self.saved[key] is None:
+                del cls.apply       # the inherited classmethod again
+            else:
+                cls.apply = self.saved[key]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_train_kernels(dev: torch.device, log: CallLog) -> dict:
+    """(a) Each backward kernel against its plain version, one launch each,
+    at the training step's own calls (``log``, recorded from the full-width
+    run's first step): K1-
+    trigrid on one frame's 1.57 M points (coarse + fine) of the step's
+    grids, K3 at the step's [4,16384,48+48], K6a and K6b at every distinct
+    call, fp32 and bf16, and K6a's and K6b's second derivatives through
+    ``torch.autograd.grad(create_graph=True)`` on a discriminator shape of
+    each type. Tolerances: fp32 sums that the kernels take with atomics in
+    a run-dependent order, 1e-4 of the largest magnitude (K6b's sums of
+    random-sign terms, 1e-5 of the sum of the terms' magnitudes;
+    elementwise results, 1e-6 absolute); bf16 outputs within 2 bf16 ulps
+    of the plain version's, sums as fp32. Each row: the per-call and per-launch time,
+    the plain version's, the bound (bytes over 3.35 TB/s, operations over
+    the type's peak) and, where one PyTorch call computes the same
+    function, its time."""
+    import torch.nn.functional as F
+
+    from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+    from real3dportrait_tpu_torch.rendering import renderer as rr
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows: dict = {}
+
+    def randn(shape, dtype=f32):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def rand(shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    def row(name, tag, err, ms, plain_ms, cost, library=None, launch_ms=None, extra=""):
+        bound_ms, bound_by = bound(*cost)
+        lib = "null" if library is None else f"{library:.4f} ms"
+        print(f"train {name}[{tag}]: {err} per launch {launch_ms:.4f} ms, per call "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms "
+              f"({bound_by}){extra}")
+        rows.setdefault(name, dict(shape=tag, dtype=str(cost[2]).removeprefix("torch."),
+                                   max_abs_err=float(err.split()[1]), ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=library, launch_ms=launch_ms))
+
+    # the step's calls
+    grid = next(a for a in log.calls["trigrid"][0] if isinstance(a, tuple) and a[0] == "T")[1]
+    merge = log.calls["merge"][0]
+    k3 = (merge[1][1], merge[4][1])                     # colours1, colours2 shapes
+    k6a = {}
+    for c in log.calls["upfirdn2d"]:
+        if c[6] == ("fn", "upfirdn2d"):                 # forwards; each has one adjoint
+            key = (c[0][1], c[0][2], c[2], c[3], tuple(c[4]) if isinstance(c[4], (list, tuple))
+                   else c[4], c[5])
+            k6a.setdefault(key, c[1])
+    k6b = {}
+    for c in log.calls["bias_act_grad"]:
+        key = (c[0][1], c[0][2], c[4], c[5], c[6], c[7], c[3] is not None, c[8], c[9], c[10])
+        k6b.setdefault(key, None)
+
+    # K1-trigrid backward: one frame of the step's grids, the frame's coarse
+    # and fine points (uniform in the box), rgb and sigma gradients
+    planes = randn((1,) + tuple(grid[1:]))
+    n = 2 * 128 * 128 * 48
+    coords = rand((1, n, 3)) - 0.5
+    dec = dm.OSGDecoder(32, 64, 32).to(dev)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.copy_(randn(p.shape) * 0.3)
+    w0, b0 = dec.net0.folded()
+    w1, b1 = dec.net1.folded()
+    ws = [t.detach() for t in (w0, b0, w1, b1)]
+    drgb, dsig = randn((1, n, 32)), randn((1, n, 1))
+    with torch.no_grad():
+        got = dm.trigrid_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)
+        want = dm.trigrid_decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig)
+        errs = [_rel(g, w) for g, w in zip(got, want)]
+        abs_err = max(max_err(g, w) for g, w in zip(got, want))
+        check(max(errs) <= 1e-4, f"trigrid_decode_backward disagrees: {errs}")
+        call = lambda: dm.trigrid_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)  # noqa: E731
+        ms, launch = cuda_ms(call, reps=5), device_ms(call, launches=3, reps=3, warmup=1)
+        pms = cuda_ms(lambda: dm.trigrid_decode_backward_plain(planes, coords, 1.0, *ws, drgb,
+                                                               dsig), reps=3, warmup=1)
+    # bound: the grids read and their gradient written once, coordinates,
+    # output gradients, weights and their gradients; a point's six products
+    # (h and the output recomputed, d w1, d h, d w0, d f: 2 x 3 x (32*64 +
+    # 64*33)) at the split-TF32 rate, as the forward's row counts its MLP;
+    # the corner lerps and the scatter's products (2 + 2 a corner channel)
+    # and ~200 transcendentals and their derivatives a point at the fp32
+    # rate. The FFMA bound (all of it at 67 TFLOP/s) beside it.
+    n_bytes = 2 * nbytes(planes) + nbytes(coords, drgb, dsig) + 2 * nbytes(*ws)
+    mma_ops = n * 2 * 3 * (32 * 64 + 64 * 33)
+    fp32_ops = n * (3 * 8 * 32 * (2 + 2) + 200)
+    ffma_ms = bound(n_bytes, mma_ops + fp32_ops, f32)[0]
+    row("trigrid_decode_backward", f"{list(planes.shape)}, {n} points",
+        f"max_abs_err {abs_err:.3e} (max_rel_err {max(errs):.3e} over d grids, d w0, d b0, "
+        f"d w1, d b1; tol 1e-4)", ms, pms,
+        (n_bytes, mma_ops, f32, SPLIT_TF32_RATE, ((fp32_ops, PEAK_OPS[f32]),)),
+        launch_ms=launch, extra=f"; FFMA bound {ffma_ms:.4f} ms")
+    del planes, coords, drgb, dsig, got, want
+
+    # K3 backward: the step's sample lists (sorted depths in [2, 3.3]),
+    # gradients of rgb, depth and weights
+    (b, m, s1, c), (_, _, s2, _) = k3
+    d1 = torch.sort(2 + 1.3 * rand((b, m, s1, 1)), dim=2).values
+    d2 = torch.sort(2 + 1.3 * rand((b, m, s2, 1)), dim=2).values
+    c1, c2 = rand((b, m, s1, c)), rand((b, m, s2, c))
+    sg1, sg2 = 5 * randn((b, m, s1, 1)), 5 * randn((b, m, s2, 1))
+    g = (randn((b, m, c)), randn((b, m, 1)), randn((b, m, s1 + s2 - 1, 1)))
+    args = (d1, c1, sg1, d2, c2, sg2, False, *g)
+    with torch.no_grad():
+        got = rr.merge_composite_backward(*args)
+        want = rr.merge_composite_backward_plain(*args)
+        errs = [_rel(x, y) for x, y in zip(got, want)]
+        abs_err = max(max_err(x, y) for x, y in zip(got, want))
+        check(max(errs) <= 1e-4, f"merge_composite_backward disagrees: {errs}")
+        ms = cuda_ms(lambda: rr.merge_composite_backward(*args), reps=5)
+        launch = device_ms(lambda: rr.merge_composite_backward(*args), launches=5, reps=3)
+        pms = cuda_ms(lambda: rr.merge_composite_backward_plain(*args), reps=3, warmup=1)
+    s = s1 + s2
+    row("merge_composite_backward", f"[{b},{m},{s1}+{s2},{c}]",
+        f"max_abs_err {abs_err:.3e} (max_rel_err {max(errs):.3e}, tol 1e-4)", ms, pms,
+        (nbytes(d1, c1, sg1, d2, c2, sg2, *g) + nbytes(c1, sg1, c2, sg2),
+         b * m * (s * c * 4 + s * 40), f32), launch_ms=launch)
+    del d1, d2, c1, c2, sg1, sg2, g, got, want, args
+
+    # K6a backward at each of the step's distinct forwards: the adjoint FIR
+    # (K6a itself) against the plain adjoint; the library call, where one
+    # computes it (a grouped conv or transposed conv), checked to agree
+    for (shape, dtype, up, down, pad, gain), fmeta in sorted(
+            k6a.items(), key=lambda kv: -math.prod(kv[0][0])):
+        f = fmeta[1].to(dev) if fmeta is not None else None
+        x = randn(shape, dtype)
+        y = ufd.upfirdn2d_plain(x, f, up, down, pad, gain)
+        dy = randn(tuple(y.shape), dtype)
+        in_hw = tuple(shape[-2:])
+        with torch.no_grad():
+            got = ufd.upfirdn2d_backward(dy, f, up, down, pad, gain, in_hw)
+            want = ufd.upfirdn2d_backward_plain(dy, f, up, down, pad, gain, in_hw)
+            check(got.shape == x.shape, f"upfirdn2d_backward shape {tuple(got.shape)}")
+            if dtype == bf16:
+                u = bf16_ulps(got, want)
+                check(u <= 2, f"upfirdn2d_backward[{shape}] is {u} bf16 ulps off")
+                err = f"max_abs_err {max_err(got, want):.3e} ({u:g} bf16 ulps, tol 2)"
+            else:
+                e = max_err(got, want)
+                check(e <= 1e-5, f"upfirdn2d_backward[{shape}] disagrees: {e}")
+                err = f"max_abs_err {e:.3e} (tol 1e-5)"
+            call = lambda: ufd.upfirdn2d_backward(dy, f, up, down, pad, gain, in_hw)  # noqa: E731
+            ms, launch = cuda_ms(call), device_ms(call)
+            pms = cuda_ms(lambda: ufd.upfirdn2d_backward_plain(dy, f, up, down, pad, gain,
+                                                               in_hw))
+            # the library call: the gradient of the forward's grouped conv
+            # (up 1, down 1, even pads) or transposed conv (the skip's up2)
+            library, lib = None, None
+            cch = shape[1]
+            w4 = (f * gain).to(dtype)[None, None].expand(cch, 1, 4, 4).contiguous()
+            p4 = pad if isinstance(pad, tuple) else (pad,) * 4
+            if up == 1 and down == 1 and len(set(p4)) == 1:
+                def lib():
+                    return F.conv_transpose2d(dy, torch.flip(w4, (2, 3)), padding=p4[0],
+                                              groups=cch)
+            elif up == 2 and down == 1 and p4 == (2, 1, 2, 1):
+                def lib():
+                    return F.conv2d(dy, w4, stride=2, padding=1, groups=cch)
+            if lib is not None and lib().shape == want.shape and max_err(lib(), want) <= (
+                    1e-5 if dtype == f32 else 0.02 * float(want.float().abs().max())):
+                library = cuda_ms(lib)
+        taps = 16 // up ** 2
+        row("upfirdn2d_backward", f"{list(shape)} {str(dtype)[6:]} up {up} down {down} pad "
+            f"{pad}", err, ms, pms, (nbytes(dy, got), 2 * taps * dy.numel(), dtype),
+            library=library, launch_ms=launch)
+        del x, y, dy, got, want
+
+    # K6b's gradient at each of the step's distinct calls: y from the
+    # forward kernel on N(0, 2^2) inputs (so that lrelu's negative side and
+    # the clamp act), dy N(0,1)
+    for (shape, dtype, act, gain, clamp, axis, has_scale, need_b, need_scale, need_noise) in \
+            sorted(k6b, key=lambda k: -math.prod(k[0])):
+        x = (2 * randn(shape)).to(dtype)
+        bsz, cch = shape[0], shape[1]
+        scale = rand((bsz, cch)) + 0.5 if has_scale else None
+        bias = randn((cch,)) * 0.3
+        with torch.no_grad():
+            y = ba.bias_act(x, bias, act=act, gain=gain, clamp=clamp, axis=axis, scale=scale)
+            dy = randn(shape, dtype)
+            kw = dict(act=act, gain=gain, clamp=clamp, axis=axis, scale=scale, need_b=need_b,
+                      need_scale=need_scale, need_noise=need_noise)
+            got = ba.bias_act_grad(dy, y, x, **kw)
+            want = ba.bias_act_grad_plain(dy, y, x, **kw)
+            if dtype == bf16:
+                u = bf16_ulps(got[0], want[0])
+                check(u <= 2, f"bias_act_grad[{shape}] dx is {u} bf16 ulps off")
+                err = f"max_abs_err {max_err(got[0], want[0]):.3e} (dx {u:g} bf16 ulps, tol 2"
+            else:
+                e = max_err(got[0], want[0])
+                check(e <= 1e-6, f"bias_act_grad[{shape}] dx disagrees: {e}")
+                err = f"max_abs_err {e:.3e} (dx tol 1e-6"
+            # the sums, against the sums of the terms' magnitudes (random
+            # signs cancel): fp32 sums in another order stay within ~n eps
+            mags = ba.bias_act_grad_plain(dy.abs(), y, x.abs(), **kw)
+            sums = [float(((g_ - w_).abs() / m_.clamp_min(1e-30)).max())
+                    for g_, w_, m_ in zip(got[1:], want[1:], mags[1:]) if w_ is not None]
+            if not all(v <= 1e-5 for v in sums):
+                for i, (g_, w_, m_) in enumerate(zip(got[1:], want[1:], mags[1:])):
+                    if w_ is not None:
+                        r = (g_ - w_).abs() / m_.clamp_min(1e-30)
+                        j = int(r.flatten().argmax())
+                        print(f"bias_act_grad[{shape}] sum {i}: at {j} got "
+                              f"{float(g_.flatten()[j])} want {float(w_.flatten()[j])} "
+                              f"magnitude {float(m_.flatten()[j])}; y finite "
+                              f"{bool(torch.isfinite(y).all())}, |y| max {float(y.abs().max())}")
+            check(all(v <= 1e-5 for v in sums), f"bias_act_grad[{shape}] sums disagree: {sums}")
+            err += f"; sums max err / sum of magnitudes {max(sums, default=0):.3e}, tol 1e-5)"
+            call = lambda: ba.bias_act_grad(dy, y, x, **kw)  # noqa: E731
+            ms, launch = cuda_ms(call), device_ms(call)
+            pms = cuda_ms(lambda: ba.bias_act_grad_plain(dy, y, x, **kw))
+        reads = nbytes(dy, y) + (nbytes(x) if need_scale and has_scale else 0)
+        row("bias_act_grad", f"{list(shape)} {str(dtype)[6:]} {act} clamp {clamp} "
+            f"{'scale ' if has_scale else ''}{'db ' if need_b else ''}"
+            f"{'dscale' if need_scale and has_scale else ''}", err, ms, pms,
+            (reads + nbytes(got[0]), 6 * dy.numel(), dtype), launch_ms=launch)
+        del x, y, dy, got, want
+
+    # second derivatives (R1's double backward) through the Functions: for
+    # a discriminator block's epilogue and FIR in bf16 and the epilogue's
+    # fp32 shapes, against autograd's double backward of the plain versions
+    f = ufd.setup_filter([1, 3, 3, 1], device=dev)
+    for shape, dtype in (((4, 64, 128, 128), bf16), ((4, 512, 16, 16), f32)):
+        outs = []
+        for fir, epi in ((ufd.upfirdn2d, ba.bias_act), (ufd.upfirdn2d_plain, ba.bias_act_plain)):
+            g2 = torch.Generator(device=dev).manual_seed(11)
+            x = (2 * torch.randn(shape, device=dev, generator=g2)).to(dtype).requires_grad_(True)
+            bias = (0.3 * torch.randn((shape[1],), device=dev, generator=g2)).requires_grad_(True)
+            h = fir(x, f, padding=(2, 2, 2, 2))
+            y = epi(h, bias, act="lrelu", gain=2 ** 0.5, clamp=256.0, axis=1)
+            dy = torch.randn(tuple(y.shape), device=dev, generator=g2).to(dtype)
+            dy.requires_grad_(True)
+            gx, gb = torch.autograd.grad(y, (x, bias), dy, create_graph=True)
+            vx = torch.randn(tuple(gx.shape), device=dev, generator=g2).to(dtype)
+            vb = torch.randn((shape[1],), device=dev, generator=g2)
+            outs.append(torch.autograd.grad((gx.float() * vx.float()).sum()
+                                            + (gb * vb).sum(), dy)[0])
+        e = _rel(outs[0], outs[1])
+        check(e <= (1e-4 if dtype == f32 else 2e-2),
+              f"second derivative of K6a and K6b [{shape}] {dtype}: {e}")
+        print(f"train second derivative (K6a then K6b, R1's double backward) {list(shape)} "
+              f"{str(dtype)[6:]}: max_rel_err {e:.3e} against the plain versions' "
+              f"(tol {1e-4 if dtype == f32 else 2e-2:g})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _grads_agree(tag: str, got: dict, want: dict, tol: tuple) -> str:
+    """Per parameter, relative to its gradient's largest magnitude floored
+    at 1e-3 of the largest of all (a parameter with ~no gradient is held to
+    that floor); returns the worst, as text."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = (0.0, 0.0, "")
+    for n, w in want.items():
+        g = got[n].to(w.device).float()
+        check(bool(torch.isfinite(g).all()), f"{tag} {n}: non-finite gradient")
+        scale = max(float(w.abs().max()), 1e-3 * top, 1e-30)
+        e, me = max_err(g, w) / scale, mean_err(g, w) / scale
+        check(e <= tol[0] and me <= tol[1], f"{tag} {n}: max {e:.3e} mean {me:.3e} of "
+              f"{scale:.3e} (tol {tol})")
+        worst = max(worst, (e, me, n))
+    return f"worst {worst[2]}: max {worst[0]:.3e} mean {worst[1]:.3e} (tol {tol[0]:g} / " \
+           f"{tol[1]:g})"
+
+
+def phase_train_step(dev: torch.device) -> None:
+    """(b) One training step on the card against the same step on the CPU
+    (the plain versions): a small configuration (final 64^2, render 16^2,
+    8+8 samples, narrow SR head and discriminator, fp32 blocks), the same
+    seeded weights and batch, the card's draws replayed on the CPU. Step 0
+    (density regulariser, src2src, R1) and step 1 (the conditioning
+    regulariser): every loss at 1e-4 relative, every generator and
+    discriminator (with R1) gradient within 5e-2 of its largest magnitude
+    at most and 1e-3 on average (fp32 in both, sums in other orders, the L1
+    regularisers' signs at ~0 differences, and GroupNorms over the 2^2
+    planes of the composite backbone's last stage at this size, where a
+    few elements of a deep layer's gradient move by ~1e-2 while its mean
+    error stays ~1e-5)."""
+    from real3dportrait_tpu_torch.config import load_config, parse_overrides
+    from real3dportrait_tpu_torch.training.tasks.secc_img2plane_task import SeccImg2PlaneTask
+    from real3dportrait_tpu_torch.utils.draws import RecordDraws, ReplayDraws, seeded_draws
+
+    cfg = load_config(os.path.join(ROOT, "configs", TRAIN_CONFIG), parse_overrides(
+        "batch_size=2,final_resolution=64,neural_rendering_resolution=16,"
+        "num_samples_coarse=8,num_samples_fine=8,sr_channel0=32,sr_channel1=16,"
+        "base_channel=1024,max_channel=64,num_fp16_layers_in_discriminator=0,"
+        "num_fp16_layers_in_super_resolution=0,reg_interval_g=2,reg_interval_d=2,"
+        "reg_interval_g_cond=2,update_src2src_interval=2,start_adv_iters=0"))
+    cpu = torch.device("cpu")
+    tasks = {d: SeccImg2PlaneTask(cfg, d) for d in (dev, cpu)}
+    states = {d: tasks[d].build(0) for d in (dev, cpu)}
+    batch = tasks[cpu].synthetic_batch(np.random.RandomState(0))
+    t0 = time.perf_counter()
+    for step in (0, 1):
+        grads, losses, imgs, d_out = {}, {}, {}, {}
+        rec = RecordDraws(seeded_draws(step, dev))
+        for d, draws in ((dev, rec), (cpu, None)):
+            task, st = tasks[d], states[d]
+            st.step = step
+            b = task._maybe_src2src(step, task.to_device(batch))
+            _, losses[d], out, grads[d] = task.g_grads(st, b, draws or ReplayDraws(rec.records))
+            if d == dev:
+                imgs = (out["image"].detach().cpu(), out["image_raw"].detach().cpu())
+            if step == 0:
+                d_out[d] = task.d_grads(st, imgs[0].to(d), imgs[1].to(d), b)
+            del out
+        torch.cuda.synchronize()
+        check(set(losses[dev]) == set(losses[cpu]), "train step: loss names differ")
+        for k, v in losses[cpu].items():
+            g = float(losses[dev][k])
+            check(math.isfinite(g) and abs(g - float(v)) <= 1e-4 * max(abs(float(v)), 1e-6),
+                  f"train step {step}: loss {k} {g} on the card, {float(v)} on the CPU")
+        text = _grads_agree(f"train step {step} generator", grads[dev], grads[cpu], (5e-2, 1e-3))
+        print(f"train step[{step}] card vs CPU: {len(losses[cpu])} losses within 1e-4; "
+              f"generator gradients {text}")
+        if step == 0:
+            (dg, dgr, r1g), (dc, dgc, r1c) = d_out[dev], d_out[cpu]
+            check(abs(float(dg) - float(dc)) <= 1e-4 * abs(float(dc)) and
+                  abs(float(r1g) - float(r1c)) <= 1e-3 * abs(float(r1c)),
+                  f"train step 0: D loss {float(dg)} / {float(dc)}, R1 {float(r1g)} / "
+                  f"{float(r1c)}")
+            text = _grads_agree("train step 0 discriminator (with R1)", dgr, dgc, (5e-2, 1e-3))
+            print(f"train step[0] card vs CPU: D loss {float(dg):.6f} / {float(dc):.6f}, R1 "
+                  f"{float(r1g):.4e} / {float(r1c):.4e}; discriminator gradients {text}")
+    print(f"train step card vs CPU: {time.perf_counter() - t0:.1f} s")
+    del tasks, states
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS
+                ) -> tuple[dict, CallLog]:
+    """(c) The full-width run: ``training.run`` on
+    ``configs/secc_img2plane.yaml`` (b0 SegFormers, depth-3 x 32 tri-grids,
+    128^2 render with 48+48 samples, the 512^2 SR head and dual
+    discriminator with their bf16 resolutions) at the config's batch of 4
+    for 4 steps on synthetic batches, with the launch counters from 0.
+    Checks: every loss finite; every generator group and the discriminator
+    moved (each has a non-zero gate from step 1); every forward and
+    backward kernel of the path launched and no plain version called; the
+    checkpoint it wrote loads into a fresh task with equal parameters,
+    moments and lambdas. Prints ms/step (the median of steps 1-3, after
+    step 0 as a warm-up) and the peak memory. Returns the launches and
+    the record of step 0's kernel calls. ``hparams`` replaces the run's
+    overrides (a tiny configuration rehearses the phase on the CPU)."""
+    from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+    from real3dportrait_tpu_torch.rendering import renderer as rr
+    from real3dportrait_tpu_torch.training import run as trun
+    from real3dportrait_tpu_torch.training.checkpoint import get_all_ckpts, load_checkpoint
+
+    # count the plain versions' calls: on the card none may run
+    plains = [(ba, "bias_act_plain"), (ba, "bias_act_grad_plain"), (ufd, "upfirdn2d_plain"),
+              (ufd, "upfirdn2d_backward_plain"), (dm, "trigrid_decode_plain"),
+              (dm, "trigrid_decode_backward_plain"), (rr, "merge_composite_plain"),
+              (rr, "merge_composite_backward_plain"), (rr, "importance_sample_plain")]
+    plain_calls = {name: 0 for _, name in plains}
+    saved = {}
+    for mod, name in plains:
+        saved[name] = getattr(mod, name)
+
+        def counted(*a, _f=saved[name], _n=name, **k):
+            plain_calls[_n] += 1
+            return _f(*a, **k)
+        setattr(mod, name, counted)
+    argv = ["--config", os.path.join(ROOT, "configs", TRAIN_CONFIG), "--exp_name", "train",
+            "--work_dir_root", out_dir, "--hparams", hparams, "--device", str(dev)]
+    log, times, metrics, init = CallLog(), [], [], {}
+    try:
+        t0 = time.perf_counter()
+        trainer = trun.make_trainer(argv)
+        task = trainer.task
+        build, step_fn = task.build, task.train_step
+
+        def build_and_keep(seed):
+            st = build(seed)
+            for mod in ("gen", "disc"):
+                init[mod] = {n: p.detach().clone() for n, p in getattr(st, mod).named_parameters()}
+            return st
+
+        def timed_step(state, batch, draws):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if state.step == 0:
+                with log:
+                    m = step_fn(state, batch, draws)
+            else:
+                m = step_fn(state, batch, draws)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            metrics.append(m)
+            return m
+
+        task.build, task.train_step = build_and_keep, timed_step
+        reset_launches()
+        for w in train_wrappers().values():
+            w.launches = 0
+            if hasattr(w, "launches_bf16"):
+                w.launches_bf16 = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for mod, name in plains:
+            setattr(mod, name, saved[name])
+    counts = read_launches()
+    counts.update({k: w.launches for k, w in train_wrappers().items()})
+    counts.update({f"{k} bf16": w.launches_bf16 for k, w in train_wrappers().items()
+                   if hasattr(w, "launches_bf16")})
+    check(state.step == 4 and len(times) == 4, f"train: {state.step} steps, {len(times)} timed")
+    host = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    bad = {k: v for k, v in host.items() if not all(math.isfinite(x) for x in v)}
+    check(not bad, f"train: non-finite metrics {bad}")
+    groups = {}
+    for mod in ("gen", "disc"):
+        for n, p in getattr(state, mod).named_parameters():
+            key = mod if mod == "disc" else n.split(".", 1)[0]
+            moved = not torch.equal(p.detach(), init[mod][n])
+            groups[key] = groups.get(key, False) or moved
+    check(all(groups.values()), f"train: groups that did not move: {groups}")
+    path_kernels = ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
+                    "bias_act", *TRAIN_KERNELS)
+    check(all(counts[k] > 0 for k in path_kernels), f"train: launches {counts}")
+    check(counts["upfirdn2d bf16"] > 0 and counts["bias_act_grad bf16"] > 0,
+          f"train: bf16 launches {counts}")
+    check(not any(plain_calls.values()), f"train: plain versions called {plain_calls}")
+    # the checkpoint back into a fresh task
+    ckpts = get_all_ckpts(trainer.work_dir)
+    check(len(ckpts) == 1 and ckpts[0].endswith("model_ckpt_steps_4.ckpt"), f"ckpts {ckpts}")
+    t1 = time.perf_counter()
+    fresh_trainer = trun.make_trainer(argv)
+    fresh = fresh_trainer.task.build(12345)
+    fresh.load_state_dict(load_checkpoint(ckpts[0]))
+    same = fresh.step == state.step
+    for mod in ("gen", "disc", "gen_ema"):
+        a, b = getattr(state, mod).state_dict(), getattr(fresh, mod).state_dict()
+        same = same and list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+    for opt in ("opt_g", "opt_d"):
+        o, f = getattr(state, opt), getattr(fresh, opt)
+        same = same and o.count == f.count and all(
+            torch.equal(o.mu[k], f.mu[k]) and torch.equal(o.nu[k], f.nu[k]) for k in o.mu)
+    same = same and all(torch.equal(state.extra[k], fresh.extra[k]) for k in state.extra)
+    check(same, "train: the checkpoint does not load back to the trained state")
+    t2 = time.perf_counter()
+    step_ms = statistics.median(times[1:]) * 1e3
+    print(f"train run[{TRAIN_CONFIG}, batch 4, 4 steps]: {step_ms:.1f} ms/step (median of steps "
+          f"1-3; step 0 {times[0] * 1e3:.1f} ms; steps {[round(t * 1e3, 1) for t in times]}), "
+          f"peak memory {peak:.2f} GiB, wall {wall:.1f} s; the checkpoint "
+          f"({os.path.getsize(ckpts[0]) / 2 ** 20:.1f} MiB) reloaded equal in {t2 - t1:.1f} s")
+    print(f"train run: losses {json.dumps({k: v for k, v in host.items()})}")
+    print(f"train run: groups moved {groups}; launches over the 4 steps {counts}; plain calls "
+          f"{plain_calls}")
+    counts["ms_per_step"], counts["peak_gib"] = step_ms, peak
+    del state, fresh, trainer, fresh_trainer
+    torch.cuda.empty_cache()
+    return counts, log
+
+
+TRAIN_STEPS = 4
+
+
+def train_row(name: str, counts: dict, rows: dict) -> dict:
+    """A backward kernel's entry of the kernels line: its launches in the
+    full-width training run (its main path) and a step, and its row from
+    ``phase_train_kernels``."""
+    fwd = TRAIN_KERNELS[name]
+    row = dict(name=name, route="cuda", source=SOURCES[fwd], replaces=REPLACES[fwd],
+               launches=counts[name], path="train run (4 steps)",
+               launches_per_step=counts[name] / TRAIN_STEPS, **rows[name])
+    if f"{name} bf16" in counts:
+        row["launches_bf16"] = counts[f"{name} bf16"]
+    return row
+
+
+def run_train_phases(dev: torch.device) -> tuple[dict, dict]:
+    """The training slice: the full-width run (c), then each backward
+    kernel at the run's own calls (a), then the small step on the card
+    against the CPU (b). Returns the run's launches and the kernel rows."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        counts, log = phase_train(dev, out_dir)
+    torch.cuda.synchronize()
+    rows = phase_train_kernels(dev, log)
+    torch.cuda.synchronize()
+    check(set(rows) == set(TRAIN_KERNELS), f"backward kernels measured: {sorted(rows)}")
+    phase_train_step(dev)
+    torch.cuda.synchronize()
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1747,6 +2337,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_reference(dev)
     torch.cuda.synchronize()
+    train_counts, train_rows = run_train_phases(dev)
+    print(f"train summary: {train_counts['ms_per_step']:.1f} ms/step, peak "
+          f"{train_counts['peak_gib']:.2f} GiB; " + "; ".join(
+              f"{k} launch {r['launch_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['launch_ms'] / r['bound_ms']:.2f}x"
+              for k, r in train_rows.items()))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     check(set(rows) == set(REPLACES), f"kernels measured: {sorted(rows)}")
     # each kernel's launches on the main path (run); K1, which the default
@@ -1762,8 +2358,12 @@ def main() -> int:
         if k in BF16_COUNTED:
             launches[k]["launches_bf16"] = counts[f"{k} bf16"]
     check(all(v["launches"] > 0 for v in launches.values()), f"kernels launched: {launches}")
+    for k in ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
+              "bias_act"):
+        launches[k]["train_launches_per_step"] = train_counts[k] / TRAIN_STEPS
     kernels_json = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                          **launches[k], **rows[k]) for k in REPLACES]
+    kernels_json += [train_row(k, train_counts, train_rows) for k in TRAIN_KERNELS]
     print(json.dumps({"kernels": kernels_json}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

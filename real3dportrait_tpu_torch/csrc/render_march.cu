@@ -391,6 +391,191 @@ __global__ void __launch_bounds__(32 * kMergeWarps, 2) merge_composite_kernel(
   }
 }
 
+
+// K3 backward (merge_composite_backward in rendering/renderer.py; the JAX
+// package had jax.grad differentiate _march_merged). Depths take no
+// gradient (the coarse ones come from the camera, K2's are stopped). From
+// the gradients of rgb [R,C], depth [R] and weights [R,S-1] (each may be
+// NULL: zero) it recomputes the merge order and the march and returns the
+// gradients of both lists' colours and densities:
+//   d colour[t] = 2 g_rgb * wc[pos t];  e[t] = sum_c 2 g_rgb[c] colour[t][c];
+//   d w[k] = g_w[k] + (e[k] + e[k+1]) / 2 (merged order)
+//            + g_depth (mid[k] - depth) / sum w  - 2 sum_c g_rgb[c] (white_back);
+//   d alpha[k] = T[k] (d w[k] - R[k]),  R[k] = d w[k+1] alpha[k+1]
+//            + (1 - alpha[k+1] + 1e-10) R[k+1]  (the transmittance's adjoint,
+//            a reverse scan with no division);
+//   d sigma_mid[k] = d alpha[k] exp(-sigma_mid[k] delta[k]) delta[k], through
+//   softplus' = sigmoid to half of each neighbour's density.
+// Bound by bytes, like the forward: both colour lists read once, written
+// once. Design, simple first: a warp a ray, as the forward; the merge as
+// the forward's; the interval quantities lane-parallel with the
+// transmittance by the forward's product scan; e[t] and d colour one lane a
+// channel; the reverse scan on lane 0 (S - 1 steps of a multiply-add).
+__global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_backward_kernel(
+    const float* __restrict__ d1, const float* __restrict__ c1,
+    const float* __restrict__ s1, int S1, const float* __restrict__ d2,
+    const float* __restrict__ c2, const float* __restrict__ s2, int S2, int R, int C,
+    int white_back, const float* __restrict__ g_rgb, const float* __restrict__ g_depth,
+    const float* __restrict__ g_w, float* __restrict__ dc1, float* __restrict__ ds1,
+    float* __restrict__ dc2, float* __restrict__ ds2) {
+  __shared__ float sh_key[kMergeWarps][kMaxS];
+  __shared__ float sh_d[kMergeWarps][kMaxS];
+  __shared__ float sh_s[kMergeWarps][kMaxS];
+  __shared__ float sh_a[kMergeWarps][kMaxS];   // alpha
+  __shared__ float sh_t[kMergeWarps][kMaxS];   // exclusive transmittance
+  __shared__ float sh_w[kMergeWarps][kMaxS];   // weights
+  __shared__ float sh_e[kMergeWarps][kMaxS];   // e, concatenation order
+  __shared__ float sh_g[kMergeWarps][kMaxS];   // d w, then d u
+  __shared__ int sh_pos[kMergeWarps][kMaxS];   // concatenation -> merged
+  __shared__ int sh_src[kMergeWarps][kMaxS];   // merged -> concatenation
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long ray = (long long)blockIdx.x * kMergeWarps + warp;
+  if (ray >= R) return;
+  const int S = S1 + S2;
+  float* key = sh_key[warp];
+  float* md = sh_d[warp];
+  float* ms = sh_s[warp];
+  float* al = sh_a[warp];
+  float* tr = sh_t[warp];
+  float* w = sh_w[warp];
+  float* e = sh_e[warp];
+  float* g = sh_g[warp];
+  int* pos = sh_pos[warp];
+  int* src = sh_src[warp];
+
+  // the merge, as the forward's
+  float dv[kMergeSlots], sv[kMergeSlots];
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    dv[q] = sv[q] = 0.0f;
+    if (t < S) {
+      dv[q] = t < S1 ? d1[ray * S1 + t] : d2[ray * S2 + (t - S1)];
+      sv[q] = t < S1 ? s1[ray * S1 + t] : s2[ray * S2 + (t - S1)];
+    }
+  }
+  float carry = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    if (q * 32 >= S) break;
+    const int t = q * 32 + lane;
+    const int seg = t < S1 ? 0 : S1;
+    float m = dv[q];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, m, off);
+      if (lane >= off && t - off >= seg) m = fmaxf(m, o);
+    }
+    if (q * 32 - 1 >= seg) m = fmaxf(m, carry);
+    carry = __shfl_sync(0xffffffffu, m, 31);
+    if (t < S) key[t] = m;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    if (t < S) {
+      const int p = t < S1 ? t + count_below<false>(key + S1, S2, key[t])
+                           : (t - S1) + count_below<true>(key, S1, key[t]);
+      pos[t] = p;
+      src[p] = t;
+      md[p] = dv[q];
+      ms[p] = sv[q];
+    }
+  }
+  __syncwarp();
+
+  // the march, as the forward's, keeping alpha, T and w
+  float trans = 1.0f, total = 0.0f, dnum = 0.0f;
+  for (int base = 0; base < S - 1; base += 32) {
+    const int k = base + lane;
+    const bool on = k < S - 1;
+    float alpha = 0.0f, mid = 0.0f;
+    if (on) {
+      float delta = md[k + 1] - md[k];
+      float dens = r3dp_softplus((ms[k] + ms[k + 1]) / 2.0f - 1.0f);
+      alpha = 1.0f - expf(-(dens * delta));
+      mid = (md[k] + md[k + 1]) / 2.0f;
+    }
+    float incl = on ? 1.0f - alpha + 1e-10f : 1.0f;
+    for (int off = 1; off < 32; off <<= 1) {
+      float o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl *= o;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 1.0f;
+    const float tk = trans * excl;
+    const float wk = alpha * tk;
+    if (on) {
+      al[k] = alpha;
+      tr[k] = tk;
+      w[k] = wk;
+    }
+    total += wk;
+    dnum += wk * mid;
+    trans *= __shfl_sync(0xffffffffu, incl, 31);
+  }
+  total = warp_sum(total);
+  dnum = warp_sum(dnum);
+  __syncwarp();
+
+  // e[t] and d colour[t], one lane a channel
+  const float* rgb_g = g_rgb ? g_rgb + ray * C : nullptr;
+  float gsum = 0.0f;
+  for (int c = lane; c < C; c += 32) gsum += rgb_g ? 2.0f * rgb_g[c] : 0.0f;
+  gsum = warp_sum(gsum);
+  for (int t = 0; t < S; ++t) {
+    const int p = pos[t];
+    const float wc = ((p > 0 ? w[p - 1] : 0.0f) + (p < S - 1 ? w[p] : 0.0f)) / 2.0f;
+    const float* crow = t < S1 ? c1 + (ray * S1 + t) * C : c2 + (ray * S2 + (t - S1)) * C;
+    float* drow = t < S1 ? dc1 + (ray * S1 + t) * C : dc2 + (ray * S2 + (t - S1)) * C;
+    float part = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float gc = rgb_g ? 2.0f * rgb_g[c] : 0.0f;
+      part += gc * __ldg(crow + c);
+      drow[c] = wc * gc;
+    }
+    part = warp_sum(part);
+    if (lane == 0) e[t] = part;
+  }
+  __syncwarp();
+
+  // d w in merged order
+  const float gd = g_depth ? g_depth[ray] : 0.0f;
+  const float depth = dnum / total;
+  for (int k = lane; k < S - 1; k += 32) {
+    float dw = g_w ? g_w[ray * (S - 1) + k] : 0.0f;
+    dw += (e[src[k]] + e[src[k + 1]]) / 2.0f;
+    if (gd != 0.0f) dw += gd * ((md[k] + md[k + 1]) / 2.0f - depth) / total;
+    if (white_back) dw -= gsum;
+    g[k] = dw;
+  }
+  __syncwarp();
+  // the reverse scan: d alpha[k] = T[k] (d w[k] - R[k]), then d u[k] in g[k]
+  if (lane == 0) {
+    float rk = 0.0f;
+    for (int k = S - 2; k >= 0; --k) {
+      const float dwk = g[k];
+      const float dalpha = tr[k] * (dwk - rk);
+      rk = dwk * al[k] + (1.0f - al[k] + 1e-10f) * rk;
+      const float delta = md[k + 1] - md[k];
+      const float u = (ms[k] + ms[k + 1]) / 2.0f - 1.0f;
+      const float dens = r3dp_softplus(u);
+      g[k] = dalpha * expf(-(dens * delta)) * delta * r3dp_sigmoid(u);
+    }
+  }
+  __syncwarp();
+  // each merged sample's density gets half of its two intervals' d u
+  for (int p = lane; p < S; p += 32) {
+    const float dsig = ((p > 0 ? g[p - 1] : 0.0f) + (p < S - 1 ? g[p] : 0.0f)) / 2.0f;
+    const int t = src[p];
+    if (t < S1)
+      ds1[ray * S1 + t] = dsig;
+    else
+      ds2[ray * S2 + (t - S1)] = dsig;
+  }
+}
+
 }  // namespace
 
 // depths, sigma [R,S] (4 <= S <= 128, sorted depths); u: ray r's NF values
@@ -438,5 +623,26 @@ R3DP_EXPORT int r3dp_merge_composite(const float* d1, const float* c1,
                                       stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R, C,
                                                 white_back, rgb, depth, weights);
   }
+  return (int)cudaGetLastError();
+}
+
+// K3 backward. d1, c1, s1, d2, c2, s2, R, C and white_back as the
+// forward's; g_rgb [R,C], g_depth [R] (before the caller's clip) and g_w
+// [R,S-1], each NULL for zero; dc1, ds1, dc2, ds2 shaped like c1, s1, c2,
+// s2 take the gradients (every element written).
+R3DP_EXPORT int r3dp_merge_composite_backward(const float* d1, const float* c1,
+                                              const float* s1, int S1, const float* d2,
+                                              const float* c2, const float* s2, int S2,
+                                              int R, int C, int white_back,
+                                              const float* g_rgb, const float* g_depth,
+                                              const float* g_w, float* dc1, float* ds1,
+                                              float* dc2, float* ds2, cudaStream_t stream) {
+  if (S1 < 0 || S2 < 0 || S1 + S2 > kMaxS || S1 + S2 < 2 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  if (R > 0)
+    merge_composite_backward_kernel<<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps, 0,
+                                      stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R, C,
+                                                white_back, g_rgb, g_depth, g_w, dc1, ds1,
+                                                dc2, ds2);
   return (int)cudaGetLastError();
 }

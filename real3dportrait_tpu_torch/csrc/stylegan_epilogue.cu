@@ -98,6 +98,16 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// the same rounding on the host (the clamp bound, rounded once per launch)
+template <typename T>
+inline float round_to_host(float v) {
+  return v;
+}
+template <>
+inline float round_to_host<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 constexpr int kMaxTap = 8;
 
 __device__ __forceinline__ int floor_div2(int v) { return (v - (v & 1)) / 2; }
@@ -679,6 +689,93 @@ int bias_act(const T* x, const float* scale, const float* noise, const float* bi
   return (int)cudaGetLastError();
 }
 
+
+// K6b's gradient (bias_act_grad in ops/bias_act.py; no TPU kernel of its
+// own: jax.grad differentiated the XLA epilogue). From the forward's output
+// y and its gradient dy: dz = dy * (gain * act'(y)), 0 where |y| reached the
+// clamp (rounded to T, as the forward rounds it); the activations keep y's
+// sign, so y alone decides act'. dx = dz * d[b,c] (d rounded to T), rounded
+// to T once; the sums in fp32: db[c] = sum dz, dscale[b,c] = sum_hw dz * x,
+// dnoise[hw] = sum_bc dz, each optional (NULL). Bound by bytes like the
+// forward (dy, y and, for dscale, x read once, dx written once). Design,
+// simple first: a CTA walks a strided range of one row (b, c) with scalar
+// loads, so that d[b,c] is read once and each row's sums reduce by warp
+// shuffles into one atomicAdd a warp; dnoise, off the training path (the
+// task runs noise_mode "none"), adds element by element.
+__device__ __forceinline__ float grad_slope(float yv, int act, float gain, float clamp) {
+  const float one = (act == kLinear || yv > 0.0f) ? 1.0f : (act == kLrelu ? 0.2f : 0.0f);
+  const float s = __fmul_rn(one, gain);
+  return clamp >= 0.0f && !(fabsf(yv) < clamp) ? 0.0f : s;
+}
+
+constexpr int kGradThreads = 256, kGradCtasPerRow = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kGradThreads)
+bias_act_grad_rows_kernel(const T* __restrict__ dy, const T* __restrict__ y,
+                          const T* __restrict__ x, const float* __restrict__ scale, int C,
+                          int HW, int act, float gain, float clamp, T* __restrict__ dx,
+                          float* __restrict__ dbias, float* __restrict__ dscale,
+                          float* __restrict__ dnoise) {
+  const int row = blockIdx.y;
+  const long long base = (long long)row * HW;
+  const float s = scale ? round_to<T>(__ldg(scale + row)) : 1.0f;
+  float sum_b = 0.0f, sum_s = 0.0f;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < HW; i += gridDim.x * blockDim.x) {
+    const float dz = __fmul_rn(load_f(dy + base + i),
+                               grad_slope(load_f(y + base + i), act, gain, clamp));
+    sum_b += dz;
+    if (dscale) sum_s += dz * load_f(x + base + i);
+    if (dnoise) atomicAdd(dnoise + i, dz);
+    store_f(dx + base + i, scale ? __fmul_rn(dz, s) : dz);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum_b += __shfl_down_sync(0xffffffffu, sum_b, o);
+    sum_s += __shfl_down_sync(0xffffffffu, sum_s, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (dbias) atomicAdd(dbias + row % C, sum_b);
+    if (dscale) atomicAdd(dscale + row, sum_s);
+  }
+}
+
+// HW = 1 (the [N,C] dense layers): a thread an element, channel i % C
+template <typename T>
+__global__ void __launch_bounds__(kGradThreads)
+bias_act_grad_flat_kernel(const T* __restrict__ dy, const T* __restrict__ y, long long total,
+                          int C, int act, float gain, float clamp, T* __restrict__ dx,
+                          float* __restrict__ dbias) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const float dz = __fmul_rn(load_f(dy + i), grad_slope(load_f(y + i), act, gain, clamp));
+  if (dbias) atomicAdd(dbias + i % C, dz);
+  store_f(dx + i, dz);
+}
+
+template <typename T>
+int bias_act_grad(const T* dy, const T* y, const T* x, const float* scale, long long total,
+                  int C, int HW, int act, float gain, float clamp, T* dx, float* dbias,
+                  float* dscale, float* dnoise, cudaStream_t stream) {
+  if (act < kLinear || act > kLrelu || C < 1 || HW < 1 || total % HW ||
+      (dscale && (!x || !scale)) || (HW == 1 && (scale || dnoise)))
+    return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaGetLastError();
+  const float bound = clamp >= 0.0f ? round_to_host<T>(clamp) : -1.0f;
+  if (HW == 1) {
+    bias_act_grad_flat_kernel<T><<<r3dp_blocks(total, kGradThreads), kGradThreads, 0, stream>>>(
+        dy, y, total, C, act, gain, bound, dx, dbias);
+    return (int)cudaGetLastError();
+  }
+  const long long rows = total / HW;
+  if (rows > 65535) return (int)cudaErrorInvalidValue;
+  unsigned gx = r3dp_blocks(HW, kGradThreads);
+  if (gx > kGradCtasPerRow) gx = kGradCtasPerRow;
+  bias_act_grad_rows_kernel<T><<<dim3(gx, (unsigned)rows), kGradThreads, 0, stream>>>(
+      dy, y, x, scale, C, HW, act, gain, bound, dx, dbias, dscale, dnoise);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [N,H,W] (N = batch x channels); p the plan: the taps (fh, fw <= 8), sep
@@ -711,4 +808,26 @@ R3DP_EXPORT int r3dp_bias_act_bf16(const __nv_bfloat16* x, const float* scale,
                                    int C, int HW, int act, float gain, float clamp,
                                    __nv_bfloat16* y, cudaStream_t stream) {
   return bias_act(x, scale, noise, bias, total, C, HW, act, gain, clamp, y, stream);
+}
+
+// dy, y (and x where dscale is wanted) [B,C,HW] fp32 or bf16, total = B x C
+// x HW, HW = 1 for [N,C]; scale [B,C] fp32 (rounded to the type) or NULL;
+// act, gain and clamp as the forward's (clamp < 0 for none). dx the
+// type's; dbias [C], dscale [B,C], dnoise [HW] fp32, zeroed by the caller,
+// each NULL where not wanted.
+R3DP_EXPORT int r3dp_bias_act_grad(const float* dy, const float* y, const float* x,
+                                   const float* scale, long long total, int C, int HW,
+                                   int act, float gain, float clamp, float* dx, float* dbias,
+                                   float* dscale, float* dnoise, cudaStream_t stream) {
+  return bias_act_grad(dy, y, x, scale, total, C, HW, act, gain, clamp, dx, dbias, dscale,
+                       dnoise, stream);
+}
+
+R3DP_EXPORT int r3dp_bias_act_grad_bf16(const __nv_bfloat16* dy, const __nv_bfloat16* y,
+                                        const __nv_bfloat16* x, const float* scale,
+                                        long long total, int C, int HW, int act, float gain,
+                                        float clamp, __nv_bfloat16* dx, float* dbias,
+                                        float* dscale, float* dnoise, cudaStream_t stream) {
+  return bias_act_grad(dy, y, x, scale, total, C, HW, act, gain, clamp, dx, dbias, dscale,
+                       dnoise, stream);
 }

@@ -302,6 +302,251 @@ int launch(const float* planes, int B, int D, int H, int W, const float* coords,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K1-trigrid backward (trigrid_decode_backward in models/decoder.py; the
+// JAX package had jax.grad differentiate the XLA sampler and decoder). From
+// the gradients of rgb [N,32] and sigma [N] (either may be NULL: zero), it
+// recomputes each point's trilinear samples of the three grids, their mean
+// f, h = softplus(W0 f + b0) and the outputs in fp32 (CUDA cores, no split
+// TF32), takes d rgb through sigmoid * 1.002 - 0.001, and returns
+//   d grids: df / 3 scattered into each grid's 8 corners (the forward's
+//     zero-padding rule: a corner outside adds nothing), by atomicAdd;
+//   d W1 = sum dout (x) h, d b1 = sum dout, d W0 = sum dh' (x) f,
+//     d b0 = sum dh' (dh' = W1^T dout * sigmoid(W0 f + b0)),
+// for the folded weights (the wrapper maps them through the equalised-LR
+// gains). What bounds it: operations, ~12.5k fp32 FMAs a point (the
+// forward's MLP again, its two transposes and the two outer products), and
+// the atomics of the scatter, 3 x 8 corners x 32 channels a point. Design,
+// simple first: a CTA of 256 threads takes tiles of 64 points, four threads
+// a point, each a quarter of every vector (8 channels of f, 16 hidden
+// units, 8-9 outputs), the per-point vectors in shared memory with a row
+// stride of 65 (so that the weight phase reads them without bank
+// conflicts); the weight gradients accumulate in registers over the CTA's
+// tiles, 17 entries a thread, and leave by one atomicAdd an entry a CTA.
+constexpr int kBwThreads = 256, kBwP = 64, kBwS = kBwP + 1;
+constexpr int kOut = kC + 1;                       // sigma + 32 rgb
+constexpr int kBwW = kOut * kHid + kOut + kHid * kC + kHid;  // 4257 gradient entries
+constexpr int kBwPer = (kBwW + kBwThreads - 1) / kBwThreads;
+constexpr int kBwSmemFloats = kHid * kC + kOut * kHid + kHid + kOut +
+                              (kC + kHid + kHid + kOut) * kBwS;
+constexpr int kBwSmemBytes = kBwSmemFloats * 4;
+
+struct Corners {
+  unsigned off[8];
+  float w[8];
+  bool ok[8];
+};
+
+// the 8 corners of (u, v, t) in a [D,H,W,32] grid: the forward's rules
+__device__ __forceinline__ void grid_corners(Corners& c, int D, int H, int W, float u, float v,
+                                             float t) {
+  const float x = unnormalise(u, W), y = unnormalise(v, H), z = unnormalise(t, D);
+  const float x0 = floorf(x), y0 = floorf(y), z0 = floorf(z);
+  const float wx[2] = {1.0f - (x - x0), x - x0};
+  const float wy[2] = {1.0f - (y - y0), y - y0};
+  const float wz[2] = {1.0f - (z - z0), z - z0};
+  const bool xok[2] = {x0 >= 0.0f && x0 <= (float)(W - 1),
+                       x0 + 1.0f >= 0.0f && x0 + 1.0f <= (float)(W - 1)};
+  const bool yok[2] = {y0 >= 0.0f && y0 <= (float)(H - 1),
+                       y0 + 1.0f >= 0.0f && y0 + 1.0f <= (float)(H - 1)};
+  const bool zok[2] = {z0 >= 0.0f && z0 <= (float)(D - 1),
+                       z0 + 1.0f >= 0.0f && z0 + 1.0f <= (float)(D - 1)};
+  const unsigned row_w = (unsigned)W * kC, slice = (unsigned)H * row_w;
+  const unsigned base = (unsigned)(int)z0 * slice + (unsigned)(int)y0 * row_w +
+                        (unsigned)(int)x0 * kC;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int cx = i & 1, cy = (i >> 1) & 1, cz = i >> 2;
+    c.ok[i] = zok[cz] && xok[cx] && yok[cy];
+    c.off[i] = base + cx * kC + cy * row_w + cz * slice;
+    c.w[i] = c.ok[i] ? wx[cx] * wy[cy] * wz[cz] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void atomic_add4(float* p, float4 v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
+    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+#else
+  atomicAdd(p, v.x);
+  atomicAdd(p + 1, v.y);
+  atomicAdd(p + 2, v.z);
+  atomicAdd(p + 3, v.w);
+#endif
+}
+
+__global__ void __launch_bounds__(kBwThreads)
+trigrid_decode_backward_kernel(const float* __restrict__ planes, int B, int D, int H, int W,
+                               const float* __restrict__ coords, long long n_per_batch,
+                               float coord_scale, const float* __restrict__ w0,
+                               const float* __restrict__ b0, const float* __restrict__ w1,
+                               const float* __restrict__ b1, const float* __restrict__ drgb,
+                               const float* __restrict__ dsigma, float* __restrict__ dplanes,
+                               float* __restrict__ dw0, float* __restrict__ db0,
+                               float* __restrict__ dw1, float* __restrict__ db1) {
+  extern __shared__ float sm[];
+  float* sW0 = sm;                   // [64][32]
+  float* sW1 = sW0 + kHid * kC;      // [33][64], row 0 sigma
+  float* sb0 = sW1 + kOut * kHid;    // [64]
+  float* sb1 = sb0 + kHid;           // [33]
+  float* sF = sb1 + kOut;            // [32][65] mean features
+  float* sH = sF + kC * kBwS;        // [64][65] softplus(W0 f + b0)
+  float* sG = sH + kHid * kBwS;      // [64][65] its slope, then dh'
+  float* sO = sG + kHid * kBwS;      // [33][65] d of the outputs before activation
+  for (int i = threadIdx.x; i < kHid * kC; i += kBwThreads) sW0[i] = __ldg(w0 + i);
+  for (int i = threadIdx.x; i < kOut * kHid; i += kBwThreads) sW1[i] = __ldg(w1 + i);
+  for (int i = threadIdx.x; i < kHid; i += kBwThreads) sb0[i] = __ldg(b0 + i);
+  for (int i = threadIdx.x; i < kOut; i += kBwThreads) sb1[i] = __ldg(b1 + i);
+
+  const int p = threadIdx.x % kBwP, q = threadIdx.x / kBwP;  // point of the tile, quarter
+  const long long total = (long long)B * n_per_batch;
+  const long long plane_elems = (long long)D * H * W * kC;
+  const long long n_tiles = (total + kBwP - 1) / kBwP;
+  float acc[kBwPer];
+#pragma unroll
+  for (int r = 0; r < kBwPer; ++r) acc[r] = 0.0f;
+  // this thread's outputs: 9 for quarter 0 (sigma and rgb 0..7), else 8
+  const int o_lo = q == 0 ? 0 : 8 * q + 1, o_hi = 8 * q + 9;
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the weights are staged; the previous tile is read
+    const long long n = tile * kBwP + p;
+    const bool valid = n < total;
+    float px = 0.0f, py = 0.0f, pz = 0.0f;
+    const float* gbase = planes;
+    long long b = 0;
+    if (valid) {
+      px = __ldg(coords + 3 * n + 0) * coord_scale;
+      py = __ldg(coords + 3 * n + 1) * coord_scale;
+      pz = __ldg(coords + 3 * n + 2) * coord_scale;
+      b = B == 1 ? 0 : n / n_per_batch;
+      gbase = planes + b * 3 * plane_elems + 8 * q;
+    }
+    // 1. channels 8q..8q+7 of the mean of the three samples
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = 0.0f;
+    if (valid) {
+#pragma unroll 1
+      for (int k = 0; k < 3; ++k) {
+        const float u = k == 2 ? pz : px, v = k == 0 ? py : (k == 1 ? pz : px),
+                    t = k == 0 ? pz : py;
+        Corners c;
+        grid_corners(c, D, H, W, u, v, t);
+        const float* g = gbase + k * plane_elems;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!c.ok[i]) continue;
+          const float4 a = __ldg(reinterpret_cast<const float4*>(g + c.off[i]));
+          const float4 e = __ldg(reinterpret_cast<const float4*>(g + c.off[i] + 4));
+          f[0] += a.x * c.w[i], f[1] += a.y * c.w[i], f[2] += a.z * c.w[i], f[3] += a.w * c.w[i];
+          f[4] += e.x * c.w[i], f[5] += e.y * c.w[i], f[6] += e.z * c.w[i], f[7] += e.w * c.w[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sF[(8 * q + j) * kBwS + p] = f[j] / 3.0f;
+    __syncthreads();
+    // 2. hidden units 16q..16q+15
+    for (int j = 16 * q; j < 16 * q + 16; ++j) {
+      float a = sb0[j];
+#pragma unroll 8
+      for (int k = 0; k < kC; ++k) a += sW0[j * kC + k] * sF[k * kBwS + p];
+      sH[j * kBwS + p] = r3dp_softplus(a);
+      sG[j * kBwS + p] = r3dp_sigmoid(a);
+    }
+    __syncthreads();
+    // 3. this quarter's outputs and their gradients before the activation
+    for (int o = o_lo; o < o_hi; ++o) {
+      float d = 0.0f;
+      if (valid) {
+        if (o == 0) {
+          d = dsigma ? __ldg(dsigma + n) : 0.0f;
+        } else if (drgb) {
+          float a = sb1[o];
+#pragma unroll 8
+          for (int j = 0; j < kHid; ++j) a += sW1[o * kHid + j] * sH[j * kBwS + p];
+          const float sg = r3dp_sigmoid(a);
+          d = __ldg(drgb + n * kC + (o - 1)) * (1.0f + 2.0f * 0.001f) * (sg * (1.0f - sg));
+        }
+      }
+      sO[o * kBwS + p] = d;
+    }
+    __syncthreads();
+    // 4. dh' = (W1^T dout) * slope, for hidden units 16q..16q+15 (in place)
+    for (int j = 16 * q; j < 16 * q + 16; ++j) {
+      float a = 0.0f;
+#pragma unroll 11
+      for (int o = 0; o < kOut; ++o) a += sW1[o * kHid + j] * sO[o * kBwS + p];
+      sG[j * kBwS + p] *= a;
+    }
+    __syncthreads();
+    // 5. df = W0^T dh' for channels 8q..8q+7, scattered into the corners
+    if (valid) {
+      float df[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float a = 0.0f;
+#pragma unroll 8
+        for (int j = 0; j < kHid; ++j) a += sW0[j * kC + 8 * q + c] * sG[j * kBwS + p];
+        df[c] = a / 3.0f;
+      }
+      float* dbase = dplanes + b * 3 * plane_elems + 8 * q;
+#pragma unroll 1
+      for (int k = 0; k < 3; ++k) {
+        const float u = k == 2 ? pz : px, v = k == 0 ? py : (k == 1 ? pz : px),
+                    t = k == 0 ? pz : py;
+        Corners c;
+        grid_corners(c, D, H, W, u, v, t);
+        float* g = dbase + k * plane_elems;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!c.ok[i]) continue;
+          const float w = c.w[i];
+          atomic_add4(g + c.off[i], make_float4(df[0] * w, df[1] * w, df[2] * w, df[3] * w));
+          atomic_add4(g + c.off[i] + 4, make_float4(df[4] * w, df[5] * w, df[6] * w, df[7] * w));
+        }
+      }
+    }
+    // 6. the weight gradients of this tile's points, into the registers
+#pragma unroll
+    for (int r = 0; r < kBwPer; ++r) {
+      const int e = threadIdx.x + kBwThreads * r;
+      const float* a = nullptr;
+      const float* c = nullptr;
+      if (e < kOut * kHid) {  // dW1[o][j] = sum dout[o] h[j]
+        a = sO + (e / kHid) * kBwS, c = sH + (e % kHid) * kBwS;
+      } else if (e < kOut * kHid + kOut) {  // db1[o]
+        a = sO + (e - kOut * kHid) * kBwS;
+      } else if (e < kOut * kHid + kOut + kHid * kC) {  // dW0[j][k] = sum dh'[j] f[k]
+        const int i = e - kOut * kHid - kOut;
+        a = sG + (i / kC) * kBwS, c = sF + (i % kC) * kBwS;
+      } else if (e < kBwW) {  // db0[j]
+        a = sG + (e - kOut * kHid - kOut - kHid * kC) * kBwS;
+      }
+      if (a == nullptr) continue;
+      float sum = 0.0f;
+      if (c != nullptr) {
+#pragma unroll 8
+        for (int i = 0; i < kBwP; ++i) sum += a[i] * c[i];
+      } else {
+#pragma unroll 8
+        for (int i = 0; i < kBwP; ++i) sum += a[i];
+      }
+      acc[r] += sum;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kBwPer; ++r) {
+    const int e = threadIdx.x + kBwThreads * r;
+    if (e < kOut * kHid) atomicAdd(dw1 + e, acc[r]);
+    else if (e < kOut * kHid + kOut) atomicAdd(db1 + e - kOut * kHid, acc[r]);
+    else if (e < kOut * kHid + kOut + kHid * kC) atomicAdd(dw0 + e - kOut * kHid - kOut, acc[r]);
+    else if (e < kBwW) atomicAdd(db0 + e - kOut * kHid - kOut - kHid * kC, acc[r]);
+  }
+}
+
 }  // namespace
 
 // planes [B,3,H,W,32] fp32 contiguous, a plane under 2^31 floats; coords [B,n_per_batch,3]; packed
@@ -326,6 +571,47 @@ R3DP_EXPORT int r3dp_trigrid_decode(const float* planes, int B, int D, int H, in
   if (D < 1 || (long long)D * H * W * kC >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   return launch<true>(planes, B, D, H, W, coords, n_per_batch, coord_scale, packed, rgb,
                       sigma, stream);
+}
+
+// K1-trigrid backward. planes, coords, n_per_batch and coord_scale as the
+// forward's; w0 [64,32], b0 [64], w1 [33,64], b1 [33] the folded decoder,
+// plain fp32 (row 0 of w1 and entry 0 of b1 sigma); drgb [N,32] and dsigma
+// [N] (N = B * n_per_batch), either NULL for zero; dplanes like planes,
+// 16 B aligned, and dw0, db0, dw1, db1 like the weights, all zeroed by the
+// caller, take the gradients.
+R3DP_EXPORT int r3dp_trigrid_decode_backward(const float* planes, int B, int D, int H, int W,
+                                             const float* coords, long long n_per_batch,
+                                             float coord_scale, const float* w0,
+                                             const float* b0, const float* w1, const float* b1,
+                                             const float* drgb, const float* dsigma,
+                                             float* dplanes, float* dw0, float* db0,
+                                             float* dw1, float* db1, cudaStream_t stream) {
+  if (D < 1 || (long long)D * H * W * kC >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * n_per_batch;
+  if (total <= 0) return (int)cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(trigrid_decode_backward_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kBwSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  static int ctas_per_sm = 0, sms = 0;
+  if (ctas_per_sm == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &ctas_per_sm, trigrid_decode_backward_kernel, kBwThreads, kBwSmemBytes)) !=
+            cudaSuccess)
+      return (int)err;
+    if (ctas_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long n_tiles = (total + kBwP - 1) / kBwP;
+  const long long fit = (long long)ctas_per_sm * sms;
+  trigrid_decode_backward_kernel<<<(unsigned int)(n_tiles < fit ? n_tiles : fit), kBwThreads,
+                                   kBwSmemBytes, stream>>>(
+      planes, B, D, H, W, coords, n_per_batch, coord_scale, w0, b0, w1, b1, drgb, dsigma,
+      dplanes, dw0, db0, dw1, db1);
+  return (int)cudaGetLastError();
 }
 
 R3DP_EXPORT const char* r3dp_error_string(int status) {

@@ -53,7 +53,6 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from real3dportrait_tpu_torch.config import load_config
@@ -64,6 +63,7 @@ from real3dportrait_tpu_torch.kernels import card_line, cuda_ms
 from real3dportrait_tpu_torch.models.torso import mfe_tail
 from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
 from real3dportrait_tpu_torch.rendering.renderer import render_rays
+from real3dportrait_tpu_torch.utils.profiling import kernel_table
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -258,17 +258,11 @@ def profile_preset(config: str, preset: str, dev: torch.device, n_frames: int = 
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
-    # ProfilerStep ranges also appear on the device timeline: not kernels
-    rows = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA
-            and not x.key.startswith("ProfilerStep")]
-    busy = sum(x.self_device_time_total for x in rows) / reps / 1e3
+    busy, table = kernel_table(prof, 20)        # the 20 largest, then the port's
+    busy /= reps
     print(f"[{preset}] profiler: kernel time {busy:.3f} ms/frame, wall {wall:.3f} "
           f"ms/frame, busy share {busy / wall:.3f}")
-    ranked = sorted(rows, key=lambda x: -x.self_device_time_total)
-    # the 20 largest, then the port's own kernels below them (csrc/*.cu
-    # keeps them in anonymous namespaces; PyTorch's sit under at::)
-    port = [x for x in ranked[20:] if "(anonymous namespace)::" in x.key and "at::" not in x.key]
-    for x in ranked[:20] + port:
+    for x in table:
         print(f"[{preset}]   {x.self_device_time_total / reps / 1e3:8.3f} ms/frame "
               f"x{x.count // reps:4d}  {x.key[:100]}")
 
@@ -294,12 +288,12 @@ def profile_batch(pipe, fb: int, steps: int, top: int, convs: int = 0) -> None:
         pipe.synthesize(src, exp, coeffs, **kw)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3 / n
-    rows = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
-    busy = sum(x.self_device_time_total for x in rows) / n / 1e3
+    busy, table = kernel_table(prof, top, port=False)
+    busy /= n
     print(f"[fb={fb}] synthesize {n} frames: {wall:.3f} ms/frame of wall, peak "
           f"{peak:.2f} GiB; profiler: kernel time {busy:.3f} ms/frame in {traced:.3f} ms/frame "
           f"of wall, busy share {busy / traced:.3f} (the per-video caches and SECC maps once)")
-    for x in sorted(rows, key=lambda x: -x.self_device_time_total)[:top]:
+    for x in table:
         print(f"[fb={fb}]   {x.self_device_time_total / n / 1e3:8.3f} ms/frame "
               f"x{x.count / steps:7.1f} a step  {x.key[:110]}")
     if convs:

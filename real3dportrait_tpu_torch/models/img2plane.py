@@ -172,12 +172,16 @@ class OSAvatarImg2Plane(nn.Module):
         return self.superresolution(rgb_image, feature_image, ws, noise_mode=noise_mode), {}
 
     def render_planes(self, planes: torch.Tensor, camera: torch.Tensor,
-                      noise_mode: str = "none", cond: dict | None = None) -> dict:
-        """Volume-render planes under ``camera`` [B,25], then SR."""
+                      noise_mode: str = "none", cond: dict | None = None,
+                      draws=None) -> dict:
+        """Volume-render planes under ``camera`` [B,25], then SR. ``draws``
+        (``utils/draws.Draws``) makes the training render's random depths
+        (the JAX package's ``key``); without it the render is
+        deterministic."""
         c2w, intrinsics = unpack_camera(camera)
         res = self.neural_rendering_resolution
         origins, dirs = sample_rays(c2w, intrinsics, res)
-        out = render_rays(planes, self.decoder, origins, dirs, self.render_options)
+        out = render_rays(planes, self.decoder, origins, dirs, self.render_options, draws)
         b = camera.shape[0]
         feature_image = out["rgb"].reshape(b, res, res, -1)
         depth_image = out["depth"].reshape(b, res, res, 1)
@@ -196,11 +200,21 @@ class OSAvatarImg2Plane(nn.Module):
             **extra,
         }
 
+    def sample_points(self, planes: torch.Tensor, coordinates: torch.Tensor) -> dict:
+        """Decode {'rgb', 'sigma'} at world ``coordinates`` [B or 1,M,3] (the
+        density regulariser's points; a batch of 1 serves every plane)."""
+        if coordinates.shape[0] == 1 and planes.shape[0] > 1:
+            coordinates = coordinates.expand(planes.shape[0], -1, -1)
+        rgb, sigma = self.decoder.decode_points(planes, coordinates,
+                                                self.render_options.box_warp)
+        return {"rgb": rgb, "sigma": sigma}
+
     def synthesis(self, img: torch.Tensor, camera: torch.Tensor,
-                  planes: torch.Tensor | None = None, noise_mode: str = "none") -> dict:
+                  planes: torch.Tensor | None = None, noise_mode: str = "none",
+                  draws=None) -> dict:
         if planes is None:
             planes = self.cal_cano_plane(img)
-        return self.render_planes(planes, camera, noise_mode=noise_mode)
+        return self.render_planes(planes, camera, noise_mode=noise_mode, draws=draws)
 
     def forward(self, img, camera, **kw) -> dict:
         return self.synthesis(img, camera, **kw)
@@ -235,12 +249,13 @@ class OSAvatarSECCImg2Plane(OSAvatarImg2Plane):
     def synthesis(self, img: torch.Tensor | None, camera: torch.Tensor,
                   secc: torch.Tensor | None = None,
                   cano_planes: torch.Tensor | None = None,
-                  noise_mode: str = "none", cond: dict | None = None) -> dict:
+                  noise_mode: str = "none", cond: dict | None = None, draws=None) -> dict:
         if cano_planes is None:
             cano_planes = self.cal_cano_plane(img)
         planes = (self.cal_plane_given_cano(cano_planes, secc)
                   if secc is not None else cano_planes)
-        out = self.render_planes(planes, camera, noise_mode=noise_mode, cond=cond)
+        out = self.render_planes(planes, camera, noise_mode=noise_mode, cond=cond,
+                                 draws=draws)
         out["cano_plane"] = cano_planes
         return out
 

@@ -1,5 +1,7 @@
-"""StyleGAN2 synthesis building blocks (port of the synthesis side of
-``real3dportrait_tpu/models/stylegan2.py``).
+"""StyleGAN2 building blocks (port of ``real3dportrait_tpu/models/stylegan2.py``):
+the synthesis side of the SR heads and the discriminator side of the
+dual discriminator (``MappingNetwork`` without latents, ``MinibatchStdLayer``,
+``DiscriminatorBlock``, ``DiscriminatorEpilogue``).
 
 Parameter names and shapes follow the reference torch modules (which the
 JAX tree reuses): dense weights [out, in], conv weights OIHW. Modulated
@@ -10,7 +12,10 @@ demodulation coefficients are computed in fp32 and the toRGB output joins
 the fp32 skip image.
 
 Internally the convolutions run NCHW; :class:`SynthesisBlock.forward` keeps
-the port's NHWC public layout.
+the port's NHWC public layout. The epilogue's ``fc`` weight takes its input
+flattened in the JAX package's (H, W, C) order, the order its tree holds
+(``tools/convert_torch_ckpt.py:convert_stylegan2_discriminator`` permutes
+the reference's (C, H, W) weight into it).
 """
 
 from __future__ import annotations
@@ -92,18 +97,25 @@ class FullyConnectedLayer(nn.Module):
 
 
 class Conv2dLayer(nn.Module):
-    """Plain (non-modulated) equalized-LR conv; the resampling and clamp
-    options of the reference layer have no caller on the port's path."""
+    """Plain (non-modulated) equalized-LR conv with optional resampling
+    (``up`` / ``down`` through ``conv2d_resample``: kernel K6a and a
+    convolution), bias, activation, gain and clamp (kernel K6b). The
+    weight is cast to the activations' dtype, as the JAX package casts
+    it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 bias: bool = True, activation: str = "linear"):
+                 bias: bool = True, activation: str = "linear", up: int = 1, down: int = 1,
+                 resample_filter: Sequence[int] = (1, 3, 3, 1),
+                 conv_clamp: float | None = None):
         super().__init__()
-        self.activation = activation
+        self.activation, self.up, self.down, self.conv_clamp = activation, up, down, conv_clamp
         self.padding = kernel_size // 2
         self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.register_buffer("resample_filter", setup_filter(resample_filter)
+                             if up > 1 or down > 1 else None, persistent=False)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -112,10 +124,14 @@ class Conv2dLayer(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B,Cin,H,W] -> [B,Cout,H,W]."""
-        x = conv2d_resample(x, self.weight * self.weight_gain, padding=self.padding)
-        return bias_act(x, self.bias, act=self.activation, axis=1)
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+        """x [B,Cin,H,W] -> [B,Cout,H*up/down,W*up/down]."""
+        w = (self.weight * self.weight_gain).to(x.dtype)
+        x = conv2d_resample(x, w, f=self.resample_filter, up=self.up, down=self.down,
+                            padding=self.padding, flip_weight=(self.up == 1))
+        act_gain = ACTIVATIONS[self.activation].def_gain * gain
+        clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=clamp, axis=1)
 
 
 class SynthesisLayer(nn.Module):
@@ -252,3 +268,111 @@ class SynthesisBlock(nn.Module):
             x.permute(0, 3, 1, 2), None if img is None else img.permute(0, 3, 1, 2),
             ws, noise_mode)
         return x.permute(0, 2, 3, 1), None if img is None else img.permute(0, 2, 3, 1)
+
+
+def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
+    return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
+
+
+class MappingNetwork(nn.Module):
+    """Conditioning mapping without latents (``z_dim = 0``), as the dual
+    discriminator uses it: c -> embed -> normalise -> ``num_layers`` lrelu
+    layers at ``lr_multiplier``; no w average (``num_ws`` None)."""
+
+    def __init__(self, c_dim: int, w_dim: int, num_layers: int = 8,
+                 embed_features: int | None = None, activation: str = "lrelu",
+                 lr_multiplier: float = 0.01):
+        super().__init__()
+        embed = embed_features or w_dim
+        self.num_layers = num_layers
+        self.embed = FullyConnectedLayer(c_dim, embed)
+        for i in range(num_layers):
+            setattr(self, f"fc{i}", FullyConnectedLayer(
+                embed if i == 0 else w_dim, w_dim, activation=activation,
+                lr_multiplier=lr_multiplier))
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        x = normalize_2nd_moment(self.embed(c.float()))
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+        return x
+
+
+class MinibatchStdLayer(nn.Module):
+    """Cross-sample std feature, NCHW: sample k is in group k mod (N/G)
+    (torch's ``repeat``, JAX's ``tile``)."""
+
+    def __init__(self, group_size: int | None = 4, num_channels: int = 1):
+        super().__init__()
+        self.group_size, self.num_channels = group_size, num_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        g = min(self.group_size, n) if self.group_size is not None else n
+        f = self.num_channels
+        y = x.reshape(g, n // g, f, c // f, h, w).float()
+        y = y - y.mean(dim=0)
+        y = torch.sqrt(y.square().mean(dim=0) + 1e-8)       # [n/g, F, c/F, H, W]
+        y = y.mean(dim=(2, 3, 4))                            # [n/g, F]
+        y = y.reshape(-1, f, 1, 1).repeat(g, 1, h, w).to(x.dtype)
+        return torch.cat([x, y], dim=1)
+
+
+class DiscriminatorBlock(nn.Module):
+    """Resnet downsampling block (``fromrgb`` where ``in_channels`` is 0),
+    NCHW. ``use_fp16`` runs the block's activations in bf16, as the JAX
+    package does; parameters stay fp32."""
+
+    def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
+                 resolution: int, img_channels: int, conv_clamp: float | None = 256.0,
+                 use_fp16: bool = False):
+        super().__init__()
+        self.in_channels = in_channels
+        self.dtype = torch.bfloat16 if use_fp16 else torch.float32
+        if in_channels == 0:
+            self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
+                                       activation="lrelu", conv_clamp=conv_clamp)
+        self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1, bias=False, down=2)
+        self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, activation="lrelu",
+                                 conv_clamp=conv_clamp)
+        self.conv1 = Conv2dLayer(tmp_channels, out_channels, activation="lrelu", down=2,
+                                 conv_clamp=conv_clamp)
+
+    def forward(self, x: torch.Tensor | None, img: torch.Tensor | None) -> torch.Tensor:
+        if x is not None:
+            x = x.to(self.dtype)
+        if self.in_channels == 0:
+            y = self.fromrgb(img.to(self.dtype))
+            x = x + y if x is not None else y
+        y = self.skip(x, gain=math.sqrt(0.5))
+        x = self.conv0(x)
+        x = self.conv1(x, gain=math.sqrt(0.5))
+        return y + x
+
+
+class DiscriminatorEpilogue(nn.Module):
+    """4x4 head: minibatch std -> conv -> fc -> out, projected on ``cmap``."""
+
+    def __init__(self, in_channels: int, cmap_dim: int, resolution: int = 4,
+                 mbstd_group_size: int = 4, mbstd_num_channels: int = 1,
+                 conv_clamp: float | None = 256.0):
+        super().__init__()
+        self.cmap_dim = cmap_dim
+        self.mbstd = (MinibatchStdLayer(mbstd_group_size, mbstd_num_channels)
+                      if mbstd_num_channels > 0 else None)
+        self.conv = Conv2dLayer(in_channels + mbstd_num_channels, in_channels,
+                                activation="lrelu", conv_clamp=conv_clamp)
+        self.fc = FullyConnectedLayer(in_channels * resolution ** 2, in_channels,
+                                      activation="lrelu")
+        self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim)
+
+    def forward(self, x: torch.Tensor, cmap: torch.Tensor | None = None) -> torch.Tensor:
+        x = x.float()
+        if self.mbstd is not None:
+            x = self.mbstd(x)
+        x = self.conv(x)
+        x = self.fc(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))   # (H, W, C) order
+        x = self.out(x)
+        if self.cmap_dim > 0:
+            x = (x * cmap).sum(dim=1, keepdim=True) / math.sqrt(self.cmap_dim)
+        return x

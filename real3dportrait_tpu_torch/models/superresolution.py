@@ -20,6 +20,18 @@ def resize_bilinear(x: torch.Tensor, size: int, antialias: bool = True) -> torch
     return y.permute(0, 2, 3, 1)
 
 
+def filtered_resizing(x: torch.Tensor, size: int, filter_mode: str = "antialiased"
+                      ) -> torch.Tensor:
+    """NHWC resize of the dual discriminator's raw image: antialiased
+    bilinear (a plain differentiable resize, not kernel K6a), or plain
+    bilinear for ``filter_mode="none"``."""
+    if filter_mode == "antialiased":
+        return resize_bilinear(x, size, antialias=True)
+    if filter_mode == "none":
+        return resize_bilinear(x, size, antialias=False)
+    raise NotImplementedError(filter_mode)
+
+
 class SuperresolutionHybrid8XDC(nn.Module):
     """128 -> 512 SR head: two skip SynthesisBlocks, both in bf16 with
     ``conv_clamp=256`` when ``sr_num_fp16_res > 0``."""

@@ -1,5 +1,5 @@
 """Upsample-FIR-downsample resampling, resampling convolutions and kernel
-K6a (port of ``real3dportrait_tpu/ops/upfirdn2d.py``).
+K6a with its gradient (port of ``real3dportrait_tpu/ops/upfirdn2d.py``).
 
 :func:`upfirdn2d` is the wrapper of kernel K6a
 (``csrc/stylegan_epilogue.cu``), in fp32 or bf16; :func:`upfirdn2d_plain`
@@ -9,6 +9,13 @@ casts them, and the sum is taken in fp32 and rounded once. The kernel's
 taps (:func:`fir_taps`) and the rest of its arguments are computed on the
 host once per filter tensor, gain, type, input shape and resampling
 (:func:`_plan`), so a call launches nothing but the kernel.
+
+On CUDA tensors :func:`upfirdn2d` is a
+``torch.autograd.Function`` whose backward is K6a itself on the flipped
+filter with ``up`` and ``down`` swapped and the adjoint padding
+(:func:`upfirdn2d_backward`, StyleGAN2-ADA's design); the backward calls
+the same Function, so R1's second derivative is K6a again.
+:func:`upfirdn2d_backward_plain` is the adjoint's plain version.
 
 Tensors here are NCHW and conv weights OIHW, PyTorch's own layouts; the
 modules that call these convert from the port's NHWC public layout once.
@@ -157,33 +164,107 @@ def _plan(x: torch.Tensor, f: torch.Tensor | None, up: int, down: int, padding,
 _ENTRY = {torch.float32: "r3dp_upfirdn2d", torch.bfloat16: "r3dp_upfirdn2d_bf16"}
 
 
+def adjoint_padding(f: torch.Tensor | None, up: int, down: int, padding,
+                    in_hw: tuple[int, int], out_hw: tuple[int, int]
+                    ) -> tuple[int, int, int, int]:
+    """The padding of the adjoint of ``upfirdn2d(., f, up, down, padding)``
+    from ``in_hw`` to ``out_hw``: ``upfirdn2d(dy, flip(f), up=down,
+    down=up, padding=adjoint_padding(...))`` maps an output gradient back to
+    the input's shape (StyleGAN2-ADA's ``_upfirdn2d_cuda`` backward)."""
+    fh, fw = (1, 1) if f is None else f.shape
+    px0, _, py0, _ = _parse_padding(padding)
+    (h, w), (ho, wo) = in_hw, out_hw
+    return (fw - px0 - 1, w * up - wo * down + px0 - up + 1,
+            fh - py0 - 1, h * up - ho * down + py0 - up + 1)
+
+
+def _flipped(f: torch.Tensor | None) -> torch.Tensor | None:
+    """``flip(f)``, cached on ``f`` by its version, so that the adjoint's
+    launch plans are cached on one tensor too."""
+    if f is None:
+        return None
+    key = None if f.is_inference() else f._version
+    hit = f.__dict__.get("_k6a_flipped")
+    if hit is None or hit[0] != key:
+        hit = (key, torch.flip(f.detach(), (0, 1)))
+        f.__dict__["_k6a_flipped"] = hit
+    return hit[1]
+
+
+def upfirdn2d_backward_plain(dy: torch.Tensor, f: torch.Tensor | None, up: int = 1,
+                             down: int = 1, padding=0, gain: float = 1.0,
+                             in_hw: tuple[int, int] | None = None) -> torch.Tensor:
+    """Plain PyTorch K6a gradient: the gradient of :func:`upfirdn2d_plain`'s
+    input of spatial size ``in_hw`` from its output's gradient ``dy``, as
+    the adjoint FIR."""
+    pads = adjoint_padding(f, up, down, padding, in_hw, tuple(dy.shape[-2:]))
+    g = None if f is None else torch.flip(f, (0, 1))
+    return upfirdn2d_plain(dy, g, up=down, down=up, padding=pads, gain=gain)
+
+
+class _Upfirdn2d(torch.autograd.Function):
+    """K6a on CUDA tensors; its gradient is K6a itself on the flipped filter
+    (:func:`upfirdn2d_backward`), through this Function again, so every
+    further derivative is K6a too. ``counter`` is the wrapper whose launch
+    count the call adds to."""
+
+    @staticmethod
+    def forward(ctx, x, f, up, down, padding, gain, counter):
+        name = "upfirdn2d"
+        if x.dim() != 4 or up not in (1, 2) or down not in (1, 2):
+            raise ValueError(f"{name}: kernel takes x [B,C,H,W] and up, down in (1, 2); got x "
+                             f"{tuple(x.shape)}, up {up}, down {down}")
+        x = x.contiguous()
+        kernels.require(name, "x", x, (torch.float32, torch.bfloat16))
+        plan, shape = _plan(x, f, up, down, padding, gain)
+        y = x.new_empty(shape)
+        kernels.launch(_ENTRY[x.dtype], x, plan, y)
+        counter.launches += 1
+        counter.launches_bf16 += x.dtype == torch.bfloat16
+        ctx.f, ctx.args = f, (up, down, padding, gain, tuple(x.shape[-2:]))
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return upfirdn2d_backward(dy, ctx.f, *ctx.args), None, None, None, None, None, None
+
+
 def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up: int = 1, down: int = 1,
               padding=0, gain: float = 1.0) -> torch.Tensor:
     """K6a wrapper, same contract as :func:`upfirdn2d_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes fp32 or bf16 NCHW ``x``, a filter up to 8x8 and ``up``,
-    ``down`` of 1 or 2, or raise. ``upfirdn2d.launches`` counts every
+    ``down`` of 1 or 2, or raise; the gradient is K6a's adjoint launch
+    (:func:`upfirdn2d_backward`). ``upfirdn2d.launches`` counts every
     launch, ``launches_bf16`` the bf16 ones among them.
     """
-    if not x.is_cuda and x.device.type == "cpu":
+    if x.device.type == "cpu":
         return upfirdn2d_plain(x, f, up, down, padding, gain)
-    name = "upfirdn2d"
-    if x.dim() != 4 or up not in (1, 2) or down not in (1, 2):
-        raise ValueError(f"{name}: kernel takes x [B,C,H,W] and up, down in (1, 2); got x "
-                         f"{tuple(x.shape)}, up {up}, down {down}")
-    x = x.contiguous()
-    kernels.require(name, "x", x, (torch.float32, torch.bfloat16))
-    plan, shape = _plan(x, f, up, down, padding, gain)
-    y = x.new_empty(shape)
-    kernels.launch(_ENTRY[x.dtype], x, plan, y)
-    upfirdn2d.launches += 1
-    upfirdn2d.launches_bf16 += x.dtype == torch.bfloat16
-    return y
+    return _Upfirdn2d.apply(x, f, up, down, padding, gain, upfirdn2d)
 
 
 upfirdn2d.launches = 0
 upfirdn2d.launches_bf16 = 0
+
+
+def upfirdn2d_backward(dy: torch.Tensor, f: torch.Tensor | None, up: int = 1,
+                       down: int = 1, padding=0, gain: float = 1.0,
+                       in_hw: tuple[int, int] | None = None) -> torch.Tensor:
+    """K6a gradient wrapper, same contract as
+    :func:`upfirdn2d_backward_plain`: K6a's own kernel on the flipped filter
+    with ``up`` and ``down`` swapped and the adjoint padding. CPU tensors
+    take the plain version. ``upfirdn2d_backward.launches`` counts its
+    launches (those of the training step's backward passes, second
+    derivatives included), ``launches_bf16`` the bf16 ones."""
+    if dy.device.type == "cpu":
+        return upfirdn2d_backward_plain(dy, f, up, down, padding, gain, in_hw)
+    pads = adjoint_padding(f, up, down, padding, in_hw, tuple(dy.shape[-2:]))
+    return _Upfirdn2d.apply(dy, _flipped(f), down, up, pads, gain, upfirdn2d_backward)
+
+
+upfirdn2d_backward.launches = 0
+upfirdn2d_backward.launches_bf16 = 0
 
 
 def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2, padding=0,

@@ -16,9 +16,14 @@ Port of ``real3dportrait_tpu/rendering/renderer.py`` (EG3D's
    samples, march and composite; the depth clip to the batch's depth range
    is a reduction over all rays and runs after it, in PyTorch.
 
-The render is the deterministic inference path (midpoint depths, linspace
-``u``); the kernels take ``u`` as an input, so a caller that wants jittered
-sampling owns that randomness.
+Without ``draws`` the render is the deterministic inference path (midpoint
+depths, linspace ``u``). A training render passes ``draws``
+(``utils/draws.py``): jittered stratified depths and K2's sorted uniform
+``u``, the JAX package's two draws, in its order. Gradients reach the
+colours and densities of both sample lists through K3's backward
+(:func:`merge_composite_backward`) and the tri-grids and decoder through
+K1-trigrid's; the depths take none (K2's inputs are detached, as the JAX
+package stops them).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from real3dportrait_tpu_torch import kernels
 from real3dportrait_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
@@ -65,12 +71,14 @@ def sample_from_trigrids(planes: torch.Tensor, coordinates: torch.Tensor,
     return torch.stack(outs, dim=1)
 
 
-def _stratified_depths(ray_start: torch.Tensor, ray_end: torch.Tensor, n: int
-                       ) -> torch.Tensor:
-    """[B,M,1] bounds -> [B,M,n,1] midpoint depths."""
+def _stratified_depths(ray_start: torch.Tensor, ray_end: torch.Tensor, n: int,
+                       draws=None) -> torch.Tensor:
+    """[B,M,1] bounds -> [B,M,n,1] jittered depths (uniform jitter in each
+    bin from ``draws``), or the bins' midpoints without ``draws``."""
     depths = math_utils.broadcast_linspace(ray_start, ray_end, n).movedim(0, 2)
     delta = ((ray_end - ray_start) / (n - 1))[:, :, None, :]
-    return depths + 0.5 * delta
+    jitter = 0.5 if draws is None else draws.uniform(tuple(depths.shape), depths.device)
+    return depths + jitter * delta
 
 
 def _smooth_weights(weights: torch.Tensor) -> torch.Tensor:
@@ -173,49 +181,163 @@ def merge_composite_plain(depths1, colors1, densities1, depths2, colors2, densit
     return rgb * 2.0 - 1.0, depth, weights
 
 
+def merge_composite_backward_plain(depths1, colors1, densities1, depths2, colors2,
+                                   densities2, white_back: bool = False, drgb=None,
+                                   ddepth=None, dweights=None):
+    """Plain PyTorch K3 backward: the inputs of :func:`merge_composite_plain`
+    and the gradients of its (rgb, unclipped depth, weights), each None for
+    zero -> (d colours1, d densities1, d colours2, d densities2), written
+    out (no autograd); depths take no gradient."""
+    b, m, s1, c = colors1.shape
+    s = s1 + colors2.shape[2]
+    all_d = torch.cat([depths1, depths2], dim=-2)[..., 0]
+    order = torch.sort(all_d, dim=-1, stable=True).indices          # merged -> concat
+    md = all_d.gather(-1, order)
+    msig = torch.cat([densities1, densities2], dim=-2)[..., 0].gather(-1, order)
+    colors = torch.cat([colors1, colors2], dim=-2)
+    delta = md[..., 1:] - md[..., :-1]
+    u = (msig[..., :-1] + msig[..., 1:]) / 2 - 1.0
+    dens = F.softplus(u)
+    alpha = 1.0 - torch.exp(-(dens * delta))
+    keep = 1.0 - alpha + 1e-10
+    trans = torch.cumprod(torch.cat([torch.ones_like(keep[..., :1]), keep], -1), -1)[..., :-1]
+    w = alpha * trans
+    zero = torch.zeros_like(w[..., :1])
+    wc = (torch.cat([zero, w], -1) + torch.cat([w, zero], -1)) / 2.0   # merged order
+    g2 = 2.0 * drgb if drgb is not None else torch.zeros((b, m, c), device=colors1.device)
+    inv = torch.argsort(order, dim=-1)                                 # concat -> merged
+    dcolors = wc.gather(-1, inv)[..., None] * g2[:, :, None, :]
+    e = torch.einsum("bmsc,bmc->bms", colors, g2).gather(-1, order)   # merged order
+    dw = (e[..., :-1] + e[..., 1:]) / 2.0
+    if dweights is not None:
+        dw = dw + dweights[..., 0]
+    if ddepth is not None:
+        total = w.sum(-1, keepdim=True)
+        mid = (md[..., :-1] + md[..., 1:]) / 2
+        depth = (w * mid).sum(-1, keepdim=True) / total
+        dw = dw + ddepth * (mid - depth) / total
+    if white_back:
+        dw = dw - g2.sum(-1, keepdim=True)
+    # reverse scan of the transmittance's adjoint
+    rk = torch.zeros_like(dw[..., 0])
+    dalpha = torch.empty_like(dw)
+    for k in range(s - 2, -1, -1):
+        dalpha[..., k] = trans[..., k] * (dw[..., k] - rk)
+        rk = dw[..., k] * alpha[..., k] + keep[..., k] * rk
+    du = dalpha * torch.exp(-(dens * delta)) * delta * torch.sigmoid(u)
+    dz = torch.zeros_like(du[..., :1])
+    dsig = (torch.cat([dz, du], -1) + torch.cat([du, dz], -1)) / 2.0
+    dsig = dsig.gather(-1, inv)[..., None]
+    return dcolors[:, :, :s1], dsig[:, :, :s1], dcolors[:, :, s1:], dsig[:, :, s1:]
+
+
+def merge_composite_backward(depths1, colors1, densities1, depths2, colors2, densities2,
+                             white_back: bool = False, drgb=None, ddepth=None,
+                             dweights=None):
+    """K3 backward wrapper, same contract as
+    :func:`merge_composite_backward_plain`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (fp32, S1 + S2 <= 128) or raise.
+    ``merge_composite_backward.launches`` counts its launches."""
+    if depths1.device.type == "cpu":
+        return merge_composite_backward_plain(depths1, colors1, densities1, depths2, colors2,
+                                              densities2, white_back, drgb, ddepth, dweights)
+    name = "merge_composite_backward"
+    d1, c1, sg1, d2, c2, sg2 = _merge_args(name, depths1, colors1, densities1, depths2,
+                                           colors2, densities2)
+    b, m, s1, c = c1.shape
+    s2 = c2.shape[2]
+    grads = []
+    for arg, t, shape in (("drgb", drgb, (b, m, c)), ("ddepth", ddepth, (b, m, 1)),
+                          ("dweights", dweights, (b, m, s1 + s2 - 1, 1))):
+        if t is not None:
+            t = t.contiguous()
+            kernels.require(name, arg, t)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: {arg} must be {shape}, got {tuple(t.shape)}")
+        grads.append(t)
+    dc1, ds1, dc2, ds2 = (torch.empty_like(t) for t in (c1, sg1, c2, sg2))
+    kernels.launch("r3dp_merge_composite_backward", d1, c1, sg1, s1, d2, c2, sg2, s2, b * m, c,
+                   int(white_back), *grads, dc1, ds1, dc2, ds2)
+    merge_composite_backward.launches += 1
+    return dc1, ds1, dc2, ds2
+
+
+merge_composite_backward.launches = 0
+
+
+def _merge_args(name, *tensors):
+    """The six K3 inputs, contiguous, checked."""
+    args = [t.contiguous() for t in tensors]
+    for arg, t in zip(("depths1", "colors1", "densities1", "depths2", "colors2",
+                       "densities2"), args):
+        kernels.require(name, arg, t)
+    d1, c1, sg1, d2, c2, sg2 = args
+    b, m, s1, c = c1.shape
+    s2 = c2.shape[2]
+    if d1.shape != (b, m, s1, 1) or sg1.shape != d1.shape or d2.shape != (b, m, s2, 1) \
+            or sg2.shape != d2.shape or c2.shape != (b, m, s2, c) \
+            or s1 + s2 > _MAX_SAMPLES:
+        raise ValueError(f"{name}: bad shapes {[tuple(t.shape) for t in args]}")
+    return args
+
+
+class _MergeComposite(torch.autograd.Function):
+    """K3 with its backward kernel; depths take no gradient."""
+
+    @staticmethod
+    def forward(ctx, d1, c1, sg1, d2, c2, sg2, white_back):
+        ctx.save_for_backward(d1, c1, sg1, d2, c2, sg2)
+        ctx.white_back = white_back
+        b, m, s1, c = c1.shape
+        s2 = c2.shape[2]
+        s = s1 + s2
+        rgb = torch.empty((b, m, c), device=d1.device)
+        depth = torch.empty((b, m, 1), device=d1.device)
+        weights = torch.empty((b, m, s - 1, 1), device=d1.device)
+        kernels.launch("r3dp_merge_composite", d1, c1, sg1, s1, d2, c2, sg2, s2, b * m, c,
+                       int(white_back), rgb, depth, weights)
+        merge_composite.launches += 1
+        return rgb, depth, weights
+
+    @staticmethod
+    def backward(ctx, drgb, ddepth, dweights):
+        dc1, ds1, dc2, ds2 = merge_composite_backward(*ctx.saved_tensors, ctx.white_back,
+                                                      drgb, ddepth, dweights)
+        return None, dc1, ds1, None, dc2, ds2, None
+
+
 def merge_composite(depths1, colors1, densities1, depths2, colors2, densities2,
                     white_back: bool = False):
     """K3 wrapper, same contract as :func:`merge_composite_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (fp32, S1 + S2 <= 128) or raise.
+    (fp32, S1 + S2 <= 128) or raise. The call is a
+    ``torch.autograd.Function`` whose backward is
+    :func:`merge_composite_backward`; depths that need a gradient raise.
     """
     if depths1.device.type == "cpu":
         return merge_composite_plain(depths1, colors1, densities1, depths2, colors2,
                                      densities2, white_back)
     name = "merge_composite"
-    b, m, s1, c = colors1.shape
-    s2 = colors2.shape[2]
-    args = [t.contiguous() for t in (depths1, colors1, densities1, depths2, colors2,
-                                     densities2)]
-    for arg, t in zip(("depths1", "colors1", "densities1", "depths2", "colors2",
-                       "densities2"), args):
-        kernels.require(name, arg, t)
-    d1, c1, sg1, d2, c2, sg2 = args
-    if d1.shape != (b, m, s1, 1) or sg1.shape != d1.shape or d2.shape != (b, m, s2, 1) \
-            or sg2.shape != d2.shape or c2.shape != (b, m, s2, c) \
-            or s1 + s2 > _MAX_SAMPLES:
-        raise ValueError(f"{name}: bad shapes {[tuple(t.shape) for t in args]}")
-    s = s1 + s2
-    rgb = torch.empty((b, m, c), device=d1.device)
-    depth = torch.empty((b, m, 1), device=d1.device)
-    weights = torch.empty((b, m, s - 1, 1), device=d1.device)
-    kernels.launch("r3dp_merge_composite", d1, c1, sg1, s1, d2, c2, sg2, s2, b * m, c,
-                   int(white_back), rgb, depth, weights)
-    merge_composite.launches += 1
-    return rgb, depth, weights
+    args = _merge_args(name, depths1, colors1, densities1, depths2, colors2, densities2)
+    if torch.is_grad_enabled() and (args[0].requires_grad or args[3].requires_grad):
+        raise ValueError(f"{name}: depths that need a gradient are not supported")
+    return _MergeComposite.apply(*args, white_back)
 
 
 merge_composite.launches = 0
 
 
 def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
-                ray_directions: torch.Tensor, options: RenderOptions) -> dict[str, Any]:
+                ray_directions: torch.Tensor, options: RenderOptions,
+                draws=None) -> dict[str, Any]:
     """Full two-pass render of tri-planes [B,3,H,W,C] or tri-grids
     [B,3,D,H,W,C] along rays [B,M,3].
 
     ``decoder`` is an ``OSGDecoder`` (its ``decode_points`` is kernel K1 or
-    K1-trigrid, by the planes' rank). Returns ``rgb`` [B,M,C], ``depth``
+    K1-trigrid, by the planes' rank). ``draws`` (``utils/draws.Draws``)
+    makes the training render's jittered depths and K2's random ``u``.
+    Returns ``rgb`` [B,M,C], ``depth``
     [B,M,1], ``weights_sum`` [B,M,1], ``is_ray_valid`` [B,M].
     """
     b, m, _ = ray_origins.shape
@@ -239,13 +361,17 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
                                            options.box_warp)
         return rgb.reshape(b, m, n_s, -1), sigma.reshape(b, m, n_s, 1)
 
-    depths_coarse = _stratified_depths(ray_start, ray_end, options.depth_resolution)
+    depths_coarse = _stratified_depths(ray_start, ray_end, options.depth_resolution, draws)
     colors_coarse, densities_coarse = eval_at(depths_coarse)
 
     n_imp = options.depth_resolution_importance
     if n_imp > 0:
-        u = importance_u(b * m, n_imp, planes.device)
-        depths_fine = importance_sample(depths_coarse, densities_coarse, u)
+        if draws is None:
+            u = importance_u(b * m, n_imp, planes.device)
+        else:
+            # sorted, as the JAX package sorts them: the fine depths come out sorted
+            u = torch.sort(draws.uniform((b * m, n_imp), planes.device), dim=-1).values
+        depths_fine = importance_sample(depths_coarse, densities_coarse.detach(), u)
         colors_fine, densities_fine = eval_at(depths_fine)
         rgb, depth, weights = merge_composite(
             depths_coarse, colors_coarse, densities_coarse,

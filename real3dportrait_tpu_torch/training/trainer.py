@@ -1,0 +1,130 @@
+"""The training loop (port of ``real3dportrait_tpu/training/trainer.py``).
+
+One process drives one device: the step is kept on the host, each step's
+metrics stay on the device and are read back once per ``tb_log_interval``
+steps (one copy of all of them); validation and checkpoints every
+``val_check_interval`` steps and at the end. Checkpoints are the JAX
+package's files (``training/checkpoint.py``); a run restores the newest
+one in its work dir. The JAX trainer's device mesh, multi-host launch,
+terminal tee, code snapshot and validation image dumps are not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+import yaml
+
+from real3dportrait_tpu_torch.training import checkpoint as ckpt
+from real3dportrait_tpu_torch.training.train_state import TrainState
+from real3dportrait_tpu_torch.utils.draws import seeded_draws
+
+
+class MetricLogger:
+    """``metrics.jsonl`` in the work dir, and a line on stdout."""
+
+    def __init__(self, work_dir: str, log_interval: int = 100):
+        os.makedirs(work_dir, exist_ok=True)
+        self.path = os.path.join(work_dir, "metrics.jsonl")
+        self.log_interval = log_interval
+
+    def log(self, step: int, metrics: dict, prefix: str = "train") -> None:
+        rec = {"step": int(step), "prefix": prefix, **{k: float(v) for k, v in metrics.items()}}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        msg = " ".join(f"{k}={float(v):.4g}" for k, v in list(metrics.items())[:8])
+        print(f"| {prefix} step {step}: {msg}", flush=True)
+
+
+def _read(metrics: dict[str, list]) -> dict[str, np.ndarray]:
+    """Every metric's values, read back in one device-to-host copy."""
+    names = list(metrics)
+    stacked = torch.stack([torch.stack([v.float() for v in metrics[k]]) for k in names])
+    host = stacked.cpu().numpy()
+    return dict(zip(names, host))
+
+
+class Trainer:
+    """Drives a task: ``build(seed)``, ``train_step(state, batch, draws)``,
+    ``val_step(state, batch)``, ``to_device(batch)`` and the batch
+    iterators ``train_data()`` / ``val_data()``."""
+
+    def __init__(self, cfg: dict, task, work_dir: str):
+        self.cfg, self.task, self.work_dir = cfg, task, work_dir
+        os.makedirs(work_dir, exist_ok=True)
+        self.logger = MetricLogger(work_dir, int(cfg.get("tb_log_interval", 100)))
+        self.max_updates = int(cfg.get("max_updates", 1000))
+        self.val_check_interval = int(cfg.get("val_check_interval", 2000))
+        self.num_ckpt_keep = int(cfg.get("num_ckpt_keep", 3))
+        self.milestone_interval = int(cfg.get("ckpt_milestone_interval", 100000))
+        self.monitor_mode = cfg.get("valid_monitor_mode", "min")
+        self.monitor_key = cfg.get("valid_monitor_key", "val_loss")
+        self.best_val = np.inf if self.monitor_mode == "min" else -np.inf
+        with open(os.path.join(work_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+
+    def init_or_restore(self, seed: int) -> TrainState:
+        state = self.task.build(seed)
+        restored, path = ckpt.get_last_checkpoint(self.work_dir)
+        if restored is not None:
+            state.load_state_dict(restored)
+            print(f"| restored checkpoint {path} at step {state.step}", flush=True)
+        return state
+
+    def save(self, state: TrainState) -> str:
+        return ckpt.save_checkpoint(self.work_dir, state.step, state.state_dict(),
+                                    num_keep=self.num_ckpt_keep,
+                                    milestone_interval=self.milestone_interval)
+
+    def fit(self) -> TrainState:
+        seed = int(self.cfg.get("seed", 9999))
+        state = self.init_or_restore(seed)
+        # the step's draws: one generator on the device, seeded from the run
+        # seed and the step it starts at
+        draws = seeded_draws(seed * 1000003 + state.step, self.task.device)
+        for _, batch in zip(range(int(self.cfg.get("num_sanity_val_steps", 1))),
+                            self.task.val_data()):
+            self.task.val_step(state, self.task.to_device(batch))
+        train_iter = iter(self.task.train_data())
+        meters: dict[str, list] = {}
+        t0 = time.time()
+        while state.step < self.max_updates:
+            batch = self.task.to_device(next(train_iter))
+            metrics = self.task.train_step(state, batch, draws)
+            for k, v in metrics.items():
+                meters.setdefault(k, []).append(v)
+            step = state.step
+            if step % self.logger.log_interval == 0:
+                host = _read(meters)
+                avg = {k: float(np.mean(v)) for k, v in host.items()}
+                if "total_loss" in host and not np.all(np.isfinite(host["total_loss"])):
+                    print(f"| WARNING: non-finite total_loss near step {step}", flush=True)
+                avg["steps_per_sec"] = self.logger.log_interval / max(time.time() - t0, 1e-9)
+                self.logger.log(step, avg)
+                meters.clear()
+                t0 = time.time()
+            if step % self.val_check_interval == 0:
+                self.run_validation(state)
+                self.save(state)
+        self.save(state)
+        return state
+
+    def run_validation(self, state: TrainState) -> dict:
+        metrics: dict[str, list] = {}
+        for _, batch in zip(range(int(self.cfg.get("eval_max_batches", 10))),
+                            self.task.val_data()):
+            for k, v in self.task.val_step(state, self.task.to_device(batch)).items():
+                metrics.setdefault(k, []).append(v)
+        avg = {k: float(np.mean(v)) for k, v in _read(metrics).items()}
+        self.logger.log(state.step, avg, prefix="val")
+        val = avg.get(self.monitor_key)
+        if val is not None and self.cfg.get("save_best", True):
+            better = val < self.best_val if self.monitor_mode == "min" else val > self.best_val
+            if better:
+                self.best_val = val
+                ckpt.save_best(self.work_dir, state.state_dict())
+        return avg

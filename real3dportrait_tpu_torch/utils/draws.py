@@ -1,0 +1,82 @@
+"""The random draws of a training step.
+
+The JAX package threads ``jax.random`` keys through its training step; the
+port takes one :class:`Draws`, which makes each draw from a
+``torch.Generator`` on the device, in the order the step asks for them:
+the renderer's jittered depths and K2's uniform ``u``
+(``rendering/renderer.py``), the density regulariser's points and their
+perturbation, the SECC perturbation noise (``training/tasks``). The two
+packages' generators give different numbers from one seed, so a test that
+compares them hands the port the JAX package's draws through
+:class:`ReplayDraws`; :class:`RecordDraws` keeps a step's own draws, so
+that the same step on another device replays them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Draws:
+    """Uniform and normal draws from one ``torch.Generator``."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def uniform(self, shape: tuple, device, low: float = 0.0, high: float = 1.0
+                ) -> torch.Tensor:
+        """[shape] fp32, uniform in [low, high)."""
+        u = torch.rand(shape, generator=self.generator, device=device)
+        return u if (low, high) == (0.0, 1.0) else u * (high - low) + low
+
+    def normal(self, shape: tuple, device) -> torch.Tensor:
+        """[shape] fp32, standard normal."""
+        return torch.randn(shape, generator=self.generator, device=device)
+
+
+def seeded_draws(seed: int, device) -> Draws:
+    """:class:`Draws` on a generator of ``device`` seeded with ``seed``."""
+    return Draws(torch.Generator(device=device).manual_seed(int(seed)))
+
+
+class RecordDraws(Draws):
+    """``draws``' draws, passed on and kept in order as (kind, CPU copy)
+    in ``records``."""
+
+    def __init__(self, draws: Draws):
+        self.draws, self.records = draws, []
+
+    def uniform(self, shape, device, low=0.0, high=1.0):
+        v = self.draws.uniform(shape, device, low, high)
+        self.records.append(("uniform", v.cpu()))
+        return v
+
+    def normal(self, shape, device):
+        v = self.draws.normal(shape, device)
+        self.records.append(("normal", v.cpu()))
+        return v
+
+
+class ReplayDraws(Draws):
+    """Recorded draws, (kind, fp32 values) in order, handed out again; a
+    draw of another kind or shape than the next record, or past the last,
+    raises. ``records`` keeps those not yet drawn."""
+
+    def __init__(self, records):
+        self.records = list(records)
+
+    def _next(self, kind: str, shape: tuple, device) -> torch.Tensor:
+        if not self.records:
+            raise RuntimeError(f"a {kind} {tuple(shape)} draw past the recorded ones")
+        k, v = self.records.pop(0)
+        v = torch.as_tensor(v, dtype=torch.float32)
+        if (k, tuple(v.shape)) != (kind, tuple(shape)):
+            raise RuntimeError(f"a {kind} {tuple(shape)} draw where the record holds {k} "
+                               f"{tuple(v.shape)}")
+        return v.to(device)
+
+    def uniform(self, shape, device, low=0.0, high=1.0):
+        return self._next("uniform", shape, device)
+
+    def normal(self, shape, device):
+        return self._next("normal", shape, device)

@@ -2,8 +2,9 @@
 
 ``named_scope`` is ``torch.profiler.record_function``: a span that shows in
 a trace. ``trace_to(log_dir)`` traces the host and the CUDA device into a
-Chrome trace in ``log_dir``. ``Timer`` is the trainer's wall-clock phase
-map, as the JAX package keeps it.
+Chrome trace in ``log_dir``; ``kernel_table`` reads a profile's device
+kernels. ``Timer`` is the trainer's wall-clock phase map, as the JAX
+package keeps it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,23 @@ def trace_to(log_dir: str):
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
+
+
+def kernel_table(prof, top: int, port: bool = True) -> tuple[float, list]:
+    """(the device's kernel time in ms, its ``top`` kernels by self device
+    time and, with ``port``, every other kernel of the port's below them)
+    of a finished ``torch.profiler`` run. ProfilerStep ranges, which also
+    appear on the device timeline, are left out; the port's kernels are
+    those in anonymous namespaces outside ``at::`` (``csrc/*.cu`` keeps
+    them there)."""
+    from torch.autograd import DeviceType
+
+    rows = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA
+            and not x.key.startswith("ProfilerStep")]
+    ranked = sorted(rows, key=lambda x: -x.self_device_time_total)
+    below = [x for x in ranked[top:] if "(anonymous namespace)::" in x.key
+             and "at::" not in x.key] if port else []
+    return sum(x.self_device_time_total for x in rows) / 1e3, ranked[:top] + below
 
 class Timer:
     """Named wall-clock accumulator.

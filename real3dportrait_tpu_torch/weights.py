@@ -117,7 +117,9 @@ def _set(tree: dict, path: list, value) -> None:
     tree[path[-1]] = value
 
 
-def jax_variables_from_torch(model: nn.Module) -> dict[str, dict]:
+def jax_variables_from_torch(model: nn.Module,
+                             state: Mapping[str, torch.Tensor] | None = None
+                             ) -> dict[str, dict]:
     """The port's ``model`` -> the Flax variables of the JAX package's twin
     (``{"params": ..., "noise_const": ...}``, the latter only where the
     model has noise buffers) as nested dicts of numpy arrays: the reverse
@@ -125,10 +127,11 @@ def jax_variables_from_torch(model: nn.Module) -> dict[str, dict]:
     module each parameter belongs to: norms and affines ``scale``,
     embeddings ``embedding``, the StyleGAN layers ``weight``, attention
     projections ``kernel`` in Flax's per-head shapes, every other weight
-    ``kernel``."""
+    ``kernel``. ``state`` (tensors by parameter name, e.g. an optimiser's
+    moments) replaces ``model.state_dict()`` as the values laid out."""
     modules = dict(model.named_modules())
     out: dict[str, dict] = {"params": {}}
-    for name, t in model.state_dict().items():
+    for name, t in (model.state_dict() if state is None else state).items():
         *prefix, leaf = name.split(".")
         a = t.detach().float().cpu().numpy()
         if leaf == "noise_const":

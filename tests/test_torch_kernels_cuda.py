@@ -15,7 +15,12 @@ misaligned views, with no launch but the kernel's; 3D convolutions of kernel 3 a
 sizes, input channels that are no multiple of the step's 8, output
 channels across N tiles, widths across M tiles, split input channels and
 inputs of 1e4 next to 1e-4; the estimator's tail at D = 16 and 2, at
-B = 2 with ragged tiles, and bit-equal from launch to launch). Every test needs a
+B = 2 with ragged tiles, and bit-equal from launch to launch); the training
+slice's backward kernels (K1-trigrid's at odd grid sizes, points outside
+and either output's gradient alone, its Function's gradients reaching the
+decoder's parameters; K3's with ties and white background, through its
+Function; K6a's adjoint at every resampling with its second derivative;
+K6b's gradient with every term, through its Function). Every test needs a
 card and skips without one. On the card (where JAX, which tests/conftest.py imports, is
 not installed):
 
@@ -825,3 +830,173 @@ def test_k7b_two_launches_are_bit_equal(dev):
         again = torso.mfe_tail(*args)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# -- the training slice's backward kernels and autograd Functions ------------------
+
+
+def _rel_close(got, want, tol, what):
+    scale = max(float(want.float().abs().max()), 1e-30)
+    err = float((got.float() - want.float()).abs().max()) / scale
+    assert err <= tol, f"{what}: max err / scale {err:.3e} > {tol}"
+
+
+@pytest.mark.parametrize("b,dhw,n", [(2, (3, 9, 13), 1001), (1, (1, 5, 4), 64)],
+                         ids=["b2_d3_ragged", "d1_one_tile"])
+def test_k1_trigrid_backward_odd_sizes_points_outside(dev, b, dhw, n):
+    # atomics in a run-dependent order: 1e-4 of the largest magnitude
+    g = torch.Generator(device=dev).manual_seed(21)
+    planes = torch.randn((b, 3, *dhw, 32), device=dev, generator=g)
+    coords = 1.4 * (torch.rand((b, n, 3), device=dev, generator=g) - 0.5)
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(2)).to(dev)
+    w0, b0 = dec.net0.folded()
+    w1, b1 = dec.net1.folded()
+    ws = [t.detach() for t in (w0, b0, w1, b1)]
+    drgb = torch.randn((b, n, 32), device=dev, generator=g)
+    dsig = torch.randn((b, n, 1), device=dev, generator=g)
+    from real3dportrait_tpu_torch.models import decoder as dm
+
+    for grads in ((drgb, dsig), (None, dsig), (drgb, None)):
+        k = dm.trigrid_decode_backward(planes, coords, 1.0, *ws, *grads)
+        p = dm.trigrid_decode_backward_plain(planes, coords, 1.0, *ws, *grads)
+        torch.cuda.synchronize()
+        for x, y, name in zip(k, p, ("planes", "w0", "b0", "w1", "b1")):
+            _rel_close(x, y, 1e-4, f"d {name}")
+
+
+def test_k1_trigrid_function_grads_reach_the_parameters(dev):
+    """autograd through the Function: the tri-grids' and every decoder
+    parameter's gradient (the equalised-LR gains applied in the backward)
+    against autograd through the plain version; the packed copy is rebuilt
+    after an in-place update and carries no gradient; coordinates that need
+    a gradient raise."""
+    from real3dportrait_tpu_torch.models import decoder as dm
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    dec = mock_init_(OSGDecoder(32, 64, 32), torch.Generator().manual_seed(3)).to(dev)
+    planes = torch.randn((2, 3, 3, 8, 8, 32), device=dev, generator=g).requires_grad_(True)
+    coords = torch.rand((2, 500, 3), device=dev, generator=g) - 0.5
+    drgb = torch.randn((2, 500, 32), device=dev, generator=g)
+    params = [planes] + list(dec.parameters())
+    for _ in range(2):
+        k = dm.trigrid_decode(planes, coords, 1.0, dec)
+        gk = torch.autograd.grad(k, params, (drgb, torch.ones_like(k[1])))
+        p = dm.trigrid_decode_plain(planes, coords, 1.0, dec)
+        gp = torch.autograd.grad(p, params, (drgb, torch.ones_like(p[1])))
+        for a, b_, i in zip(gk, gp, range(len(gk))):
+            _rel_close(a, b_, 1e-4, f"grad {i}")
+        assert not dec.__dict__["_packed_mlp"][1].requires_grad
+        with torch.no_grad():
+            dec.net0.weight.add_(0.1)      # the cache is keyed by the version: repacked
+    with pytest.raises(ValueError):
+        dm.trigrid_decode(planes, coords.clone().requires_grad_(True), 1.0, dec)
+
+
+@pytest.mark.parametrize("s1,s2,c,white", [(48, 48, 32, False), (7, 13, 12, True),
+                                           (64, 64, 32, False)],
+                         ids=["path", "scalar_white", "128_samples"])
+def test_k3_backward_ties_white_back(dev, s1, s2, c, white):
+    # ties between the lists and repeated depths; fp32 reverse scan:
+    # 1e-4 of the largest magnitude
+    from real3dportrait_tpu_torch.rendering import renderer as rr
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    b, m = 2, 333
+    d1 = torch.sort(2 + torch.rand((b, m, s1, 1), device=dev, generator=g), dim=2).values
+    d2 = torch.sort(2 + torch.rand((b, m, s2, 1), device=dev, generator=g), dim=2).values
+    d2[:, :, 1] = d1[:, :, 2]
+    d2 = torch.sort(d2, dim=2).values
+    cols = [torch.rand((b, m, s, c), device=dev, generator=g) for s in (s1, s2)]
+    sig = [3 * torch.randn((b, m, s, 1), device=dev, generator=g) for s in (s1, s2)]
+    grads = (torch.randn((b, m, c), device=dev, generator=g),
+             torch.randn((b, m, 1), device=dev, generator=g),
+             torch.randn((b, m, s1 + s2 - 1, 1), device=dev, generator=g))
+    args = (d1, cols[0], sig[0], d2, cols[1], sig[1], white)
+    for gr in (grads, (grads[0], None, None), (None, None, grads[2])):
+        k = rr.merge_composite_backward(*args, *gr)
+        p = rr.merge_composite_backward_plain(*args, *gr)
+        torch.cuda.synchronize()
+        for x, y, name in zip(k, p, ("c1", "s1", "c2", "s2")):
+            _rel_close(x, y, 1e-4, f"d {name}")
+    # through the Function: colours and densities only
+    leaves = [cols[0].requires_grad_(True), sig[0].requires_grad_(True)]
+    out = rr.merge_composite(d1, leaves[0], leaves[1], d2, cols[1], sig[1], white)
+    gk = torch.autograd.grad(out, leaves, grads)
+    outp = rr.merge_composite_plain(d1, leaves[0], leaves[1], d2, cols[1], sig[1], white)
+    gp = torch.autograd.grad(outp, leaves, grads)
+    for x, y in zip(gk, gp):
+        _rel_close(x, y, 1e-4, "Function")
+    with pytest.raises(ValueError):
+        rr.merge_composite(d1.requires_grad_(True), *args[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,down,pad", [(1, 1, (2, 1, 2, 1)), (2, 1, (2, 1, 2, 1)),
+                                         (1, 2, (1, 1, 1, 1)), (2, 2, (-3, 1, 2, -2)),
+                                         (1, 1, (2, 2, 2, 2))])
+def test_k6a_backward_and_second_derivative(dev, dtype, up, down, pad):
+    """K6a's adjoint through K6a at every resampling, odd sizes, crops; the
+    Function's gradient and its gradient again against the plain
+    version's; fp32 1e-5, bf16 2 ulps of the output (1e-2 relative)."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    f = ufd.setup_filter([1, 3, 3, 1], device=dev) * (
+        1 + 0.1 * torch.rand((4, 4), device=dev, generator=g))
+    x = torch.randn((2, 5, 21, 19), device=dev, generator=g).to(dtype)
+    y = ufd.upfirdn2d_plain(x, f, up, down, pad, 4)
+    dy = torch.randn(tuple(y.shape), device=dev, generator=g).to(dtype)
+    before = ufd.upfirdn2d_backward.launches
+    k = ufd.upfirdn2d_backward(dy, f, up, down, pad, 4, (21, 19))
+    p = ufd.upfirdn2d_backward_plain(dy, f, up, down, pad, 4, (21, 19))
+    torch.cuda.synchronize()
+    assert ufd.upfirdn2d_backward.launches == before + 1 and k.shape == x.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    _rel_close(k, p, tol, "adjoint")
+    outs = []
+    for fn in (ufd.upfirdn2d, ufd.upfirdn2d_plain):
+        xx = x.clone().requires_grad_(True)
+        v = dy.clone().requires_grad_(True)
+        gx = torch.autograd.grad(fn(xx, f, up, down, pad, 4), xx, v, create_graph=True)[0]
+        w = torch.ones_like(gx)
+        outs.append(torch.autograd.grad(gx, v, w)[0])
+    _rel_close(outs[0], outs[1], tol, "second derivative")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,clamp,terms", [("lrelu", 1.5, "scale+noise"),
+                                             ("relu", None, "none"),
+                                             ("linear", 0.7, "noise"),
+                                             ("lrelu", None, "flat")])
+def test_k6b_grad_every_term(dev, dtype, act, clamp, terms):
+    """dx, db, dscale, dnoise of the gradient kernel against the plain
+    version (rows not a multiple of the vector, the clamp acting); through
+    the Function against autograd of the plain forward."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    flat = terms == "flat"
+    shape = (7, 33) if flat else (2, 3, 13, 11)
+    x = (2 * torch.randn(shape, device=dev, generator=g)).to(dtype)
+    c = shape[1]
+    b = 0.3 * torch.randn((c,), device=dev, generator=g)
+    scale = torch.rand((2, c), device=dev, generator=g) + 0.5 if "scale" in terms else None
+    noise = 0.3 * torch.randn((13, 11), device=dev, generator=g) if "noise" in terms else None
+    axis = -1 if flat else 1
+    kw = dict(act=act, clamp=clamp, axis=axis, scale=scale)
+    with torch.no_grad():
+        y = ba.bias_act(x, b, noise=noise, **kw)
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    flags = dict(need_b=True, need_scale=True, need_noise=noise is not None)
+    k = ba.bias_act_grad(dy, y, x, **kw, **flags)
+    p = ba.bias_act_grad_plain(dy, y, x, **kw, **flags)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b_, name in zip(k, p, ("dx", "db", "dscale", "dnoise")):
+        if b_ is not None:
+            _rel_close(a, b_, tol, name)
+    leaves = [x.clone().requires_grad_(True), b.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for t in (scale, noise) if t is not None]
+    extra = dict(zip([n for n, t in (("scale", scale), ("noise", noise)) if t is not None],
+                     leaves[2:]))
+    outs = [torch.autograd.grad(fn(leaves[0], leaves[1], act=act, clamp=clamp, axis=axis,
+                                   **extra), leaves, dy)
+            for fn in (ba.bias_act, ba.bias_act_plain)]
+    for a, b_ in zip(*outs):
+        _rel_close(a, b_, tol if dtype == torch.float32 else 3e-2, "Function")
