@@ -69,13 +69,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
    conditioning regulariser at step 3) with the launch counters from 0:
    finite losses, every group moved, every forward and backward kernel
    launched and no plain version called, the checkpoint reloaded equal,
-   ms/step and peak memory; then each backward kernel (K1-trigrid, K3, K6a
-   through itself, K6b) against its plain version at the run's own calls,
-   K6a's and K6b's second derivatives, and a small training step on the
-   card against the same step on the CPU.
+   ms/step and peak memory; then ``train_torso``: ``training.run`` on
+   ``configs/secc_img2plane_torso.yaml`` at full width (the standard v2
+   torso) and batch 4 for 4 steps, started from that run's checkpoint by
+   ``init_from_ckpt``: finite losses with the occlusion regularisers, the
+   SR head and the discriminator moved, the head groups bit-equal to the
+   checkpoint's, every forward and backward kernel of the path (K5a, K5b,
+   K7a, K7b and their backwards among them) launched, no plain version
+   called, its checkpoint reloaded equal; then ``train_triplane``: 2 steps
+   of ``configs/real3d_orig/secc_img2plane_orig.yaml`` at batch 1 (K1
+   forward and backward); then each backward kernel (K1-trigrid, K3, K6a
+   through itself, K6b; K7a's weight gradient at every 3D conv of the
+   torso step and its data gradient through K7a, the K5a and K5b adjoints,
+   K7b's backward, K1's on tri-planes) against its plain version at the
+   runs' own calls, K6a's and K6b's second derivatives, and a small
+   training step on the card against the same step on the CPU.
 
 The last lines are the kernels JSON (the backward kernels with their
-launches a training step), the card's name and power limit, and
+launches a step of the training run that is their main path), the card's
+name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -98,6 +110,7 @@ import torch  # noqa: E402
 
 from real3dportrait_tpu_torch.kernels import card_line, cuda_ms, device_ms  # noqa: E402
 from real3dportrait_tpu_torch.training.profile_step import FULL_STEP_HPARAMS  # noqa: E402
+from real3dportrait_tpu_torch.utils.precision import set_fp32_policy  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEFAULT_CONFIG = "secc_img2plane_torso.yaml"
@@ -1721,33 +1734,65 @@ def phase_reference(dev: torch.device) -> None:
 
 # -- the training slice -----------------------------------------------------------
 
-# the four backward kernels: the forward each differentiates (its JAX place
-# is the one the TPU kernel of the forward replaced: jax.grad differentiated
-# it there) and its source
+# the flagship's four backward kernels: the forward each differentiates (its
+# JAX place is the one the TPU kernel of the forward replaced: jax.grad
+# differentiated it there) and its source
 TRAIN_KERNELS = {
     "trigrid_decode_backward": "trigrid_decode",
     "merge_composite_backward": "merge_composite",
     "upfirdn2d_backward": "upfirdn2d",
     "bias_act_grad": "bias_act",
 }
+# the torso stage's backward kernels (K7a's data gradient is K7a itself) and
+# the released lineage's tri-plane one
+TORSO_KERNELS = {
+    "conv3d_weight_grad": "conv3d",
+    "torso_deform_input_backward": "torso_deform_input",
+    "torso_warp_volume_backward": "torso_warp_volume",
+    "mfe_tail_backward": "mfe_tail",
+}
+TRIPLANE_KERNELS = {"triplane_decode_backward": "triplane_decode"}
 TRAIN_CONFIG = "secc_img2plane.yaml"
+TORSO_CONFIG = "secc_img2plane_torso.yaml"
+TRIPLANE_CONFIG = "real3d_orig/secc_img2plane_orig.yaml"
+HEAD_GROUPS = ("img2plane_backbone", "secc_img2plane_backbone", "decoder")
+RUN_HPARAMS = ",tb_log_interval=4,num_sanity_val_steps=0,val_check_interval=100000"
 # the full-width run: a full step from the first (the config's batch of 4,
 # every part of the step on, every generator group training from step 1),
 # 4 steps, the conditioning regulariser at step 3
-TRAIN_HPARAMS = FULL_STEP_HPARAMS + (",max_updates=4,tb_log_interval=4,num_sanity_val_steps=0,"
-                                     "val_check_interval=100000")
+TRAIN_HPARAMS = FULL_STEP_HPARAMS + ",max_updates=4" + RUN_HPARAMS
+TRAIN_STEPS = 4
+# the torso stage: the config's batch of 4 and its own gates (the SR head and
+# the discriminator train), the adversarial term on; it starts from the
+# flagship run's checkpoint (init_from_ckpt, step 4) and takes 4 steps
+TORSO_STEPS = 4
+TORSO_HPARAMS = f"batch_size=4,start_adv_iters=0,max_updates={TRAIN_STEPS + TORSO_STEPS}" + \
+    RUN_HPARAMS
+# the released lineage's SECC stage on tri-planes, at its batch of 1: 2 steps
+TRIPLANE_STEPS = 2
+TRIPLANE_HPARAMS = FULL_STEP_HPARAMS.replace("batch_size=4", "batch_size=1") + \
+    f",max_updates={TRIPLANE_STEPS}" + RUN_HPARAMS
 
 
 def train_wrappers() -> dict:
     """The backward kernels' wrappers by name (their launch counts)."""
-    from real3dportrait_tpu_torch.models.decoder import trigrid_decode_backward
+    from real3dportrait_tpu_torch.models.decoder import (
+        trigrid_decode_backward, triplane_decode_backward)
+    from real3dportrait_tpu_torch.models.torso import (
+        mfe_tail_backward, torso_deform_input_backward, torso_warp_volume_backward)
     from real3dportrait_tpu_torch.ops.bias_act import bias_act_grad
+    from real3dportrait_tpu_torch.ops.conv3d import conv3d_weight_grad
     from real3dportrait_tpu_torch.ops.upfirdn2d import upfirdn2d_backward
     from real3dportrait_tpu_torch.rendering.renderer import merge_composite_backward
 
     return {"trigrid_decode_backward": trigrid_decode_backward,
             "merge_composite_backward": merge_composite_backward,
-            "upfirdn2d_backward": upfirdn2d_backward, "bias_act_grad": bias_act_grad}
+            "upfirdn2d_backward": upfirdn2d_backward, "bias_act_grad": bias_act_grad,
+            "triplane_decode_backward": triplane_decode_backward,
+            "conv3d_weight_grad": conv3d_weight_grad,
+            "torso_deform_input_backward": torso_deform_input_backward,
+            "torso_warp_volume_backward": torso_warp_volume_backward,
+            "mfe_tail_backward": mfe_tail_backward}
 
 
 class CallLog:
@@ -1757,13 +1802,17 @@ class CallLog:
 
     def __init__(self):
         from real3dportrait_tpu_torch.models import decoder as dm
+        from real3dportrait_tpu_torch.models import torso as tm
         from real3dportrait_tpu_torch.ops import bias_act as ba
+        from real3dportrait_tpu_torch.ops import conv3d as c3d
         from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
         from real3dportrait_tpu_torch.rendering import renderer as rr
 
         self.targets = {"trigrid": dm._TrigridDecode, "merge": rr._MergeComposite,
                         "upfirdn2d": ufd._Upfirdn2d, "bias_act": ba._BiasAct,
-                        "bias_act_grad": ba._BiasActGrad}
+                        "bias_act_grad": ba._BiasActGrad, "triplane": dm._TriplaneDecode,
+                        "conv3d": c3d._Conv3D, "deform": tm._TorsoDeformInput,
+                        "warp": tm._TorsoWarpVolume, "mfe_tail": tm._MfeTail}
         self.calls: dict = {k: [] for k in self.targets}
         self.saved: dict = {}
 
@@ -1874,14 +1923,14 @@ def phase_train_kernels(dev: torch.device, log: CallLog) -> dict:
     drgb, dsig = randn((1, n, 32)), randn((1, n, 1))
     with torch.no_grad():
         got = dm.trigrid_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)
-        want = dm.trigrid_decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig)
+        want = dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig)
         errs = [_rel(g, w) for g, w in zip(got, want)]
         abs_err = max(max_err(g, w) for g, w in zip(got, want))
         check(max(errs) <= 1e-4, f"trigrid_decode_backward disagrees: {errs}")
         call = lambda: dm.trigrid_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)  # noqa: E731
         ms, launch = cuda_ms(call, reps=5), device_ms(call, launches=3, reps=3, warmup=1)
-        pms = cuda_ms(lambda: dm.trigrid_decode_backward_plain(planes, coords, 1.0, *ws, drgb,
-                                                               dsig), reps=3, warmup=1)
+        pms = cuda_ms(lambda: dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig),
+                      reps=3, warmup=1)
     # bound: the grids read and their gradient written once, coordinates,
     # output gradients, weights and their gradients; a point's six products
     # (h and the output recomputed, d w1, d h, d w0, d f: 2 x 3 x (32*64 +
@@ -2134,33 +2183,54 @@ def phase_train_step(dev: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS
-                ) -> tuple[dict, CallLog]:
-    """(c) The full-width run: ``training.run`` on
-    ``configs/secc_img2plane.yaml`` (b0 SegFormers, depth-3 x 32 tri-grids,
-    128^2 render with 48+48 samples, the 512^2 SR head and dual
-    discriminator with their bf16 resolutions) at the config's batch of 4
-    for 4 steps on synthetic batches, with the launch counters from 0.
-    Checks: every loss finite; every generator group and the discriminator
-    moved (each has a non-zero gate from step 1); every forward and
-    backward kernel of the path launched and no plain version called; the
-    checkpoint it wrote loads into a fresh task with equal parameters,
-    moments and lambdas. Prints ms/step (the median of steps 1-3, after
-    step 0 as a warm-up) and the peak memory. Returns the launches and
-    the record of step 0's kernel calls. ``hparams`` replaces the run's
+FACEV2V = ("facev2v/occlusion_reg_l1", "facev2v/occlusion_2_reg_l1",
+           "facev2v/occlusion_2_weights_entropy")
+
+
+def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
+                config: str = TRAIN_CONFIG, exp: str = "train", steps: int = TRAIN_STEPS,
+                path_kernels: tuple = ("trigrid_decode", "importance_sample", "merge_composite",
+                                       "upfirdn2d", "bias_act", *TRAIN_KERNELS),
+                frozen: tuple = (), init_from: str | None = None, losses: tuple = (),
+                bf16: bool = True, reload: bool = True) -> tuple[dict, CallLog]:
+    """A full-width run of ``training.run`` on ``configs/<config>`` for
+    ``steps`` steps on synthetic batches, with the launch counters from 0.
+    By default (c): ``configs/secc_img2plane.yaml`` (b0 SegFormers, depth-3
+    x 32 tri-grids, 128^2 render with 48+48 samples, the 512^2 SR head and
+    dual discriminator with their bf16 resolutions) at the config's batch of
+    4 for 4 steps. Checks: every loss finite (``losses`` among them); every
+    generator group and the discriminator moved, but the ``frozen`` groups,
+    which stay bit-equal to the run's start (and, with ``init_from``, a work
+    dir the run starts from by ``init_from_ckpt``, equal to that
+    checkpoint's); every kernel of ``path_kernels`` launched (and a bf16 K6a
+    and K6b where ``bf16``) and no plain version called; with ``reload``,
+    the checkpoint it wrote loads into a fresh task with equal parameters,
+    moments and lambdas. Prints ms/step (the median of the steps after the
+    first, a warm-up) and the peak memory. Returns the launches (with
+    ``ms_per_step``, ``peak_gib`` and the run's ``work_dir``) and the record
+    of the first step's kernel calls. ``hparams`` replaces the run's
     overrides (a tiny configuration rehearses the phase on the CPU)."""
     from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.models import torso as tm
     from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.ops import conv3d as c3d
     from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
     from real3dportrait_tpu_torch.rendering import renderer as rr
     from real3dportrait_tpu_torch.training import run as trun
-    from real3dportrait_tpu_torch.training.checkpoint import get_all_ckpts, load_checkpoint
+    from real3dportrait_tpu_torch.training.checkpoint import (
+        get_all_ckpts, get_last_checkpoint, load_checkpoint)
+    from real3dportrait_tpu_torch.weights import torch_state_dict_from_jax
 
     # count the plain versions' calls: on the card none may run
     plains = [(ba, "bias_act_plain"), (ba, "bias_act_grad_plain"), (ufd, "upfirdn2d_plain"),
               (ufd, "upfirdn2d_backward_plain"), (dm, "trigrid_decode_plain"),
-              (dm, "trigrid_decode_backward_plain"), (rr, "merge_composite_plain"),
-              (rr, "merge_composite_backward_plain"), (rr, "importance_sample_plain")]
+              (dm, "triplane_decode_plain"), (dm, "decode_backward_plain"),
+              (rr, "merge_composite_plain"), (rr, "merge_composite_backward_plain"),
+              (rr, "importance_sample_plain"),
+              (c3d, "conv3d_plain"), (c3d, "conv3d_weight_grad_plain"),
+              (tm, "torso_deform_input_plain"), (tm, "torso_deform_input_backward_plain"),
+              (tm, "torso_warp_volume_plain"), (tm, "torso_warp_volume_backward_plain"),
+              (tm, "mfe_tail_plain"), (tm, "mfe_tail_backward_plain")]
     plain_calls = {name: 0 for _, name in plains}
     saved = {}
     for mod, name in plains:
@@ -2170,17 +2240,19 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS
             plain_calls[_n] += 1
             return _f(*a, **k)
         setattr(mod, name, counted)
-    argv = ["--config", os.path.join(ROOT, "configs", TRAIN_CONFIG), "--exp_name", "train",
-            "--work_dir_root", out_dir, "--hparams", hparams, "--device", str(dev)]
+    over = hparams + (f",init_from_ckpt={init_from}" if init_from else "")
+    argv = ["--config", os.path.join(ROOT, "configs", config), "--exp_name", exp,
+            "--work_dir_root", out_dir, "--hparams", over, "--device", str(dev)]
     log, times, metrics, init = CallLog(), [], [], {}
     try:
         t0 = time.perf_counter()
         trainer = trun.make_trainer(argv)
         task = trainer.task
-        build, step_fn = task.build, task.train_step
+        start_fn, step_fn = trainer.init_or_restore, task.train_step
 
-        def build_and_keep(seed):
-            st = build(seed)
+        def start_and_keep(seed):
+            st = start_fn(seed)
+            init["step"] = st.step
             for mod in ("gen", "disc"):
                 init[mod] = {n: p.detach().clone() for n, p in getattr(st, mod).named_parameters()}
             return st
@@ -2188,7 +2260,7 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS
         def timed_step(state, batch, draws):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            if state.step == 0:
+            if not times:
                 with log:
                     m = step_fn(state, batch, draws)
             else:
@@ -2198,7 +2270,7 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS
             metrics.append(m)
             return m
 
-        task.build, task.train_step = build_and_keep, timed_step
+        trainer.init_or_restore, task.train_step = start_and_keep, timed_step
         reset_launches()
         for w in train_wrappers().values():
             w.launches = 0
@@ -2217,84 +2289,354 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS
     counts.update({k: w.launches for k, w in train_wrappers().items()})
     counts.update({f"{k} bf16": w.launches_bf16 for k, w in train_wrappers().items()
                    if hasattr(w, "launches_bf16")})
-    check(state.step == 4 and len(times) == 4, f"train: {state.step} steps, {len(times)} timed")
+    end_step = init["step"] + steps
+    check(state.step == end_step and len(times) == steps,
+          f"{exp}: {state.step} steps from {init['step']}, {len(times)} timed")
     host = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
     bad = {k: v for k, v in host.items() if not all(math.isfinite(x) for x in v)}
-    check(not bad, f"train: non-finite metrics {bad}")
+    check(not bad, f"{exp}: non-finite metrics {bad}")
+    check(all(f"g/{k}" in host for k in losses), f"{exp}: losses {sorted(host)}")
     groups = {}
     for mod in ("gen", "disc"):
         for n, p in getattr(state, mod).named_parameters():
             key = mod if mod == "disc" else n.split(".", 1)[0]
             moved = not torch.equal(p.detach(), init[mod][n])
             groups[key] = groups.get(key, False) or moved
-    check(all(groups.values()), f"train: groups that did not move: {groups}")
-    path_kernels = ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
-                    "bias_act", *TRAIN_KERNELS)
-    check(all(counts[k] > 0 for k in path_kernels), f"train: launches {counts}")
-    check(counts["upfirdn2d bf16"] > 0 and counts["bias_act_grad bf16"] > 0,
-          f"train: bf16 launches {counts}")
-    check(not any(plain_calls.values()), f"train: plain versions called {plain_calls}")
-    # the checkpoint back into a fresh task
+    check(all(v == (k not in frozen) for k, v in groups.items()),
+          f"{exp}: groups moved {groups}, frozen {frozen}")
+    if init_from:
+        src = torch_state_dict_from_jax({"params": get_last_checkpoint(init_from)[0][
+            "params"]["gen"]})
+        same = [torch.equal(p.detach().cpu(), src[n]) for n, p in state.gen.named_parameters()
+                if n.split(".", 1)[0] in frozen]
+        check(same and all(same), f"{exp}: frozen groups differ from {init_from}'s checkpoint")
+    check(all(counts[k] > 0 for k in path_kernels), f"{exp}: launches {counts}")
+    if bf16:
+        check(counts["upfirdn2d bf16"] > 0 and counts["bias_act_grad bf16"] > 0,
+              f"{exp}: bf16 launches {counts}")
+    check(not any(plain_calls.values()), f"{exp}: plain versions called {plain_calls}")
     ckpts = get_all_ckpts(trainer.work_dir)
-    check(len(ckpts) == 1 and ckpts[0].endswith("model_ckpt_steps_4.ckpt"), f"ckpts {ckpts}")
-    t1 = time.perf_counter()
-    fresh_trainer = trun.make_trainer(argv)
-    fresh = fresh_trainer.task.build(12345)
-    fresh.load_state_dict(load_checkpoint(ckpts[0]))
-    same = fresh.step == state.step
-    for mod in ("gen", "disc", "gen_ema"):
-        a, b = getattr(state, mod).state_dict(), getattr(fresh, mod).state_dict()
-        same = same and list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
-    for opt in ("opt_g", "opt_d"):
-        o, f = getattr(state, opt), getattr(fresh, opt)
-        same = same and o.count == f.count and all(
-            torch.equal(o.mu[k], f.mu[k]) and torch.equal(o.nu[k], f.nu[k]) for k in o.mu)
-    same = same and all(torch.equal(state.extra[k], fresh.extra[k]) for k in state.extra)
-    check(same, "train: the checkpoint does not load back to the trained state")
-    t2 = time.perf_counter()
+    check(len(ckpts) == 1 and ckpts[0].endswith(f"model_ckpt_steps_{end_step}.ckpt"),
+          f"ckpts {ckpts}")
+    reloaded = ""
+    if reload:
+        # the checkpoint back into a fresh task
+        t1 = time.perf_counter()
+        fresh_trainer = trun.make_trainer(argv)
+        fresh = fresh_trainer.task.build(12345)
+        fresh.load_state_dict(load_checkpoint(ckpts[0]))
+        same = fresh.step == state.step
+        for mod in ("gen", "disc", "gen_ema"):
+            a, b = getattr(state, mod).state_dict(), getattr(fresh, mod).state_dict()
+            same = same and list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+        for opt in ("opt_g", "opt_d"):
+            o, f = getattr(state, opt), getattr(fresh, opt)
+            same = same and o.count == f.count and all(
+                torch.equal(o.mu[k], f.mu[k]) and torch.equal(o.nu[k], f.nu[k]) for k in o.mu)
+        same = same and all(torch.equal(state.extra[k], fresh.extra[k]) for k in state.extra)
+        check(same, f"{exp}: the checkpoint does not load back to the trained state")
+        reloaded = f"; the checkpoint ({os.path.getsize(ckpts[0]) / 2 ** 20:.1f} MiB) " \
+                   f"reloaded equal in {time.perf_counter() - t1:.1f} s"
+        del fresh, fresh_trainer
     step_ms = statistics.median(times[1:]) * 1e3
-    print(f"train run[{TRAIN_CONFIG}, batch 4, 4 steps]: {step_ms:.1f} ms/step (median of steps "
-          f"1-3; step 0 {times[0] * 1e3:.1f} ms; steps {[round(t * 1e3, 1) for t in times]}), "
-          f"peak memory {peak:.2f} GiB, wall {wall:.1f} s; the checkpoint "
-          f"({os.path.getsize(ckpts[0]) / 2 ** 20:.1f} MiB) reloaded equal in {t2 - t1:.1f} s")
-    print(f"train run: losses {json.dumps({k: v for k, v in host.items()})}")
-    print(f"train run: groups moved {groups}; launches over the 4 steps {counts}; plain calls "
-          f"{plain_calls}")
+    start = f" from {init_from}'s checkpoint (step {init['step']})" if init_from else ""
+    print(f"{exp} run[{config}, {steps} steps{start}]: {step_ms:.1f} ms/step (median of steps "
+          f"2-{steps}; first {times[0] * 1e3:.1f} ms; steps {[round(t * 1e3, 1) for t in times]})"
+          f", peak memory {peak:.2f} GiB, wall {wall:.1f} s{reloaded}")
+    print(f"{exp} run: losses {json.dumps({k: v for k, v in host.items()})}")
+    print(f"{exp} run: groups moved {groups}; launches over the {steps} steps {counts}; plain "
+          f"calls {plain_calls}")
     counts["ms_per_step"], counts["peak_gib"] = step_ms, peak
-    del state, fresh, trainer, fresh_trainer
+    counts["work_dir"] = trainer.work_dir
+    del state, trainer
     torch.cuda.empty_cache()
     return counts, log
 
 
-TRAIN_STEPS = 4
+def _meta_shape(meta) -> tuple:
+    """The shape of a recorded tensor argument (``CallLog._meta``)."""
+    return tuple(meta[1]) if meta[0] == "T" else tuple(meta[1].shape)
 
 
-def train_row(name: str, counts: dict, rows: dict) -> dict:
+def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> dict:
+    """(b) Each backward kernel of the torso stage and the tri-plane one
+    against its plain version, at the calls of the runs' first steps
+    (``log``: the torso run; ``tri_log``: the tri-plane run): K7a's weight
+    gradient at every distinct 3D conv of the step (and the mask conv inside
+    K7b), K7a's data gradient at the fuser, K5a's and K5b's adjoints, K7b's
+    backward, K1's on one frame's coarse + fine points. Tolerances: fp32
+    sums in another order, with atomics in a run-dependent order, 1e-4 of
+    the largest magnitude (K5a's and K5b's adjoints, sums of at most 8 x 5
+    terms, 1e-5). Each row: the per-call and per-launch time, the plain
+    version's, the bound (bytes over 3.35 TB/s, operations over the fp32
+    peak; K7a's data gradient, on the tensor cores, at the split-TF32 rate;
+    K1's MLP as the tri-grid row counts it) and, where one PyTorch call
+    computes the same function (cuDNN's weight and data gradients,
+    ``grid_sampler_3d_backward``), its time."""
+    from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.models import torso as tm
+    from real3dportrait_tpu_torch.ops import conv3d as c3d
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f32 = torch.float32
+    rows: dict = {}
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    def errors(got, want):
+        """(largest error relative to each output's largest magnitude, largest
+        absolute error) over the outputs."""
+        pairs = list(zip(got, want))
+        return [_rel(g, wv) for g, wv in pairs], max(max_err(g, wv) for g, wv in pairs)
+
+    def row(name, tag, errs, ms, launch, pms, cost, library=None, tol=1e-4, **extra):
+        rel, abs_err = errs
+        check(max(rel) <= tol, f"{name}[{tag}] disagrees: {rel}")
+        bound_ms, bound_by = bound(*cost)
+        lib = "null" if library is None else f"{library:.4f} ms"
+        print(f"train {name}[{tag}]: max_abs_err {abs_err:.3e} (max_rel_err {max(rel):.3e}, tol "
+              f"{tol:g}) per launch {launch:.4f} ms, per call {ms:.4f} ms plain {pms:.4f} ms "
+              f"library {lib} bound {bound_ms:.4f} ms ({bound_by})"
+              f"{''.join(f'; {k} {v}' for k, v in extra.items())}")
+        rows.setdefault(name, dict(shape=tag, dtype="float32", max_abs_err=abs_err,
+                                   max_rel_err=max(rel), ms=ms, plain_ms=pms,
+                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library,
+                                   launch_ms=launch, **extra))
+        return bound_ms
+
+    def times(fn, heavy=False):
+        return (cuda_ms(fn, reps=3, warmup=1),
+                device_ms(fn, launches=3 if heavy else 10, reps=3, warmup=1))
+
+    # K7a's weight gradient at the step's distinct 3D convs (the count of
+    # each in a step), the mask conv in K7b's backward among them
+    convs: dict = {}
+    for c in log.calls["conv3d"]:
+        key = (_meta_shape(c[0]), _meta_shape(c[1]))
+        convs[key] = convs.get(key, 0) + 1
+    tail = log.calls["mfe_tail"][0]
+    key = (_meta_shape(tail[0]), _meta_shape(tail[1]))
+    convs[key] = convs.get(key, 0) + len(log.calls["mfe_tail"])
+    step_ms = step_lib = step_bound = 0.0
+    first = None
+    for (xs, ws), n in sorted(convs.items(), key=lambda kv: -c3d.conv3d_ops(
+            kv[0][0][1], kv[0][1][0], *kv[0][0][2:], kv[0][1][-1], kv[0][0][0])):
+        b, ci, d, h, w = xs
+        co, k = ws[0], ws[-1]
+        x, dy = randn(*xs), randn(b, co, d, h, w)
+        with torch.no_grad():
+            got = c3d.conv3d_weight_grad(x, dy, k)
+            want = c3d.conv3d_weight_grad_plain(x, dy, k)
+            errs = errors(got, want)
+            ms, launch = times(lambda: c3d.conv3d_weight_grad(x, dy, k), heavy=True)
+            pms = cuda_ms(lambda: c3d.conv3d_weight_grad_plain(x, dy, k), reps=3, warmup=1)
+        # the least time is on the tensor cores in split TF32, as for K7a's
+        # forward and data gradient; the kernel runs on FFMA (that bound beside)
+        ops = c3d.conv3d_ops(ci, co, d, h, w, k, b)
+        cost = (nbytes(x, dy, *got), ops, f32, SPLIT_TF32_RATE)
+        bnd = bound(*cost)[0]
+        step_ms, step_lib, step_bound = step_ms + n * launch, step_lib + n * pms, \
+            step_bound + n * bnd
+        tag = f"x {list(xs)} -> {co}, k {k}, {n} a step"
+        if first is None:
+            first = (tag, errs, ms, launch, pms, cost, x, dy, ws)
+        else:
+            print(f"train conv3d_weight_grad[{tag}]: max_abs_err {errs[1]:.3e} (max_rel_err "
+                  f"{max(errs[0]):.3e}, tol 1e-4) per launch {launch:.4f} ms, per call "
+                  f"{ms:.4f} ms, cuDNN (plain and library) {pms:.4f} ms, bound {bnd:.4f} ms "
+                  f"(split TF32; FFMA {bound(*cost[:3])[0]:.4f} ms)")
+            check(max(errs[0]) <= 1e-4, f"conv3d_weight_grad[{tag}] disagrees: {errs}")
+        del x, dy, got, want
+    tag, errs, ms, launch, pms, cost, x, dy, ws = first
+    # K7a's data gradient at the same call: K7a on the flipped taps
+    wt = randn(*ws) / math.sqrt(ws[1] * ws[-1] ** 3)
+    with torch.no_grad():
+        dx = c3d.conv3d_data_grad(dy, wt)
+        dlib = lambda: torch.nn.grad.conv3d_input(x.shape, wt, dy, padding=ws[-1] // 2)  # noqa: E731
+        derr = _rel(dx, dlib())
+        check(derr <= 1e-4, f"conv3d data gradient disagrees: {derr}")
+        dms, dlaunch = times(lambda: c3d.conv3d_data_grad(dy, wt), heavy=True)
+        dlib_ms = cuda_ms(dlib, reps=3, warmup=1)
+    dbound = bound(nbytes(dy, wt, dx), c3d.conv3d_ops(ws[0], ws[1], *x.shape[2:], ws[-1],
+                                                       x.shape[0]), f32, SPLIT_TF32_RATE)[0]
+    print(f"train conv3d data gradient (K7a)[{tag}]: max_rel_err {derr:.3e} (tol 1e-4) per "
+          f"launch {dlaunch:.4f} ms, per call {dms:.4f} ms, cuDNN {dlib_ms:.4f} ms, bound "
+          f"{dbound:.4f} ms (operations, split TF32)")
+    row("conv3d_weight_grad", tag, errs, ms, launch, pms, cost, library=pms,
+        ffma_bound_ms=bound(*cost[:3])[0], step_launch_ms=step_ms, step_library_ms=step_lib,
+        step_bound_ms=step_bound,
+        shapes=len(convs), data_grad_launch_ms=dlaunch, data_grad_ms=dms,
+        data_grad_library_ms=dlib_ms, data_grad_bound_ms=dbound, data_grad_rel_err=derr)
+    del x, dy, wt, dx
+
+    # K5a's adjoint at the step's call
+    c = log.calls["deform"][0]
+    vol_shape, kps = _meta_shape(c[0]), _meta_shape(c[1])
+    b, d, h, w, ch = vol_shape
+    k1 = kps[1] + 1
+    kp_s, kp_d = rand(*kps) * 1.6 - 0.8, rand(*kps) * 1.6 - 0.8
+    dout = randn(b, k1 * (1 + ch), d, h, w)
+    vol = randn(*vol_shape)
+    with torch.no_grad():
+        got = tm.torso_deform_input_backward(dout, kp_s, kp_d, vol_shape)
+        want = tm.torso_deform_input_backward_plain(dout, kp_s, kp_d, vol_shape)
+        ms, launch = times(lambda: tm.torso_deform_input_backward(dout, kp_s, kp_d, vol_shape))
+        pms = cuda_ms(lambda: tm.torso_deform_input_backward_plain(dout, kp_s, kp_d,
+                                                                   vol_shape), reps=3)
+        # the library call: grid_sample's 3D backward with the candidates
+        # stacked along the output's depth
+        grid = tm.create_sparse_motions(kp_s, kp_d, d, h, w).reshape(b, k1 * d, h, w, 3)
+        gout = dout.reshape(b, k1, 1 + ch, d, h, w)[:, :, 1:].transpose(1, 2).reshape(
+            b, ch, k1 * d, h, w).contiguous()
+        vin = vol.permute(0, 4, 1, 2, 3).contiguous()
+
+        def lib():
+            return torch.ops.aten.grid_sampler_3d_backward(gout, vin, grid, 0, 0, True,
+                                                           [True, False])[0]
+        lerr = _rel(lib().permute(0, 2, 3, 4, 1), want)
+        check(lerr <= 1e-4, f"grid_sampler_3d_backward (zeros) disagrees: {lerr}")
+        lms = cuda_ms(lib)
+    n_out = b * k1 * ch * d * h * w
+    row("torso_deform_input_backward", f"{list(vol_shape)}, K+1 = {k1}", errors([got], [want]), ms,
+        launch, pms, (4 * n_out + nbytes(got, kp_s, kp_d), 16 * n_out, f32), library=lms,
+        tol=1e-5)
+    del dout, vol, got, want, grid, gout, vin
+
+    # K5b's adjoint at the step's call, a deformation near the identity
+    c = log.calls["warp"][0]
+    fs_shape = _meta_shape(c[0])
+    b, d, h, w, ch = fs_shape
+    fs = randn(*fs_shape)
+    base = tm.make_coordinate_grid_3d(d, h, w, dev)[None].expand(b, -1, -1, -1, -1)
+    deform = (base + 0.05 * randn(b, d, h, w, 3)).contiguous()
+    dout = randn(b, ch * d, h, w)
+    with torch.no_grad():
+        got = tm.torso_warp_volume_backward(fs, deform, dout)
+        want = tm.torso_warp_volume_backward_plain(fs, deform, dout)
+        errs = errors(got, want)
+        ms, launch = times(lambda: tm.torso_warp_volume_backward(fs, deform, dout))
+        pms = cuda_ms(lambda: tm.torso_warp_volume_backward_plain(fs, deform, dout), reps=3)
+        gout, vin = dout.view(b, ch, d, h, w), fs.permute(0, 4, 1, 2, 3).contiguous()
+
+        def lib():
+            return torch.ops.aten.grid_sampler_3d_backward(gout, vin, deform, 0, 1, True,
+                                                           [True, True])
+        lg = lib()
+        lerr = max(_rel(lg[0].permute(0, 2, 3, 4, 1), want[0]), _rel(lg[1], want[1]))
+        check(lerr <= 1e-4, f"grid_sampler_3d_backward (border) disagrees: {lerr}")
+        lms = cuda_ms(lib)
+    row("torso_warp_volume_backward", f"{list(fs_shape)}", errs, ms, launch, pms,
+        (nbytes(dout, fs, deform, *got), b * d * h * w * ch * 8 * 4, f32), library=lms,
+        tol=1e-5)
+    del fs, deform, dout, got, want, gout, vin, lg
+
+    # K7b's backward at the step's call
+    shapes = [_meta_shape(a) for a in tail[:7]]
+    b, ch, d, h, w = shapes[0]
+    x = randn(*shapes[0])
+    mw, mb = 0.01 * randn(*shapes[1]), 0.1 * randn(*shapes[2])
+    ow, ob = 0.01 * randn(*shapes[3]), 0.1 * randn(*shapes[4])
+    kp_s, kp_d = rand(*shapes[5]) * 1.6 - 0.8, rand(*shapes[6]) * 1.6 - 0.8
+    with torch.no_grad():
+        _, occ1, occ2 = tm.mfe_tail(x, mw, mb, ow, ob, kp_s, kp_d)
+        mask = torch.softmax(torch.nn.functional.conv3d(x, mw, mb, padding=3), dim=1)
+        ddef, g1, g2 = randn(b, d, h, w, 3), randn(b, h, w, 1), randn(b, h, w, 1)
+        args = (x, mw, ow, kp_s, kp_d, mask, occ1, occ2, ddef, g1, g2)
+        got = tm.mfe_tail_backward(*args)
+        want = tm.mfe_tail_backward_plain(*args)
+        errs = errors(got, want)
+        ms, launch = times(lambda: tm.mfe_tail_backward(*args), heavy=True)
+        pms = cuda_ms(lambda: tm.mfe_tail_backward_plain(*args), reps=3, warmup=1)
+    # the mask conv's data and weight gradients and the occlusion heads'
+    # (convolutions all): the least time is on the tensor cores in split
+    # TF32; the weight gradient and the heads run on FFMA (that bound beside)
+    k1 = shapes[1][0]
+    ops = 2 * c3d.conv3d_ops(ch, k1, d, h, w, 7, b) + 2 * 2 * 2 * 49 * ch * d * b * h * w
+    n_bytes = nbytes(x, mask, ddef, g1, g2, occ1, occ2, *got)
+    row("mfe_tail_backward", f"x {list(shapes[0])}, K+1 = {k1}", errs, ms, launch, pms,
+        (n_bytes, ops, f32, SPLIT_TF32_RATE), ffma_bound_ms=bound(n_bytes, ops, f32)[0])
+    del x, mask, ddef, g1, g2, got, want, args
+
+    # K1's backward on tri-planes: one frame of the tri-plane run's planes,
+    # the frame's coarse + fine points (uniform in the box)
+    c = tri_log.calls["triplane"][0]
+    pshape = (1,) + _meta_shape(c[0])[1:]
+    n = 2 * _meta_shape(c[1])[1]
+    planes, coords = randn(*pshape), rand(1, n, 3) - 0.5
+    dec = dm.OSGDecoder(32, 64, 32).to(dev)
+    with torch.no_grad():
+        for prm in dec.parameters():
+            prm.copy_(randn(*prm.shape) * 0.3)
+        ws = [t.detach() for t in (*dec.net0.folded(), *dec.net1.folded())]
+        drgb, dsig = randn(1, n, 32), randn(1, n, 1)
+        got = dm.triplane_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)
+        want = dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig)
+        errs = errors(got, want)
+        call = lambda: dm.triplane_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)  # noqa: E731
+        ms, launch = times(call, heavy=True)
+        pms = cuda_ms(lambda: dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig),
+                      reps=3, warmup=1)
+    n_bytes = 2 * nbytes(planes) + nbytes(coords, drgb, dsig) + 2 * nbytes(*ws)
+    mma_ops = n * 2 * 3 * (32 * 64 + 64 * 33)
+    fp32_ops = n * (3 * 4 * 32 * (2 + 2) + 200)
+    row("triplane_decode_backward", f"{list(pshape)}, {n} points", errs, ms, launch, pms,
+        (n_bytes, mma_ops, f32, SPLIT_TF32_RATE, ((fp32_ops, PEAK_OPS[f32]),)),
+        ffma_bound_ms=bound(n_bytes, mma_ops + fp32_ops, f32)[0])
+    del planes, coords, drgb, dsig, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_row(name: str, fwd: str, counts: dict, rows: dict, steps: int, path: str) -> dict:
     """A backward kernel's entry of the kernels line: its launches in the
-    full-width training run (its main path) and a step, and its row from
-    ``phase_train_kernels``."""
-    fwd = TRAIN_KERNELS[name]
+    training run that is its main path and a step, and its row from
+    ``phase_train_kernels`` or ``phase_torso_kernels``."""
     row = dict(name=name, route="cuda", source=SOURCES[fwd], replaces=REPLACES[fwd],
-               launches=counts[name], path="train run (4 steps)",
-               launches_per_step=counts[name] / TRAIN_STEPS, **rows[name])
+               launches=counts[name], path=f"{path} ({steps} steps)",
+               launches_per_step=counts[name] / steps, **rows[name])
     if f"{name} bf16" in counts:
         row["launches_bf16"] = counts[f"{name} bf16"]
     return row
 
 
-def run_train_phases(dev: torch.device) -> tuple[dict, dict]:
-    """The training slice: the full-width run (c), then each backward
-    kernel at the run's own calls (a), then the small step on the card
-    against the CPU (b). Returns the run's launches and the kernel rows."""
+def run_train_phases(dev: torch.device) -> tuple[dict, dict, dict, dict]:
+    """The training slices: the flagship's full-width run (c), the torso
+    stage's run started from its checkpoint (``train_torso``, with
+    ``init_from_ckpt``), the released lineage's tri-plane run
+    (``train_triplane``), then each backward kernel at the runs' own calls
+    (a, b), then the small flagship step on the card against the CPU.
+    Returns the three runs' launches and the kernel rows."""
+    torso_kernels = ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
+                     "bias_act", "torso_deform_input", "torso_warp_volume", "conv3d",
+                     "mfe_tail", *TRAIN_KERNELS, *TORSO_KERNELS)
     with tempfile.TemporaryDirectory() as out_dir:
         counts, log = phase_train(dev, out_dir)
+        torch.cuda.synchronize()
+        torso_counts, torso_log = phase_train(
+            dev, out_dir, TORSO_HPARAMS, TORSO_CONFIG, "train_torso", TORSO_STEPS,
+            path_kernels=torso_kernels, frozen=HEAD_GROUPS, init_from=counts["work_dir"],
+            losses=FACEV2V)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as out_dir:
+        tri_counts, tri_log = phase_train(
+            dev, out_dir, TRIPLANE_HPARAMS, TRIPLANE_CONFIG, "train_triplane", TRIPLANE_STEPS,
+            path_kernels=("triplane_decode", "triplane_decode_backward"), bf16=False,
+            reload=False)
     torch.cuda.synchronize()
     rows = phase_train_kernels(dev, log)
     torch.cuda.synchronize()
     check(set(rows) == set(TRAIN_KERNELS), f"backward kernels measured: {sorted(rows)}")
+    rows.update(phase_torso_kernels(dev, torso_log, tri_log))
+    torch.cuda.synchronize()
+    check(set(rows) == {*TRAIN_KERNELS, *TORSO_KERNELS, *TRIPLANE_KERNELS},
+          f"backward kernels measured: {sorted(rows)}")
     phase_train_step(dev)
     torch.cuda.synchronize()
-    return counts, rows
+    return counts, torso_counts, tri_counts, rows
 
 
 def main() -> int:
@@ -2305,8 +2647,7 @@ def main() -> int:
           f"chip_smoke uses one card; {torch.cuda.device_count()} are visible "
           f"(CUDA_VISIBLE_DEVICES={os.environ['CUDA_VISIBLE_DEVICES']})")
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
 
     t0 = time.perf_counter()
     phase_toolchain()
@@ -2337,9 +2678,11 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_reference(dev)
     torch.cuda.synchronize()
-    train_counts, train_rows = run_train_phases(dev)
-    print(f"train summary: {train_counts['ms_per_step']:.1f} ms/step, peak "
-          f"{train_counts['peak_gib']:.2f} GiB; " + "; ".join(
+    train_counts, torso_counts, tri_counts, train_rows = run_train_phases(dev)
+    print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
+          f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
+          f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
+          f"ms/step, peak {tri_counts['peak_gib']:.2f} GiB; " + "; ".join(
               f"{k} launch {r['launch_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['launch_ms'] / r['bound_ms']:.2f}x"
               for k, r in train_rows.items()))
@@ -2361,9 +2704,18 @@ def main() -> int:
     for k in ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
               "bias_act"):
         launches[k]["train_launches_per_step"] = train_counts[k] / TRAIN_STEPS
+    for k in ("torso_deform_input", "torso_warp_volume", "conv3d", "mfe_tail"):
+        launches[k]["train_torso_launches_per_step"] = torso_counts[k] / TORSO_STEPS
+    launches["triplane_decode"]["train_triplane_launches_per_step"] = \
+        tri_counts["triplane_decode"] / TRIPLANE_STEPS
     kernels_json = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                          **launches[k], **rows[k]) for k in REPLACES]
-    kernels_json += [train_row(k, train_counts, train_rows) for k in TRAIN_KERNELS]
+    kernels_json += [train_row(k, f, train_counts, train_rows, TRAIN_STEPS, "train run")
+                     for k, f in TRAIN_KERNELS.items()]
+    kernels_json += [train_row(k, f, torso_counts, train_rows, TORSO_STEPS, "train_torso run")
+                     for k, f in TORSO_KERNELS.items()]
+    kernels_json += [train_row(k, f, tri_counts, train_rows, TRIPLANE_STEPS,
+                               "train_triplane run") for k, f in TRIPLANE_KERNELS.items()]
     print(json.dumps({"kernels": kernels_json}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

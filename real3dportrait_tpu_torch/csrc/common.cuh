@@ -64,3 +64,17 @@ __device__ __forceinline__ void split_tf32(const float (&a)[4], uint32_t (&ah)[4
     al[i] = tf32_rna(a[i] - __uint_as_float(ah[i]));
   }
 }
+
+// *p += v, 4 floats at a 16 B aligned address: one vector atomic on sm_90
+// with CUDA 12.1 or later, else four scalar ones
+__device__ __forceinline__ void r3dp_atomic_add4(float* p, float4 v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
+    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+#else
+  atomicAdd(p, v.x);
+  atomicAdd(p + 1, v.y);
+  atomicAdd(p + 2, v.z);
+  atomicAdd(p + 3, v.w);
+#endif
+}

@@ -647,14 +647,17 @@ mfe_tail_kernel(const float* __restrict__ x, const float* __restrict__ mask_w,
 // launches are bit-equal) + biases, softmax over the K+1 candidates,
 // deformation = sum_k mask_k * motion_k (motion_0 the identity grid,
 // motion_k = grid - kp_d[k-1] + kp_s[k-1]); the d = 0 threads also write
-// both occlusion maps, adding the depth groups' sums
+// both occlusion maps, adding the depth groups' sums. Where mask_out is not
+// null the softmax is also written there, [B,K+1,D,H,W], for the backward
+// (mfe_tail_backward's softmax adjoint: 5 floats a voxel, where recomputing
+// the logits would take a second 7^3 conv)
 template <int D>
 __global__ void __launch_bounds__(256)
 mfe_tail_epilogue_kernel(const float* __restrict__ partial, const float* __restrict__ mask_b,
                          const float* __restrict__ occ_b, const float* __restrict__ kp_s,
                          const float* __restrict__ kp_d, int B, int H, int W, int n_split,
                          float* __restrict__ deformation, float* __restrict__ occ1,
-                         float* __restrict__ occ2) {
+                         float* __restrict__ occ2, float* __restrict__ mask_out) {
   using T = TailShape<D>;
   const long long HW = (long long)H * W;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -691,6 +694,7 @@ mfe_tail_epilogue_kernel(const float* __restrict__ partial, const float* __restr
 #pragma unroll
   for (int k = 0; k < kTailK1; ++k) {
     const float mk = logit[k] / sum;
+    if (mask_out != nullptr) mask_out[((long long)(b * kTailK1 + k) * D + d) * HW + hw] = mk;
     float sx = gx, sy = gy, sz = gz;
     if (k > 0) {
       const float* pd = kp_d + ((long long)b * (kTailK1 - 1) + (k - 1)) * 3;
@@ -728,7 +732,7 @@ int launch_mfe_tail(const float* x, const float* mask_w, const float* mask_b,
                     const float* occ_w, const float* occ_b, const float* kp_s,
                     const float* kp_d, int B, int C, int H, int W, int c_per_split,
                     int n_split, float* partial, float* deformation, float* occ1,
-                    float* occ2, cudaStream_t stream) {
+                    float* occ2, float* mask_out, cudaStream_t stream) {
   using T = TailShape<D>;
   const int nh = (H + T::TH - 1) / T::TH, nw = (W + kTailTW - 1) / kTailTW;
   if ((long long)c_per_split * (n_split - 1) >= C || (long long)c_per_split * n_split < C ||
@@ -746,8 +750,304 @@ int launch_mfe_tail(const float* x, const float* mask_w, const float* mask_b,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mfe_tail_epilogue_kernel<D><<<r3dp_blocks(voxels, 256), 256, 0, stream>>>(
-      partial, mask_b, occ_b, kp_s, kp_d, B, H, W, n_split, deformation, occ1, occ2);
+      partial, mask_b, occ_b, kp_s, kp_d, B, H, W, n_split, deformation, occ1, occ2, mask_out);
   return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// K7a backward, the weight gradient (conv3d_weight_grad in ops/conv3d.py;
+// the JAX package had jax.grad differentiate conv3d_via_2d): for each tap
+// (kd, kh, kw) and each (co, ci),
+//   dW[co][ci][kd][kh][kw] = sum over b and the output voxels v whose
+//     shifted input voxel v + (kd, kh, kw) - k/2 lies inside the volume of
+//     dy[b][co][v] * x[b][ci][v + (kd, kh, kw) - k/2],
+// and db[co] = sum dy[b][co][v] over every voxel. The data gradient is K7a
+// itself (ops/conv3d.py: the same conv on dy with the taps flipped and the
+// channels swapped). What bounds it: operations, 2 Co Ci per voxel and tap
+// (the fuser's [4,89,16,64,64] -> 32 at k = 7, 0.51 TFLOP, 7.6 ms at 67
+// TFLOP/s). Design, simple first: a GEMM per tap with the voxels as its
+// reduction, on FFMA. A CTA of 64 threads takes one tap, a tile of BM
+// output channels (32, or 8 where Co <= 8) x 32 input channels, and a
+// share of the tap's valid voxels (the box of output voxels whose input
+// is inside: no padding is computed); it stages 32 voxels at a time of dy
+// and of x shifted by the tap, [voxel][channel] in shared memory (rows of
+// BM + 1 and 33 floats: the stores and the fragment loads hit distinct
+// banks), and each thread sums a BM/8 x 4 tile in registers, 2 shared
+// loads a product pair at BM = 32. The voxel shares of a tap (the wrapper
+// picks enough to fill the card) and the taps' CTAs leave their sums by
+// atomicAdd into the zeroed gradients; the centre tap's CTAs of the first
+// input-channel tile also sum dy for db.
+constexpr int kWgThreads = 64;
+constexpr int kWgBK = 32;  // voxels a step
+constexpr int kWgBN = 32;  // input channels of a CTA tile
+
+template <int BM>
+__global__ void __launch_bounds__(kWgThreads)
+conv3d_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy, int B, int Ci,
+                    int Co, int D, int H, int W, int K, int n_ci_tiles, float* __restrict__ dw,
+                    float* __restrict__ db) {
+  constexpr int TM = BM / 8;  // output channels a thread
+  __shared__ float s_dy[kWgBK][BM + 1];
+  __shared__ float s_x[kWgBK][kWgBN + 1];
+  const int tap = blockIdx.x, kk = K * K;
+  const int p = K / 2;
+  const int od = tap / kk - p, oh = tap / K % K - p, ow = tap % K - p;
+  const int co0 = (blockIdx.y / n_ci_tiles) * BM, ci0 = (blockIdx.y % n_ci_tiles) * kWgBN;
+  const int d_lo = max(0, -od), h_lo = max(0, -oh), w_lo = max(0, -ow);
+  const int Dv = min(D, D - od) - d_lo, Hv = min(H, H - oh) - h_lo, Wv = min(W, W - ow) - w_lo;
+  // a tap past the volume's extent (k = 7 over 2 depths) has no voxel
+  const int V = Dv > 0 && Hv > 0 && Wv > 0 ? B * Dv * Hv * Wv : 0;
+  const int v_begin = (int)((long long)V * blockIdx.z / gridDim.z);
+  const int v_end = (int)((long long)V * (blockIdx.z + 1) / gridDim.z);
+  const long long DHW = (long long)D * H * W;
+  const long long shift = ((long long)od * H + oh) * W + ow;
+  const int lane = threadIdx.x % 32, lrow = threadIdx.x / 32;  // staging: voxel, channel row
+  const int tm = threadIdx.x / 8, tn = threadIdx.x % 8;        // sums: channel tiles
+  const bool do_bias = db != nullptr && od == 0 && oh == 0 && ow == 0 && ci0 == 0 && tn == 0;
+  float acc[TM][4], bacc[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    bacc[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  for (int v0 = v_begin; v0 < v_end; v0 += kWgBK) {
+    const int v = v0 + lane;
+    const bool ok = v < v_end;
+    long long sp = 0, b = 0;  // the voxel's sample and offset in a channel
+    if (ok) {
+      int r = v;
+      const int w = r % Wv + w_lo;
+      r /= Wv;
+      const int h = r % Hv + h_lo;
+      r /= Hv;
+      const int d = r % Dv + d_lo;
+      b = r / Dv;
+      sp = ((long long)d * H + h) * W + w;
+    }
+    __syncthreads();  // the previous step's operands are read
+#pragma unroll
+    for (int c = lrow; c < BM; c += 2) {
+      const int co = co0 + c;
+      s_dy[lane][c] = ok && co < Co ? __ldg(dy + (b * Co + co) * DHW + sp) : 0.0f;
+    }
+#pragma unroll
+    for (int c = lrow; c < kWgBN; c += 2) {
+      const int ci = ci0 + c;
+      s_x[lane][c] = ok && ci < Ci ? __ldg(x + (b * Ci + ci) * DHW + sp + shift) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kWgBK; ++k) {
+      float a[TM], bv[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = s_dy[k][tm * TM + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = s_x[k][tn * 4 + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+        if (do_bias) bacc[i] += a[i];
+      }
+    }
+  }
+  const int taps = kk * K;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int co = co0 + tm * TM + i;
+    if (co >= Co) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ci = ci0 + tn * 4 + j;
+      if (ci < Ci) atomicAdd(dw + ((long long)co * Ci + ci) * taps + tap, acc[i][j]);
+    }
+    if (do_bias) atomicAdd(db + co, bacc[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7b backward (mfe_tail_backward in models/torso.py; the JAX package had
+// jax.grad differentiate the tail). Three kernels around the mask conv's
+// own two gradients (its data gradient through K7a, its weight gradient
+// through conv3d_wgrad_kernel, both launched by the wrapper between them):
+// - mfe_tail_adjoint_kernel, one thread a voxel: the softmax adjoint of
+//   the K+1 logits against the sparse motions, dl_k = m_k (g_k - sum_j m_j
+//   g_j) with g_k = d deformation . motion_k (m the forward's softmax, kept
+//   by its epilogue), into [B,K+1,D,H,W]; the d = 0 threads also take both
+//   occlusion heads' sigmoid adjoints, dp = d occ * occ (1 - occ), into
+//   [B,2,H,W];
+// - occ_data_grad_kernel: the two 7^2 heads' data gradient on the C-major
+//   depth fold, dx[b][c*D + d][y][x] += sum_heads sum_taps w[c*D + d][ty][tx]
+//   dp[y + 3 - ty][x + 3 - tx], added to the mask conv's data gradient. A
+//   thread owns a pixel and keeps its 2 x 49 window of dp in registers over
+//   the CTA's 32 fold channels, whose weights are broadcast from shared
+//   memory as float4;
+// - occ_weight_grad_kernel: dW[head][c*D + d][ty][tx] = sum over b and the
+//   pixels of dp * x shifted by the tap, and the two biases' sums. A CTA
+//   owns a fold channel (no atomics), stages 8 rows of x with their halo
+//   and of dp at a time, and its threads take a tap each (5 groups of 49
+//   over the pixels), adding the groups at the end.
+// What bounds them: bytes (x and dx once: 2 x 33.5 MB at the standard
+// preset's [4,32,16,64,64]), the 98 products a fold element of the two
+// heads' gradients (1.6 GFLOP) well under that.
+constexpr int kOccTW = 32, kOccTH = 8;  // occ_data_grad_kernel's pixel tile
+constexpr int kOccCd = 32;              // fold channels a CTA
+constexpr int kOccWS = 100;             // a fold channel's 2 x 49 weights, padded to float4s
+constexpr int kOccR = 8;                // occ_weight_grad_kernel: rows staged at a time
+constexpr int kOccMaxW = 256;
+
+__global__ void __launch_bounds__(256)
+mfe_tail_adjoint_kernel(const float* __restrict__ ddef, const float* __restrict__ docc1,
+                        const float* __restrict__ docc2, const float* __restrict__ mask,
+                        const float* __restrict__ occ1, const float* __restrict__ occ2,
+                        const float* __restrict__ kp_s, const float* __restrict__ kp_d, int B,
+                        int D, int H, int W, float* __restrict__ dlogits,
+                        float* __restrict__ dpre) {
+  const long long HW = (long long)H * W;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (long long)B * D * HW) return;
+  const int b = (int)(n / (D * HW));
+  const long long r = n - (long long)b * D * HW;
+  const int d = (int)(r / HW);
+  const long long hw = r - (long long)d * HW;
+  const int h = (int)(hw / W), w = (int)(hw - (long long)h * W);
+  const float gx = 2.0f * ((float)w / (float)(W - 1)) - 1.0f;
+  const float gy = 2.0f * ((float)h / (float)(H - 1)) - 1.0f;
+  const float gz = 2.0f * ((float)d / (float)(D - 1)) - 1.0f;
+  const float dx = ddef[n * 3], dyv = ddef[n * 3 + 1], dz = ddef[n * 3 + 2];
+  float m[kTailK1], g[kTailK1], s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTailK1; ++k) {
+    float sx = gx, sy = gy, sz = gz;
+    if (k > 0) {
+      const float* pd = kp_d + ((long long)b * (kTailK1 - 1) + (k - 1)) * 3;
+      const float* ps = kp_s + ((long long)b * (kTailK1 - 1) + (k - 1)) * 3;
+      sx = (gx - pd[0]) + ps[0];
+      sy = (gy - pd[1]) + ps[1];
+      sz = (gz - pd[2]) + ps[2];
+    }
+    m[k] = __ldg(mask + ((long long)(b * kTailK1 + k) * D + d) * HW + hw);
+    g[k] = dx * sx + dyv * sy + dz * sz;
+    s += m[k] * g[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kTailK1; ++k)
+    dlogits[((long long)(b * kTailK1 + k) * D + d) * HW + hw] = m[k] * (g[k] - s);
+  if (d == 0) {
+    const long long i = (long long)b * HW + hw;
+    const float o1 = __ldg(occ1 + i), o2 = __ldg(occ2 + i);
+    dpre[(2LL * b) * HW + hw] = docc1 ? __ldg(docc1 + i) * o1 * (1.0f - o1) : 0.0f;
+    dpre[(2LL * b + 1) * HW + hw] = docc2 ? __ldg(docc2 + i) * o2 * (1.0f - o2) : 0.0f;
+  }
+}
+
+// grid (ceil(W / 32), ceil(H / 8), B * ceil(CD / 32)); dx [B,CD,H,W] += ...
+__global__ void __launch_bounds__(256)
+occ_data_grad_kernel(const float* __restrict__ occ_w, const float* __restrict__ dpre, int CD,
+                     int H, int W, int n_cd_tiles, float* __restrict__ dx) {
+  __shared__ float4 s_w[kOccCd * kOccWS / 4];
+  const int b = blockIdx.z / n_cd_tiles, cd0 = (blockIdx.z % n_cd_tiles) * kOccCd;
+  const int n_cd = min(kOccCd, CD - cd0);
+  float* sw = reinterpret_cast<float*>(s_w);
+  for (int e = threadIdx.x; e < kOccCd * kOccWS; e += 256) {
+    const int c = e / kOccWS, r = e % kOccWS;  // r: head * 49 + tap
+    sw[e] = c < n_cd && r < 98 ? __ldg(occ_w + ((long long)(r / 49) * CD + cd0 + c) * 49 + r % 49)
+                               : 0.0f;
+  }
+  const int y = blockIdx.y * kOccTH + threadIdx.x / kOccTW;
+  const int xx = blockIdx.x * kOccTW + threadIdx.x % kOccTW;
+  const long long HW = (long long)H * W;
+  // the pixel's window of both heads' dp: (ty, tx) holds dp[y + 3 - ty][x + 3 - tx]
+  float win[kOccWS];
+#pragma unroll
+  for (int i = 0; i < kOccWS; ++i) {
+    const int head = i / 49, ty = i % 49 / 7, tx = i % 7;
+    const int py = y + 3 - ty, px = xx + 3 - tx;
+    win[i] = i < 98 && py >= 0 && py < H && px >= 0 && px < W
+                 ? __ldg(dpre + (2LL * b + head) * HW + (long long)py * W + px)
+                 : 0.0f;
+  }
+  __syncthreads();
+  if (y >= H || xx >= W) return;
+  float* o = dx + ((long long)b * CD + cd0) * HW + (long long)y * W + xx;
+  for (int c = 0; c < n_cd; ++c) {
+    const float4* wc = s_w + c * (kOccWS / 4);
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kOccWS / 4; ++q) {
+      const float4 wv = wc[q];
+      a0 = fmaf(wv.x, win[4 * q], a0);
+      a1 = fmaf(wv.y, win[4 * q + 1], a1);
+      a0 = fmaf(wv.z, win[4 * q + 2], a0);
+      a1 = fmaf(wv.w, win[4 * q + 3], a1);
+    }
+    o[c * HW] += a0 + a1;
+  }
+}
+
+// grid (CD); docc_w [2,CD,7,7], docc_b [2] (written by CTA 0)
+__global__ void __launch_bounds__(256)
+occ_weight_grad_kernel(const float* __restrict__ x, const float* __restrict__ dpre, int B,
+                       int CD, int H, int W, float* __restrict__ docc_w,
+                       float* __restrict__ docc_b) {
+  __shared__ float s_x[(kOccR + 6) * (kOccMaxW + 6)];
+  __shared__ float s_dp[2 * kOccR * kOccMaxW];
+  __shared__ float s_red[5][100];
+  const int cd = blockIdx.x, t = threadIdx.x;
+  const int tap = t % 49, grp = t / 49;  // 5 groups of 49 taps; threads 245..255 stage only
+  const int ty = tap / 7, tx = tap % 7, RS = W + 6;
+  const bool sums = grp < 5, bias = blockIdx.x == 0 && tap == 0 && sums;
+  const long long HW = (long long)H * W;
+  float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
+  for (int b = 0; b < B; ++b) {
+    const float* xc = x + ((long long)b * CD + cd) * HW;
+    for (int r0 = 0; r0 < H; r0 += kOccR) {
+      const int nr = min(kOccR, H - r0);
+      __syncthreads();
+      for (int e = t; e < (kOccR + 6) * RS; e += 256) {
+        const int yy = r0 + e / RS - 3, xx = e % RS - 3;
+        s_x[e] = yy >= 0 && yy < H && xx >= 0 && xx < W ? __ldg(xc + (long long)yy * W + xx)
+                                                        : 0.0f;
+      }
+      for (int e = t; e < 2 * kOccR * W; e += 256) {
+        const int head = e / (kOccR * W), rr = e / W % kOccR, xx = e % W;
+        s_dp[e] = rr < nr ? __ldg(dpre + (2LL * b + head) * HW + (long long)(r0 + rr) * W + xx)
+                          : 0.0f;
+      }
+      __syncthreads();
+      if (sums) {
+        for (int pix = grp; pix < nr * W; pix += 5) {
+          const int rr = pix / W, xx = pix % W;
+          const float xv = s_x[(rr + ty) * RS + xx + tx];
+          const float p0 = s_dp[rr * W + xx], p1 = s_dp[(kOccR + rr) * W + xx];
+          a0 = fmaf(p0, xv, a0);
+          a1 = fmaf(p1, xv, a1);
+          if (bias) {
+            b0 += p0;
+            b1 += p1;
+          }
+        }
+      }
+    }
+  }
+  if (sums) {
+    s_red[grp][tap] = a0;
+    s_red[grp][49 + tap] = a1;
+    if (tap == 0) {
+      s_red[grp][98] = b0;
+      s_red[grp][99] = b1;
+    }
+  }
+  __syncthreads();
+  if (t < 100) {
+    const float v = s_red[0][t] + s_red[1][t] + s_red[2][t] + s_red[3][t] + s_red[4][t];
+    if (t < 98)
+      docc_w[((long long)(t / 49) * CD + cd) * 49 + t % 49] = v;
+    else if (blockIdx.x == 0)
+      docc_b[t - 98] = v;
+  }
 }
 
 }  // namespace
@@ -816,15 +1116,79 @@ R3DP_EXPORT int r3dp_mfe_tail(const float* x, const float* mask_w, const float* 
                               const float* occ_w, const float* occ_b, const float* kp_s,
                               const float* kp_d, int B, int C, int D, int H, int W, int K1,
                               int c_per_split, int n_split, float* partial,
-                              float* deformation, float* occ1, float* occ2,
+                              float* deformation, float* occ1, float* occ2, float* mask_out,
                               cudaStream_t stream) {
   if (K1 != kTailK1 || H < 2 || W < 2 || C < 1 || n_split < 1 || c_per_split < 1)
     return (int)cudaErrorInvalidValue;
   if (D == 16)
     return launch_mfe_tail<16>(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, B, C, H, W,
-                               c_per_split, n_split, partial, deformation, occ1, occ2, stream);
+                               c_per_split, n_split, partial, deformation, occ1, occ2, mask_out,
+                               stream);
   if (D == 2)
     return launch_mfe_tail<2>(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, B, C, H, W,
-                              c_per_split, n_split, partial, deformation, occ1, occ2, stream);
+                              c_per_split, n_split, partial, deformation, occ1, occ2, mask_out,
+                               stream);
   return (int)cudaErrorInvalidValue;
+}
+
+
+// K7a's weight gradient: x [B,Ci,D,H,W] and dy [B,Co,D,H,W] fp32; dw
+// [Co,Ci,K,K,K] and db [Co] (or null) zeroed by the caller. n_split shares
+// of each tap's voxels (1 <= n_split <= 65535); B * D * H * W < 2^31.
+R3DP_EXPORT int r3dp_conv3d_weight_grad(const float* x, const float* dy, int B, int Ci, int Co,
+                                        int D, int H, int W, int K, int n_split, float* dw,
+                                        float* db, cudaStream_t stream) {
+  if ((K != 3 && K != 7) || n_split < 1 || n_split > 65535 || Ci < 1 || Co < 1 ||
+      (long long)B * D * H * W >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * D * H * W == 0) return (int)cudaGetLastError();
+  const int n_ci = (Ci + kWgBN - 1) / kWgBN;
+  if (Co <= 8) {
+    conv3d_wgrad_kernel<8><<<dim3(K * K * K, n_ci, n_split), kWgThreads, 0, stream>>>(
+        x, dy, B, Ci, Co, D, H, W, K, n_ci, dw, db);
+  } else {
+    const long long tiles = (long long)((Co + 31) / 32) * n_ci;
+    if (tiles > 65535) return (int)cudaErrorInvalidValue;
+    conv3d_wgrad_kernel<32><<<dim3(K * K * K, (unsigned)tiles, n_split), kWgThreads, 0,
+                              stream>>>(x, dy, B, Ci, Co, D, H, W, K, n_ci, dw, db);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7b backward, before the mask conv's gradients: ddef [B,D,H,W,3]; docc1,
+// docc2 [B,H,W] or null (zero); mask [B,5,D,H,W] the forward's softmax;
+// occ1, occ2 [B,H,W] the forward's occlusions; kp_s, kp_d [B,4,3] ->
+// dlogits [B,5,D,H,W], dpre [B,2,H,W]. D, H, W >= 2.
+R3DP_EXPORT int r3dp_mfe_tail_backward_adjoint(const float* ddef, const float* docc1,
+                                               const float* docc2, const float* mask,
+                                               const float* occ1, const float* occ2,
+                                               const float* kp_s, const float* kp_d, int B,
+                                               int D, int H, int W, float* dlogits,
+                                               float* dpre, cudaStream_t stream) {
+  if (D < 2 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  const long long voxels = (long long)B * D * H * W;
+  if (voxels == 0) return (int)cudaGetLastError();
+  mfe_tail_adjoint_kernel<<<r3dp_blocks(voxels, 256), 256, 0, stream>>>(
+      ddef, docc1, docc2, mask, occ1, occ2, kp_s, kp_d, B, D, H, W, dlogits, dpre);
+  return (int)cudaGetLastError();
+}
+
+// K7b backward, the occlusion heads: x [B,C*D,H,W] (the C-major fold of the
+// tail's input), occ_w [2,C*D,7,7], dpre [B,2,H,W]; adds their data
+// gradient to dx [B,C*D,H,W] and writes docc_w [2,C*D,7,7], docc_b [2].
+// W <= 256.
+R3DP_EXPORT int r3dp_mfe_tail_backward_occ(const float* x, const float* occ_w,
+                                           const float* dpre, int B, int CD, int H, int W,
+                                           float* dx, float* docc_w, float* docc_b,
+                                           cudaStream_t stream) {
+  if (W < 1 || W > kOccMaxW || H < 1 || CD < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const int n_cd = (CD + kOccCd - 1) / kOccCd;
+  if ((long long)B * n_cd > 65535 || (H + kOccTH - 1) / kOccTH > 65535)
+    return (int)cudaErrorInvalidValue;
+  occ_data_grad_kernel<<<dim3((W + kOccTW - 1) / kOccTW, (H + kOccTH - 1) / kOccTH, B * n_cd),
+                         256, 0, stream>>>(occ_w, dpre, CD, H, W, n_cd, dx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  occ_weight_grad_kernel<<<CD, 256, 0, stream>>>(x, dpre, B, CD, H, W, docc_w, docc_b);
+  return (int)cudaGetLastError();
 }

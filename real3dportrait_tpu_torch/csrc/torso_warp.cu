@@ -289,6 +289,127 @@ int launch_warp(const float* vol, const float* grid, int B, int D, int H, int W,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The trilinear adjoint of K5a and K5b (torso_deform_input_backward and
+// torso_warp_volume_backward in models/torso.py; the JAX package had
+// jax.grad differentiate its gathers): one thread an output voxel (K5a: a
+// voxel of one candidate), lanes along w, recomputing the voxel's sampling
+// coordinate and corner weights exactly as the forward does, then
+// scattering the output's gradient into the volume's gradient with one
+// 16 B atomicAdd a corner and 4 channels. Not a shifted gather: float
+// rounding of a coordinate can move a voxel's floor, and a gather would
+// then add to the wrong voxel.
+// - kDeform (K5a): zero padding; a corner outside, or one of zero weight,
+//   adds nothing; the heatmap channels and the keypoints take no gradient
+//   (the keypoints are data). Each candidate's warp is a translation, so
+//   neighbouring lanes write neighbouring corners: few collisions.
+// - else (K5b): border padding, C = 32 or 4 channels, the output's
+//   gradient read from the C-major fold [B,C*D,H,W]. Also the gradient of
+//   the deformation: d out / d coordinate from the corners' values (the
+//   volume read again, 8 corner rows), times (n - 1) / 2, and 0 on an axis
+//   whose coordinate was clamped (at or past 0 or n - 1), torch's rule.
+// What bounds them: the atomics into L2 (8 a voxel and 4 channels, 16 B
+// each: K5b at [4,16,64,64,32], 16.8 M of them) and the bytes (the output's
+// gradient once, the volume's gradient written, K5b the volume read).
+template <bool kDeform>
+__global__ void __launch_bounds__(256)
+trilinear_adjoint_kernel(const float* __restrict__ dout, const float4* __restrict__ vol,
+                         const float* __restrict__ grid, const float* __restrict__ kp_s,
+                         const float* __restrict__ kp_d, int B, int K, int C, int D, int H,
+                         int W, float* __restrict__ dvol, float* __restrict__ dgrid) {
+  const long long hw = (long long)H * W, vox = (long long)D * hw;
+  const int cand = kDeform ? K + 1 : 1;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (long long)B * cand * vox) return;
+  const long long sp = n % vox;  // d * H * W + h * W + w
+  const int bk = (int)(n / vox), b = bk / cand, k = bk % cand;
+  const int d = (int)(sp / hw), h = (int)(sp % hw / W), w = (int)(sp % W);
+  float wgt[8];
+  int idx[8];  // corner voxels in [D,H,W], -1 outside
+  float dwx = 0.0f, dwy = 0.0f, dwz = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
+  float lx0 = 0.0f, lx1 = 0.0f, ly0 = 0.0f, ly1 = 0.0f, lz0 = 0.0f, lz1 = 0.0f;
+  if constexpr (kDeform) {
+    float sx = grid_axis(w, __frcp_rn((float)(W - 1)));
+    float sy = grid_axis(h, __frcp_rn((float)(H - 1)));
+    float sz = grid_axis(d, __frcp_rn((float)(D - 1)));
+    if (k > 0) {
+      const float* pd = kp_d + (b * K + k - 1) * 3;
+      const float* ps = kp_s + (b * K + k - 1) * 3;
+      sx = __fadd_rn(__fsub_rn(sx, __ldg(pd)), __ldg(ps));
+      sy = __fadd_rn(__fsub_rn(sy, __ldg(pd + 1)), __ldg(ps + 1));
+      sz = __fadd_rn(__fsub_rn(sz, __ldg(pd + 2)), __ldg(ps + 2));
+    }
+    const Lerp lx = lerp_zeros(sx, W), ly = lerp_zeros(sy, H), lz = lerp_zeros(sz, D);
+    corner_weights(wgt, lx.w0, lx.w1, ly.w0, ly.w1, lz.w0, lz.w1);
+    const int xs[2] = {lx.i0, lx.i1}, ys[2] = {ly.i0, ly.i1}, zs[2] = {lz.i0, lz.i1};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      idx[i] = wgt[i] != 0.0f ? (zs[i >> 2] * H + ys[(i >> 1) & 1]) * W + xs[i & 1] : -1;
+  } else {
+    const float* g = grid + (b * vox + sp) * 3;
+    const float rx = unnorm_ac(__ldg(g), W), ry = unnorm_ac(__ldg(g + 1), H),
+                rz = unnorm_ac(__ldg(g + 2), D);
+    // border padding as the forward: clamp, then weigh; torch's gradient
+    // of a clamped coordinate is 0 (at the bound too)
+    mx = rx > 0.0f && rx < (float)(W - 1) ? 0.5f * (float)(W - 1) : 0.0f;
+    my = ry > 0.0f && ry < (float)(H - 1) ? 0.5f * (float)(H - 1) : 0.0f;
+    mz = rz > 0.0f && rz < (float)(D - 1) ? 0.5f * (float)(D - 1) : 0.0f;
+    const float x = fminf(fmaxf(rx, 0.0f), (float)(W - 1));
+    const float y = fminf(fmaxf(ry, 0.0f), (float)(H - 1));
+    const float z = fminf(fmaxf(rz, 0.0f), (float)(D - 1));
+    const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
+    const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+    lx0 = __fsub_rn(fx + 1.0f, x), lx1 = __fsub_rn(x, fx);
+    ly0 = __fsub_rn(fy + 1.0f, y), ly1 = __fsub_rn(y, fy);
+    lz0 = __fsub_rn(fz + 1.0f, z), lz1 = __fsub_rn(z, fz);
+    corner_weights(wgt, lx0, lx1, ly0, ly1, lz0, lz1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int cx = ix + (i & 1), cy = iy + ((i >> 1) & 1), cz = iz + (i >> 2);
+      idx[i] = cx < W && cy < H && cz < D ? (cz * H + cy) * W + cx : -1;
+    }
+  }
+  float* dv = dvol + (long long)b * vox * C;
+  for (int q = 0; q < C / 4; ++q) {
+    float4 go;
+    if constexpr (kDeform) {
+      // channels 1..4 of the candidate's 5 (channel 0 is its heatmap)
+      const float* o = dout + (long long)bk * 5 * vox + sp;
+      go = make_float4(__ldg(o + vox), __ldg(o + 2 * vox), __ldg(o + 3 * vox),
+                       __ldg(o + 4 * vox));
+    } else {
+      const float* o = dout + ((long long)b * C + 4 * q) * vox + sp;  // fold row c * D + d
+      go = make_float4(__ldg(o), __ldg(o + vox), __ldg(o + 2 * vox), __ldg(o + 3 * vox));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (idx[i] < 0) continue;
+      if constexpr (!kDeform) {
+        const float4 v = __ldg(vol + ((long long)b * vox + idx[i]) * (C / 4) + q);
+        const float dot = go.x * v.x + go.y * v.y + go.z * v.z + go.w * v.w;
+        const float wx = i & 1 ? lx1 : lx0, wy = (i >> 1) & 1 ? ly1 : ly0,
+                    wz = i >> 2 ? lz1 : lz0;
+        const float sx = i & 1 ? 1.0f : -1.0f, sy = (i >> 1) & 1 ? 1.0f : -1.0f,
+                    sz = i >> 2 ? 1.0f : -1.0f;
+        dwx += dot * sx * wy * wz;
+        dwy += dot * wx * sy * wz;
+        dwz += dot * wx * wy * sz;
+      }
+      if (wgt[i] != 0.0f)
+        r3dp_atomic_add4(dv + (long long)idx[i] * C + 4 * q,
+                         make_float4(go.x * wgt[i], go.y * wgt[i], go.z * wgt[i],
+                                     go.w * wgt[i]));
+    }
+  }
+  if constexpr (!kDeform) {
+    float* g = dgrid + (b * vox + sp) * 3;
+    g[0] = dwx * mx;
+    g[1] = dwy * my;
+    g[2] = dwz * mz;
+  }
+}
+
 }  // namespace
 
 // vol [B,D,H,W,4] fp32 channels-last (the estimator's compressed width);
@@ -318,4 +439,36 @@ R3DP_EXPORT int r3dp_torso_warp_volume(const float* vol, const float* grid, int 
   if (C == 32) return launch_warp<32>(vol, grid, B, D, H, W, out, stream);
   if (C == 4) return launch_warp<4>(vol, grid, B, D, H, W, out, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K5a's adjoint: dout [B,(K+1)*5,D,H,W] (the forward's output gradient),
+// kp_s, kp_d [B,K,3] -> dvol [B,D,H,W,4] (zeroed by the caller, 16 B
+// aligned), by scatter-add. D, H, W >= 2; D * H * W * 4 < 2^31.
+R3DP_EXPORT int r3dp_torso_deform_input_backward(const float* dout, const float* kp_s,
+                                                 const float* kp_d, int B, int K, int D, int H,
+                                                 int W, int C, float* dvol,
+                                                 cudaStream_t stream) {
+  if (C != 4 || K < 0 || D < 2 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * (K + 1) * D * H * W;
+  if (n == 0) return (int)cudaGetLastError();
+  trilinear_adjoint_kernel<true><<<r3dp_blocks(n, 256), 256, 0, stream>>>(
+      dout, nullptr, nullptr, kp_s, kp_d, B, K, C, D, H, W, dvol, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K5b's adjoint: vol [B,D,H,W,C] and grid [B,D,H,W,3] (the forward's
+// inputs), dout [B,C*D,H,W] -> dvol [B,D,H,W,C] (zeroed by the caller, 16 B
+// aligned), by scatter-add, and dgrid [B,D,H,W,3]. C = 32 or 4; D, H, W >=
+// 2; D * H * W * C < 2^31.
+R3DP_EXPORT int r3dp_torso_warp_volume_backward(const float* vol, const float* grid,
+                                                const float* dout, int B, int D, int H, int W,
+                                                int C, float* dvol, float* dgrid,
+                                                cudaStream_t stream) {
+  if ((C != 32 && C != 4) || D < 2 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * D * H * W;
+  if (n == 0) return (int)cudaGetLastError();
+  trilinear_adjoint_kernel<false><<<r3dp_blocks(n, 256), 256, 0, stream>>>(
+      dout, reinterpret_cast<const float4*>(vol), grid, nullptr, nullptr, B, 0, C, D, H, W,
+      dvol, dgrid);
+  return (int)cudaGetLastError();
 }

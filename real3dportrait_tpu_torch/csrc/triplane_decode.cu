@@ -304,26 +304,30 @@ int launch(const float* planes, int B, int D, int H, int W, const float* coords,
 
 
 // ---------------------------------------------------------------------------
-// K1-trigrid backward (trigrid_decode_backward in models/decoder.py; the
-// JAX package had jax.grad differentiate the XLA sampler and decoder). From
-// the gradients of rgb [N,32] and sigma [N] (either may be NULL: zero), it
-// recomputes each point's trilinear samples of the three grids, their mean
-// f, h = softplus(W0 f + b0) and the outputs in fp32 (CUDA cores, no split
-// TF32), takes d rgb through sigmoid * 1.002 - 0.001, and returns
-//   d grids: df / 3 scattered into each grid's 8 corners (the forward's
+// K1 and K1-trigrid backward (triplane_decode_backward and
+// trigrid_decode_backward in models/decoder.py; the JAX package had
+// jax.grad differentiate the XLA sampler and decoder). One template,
+// kGrid as in the forward: tri-grids (8 trilinear corners a plane) or
+// tri-planes (4 bilinear corners). From the gradients of rgb [N,32] and
+// sigma [N] (either may be NULL: zero), it recomputes each point's samples
+// of the three planes, their mean f, h = softplus(W0 f + b0) and the
+// outputs in fp32 (CUDA cores, no split TF32), takes d rgb through
+// sigmoid * 1.002 - 0.001, and returns
+//   d planes: df / 3 scattered into each plane's corners (the forward's
 //     zero-padding rule: a corner outside adds nothing), by atomicAdd;
 //   d W1 = sum dout (x) h, d b1 = sum dout, d W0 = sum dh' (x) f,
 //     d b0 = sum dh' (dh' = W1^T dout * sigmoid(W0 f + b0)),
 // for the folded weights (the wrapper maps them through the equalised-LR
 // gains). What bounds it: operations, ~12.5k fp32 FMAs a point (the
 // forward's MLP again, its two transposes and the two outer products), and
-// the atomics of the scatter, 3 x 8 corners x 32 channels a point. Design,
-// simple first: a CTA of 256 threads takes tiles of 64 points, four threads
-// a point, each a quarter of every vector (8 channels of f, 16 hidden
-// units, 8-9 outputs), the per-point vectors in shared memory with a row
-// stride of 65 (so that the weight phase reads them without bank
-// conflicts); the weight gradients accumulate in registers over the CTA's
-// tiles, 17 entries a thread, and leave by one atomicAdd an entry a CTA.
+// the atomics of the scatter, 3 x 8 (or 4) corners x 32 channels a point.
+// Design, simple first: a CTA of 256 threads takes tiles of 64 points,
+// four threads a point, each a quarter of every vector (8 channels of f,
+// 16 hidden units, 8-9 outputs), the per-point vectors in shared memory
+// with a row stride of 65 (so that the weight phase reads them without
+// bank conflicts); the weight gradients accumulate in registers over the
+// CTA's tiles, 17 entries a thread, and leave by one atomicAdd an entry a
+// CTA.
 constexpr int kBwThreads = 256, kBwP = 64, kBwS = kBwP + 1;
 constexpr int kOut = kC + 1;                       // sigma + 32 rgb
 constexpr int kBwW = kOut * kHid + kOut + kHid * kC + kHid;  // 4257 gradient entries
@@ -338,25 +342,34 @@ struct Corners {
   bool ok[8];
 };
 
-// the 8 corners of (u, v, t) in a [D,H,W,32] grid: the forward's rules
+// the corners of (u, v, t) by the forward's rules: kGrid, the 8 corners in
+// a [D,H,W,32] grid; else the 4 of (u, v) in an [H,W,32] plane (t unused)
+template <bool kGrid>
 __device__ __forceinline__ void grid_corners(Corners& c, int D, int H, int W, float u, float v,
                                              float t) {
-  const float x = unnormalise(u, W), y = unnormalise(v, H), z = unnormalise(t, D);
-  const float x0 = floorf(x), y0 = floorf(y), z0 = floorf(z);
+  const float x = unnormalise(u, W), y = unnormalise(v, H);
+  const float x0 = floorf(x), y0 = floorf(y);
   const float wx[2] = {1.0f - (x - x0), x - x0};
   const float wy[2] = {1.0f - (y - y0), y - y0};
-  const float wz[2] = {1.0f - (z - z0), z - z0};
   const bool xok[2] = {x0 >= 0.0f && x0 <= (float)(W - 1),
                        x0 + 1.0f >= 0.0f && x0 + 1.0f <= (float)(W - 1)};
   const bool yok[2] = {y0 >= 0.0f && y0 <= (float)(H - 1),
                        y0 + 1.0f >= 0.0f && y0 + 1.0f <= (float)(H - 1)};
-  const bool zok[2] = {z0 >= 0.0f && z0 <= (float)(D - 1),
-                       z0 + 1.0f >= 0.0f && z0 + 1.0f <= (float)(D - 1)};
+  float z0 = 0.0f, wz[2] = {1.0f, 0.0f};
+  bool zok[2] = {true, false};
+  if (kGrid) {
+    const float z = unnormalise(t, D);
+    z0 = floorf(z);
+    wz[0] = 1.0f - (z - z0);
+    wz[1] = z - z0;
+    zok[0] = z0 >= 0.0f && z0 <= (float)(D - 1);
+    zok[1] = z0 + 1.0f >= 0.0f && z0 + 1.0f <= (float)(D - 1);
+  }
   const unsigned row_w = (unsigned)W * kC, slice = (unsigned)H * row_w;
   const unsigned base = (unsigned)(int)z0 * slice + (unsigned)(int)y0 * row_w +
                         (unsigned)(int)x0 * kC;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < (kGrid ? 8 : 4); ++i) {
     const int cx = i & 1, cy = (i >> 1) & 1, cz = i >> 2;
     c.ok[i] = zok[cz] && xok[cx] && yok[cy];
     c.off[i] = base + cx * kC + cy * row_w + cz * slice;
@@ -364,20 +377,9 @@ __device__ __forceinline__ void grid_corners(Corners& c, int D, int H, int W, fl
   }
 }
 
-__device__ __forceinline__ void atomic_add4(float* p, float4 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
-    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
-  atomicAdd(reinterpret_cast<float4*>(p), v);
-#else
-  atomicAdd(p, v.x);
-  atomicAdd(p + 1, v.y);
-  atomicAdd(p + 2, v.z);
-  atomicAdd(p + 3, v.w);
-#endif
-}
-
+template <bool kGrid>
 __global__ void __launch_bounds__(kBwThreads)
-trigrid_decode_backward_kernel(const float* __restrict__ planes, int B, int D, int H, int W,
+plane_decode_backward_kernel(const float* __restrict__ planes, int B, int D, int H, int W,
                                const float* __restrict__ coords, long long n_per_batch,
                                float coord_scale, const float* __restrict__ w0,
                                const float* __restrict__ b0, const float* __restrict__ w1,
@@ -401,7 +403,8 @@ trigrid_decode_backward_kernel(const float* __restrict__ planes, int B, int D, i
 
   const int p = threadIdx.x % kBwP, q = threadIdx.x / kBwP;  // point of the tile, quarter
   const long long total = (long long)B * n_per_batch;
-  const long long plane_elems = (long long)D * H * W * kC;
+  constexpr int kCorners = kGrid ? 8 : 4;
+  const long long plane_elems = (long long)(kGrid ? D : 1) * H * W * kC;
   const long long n_tiles = (total + kBwP - 1) / kBwP;
   float acc[kBwPer];
 #pragma unroll
@@ -433,10 +436,10 @@ trigrid_decode_backward_kernel(const float* __restrict__ planes, int B, int D, i
         const float u = k == 2 ? pz : px, v = k == 0 ? py : (k == 1 ? pz : px),
                     t = k == 0 ? pz : py;
         Corners c;
-        grid_corners(c, D, H, W, u, v, t);
+        grid_corners<kGrid>(c, D, H, W, u, v, t);
         const float* g = gbase + k * plane_elems;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < kCorners; ++i) {
           if (!c.ok[i]) continue;
           const float4 a = __ldg(reinterpret_cast<const float4*>(g + c.off[i]));
           const float4 e = __ldg(reinterpret_cast<const float4*>(g + c.off[i] + 4));
@@ -498,14 +501,14 @@ trigrid_decode_backward_kernel(const float* __restrict__ planes, int B, int D, i
         const float u = k == 2 ? pz : px, v = k == 0 ? py : (k == 1 ? pz : px),
                     t = k == 0 ? pz : py;
         Corners c;
-        grid_corners(c, D, H, W, u, v, t);
+        grid_corners<kGrid>(c, D, H, W, u, v, t);
         float* g = dbase + k * plane_elems;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < kCorners; ++i) {
           if (!c.ok[i]) continue;
           const float w = c.w[i];
-          atomic_add4(g + c.off[i], make_float4(df[0] * w, df[1] * w, df[2] * w, df[3] * w));
-          atomic_add4(g + c.off[i] + 4, make_float4(df[4] * w, df[5] * w, df[6] * w, df[7] * w));
+          r3dp_atomic_add4(g + c.off[i], make_float4(df[0] * w, df[1] * w, df[2] * w, df[3] * w));
+          r3dp_atomic_add4(g + c.off[i] + 4, make_float4(df[4] * w, df[5] * w, df[6] * w, df[7] * w));
         }
       }
     }
@@ -545,6 +548,37 @@ trigrid_decode_backward_kernel(const float* __restrict__ planes, int B, int D, i
     else if (e < kOut * kHid + kOut + kHid * kC) atomicAdd(dw0 + e - kOut * kHid - kOut, acc[r]);
     else if (e < kBwW) atomicAdd(db0 + e - kOut * kHid - kOut - kHid * kC, acc[r]);
   }
+}
+
+template <bool kGrid>
+int launch_backward(const float* planes, int B, int D, int H, int W, const float* coords,
+                    long long n_per_batch, float coord_scale, const float* w0, const float* b0,
+                    const float* w1, const float* b1, const float* drgb, const float* dsigma,
+                    float* dplanes, float* dw0, float* db0, float* dw1, float* db1,
+                    cudaStream_t stream) {
+  const long long total = (long long)B * n_per_batch;
+  if (total <= 0) return (int)cudaGetLastError();
+  auto kernel = plane_decode_backward_kernel<kGrid>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  static int ctas_per_sm = 0, sms = 0;
+  if (ctas_per_sm == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, kernel, kBwThreads,
+                                                             kBwSmemBytes)) != cudaSuccess)
+      return (int)err;
+    if (ctas_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long n_tiles = (total + kBwP - 1) / kBwP;
+  const long long fit = (long long)ctas_per_sm * sms;
+  kernel<<<(unsigned int)(n_tiles < fit ? n_tiles : fit), kBwThreads, kBwSmemBytes, stream>>>(
+      planes, B, D, H, W, coords, n_per_batch, coord_scale, w0, b0, w1, b1, drgb, dsigma,
+      dplanes, dw0, db0, dw1, db1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -587,31 +621,22 @@ R3DP_EXPORT int r3dp_trigrid_decode_backward(const float* planes, int B, int D, 
                                              float* dplanes, float* dw0, float* db0,
                                              float* dw1, float* db1, cudaStream_t stream) {
   if (D < 1 || (long long)D * H * W * kC >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * n_per_batch;
-  if (total <= 0) return (int)cudaGetLastError();
-  cudaError_t err = cudaFuncSetAttribute(trigrid_decode_backward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kBwSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  static int ctas_per_sm = 0, sms = 0;
-  if (ctas_per_sm == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &ctas_per_sm, trigrid_decode_backward_kernel, kBwThreads, kBwSmemBytes)) !=
-            cudaSuccess)
-      return (int)err;
-    if (ctas_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  }
-  const long long n_tiles = (total + kBwP - 1) / kBwP;
-  const long long fit = (long long)ctas_per_sm * sms;
-  trigrid_decode_backward_kernel<<<(unsigned int)(n_tiles < fit ? n_tiles : fit), kBwThreads,
-                                   kBwSmemBytes, stream>>>(
-      planes, B, D, H, W, coords, n_per_batch, coord_scale, w0, b0, w1, b1, drgb, dsigma,
-      dplanes, dw0, db0, dw1, db1);
-  return (int)cudaGetLastError();
+  return launch_backward<true>(planes, B, D, H, W, coords, n_per_batch, coord_scale, w0, b0,
+                               w1, b1, drgb, dsigma, dplanes, dw0, db0, dw1, db1, stream);
+}
+
+// K1 backward: the same for tri-planes [B,3,H,W,32].
+R3DP_EXPORT int r3dp_triplane_decode_backward(const float* planes, int B, int H, int W,
+                                              const float* coords, long long n_per_batch,
+                                              float coord_scale, const float* w0,
+                                              const float* b0, const float* w1,
+                                              const float* b1, const float* drgb,
+                                              const float* dsigma, float* dplanes, float* dw0,
+                                              float* db0, float* dw1, float* db1,
+                                              cudaStream_t stream) {
+  if ((long long)H * W * kC >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  return launch_backward<false>(planes, B, 1, H, W, coords, n_per_batch, coord_scale, w0, b0,
+                                w1, b1, drgb, dsigma, dplanes, dw0, db0, dw1, db1, stream);
 }
 
 R3DP_EXPORT const char* r3dp_error_string(int status) {

@@ -131,7 +131,9 @@ def pipeline_from_args(args: argparse.Namespace):
 
 def main(argv: list[str] | None = None) -> None:
     from real3dportrait_tpu_torch.inference.infer_utils import load_motion_coeff_npy
+    from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 
+    set_fp32_policy()
     args = parse_args(argv)
     pipe = pipeline_from_args(args)
 

@@ -42,11 +42,11 @@ def main() -> None:
 
     from real3dportrait_tpu_torch import kernels
     from real3dportrait_tpu_torch.ops import conv3d as c3d
+    from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 
     if not torch.cuda.is_available():
         raise SystemExit("k7_shapes: no CUDA device is visible")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
     print(f"card: {kernels.card_line()}")
     print(f"tree: {os.path.dirname(os.path.dirname(c3d.__file__))}")
     dev = torch.device("cuda", 0)

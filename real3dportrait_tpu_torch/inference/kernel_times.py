@@ -256,12 +256,12 @@ def main() -> None:
     from real3dportrait_tpu_torch.models import torso
     from real3dportrait_tpu_torch.ops import bias_act as ba
     from real3dportrait_tpu_torch.rendering import renderer
+    from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
     from real3dportrait_tpu_torch.weights import mock_init_
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is visible")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
     print(f"card: {kernels.card_line()}")
     print(f"tree: {os.path.dirname(os.path.dirname(dm.__file__))}")
     dev = torch.device("cuda", 0)

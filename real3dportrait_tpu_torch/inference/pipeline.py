@@ -92,6 +92,7 @@ from real3dportrait_tpu_torch.preprocess.segment_utils import (
     prepare_source,
 )
 from real3dportrait_tpu_torch.utils import msgpack_ckpt
+from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 from real3dportrait_tpu_torch.utils.visualization import (
     depth_to_colormap,
     side_by_side,
@@ -235,6 +236,7 @@ class Real3DPortraitPipeline:
                  secc2video_ckpt_dir: str = "", bfm_dir: str | None = None,
                  assets: BFMAssets | None = None, seed: int = 0,
                  device: torch.device | str = "cuda", hubert_path: str | None = None):
+        set_fp32_policy()  # process-global: TF32 off for cuDNN and cuBLAS
         self.device = entry_device(device)
         if cfg is None:
             cfg = load_config(DEFAULT_CONFIG)

@@ -63,6 +63,7 @@ from real3dportrait_tpu_torch.kernels import card_line, cuda_ms
 from real3dportrait_tpu_torch.models.torso import mfe_tail
 from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
 from real3dportrait_tpu_torch.rendering.renderer import render_rays
+from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 from real3dportrait_tpu_torch.utils.profiling import kernel_table
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -315,8 +316,7 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device is visible")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
     print(f"card: {card_line()}")
     print(f"config: {args.config}")
     if args.batches:

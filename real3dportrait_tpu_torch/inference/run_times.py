@@ -39,11 +39,11 @@ def main() -> None:
     import torch
 
     import chip_smoke
+    from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 
     if not torch.cuda.is_available():
         raise SystemExit("run_times: no CUDA device is visible")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
     print(f"card: {chip_smoke.card_line()}")
     print(f"tree: {os.path.dirname(os.path.abspath(chip_smoke.__file__))}, "
           f"frame_batch {args.frame_batch}")

@@ -172,7 +172,9 @@ def main(argv: list[str] | None = None):
     args = p.parse_args(argv)
 
     from real3dportrait_tpu_torch import entry_device
+    from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 
+    set_fp32_policy()
     entry_device(args.device)  # no card: fail now, not at the first request
     kwargs = dict(mock_weights=args.mock_weights or not (args.a2m_ckpt and args.s2v_ckpt),
                   a2m_ckpt_dir=args.a2m_ckpt, secc2video_ckpt_dir=args.s2v_ckpt,

@@ -59,6 +59,8 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_trigrid_decode": (_P, _I, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P),
     "r3dp_trigrid_decode_backward": (_P, _I, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _P),
+    "r3dp_triplane_decode_backward": (_P, _I, _I, _I, _P, _L, _F, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P),
     "r3dp_importance_sample": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     "r3dp_merge_composite": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "r3dp_merge_composite_backward": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -66,6 +68,8 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_secc_raster": (_P, _I, _I, _P, _I, _P, _F, _F, _F, _I, _F, _F, _P, _P, _P, _P),
     "r3dp_torso_deform_input": (_P, _P, _P, *(_I,) * 8, _P, _P),
     "r3dp_torso_warp_volume": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "r3dp_torso_deform_input_backward": (_P, _P, _P, *(_I,) * 6, _P, _P),
+    "r3dp_torso_warp_volume_backward": (_P, _P, _P, *(_I,) * 5, _P, _P, _P),
     "r3dp_upfirdn2d": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),
     "r3dp_upfirdn2d_bf16": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),
     "r3dp_bias_act": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
@@ -73,8 +77,11 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_bias_act_grad": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "r3dp_bias_act_grad_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "r3dp_conv3d": (_P, _P, _P, _P, _P, *(_I,) * 15, _P),
+    "r3dp_conv3d_weight_grad": (_P, _P, *(_I,) * 8, _P, _P, _P),
     "r3dp_mfe_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                      _P, _P),
+                      _P, _P, _P),
+    "r3dp_mfe_tail_backward_adjoint": (*(_P,) * 8, *(_I,) * 4, _P, _P, _P),
+    "r3dp_mfe_tail_backward_occ": (_P, _P, _P, *(_I,) * 4, _P, _P, _P, _P),
 }
 
 

@@ -14,13 +14,15 @@ tensor cores (:func:`pack_decoder_mlp`), cached on the decoder
 (:func:`packed_decoder_mlp`), a forward-only copy that never carries a
 gradient.
 
-On CUDA tensors :func:`trigrid_decode` is a ``torch.autograd.Function``
-over the tri-grids and the decoder's parameters (the backward folds them
-as ``FullyConnectedLayer.folded`` does and maps the folded weights'
-gradients through the equalised-LR gains); its backward is kernel
-:func:`trigrid_decode_backward` (same source), its plain version
-:func:`trigrid_decode_backward_plain`. Coordinates take no gradient (rays
-come from the camera, the density regulariser's points are data).
+On CUDA tensors :func:`triplane_decode` and :func:`trigrid_decode` are
+``torch.autograd.Function`` calls over the planes and the decoder's parameters
+(the backward folds them as ``FullyConnectedLayer.folded`` does and maps
+the folded weights' gradients through the equalised-LR gains); their
+backwards are kernels :func:`triplane_decode_backward` and
+:func:`trigrid_decode_backward` (one template in the same source), their
+plain version :func:`decode_backward_plain` (both layouts). Coordinates
+take no gradient (rays come from the camera, the density regulariser's
+points are data).
 """
 
 from __future__ import annotations
@@ -171,40 +173,6 @@ def k1_cost(planes_shape: tuple, n_points: int) -> dict:
                 fp32_ops=n_points * (3 * corners * 32 * 2 + 96))
 
 
-def triplane_decode(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
-                    decoder: OSGDecoder) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 wrapper, same contract as :func:`triplane_decode_plain`.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes fp32 planes [B,3,H,W,32], a 64-wide hidden layer and 33
-    outputs, or raise, as they do where a gradient is wanted (K1 has no
-    backward kernel yet).
-    """
-    if planes.device.type == "cpu":
-        return triplane_decode_plain(planes, coords, box_warp, decoder)
-    name = "triplane_decode"
-    planes, coords = planes.contiguous(), coords.contiguous()
-    if planes.dim() != 5:
-        raise ValueError(f"{name}: planes must be [B,3,H,W,32], got {tuple(planes.shape)}")
-    packed = _packed_mlp(name, decoder, planes, coords)
-    params = (decoder.net0.weight, decoder.net0.bias, decoder.net1.weight, decoder.net1.bias)
-    if torch.is_grad_enabled() and (planes.requires_grad or coords.requires_grad
-                                    or any(p.requires_grad for p in params)):
-        raise NotImplementedError(f"{name}: K1's backward is not ported (ROADMAP queue 2 "
-                                  "part D); the tri-grid kernel K1-trigrid has one")
-    b, _, h, w, _ = planes.shape
-    m = coords.shape[1]
-    rgb = torch.empty((b, m, 32), device=planes.device)
-    sigma = torch.empty((b, m, 1), device=planes.device)
-    kernels.launch("r3dp_triplane_decode", planes, b, h, w, coords, m, 2.0 / box_warp,
-                   packed, rgb, sigma)
-    triplane_decode.launches += 1
-    return rgb, sigma
-
-
-triplane_decode.launches = 0
-
-
 def trigrid_decode_plain(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
                          decoder: OSGDecoder) -> tuple[torch.Tensor, torch.Tensor]:
     """planes [B,3,D,H,W,C], coords [B,M,3] -> (rgb [B,M,out], sigma [B,M,1])."""
@@ -239,27 +207,52 @@ def _trigrid_corners(planes_shape: tuple, uvt: torch.Tensor) -> tuple:
     return torch.stack(idx), torch.stack(wts)
 
 
-def trigrid_decode_backward_plain(planes: torch.Tensor, coords: torch.Tensor,
-                                  box_warp: float, w0: torch.Tensor, b0: torch.Tensor,
-                                  w1: torch.Tensor, b1: torch.Tensor,
-                                  drgb: torch.Tensor | None, dsigma: torch.Tensor | None
-                                  ) -> tuple:
-    """Plain PyTorch K1-trigrid backward: tri-grids [B,3,D,H,W,C], coords
-    [B,M,3], the folded decoder (w0 [64,C], b0, w1 [1+C',64], b1) and the
-    gradients of rgb [B,M,C'] and sigma [B,M,1] (either None for zero) ->
-    (d planes, d w0, d b0, d w1, d b1), written out (no autograd)."""
-    bsz, k, d, h, w, c = planes.shape
+def _plane_corners(planes_shape: tuple, uv: torch.Tensor) -> tuple:
+    """The 4 bilinear corners of plane coordinates ``uv`` [B,M,2] in
+    [-1,1] (u indexes W, v H) in [B,H,W,C] planes, by ``F.grid_sample``'s
+    rules (align_corners=False, zero padding): flat row indices [4,B,M]
+    (clamped), weights [4,B,M] (0 for a corner outside)."""
+    _, h, w, _ = planes_shape
+    x = ((uv[..., 0] + 1) * w - 1) / 2
+    y = ((uv[..., 1] + 1) * h - 1) / 2
+    x0, y0 = x.floor(), y.floor()
+    idx, wts = [], []
+    for cy in (0, 1):
+        for cx in (0, 1):
+            xi, yi = x0 + cx, y0 + cy
+            wgt = ((x - x0) if cx else (1 - (x - x0))) * ((y - y0) if cy else (1 - (y - y0)))
+            ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+            idx.append((yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long())
+            wts.append(torch.where(ok, wgt, torch.zeros_like(wgt)))
+    return torch.stack(idx), torch.stack(wts)
+
+
+def decode_backward_plain(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
+                          w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                          b1: torch.Tensor, drgb: torch.Tensor | None,
+                          dsigma: torch.Tensor | None) -> tuple:
+    """Plain PyTorch K1 and K1-trigrid backward: tri-planes [B,3,H,W,C]
+    (bilinear) or tri-grids [B,3,D,H,W,C] (trilinear), coords [B,M,3], the
+    folded decoder (w0 [64,C], b0, w1 [1+C',64], b1) and the gradients of
+    rgb [B,M,C'] and sigma [B,M,1] (either None for zero) -> (d planes,
+    d w0, d b0, d w1, d b1), written out (no autograd)."""
+    grid = planes.dim() == 6
+    bsz, k, c = planes.shape[0], planes.shape[1], planes.shape[-1]
     m = coords.shape[1]
     coords = (2.0 / box_warp) * coords
-    grids = planes.reshape(bsz, k, d * h * w, c)
+    rows = planes.reshape(bsz, k, -1, c)
     corners = []
     feats = torch.zeros((bsz, m, c), dtype=planes.dtype, device=planes.device)
     for i, perm in enumerate(_PLANE_PERMS):
-        idx, wts = _trigrid_corners((bsz, d, h, w, c), coords[..., list(perm)])
+        if grid:
+            idx, wts = _trigrid_corners((bsz,) + tuple(planes.shape[2:]), coords[..., list(perm)])
+        else:
+            idx, wts = _plane_corners((bsz,) + tuple(planes.shape[2:]),
+                                      coords[..., list(perm[:2])])
         corners.append((idx, wts))
-        for j in range(8):
-            rows = torch.gather(grids[:, i], 1, idx[j][..., None].expand(-1, -1, c))
-            feats = feats + rows * wts[j][..., None]
+        for j in range(idx.shape[0]):
+            got = torch.gather(rows[:, i], 1, idx[j][..., None].expand(-1, -1, c))
+            feats = feats + got * wts[j][..., None]
     f = (feats / 3).reshape(bsz * m, c)
     hpre = f @ w0.T + b0
     hid = F.softplus(hpre)
@@ -274,39 +267,31 @@ def trigrid_decode_backward_plain(planes: torch.Tensor, coords: torch.Tensor,
     dhp = (dout @ w1) * torch.sigmoid(hpre)
     dw0, db0 = dhp.T @ f, dhp.sum(0)
     df = (dhp @ w0 / 3).reshape(bsz, m, c)
-    dgrids = torch.zeros_like(grids)
+    drows = torch.zeros_like(rows)
     for i, (idx, wts) in enumerate(corners):
-        for j in range(8):
-            dgrids[:, i].scatter_add_(1, idx[j][..., None].expand(-1, -1, c),
-                                      df * wts[j][..., None])
-    return dgrids.reshape(planes.shape), dw0, db0, dw1, db1
+        for j in range(idx.shape[0]):
+            drows[:, i].scatter_add_(1, idx[j][..., None].expand(-1, -1, c),
+                                     df * wts[j][..., None])
+    return drows.reshape(planes.shape), dw0, db0, dw1, db1
 
 
-def trigrid_decode_backward(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
-                            w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
-                            b1: torch.Tensor, drgb: torch.Tensor | None,
-                            dsigma: torch.Tensor | None) -> tuple:
-    """K1-trigrid backward wrapper, same contract as
-    :func:`trigrid_decode_backward_plain`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (fp32, C = 32, a 64-wide hidden
-    layer, 33 outputs) or raise. ``trigrid_decode_backward.launches``
-    counts its launches."""
-    if planes.device.type == "cpu":
-        return trigrid_decode_backward_plain(planes, coords, box_warp, w0, b0, w1, b1, drgb,
-                                             dsigma)
-    name = "trigrid_decode_backward"
+def _backward_launch(name: str, planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
+                     w0, b0, w1, b1, drgb, dsigma) -> tuple:
+    """Check and launch K1's (tri-planes) or K1-trigrid's backward kernel."""
+    grid = planes.dim() == 6
     planes, coords = planes.contiguous(), coords.contiguous()
     weights = [t.detach().float().contiguous() for t in (w0, b0, w1, b1)]
     for arg, t in zip(("planes", "coords", "w0", "b0", "w1", "b1"), [planes, coords] + weights):
         kernels.require(name, arg, t)
-    bsz, _, d, h, w, c = planes.shape
-    m = coords.shape[1]
-    if planes.dim() != 6 or planes.shape[1] != 3 or c != 32 or coords.shape != (bsz, m, 3) \
-            or weights[0].shape != (64, 32) or weights[2].shape != (33, 64):
-        raise ValueError(f"{name}: kernel takes planes [B,3,D,H,W,32], coords [B,M,3] and a "
-                         f"32->64->33 decoder; got {tuple(planes.shape)}, "
-                         f"{tuple(coords.shape)}, {tuple(weights[0].shape)}, "
-                         f"{tuple(weights[2].shape)}")
+    bsz, c = planes.shape[0], planes.shape[-1]
+    m = coords.shape[1] if coords.dim() == 3 else -1
+    if planes.dim() != (6 if grid else 5) or planes.shape[1] != 3 or c != 32 \
+            or coords.shape != (bsz, m, 3) or weights[0].shape != (64, 32) \
+            or weights[2].shape != (33, 64):
+        raise ValueError(f"{name}: kernel takes planes [B,3,{'D,' if grid else ''}H,W,32], "
+                         f"coords [B,M,3] and a 32->64->33 decoder; got "
+                         f"{tuple(planes.shape)}, {tuple(coords.shape)}, "
+                         f"{tuple(weights[0].shape)}, {tuple(weights[2].shape)}")
     grads = []
     for arg, t, shape in (("drgb", drgb, (bsz, m, 32)), ("dsigma", dsigma, (bsz, m, 1))):
         if t is not None:
@@ -317,10 +302,104 @@ def trigrid_decode_backward(planes: torch.Tensor, coords: torch.Tensor, box_warp
         grads.append(t)
     dplanes = torch.zeros_like(planes)
     dw = [torch.zeros_like(t) for t in weights]
-    kernels.launch("r3dp_trigrid_decode_backward", planes, bsz, d, h, w, coords, m,
-                   2.0 / box_warp, *weights, *grads, dplanes, *dw)
-    trigrid_decode_backward.launches += 1
+    dims = planes.shape[2:5] if grid else planes.shape[2:4]
+    kernels.launch(f"r3dp_{name}", planes, bsz, *dims, coords, m, 2.0 / box_warp, *weights,
+                   *grads, dplanes, *dw)
     return (dplanes, *dw)
+
+
+def triplane_decode_backward(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
+                             w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                             b1: torch.Tensor, drgb: torch.Tensor | None,
+                             dsigma: torch.Tensor | None) -> tuple:
+    """K1 backward wrapper, same contract as
+    :func:`decode_backward_plain` on tri-planes. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (fp32, C = 32, a 64-wide hidden
+    layer, 33 outputs; the tri-plane instantiation of K1-trigrid's
+    backward) or raise. ``triplane_decode_backward.launches`` counts its
+    launches."""
+    if planes.device.type == "cpu":
+        return decode_backward_plain(planes, coords, box_warp, w0, b0, w1, b1, drgb, dsigma)
+    out = _backward_launch("triplane_decode_backward", planes, coords, box_warp, w0, b0, w1,
+                           b1, drgb, dsigma)
+    triplane_decode_backward.launches += 1
+    return out
+
+
+triplane_decode_backward.launches = 0
+
+
+class _TriplaneDecode(torch.autograd.Function):
+    """K1 forward (packed split-TF32 weights) with the backward kernel; the
+    inputs are the tri-planes and the decoder's raw parameters, whose
+    gradients are the folded weights' times the equalised-LR ``gains``."""
+
+    @staticmethod
+    def forward(ctx, planes, coords, w0, b0, w1, b1, gains, box_warp, packed):
+        ctx.save_for_backward(planes, coords, w0, b0, w1, b1)
+        ctx.gains, ctx.box_warp = gains, box_warp
+        b, _, h, w, _ = planes.shape
+        m = coords.shape[1]
+        rgb = torch.empty((b, m, 32), device=planes.device)
+        sigma = torch.empty((b, m, 1), device=planes.device)
+        kernels.launch("r3dp_triplane_decode", planes, b, h, w, coords, m, 2.0 / box_warp,
+                       packed, rgb, sigma)
+        triplane_decode.launches += 1
+        return rgb, sigma
+
+    @staticmethod
+    def backward(ctx, drgb, dsigma):
+        planes, coords, *raw = ctx.saved_tensors
+        folded = [p * g for p, g in zip(raw, ctx.gains)]
+        dplanes, *dw = triplane_decode_backward(planes, coords, ctx.box_warp, *folded, drgb,
+                                                dsigma)
+        return (dplanes if ctx.needs_input_grad[0] else None, None,
+                *(d * g for d, g in zip(dw, ctx.gains)), None, None, None)
+
+
+def triplane_decode(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
+                    decoder: OSGDecoder) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 wrapper, same contract as :func:`triplane_decode_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes fp32 planes [B,3,H,W,32], a 64-wide hidden layer and 33
+    outputs, or raise. The call is a ``torch.autograd.Function`` whose
+    backward is :func:`triplane_decode_backward`; coordinates that need a
+    gradient raise.
+    """
+    if planes.device.type == "cpu":
+        return triplane_decode_plain(planes, coords, box_warp, decoder)
+    name = "triplane_decode"
+    planes, coords = planes.contiguous(), coords.contiguous()
+    if planes.dim() != 5:
+        raise ValueError(f"{name}: planes must be [B,3,H,W,32], got {tuple(planes.shape)}")
+    if torch.is_grad_enabled() and coords.requires_grad:
+        raise ValueError(f"{name}: coordinates that need a gradient are not supported")
+    packed = _packed_mlp(name, decoder, planes, coords)
+    n0, n1 = decoder.net0, decoder.net1
+    gains = (n0.weight_gain, n0.lr_multiplier, n1.weight_gain, n1.lr_multiplier)
+    return _TriplaneDecode.apply(planes, coords, n0.weight, n0.bias, n1.weight, n1.bias, gains,
+                                 box_warp, packed)
+
+
+triplane_decode.launches = 0
+
+
+def trigrid_decode_backward(planes: torch.Tensor, coords: torch.Tensor, box_warp: float,
+                            w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, drgb: torch.Tensor | None,
+                            dsigma: torch.Tensor | None) -> tuple:
+    """K1-trigrid backward wrapper, same contract as
+    :func:`decode_backward_plain` on tri-grids. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (fp32, C = 32, a 64-wide hidden
+    layer, 33 outputs) or raise. ``trigrid_decode_backward.launches``
+    counts its launches."""
+    if planes.device.type == "cpu":
+        return decode_backward_plain(planes, coords, box_warp, w0, b0, w1, b1, drgb, dsigma)
+    out = _backward_launch("trigrid_decode_backward", planes, coords, box_warp, w0, b0, w1,
+                           b1, drgb, dsigma)
+    trigrid_decode_backward.launches += 1
+    return out
 
 
 trigrid_decode_backward.launches = 0

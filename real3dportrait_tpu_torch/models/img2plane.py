@@ -270,7 +270,11 @@ class OSAvatarSECCImg2PlaneTorso(OSAvatarSECCImg2Plane):
     the renderer are inherited. ``cond`` carries ``ref_torso_img``,
     ``bg_img``, ``segmap`` [B,H,W,6], ``kp_src`` and ``kp_drv`` [B,68,3],
     and optionally the per-video caches ``torso_appearance``
-    (:meth:`cal_torso_appearance`) and ``bg_feat`` (:meth:`cal_bg_feat`).
+    (:meth:`cal_torso_appearance`) and ``bg_feat`` (:meth:`cal_bg_feat`),
+    and ``target_torso_mask`` [B,H,W] (weighs the occlusion regularisers).
+    Besides the renders, the output carries the torso model's outputs
+    (``torso_ret``) and, where a gradient is recorded, its occlusion
+    regularisers (``facev2v_losses``).
     """
 
     def __init__(self, torso_kp_num: int = 4, torso_scale: str = "standard",
@@ -309,16 +313,21 @@ class OSAvatarSECCImg2PlaneTorso(OSAvatarSECCImg2Plane):
             ref_torso_rgb=cond["ref_torso_img"], ref_bg_rgb=cond.get("bg_img"),
             weights_img=weights_image, segmap=cond["segmap"], kp_s=cond["kp_src"],
             kp_d=cond["kp_drv"], noise_mode=noise_mode,
-            appearance_volume=cond.get("torso_appearance"), bg_feat=cond.get("bg_feat"))
-        return sr_image, {"torso_ret": torso_ret}
+            appearance_volume=cond.get("torso_appearance"), bg_feat=cond.get("bg_feat"),
+            target_torso_mask=cond.get("target_torso_mask"))
+        extra = {"torso_ret": {k: v for k, v in torso_ret.items() if k != "losses"}}
+        if "losses" in torso_ret:
+            extra["facev2v_losses"] = torso_ret["losses"]
+        return sr_image, extra
 
     def synthesis(self, img: torch.Tensor | None, camera: torch.Tensor,
                   cond: dict | None = None, secc: torch.Tensor | None = None,
-                  cano_planes: torch.Tensor | None = None, noise_mode: str = "none") -> dict:
+                  cano_planes: torch.Tensor | None = None, noise_mode: str = "none",
+                  draws=None) -> dict:
         if cond is None:
             raise ValueError("the torso model needs the cond dict")
         return super().synthesis(img, camera, secc=secc, cano_planes=cano_planes,
-                                 noise_mode=noise_mode, cond=cond)
+                                 noise_mode=noise_mode, cond=cond, draws=draws)
 
     def forward(self, img, camera, cond=None, secc=None, **kw) -> dict:
         return self.synthesis(img, camera, cond=cond, secc=secc, **kw)

@@ -103,14 +103,16 @@ class SuperresolutionHybrid8XDCWarp(nn.Module):
                 weights_img: torch.Tensor, segmap: torch.Tensor, kp_s: torch.Tensor,
                 kp_d: torch.Tensor, noise_mode: str = "none",
                 appearance_volume: torch.Tensor | None = None,
-                bg_feat: tuple[torch.Tensor, torch.Tensor] | None = None
+                bg_feat: tuple[torch.Tensor, torch.Tensor] | None = None,
+                target_torso_mask: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
         """rgb [B,r,r,3] raw head render, x [B,r,r,C] feature image,
         ws [B,*,w_dim], ref_torso_rgb / ref_bg_rgb [B,H,W,3], weights_img
         [B,r,r,1], segmap [B,H,W,6], kp_s / kp_d [B,68,3] -> (image
         [B,final,final,3], the torso model's outputs). ``ref_torso_rgb`` is
         not read when ``appearance_volume`` is given, nor ``ref_bg_rgb``
-        when ``bg_feat`` is."""
+        when ``bg_feat`` is; ``target_torso_mask`` [B,H,W] weighs the torso
+        model's occlusion regularisers (its ``losses``)."""
         mid = self.mid
         ws = ws[:, -1:, :].expand(rgb.shape[0], 3, ws.shape[-1])
         # block0 doubles: land on mid // 2 for any render resolution
@@ -129,6 +131,7 @@ class SuperresolutionHybrid8XDCWarp(nn.Module):
         if self.torso_version == "v2":
             head = dict(tgt_head_img=rgb_mid, tgt_head_weights=weights_mid)
         torso_ret = self.torso_model(torso_mid, segmap, kp_s, kp_d,
+                                     target_torso_mask=target_torso_mask,
                                      appearance_volume=appearance_volume, **head)
         rgb_torso = nchw(torso_ret["deformed_torso_img"])
         x_torso = self.torso_encoder(nchw(torso_ret["deformed_torso_hid"]))

@@ -28,9 +28,15 @@ beside it (every 3D convolution of the model is kernel K7a,
   ``direct`` form; the JAX package's default ``fused`` tail computes the
   same taps as one depth-folded convolution, a TPU lane layout).
 
-Inference only: the training outputs of the JAX model (the occlusion
-regularisers in ``losses`` and the 0.1 gradient scale on the motion field)
-come with the training slice.
+On CUDA tensors each of the three wrappers is a ``torch.autograd.Function``
+(under ``no_grad`` too) whose backward is a kernel with its plain version
+beside it: :func:`torso_deform_input_backward` and
+:func:`torso_warp_volume_backward`, one trilinear adjoint in two modes
+(``csrc/torso_warp.cu``), and :func:`mfe_tail_backward`
+(``csrc/conv3d.cu``, with the mask conv's gradients through K7a and its
+weight-gradient kernel). The model's training outputs follow the JAX
+model's: the 0.1 gradient scale on the motion field, the detached head
+conditioning and the occlusion regularisers in ``losses``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,13 @@ from real3dportrait_tpu_torch import kernels
 from real3dportrait_tpu_torch.models.img2plane_composite import ChannelAffine
 from real3dportrait_tpu_torch.models.segformer import nchw, nhwc
 from real3dportrait_tpu_torch.models.superresolution import resize_bilinear
-from real3dportrait_tpu_torch.ops.conv3d import Conv3D, kernel_tiles, sm_count
+from real3dportrait_tpu_torch.ops.conv3d import (
+    Conv3D,
+    conv3d_data_grad,
+    conv3d_weight_grad,
+    kernel_tiles,
+    sm_count,
+)
 from real3dportrait_tpu_torch.ops.grid_sample import grid_sample_3d
 
 
@@ -207,13 +219,134 @@ def torso_deform_plan(b: int, k: int, d: int, h: int, w: int) -> dict:
                 grid=(math.ceil(w / 64), math.ceil(h / rows), b * d))
 
 
+def _trilinear_adjoint(vol_shape: tuple, coords: torch.Tensor, gout: torch.Tensor,
+                       border: bool, vol: torch.Tensor | None = None) -> tuple:
+    """The adjoint of ``grid_sample_3d(vol, coords, align_corners=True)``,
+    written out: vol_shape (B,D,H,W,C), coords [B,N,3] (x, y, z), the
+    samples' gradient gout [B,N,C] -> (d vol [B,D,H,W,C], d coords [B,N,3]
+    where ``vol`` is given, else None). ``border``: border padding (the
+    coordinate clamped first; its gradient 0 on a clamped axis, at the bound
+    too, torch's rule), else zero padding (a corner outside adds nothing)."""
+    b, d, h, w, c = vol_shape
+    sizes = (w, h, d)
+    raw = [(coords[..., i] + 1) / 2 * (sizes[i] - 1) for i in range(3)]
+    pos = [r.clamp(0, n - 1) for r, n in zip(raw, sizes)] if border else raw
+    fl = [p.floor() for p in pos]
+    lerp = [((f + 1) - p, p - f) for p, f in zip(pos, fl)]
+    flat_vol = None if vol is None else vol.reshape(b, -1, c)
+    dvol = torch.zeros((b, d * h * w, c), dtype=gout.dtype, device=gout.device)
+    dcoord = [torch.zeros_like(raw[0]) for _ in range(3)]
+    for corner in range(8):
+        cs = (corner & 1, (corner >> 1) & 1, corner >> 2)
+        ix = [f + k for f, k in zip(fl, cs)]
+        ok = torch.ones_like(raw[0], dtype=torch.bool)
+        for i, n in zip(ix, sizes):
+            ok = ok & (i >= 0) & (i <= n - 1)
+        wts = [lerp[a][cs[a]] for a in range(3)]
+        flat = ((ix[2].clamp(0, d - 1) * h + ix[1].clamp(0, h - 1)) * w
+                + ix[0].clamp(0, w - 1)).long()
+        wgt = torch.where(ok, wts[0] * wts[1] * wts[2], torch.zeros_like(wts[0]))
+        dvol.scatter_add_(1, flat[..., None].expand(-1, -1, c), gout * wgt[..., None])
+        if flat_vol is not None:
+            v = torch.gather(flat_vol, 1, flat[..., None].expand(-1, -1, c))
+            dot = torch.where(ok, (gout * v).sum(-1), torch.zeros_like(wgt))
+            for a in range(3):
+                term = dot * (1.0 if cs[a] else -1.0)
+                for o in range(3):
+                    if o != a:
+                        term = term * wts[o]
+                dcoord[a] = dcoord[a] + term
+    dcoords = None
+    if vol is not None:
+        mult = [torch.where((r > 0) & (r < n - 1), torch.full_like(r, (n - 1) / 2),
+                            torch.zeros_like(r)) if border else torch.full_like(r, (n - 1) / 2)
+                for r, n in zip(raw, sizes)]
+        dcoords = torch.stack([g * m for g, m in zip(dcoord, mult)], dim=-1)
+    return dvol.reshape(vol_shape), dcoords
+
+
+def torso_deform_input_backward_plain(dout: torch.Tensor, kp_s: torch.Tensor,
+                                      kp_d: torch.Tensor, vol_shape: tuple) -> torch.Tensor:
+    """The gradient of :func:`torso_deform_input_plain`'s volume ``fs`` of
+    shape ``vol_shape`` (B,D,H,W,C) from the output's gradient ``dout``
+    [B,(K+1)*(1+C),D,H,W]: the warped channels' gradients scattered back
+    through each candidate's zero-padded trilinear warp (the heatmaps do not
+    depend on ``fs``; the keypoints are data)."""
+    b, d, h, w, c = vol_shape
+    k1 = kp_s.shape[1] + 1
+    motions = create_sparse_motions(kp_s, kp_d, d, h, w).reshape(b, -1, 3)
+    gout = dout.reshape(b, k1, 1 + c, d, h, w)[:, :, 1:].permute(0, 1, 3, 4, 5, 2)
+    return _trilinear_adjoint(vol_shape, motions, gout.reshape(b, -1, c), border=False)[0]
+
+
+def torso_deform_input_backward(dout: torch.Tensor, kp_s: torch.Tensor, kp_d: torch.Tensor,
+                                vol_shape: tuple) -> torch.Tensor:
+    """K5a's adjoint wrapper, same contract as
+    :func:`torso_deform_input_backward_plain`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (fp32, C = 4) or raise.
+    ``torso_deform_input_backward.launches`` counts its launches."""
+    if dout.device.type == "cpu":
+        return torso_deform_input_backward_plain(dout, kp_s, kp_d, vol_shape)
+    name = "torso_deform_input_backward"
+    dout, kp_s, kp_d = dout.contiguous(), kp_s.contiguous(), kp_d.contiguous()
+    for arg, t in (("dout", dout), ("kp_s", kp_s), ("kp_d", kp_d)):
+        kernels.require(name, arg, t)
+    b, d, h, w, c = vol_shape
+    k = kp_s.shape[1]
+    if c != 4 or min(d, h, w) < 2 or tuple(dout.shape) != (b, (k + 1) * (1 + c), d, h, w) \
+            or tuple(kp_s.shape) != (b, k, 3) or kp_d.shape != kp_s.shape \
+            or d * h * w * c >= 2 ** 31:
+        raise ValueError(f"{name}: kernel takes dout [B,(K+1)*5,D,H,W] of a volume "
+                         f"[B,D,H,W,4] (D,H,W >= 2) and keypoints [B,K,3]; got dout "
+                         f"{tuple(dout.shape)}, volume {tuple(vol_shape)}, kp_s "
+                         f"{tuple(kp_s.shape)}")
+    dvol = torch.zeros(vol_shape, device=dout.device)
+    kernels.launch("r3dp_torso_deform_input_backward", dout, kp_s, kp_d, b, k, d, h, w, c, dvol)
+    torso_deform_input_backward.launches += 1
+    return dvol
+
+
+torso_deform_input_backward.launches = 0
+
+
+def _no_keypoint_grad(name: str, *kps: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in kps):
+        raise ValueError(f"{name}: keypoints that need a gradient are not supported (the "
+                         "torso's keypoints are data)")
+
+
+class _TorsoDeformInput(torch.autograd.Function):
+    """K5a forward; backward: its trilinear adjoint into the volume."""
+
+    @staticmethod
+    def forward(ctx, fs, kp_s, kp_d):
+        ctx.save_for_backward(kp_s, kp_d)
+        ctx.vol_shape = tuple(fs.shape)
+        b, d, h, w, c = fs.shape
+        k = kp_s.shape[1]
+        plan = torso_deform_plan(b, k, d, h, w)
+        out = torch.empty((b, (k + 1) * (1 + c), d, h, w), device=fs.device)
+        kernels.launch("r3dp_torso_deform_input", fs, kp_s, kp_d, b, k, d, h, w, c,
+                       plan["rows"], plan["cand"], out)
+        torso_deform_input.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        kp_s, kp_d = ctx.saved_tensors
+        return torso_deform_input_backward(dout, kp_s, kp_d, ctx.vol_shape), None, None
+
+
 def torso_deform_input(fs: torch.Tensor, kp_s: torch.Tensor,
                        kp_d: torch.Tensor) -> torch.Tensor:
     """K5a wrapper, same contract as :func:`torso_deform_input_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (:func:`torso_deform_plan`), which takes fp32 volumes of 4 channels (the
-    estimator's compressed width) with D, H, W >= 2, or raise.
+    estimator's compressed width) with D, H, W >= 2, or raise. The call is a
+    ``torch.autograd.Function`` whose backward is
+    :func:`torso_deform_input_backward`; keypoints that need a gradient
+    raise.
     """
     if fs.device.type == "cpu":
         return torso_deform_input_plain(fs, kp_s, kp_d)
@@ -221,6 +354,7 @@ def torso_deform_input(fs: torch.Tensor, kp_s: torch.Tensor,
     fs, kp_s, kp_d = fs.contiguous(), kp_s.contiguous(), kp_d.contiguous()
     for arg, t in (("fs", fs), ("kp_s", kp_s), ("kp_d", kp_d)):
         kernels.require(name, arg, t)
+    _no_keypoint_grad(name, kp_s, kp_d)
     b, d, h, w, c = fs.shape
     k = kp_s.shape[1]
     plan = torso_deform_plan(b, k, d, h, w)
@@ -230,11 +364,7 @@ def torso_deform_input(fs: torch.Tensor, kp_s: torch.Tensor,
         raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4] (D,H,W >= 2, B*D <= 65535) "
                          f"and keypoints [B,K,3]; got fs {tuple(fs.shape)}, kp_s "
                          f"{tuple(kp_s.shape)}, kp_d {tuple(kp_d.shape)}")
-    out = torch.empty((b, (k + 1) * (1 + c), d, h, w), device=fs.device)
-    kernels.launch("r3dp_torso_deform_input", fs, kp_s, kp_d, b, k, d, h, w, c, plan["rows"],
-                   plan["cand"], out)
-    torso_deform_input.launches += 1
-    return out
+    return _TorsoDeformInput.apply(fs, kp_s, kp_d)
 
 
 torso_deform_input.launches = 0
@@ -249,12 +379,76 @@ def torso_warp_volume_plain(fs: torch.Tensor, deformation: torch.Tensor) -> torc
     return warped.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)
 
 
+def torso_warp_volume_backward_plain(fs: torch.Tensor, deformation: torch.Tensor,
+                                     dout: torch.Tensor) -> tuple:
+    """The gradients of :func:`torso_warp_volume_plain` from the output's
+    gradient ``dout`` [B,C*D,H,W]: (d fs [B,D,H,W,C], d deformation
+    [B,D,H,W,3]), the border-padded trilinear adjoint written out."""
+    b, d, h, w, c = fs.shape
+    gout = dout.reshape(b, c, d, h, w).permute(0, 2, 3, 4, 1).reshape(b, -1, c)
+    dfs, dgrid = _trilinear_adjoint(tuple(fs.shape), deformation.reshape(b, -1, 3), gout,
+                                    border=True, vol=fs)
+    return dfs, dgrid.reshape(deformation.shape)
+
+
+def torso_warp_volume_backward(fs: torch.Tensor, deformation: torch.Tensor,
+                               dout: torch.Tensor) -> tuple:
+    """K5b's adjoint wrapper, same contract as
+    :func:`torso_warp_volume_backward_plain`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (fp32, C = 32 or 4) or raise.
+    ``torso_warp_volume_backward.launches`` counts its launches."""
+    if fs.device.type == "cpu":
+        return torso_warp_volume_backward_plain(fs, deformation, dout)
+    name = "torso_warp_volume_backward"
+    fs, deformation, dout = fs.contiguous(), deformation.contiguous(), dout.contiguous()
+    for arg, t in (("fs", fs), ("deformation", deformation), ("dout", dout)):
+        kernels.require(name, arg, t)
+    b, d, h, w, c = fs.shape
+    if c not in (4, 32) or min(d, h, w) < 2 or tuple(deformation.shape) != (b, d, h, w, 3) \
+            or tuple(dout.shape) != (b, c * d, h, w) or d * h * w * c >= 2 ** 31:
+        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4|32] (D,H,W >= 2), deformation "
+                         f"[B,D,H,W,3] and dout [B,C*D,H,W]; got {tuple(fs.shape)}, "
+                         f"{tuple(deformation.shape)}, {tuple(dout.shape)}")
+    dfs = torch.zeros_like(fs)
+    dgrid = torch.empty_like(deformation)
+    kernels.launch("r3dp_torso_warp_volume_backward", fs, deformation, dout, b, d, h, w, c,
+                   dfs, dgrid)
+    torso_warp_volume_backward.launches += 1
+    return dfs, dgrid
+
+
+torso_warp_volume_backward.launches = 0
+
+
+class _TorsoWarpVolume(torch.autograd.Function):
+    """K5b forward; backward: its trilinear adjoint into the volume and the
+    deformation."""
+
+    @staticmethod
+    def forward(ctx, fs, deformation):
+        ctx.save_for_backward(fs, deformation)
+        b, d, h, w, c = fs.shape
+        out = torch.empty((b, c * d, h, w), device=fs.device)
+        kernels.launch("r3dp_torso_warp_volume", fs, deformation, b, d, h, w, c, out)
+        torso_warp_volume.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        fs, deformation = ctx.saved_tensors
+        dfs, dgrid = torso_warp_volume_backward(fs, deformation, dout)
+        return (dfs if ctx.needs_input_grad[0] else None,
+                dgrid if ctx.needs_input_grad[1] else None)
+
+
 def torso_warp_volume(fs: torch.Tensor, deformation: torch.Tensor) -> torch.Tensor:
     """K5b wrapper, same contract as :func:`torso_warp_volume_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes fp32 volumes of 32 or 4 channels (the released and the tiny
-    presets' feature widths) with D, H, W >= 2, or raise.
+    presets' feature widths) with D, H, W >= 2, or raise. The call is a
+    ``torch.autograd.Function`` whose backward is
+    :func:`torso_warp_volume_backward`.
     """
     if fs.device.type == "cpu":
         return torso_warp_volume_plain(fs, deformation)
@@ -269,10 +463,7 @@ def torso_warp_volume(fs: torch.Tensor, deformation: torch.Tensor) -> torch.Tens
         raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4|32] (D,H,W >= 2, B*D and H "
                          f"<= 65535) and deformation [B,D,H,W,3]; got fs {tuple(fs.shape)}, "
                          f"deformation {tuple(deformation.shape)}")
-    out = torch.empty((b, c * d, h, w), device=fs.device)
-    kernels.launch("r3dp_torso_warp_volume", fs, deformation, b, d, h, w, c, out)
-    torso_warp_volume.launches += 1
-    return out
+    return _TorsoWarpVolume.apply(fs, deformation)
 
 
 torso_warp_volume.launches = 0
@@ -306,10 +497,126 @@ def mfe_tail_plain(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
     b, _, d, h, w = x.shape
     mask = F.conv3d(x, mask_w, mask_b, padding=3)
     occ = torch.sigmoid(F.conv2d(x.reshape(b, -1, h, w), occ_w, occ_b, padding=3))
-    mask = torch.softmax(mask.float(), dim=1)[..., None]   # over the K+1 candidates
+    # over the K+1 candidates, in fp32 at least
+    mask = torch.softmax(mask if mask.dtype == torch.float64 else mask.float(), dim=1)[..., None]
     sparse = create_sparse_motions(kp_s, kp_d, d, h, w)
     deformation = (sparse * mask).sum(dim=1)
     return deformation, nhwc(occ[:, :1]), nhwc(occ[:, 1:])
+
+
+def mfe_tail_backward_plain(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.Tensor,
+                            kp_s: torch.Tensor, kp_d: torch.Tensor, mask: torch.Tensor,
+                            occ1: torch.Tensor, occ2: torch.Tensor,
+                            ddef: torch.Tensor | None, docc1: torch.Tensor | None,
+                            docc2: torch.Tensor | None) -> tuple:
+    """The gradients of :func:`mfe_tail_plain` written out: x [B,C,D,H,W],
+    mask_w [K+1,C,7,7,7], occ_w [2,C*D,7,7], the keypoints, the forward's
+    softmax ``mask`` [B,K+1,D,H,W] and occlusions [B,H,W,1], and the
+    gradients of the deformation and both occlusions (None for zero) ->
+    (d x, d mask_w, d mask_b, d occ_w, d occ_b): the softmax adjoint
+    against the sparse motions, the sigmoid adjoints, and the convolutions'
+    data and weight gradients (``torch.nn.grad``)."""
+    b, c, d, h, w = x.shape
+    zero = torch.zeros_like(occ1)
+    ddef = torch.zeros((b, d, h, w, 3), dtype=x.dtype, device=x.device) if ddef is None \
+        else ddef
+    sparse = create_sparse_motions(kp_s, kp_d, d, h, w)
+    g = (sparse * ddef[:, None]).sum(-1)
+    dlog = mask * (g - (mask * g).sum(1, keepdim=True))
+    dpre = torch.cat([nchw((zero if t is None else t) * o * (1 - o))
+                      for t, o in ((docc1, occ1), (docc2, occ2))], dim=1)
+    fold = x.reshape(b, c * d, h, w)
+    dx = torch.nn.grad.conv3d_input(x.shape, mask_w, dlog, padding=3) \
+        + torch.nn.grad.conv2d_input(fold.shape, occ_w, dpre, padding=3).reshape(x.shape)
+    return (dx, torch.nn.grad.conv3d_weight(x, mask_w.shape, dlog, padding=3),
+            dlog.sum(dim=(0, 2, 3, 4)),
+            torch.nn.grad.conv2d_weight(fold, occ_w.shape, dpre, padding=3),
+            dpre.sum(dim=(0, 2, 3)))
+
+
+def mfe_tail_backward(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.Tensor,
+                      kp_s: torch.Tensor, kp_d: torch.Tensor, mask: torch.Tensor,
+                      occ1: torch.Tensor, occ2: torch.Tensor, ddef: torch.Tensor | None,
+                      docc1: torch.Tensor | None, docc2: torch.Tensor | None) -> tuple:
+    """K7b's backward wrapper, same contract as
+    :func:`mfe_tail_backward_plain`. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (fp32, K + 1 = 5, W <= 256): the softmax
+    and sigmoid adjoints, then the mask conv's data gradient through K7a
+    and its weight gradient through :func:`conv3d_weight_grad`, then the
+    occlusion heads' data (added) and weight gradients; or raise.
+    ``mfe_tail_backward.launches`` counts its calls (the K7a and
+    weight-gradient launches count on their own wrappers)."""
+    if x.device.type == "cpu":
+        return mfe_tail_backward_plain(x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2, ddef,
+                                       docc1, docc2)
+    name = "mfe_tail_backward"
+    x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2 = (
+        t.contiguous() for t in (x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2))
+    grads = [None if t is None else t.contiguous() for t in (ddef, docc1, docc2)]
+    for arg, t in zip(("x", "mask_w", "occ_w", "kp_s", "kp_d", "mask", "occ1", "occ2", "ddef",
+                       "docc1", "docc2"), (x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2,
+                                           *grads)):
+        if t is not None:
+            kernels.require(name, arg, t)
+    b, c, d, h, w = x.shape
+    k1 = mask_w.shape[0]
+    shapes = [(b, d, h, w, 3), (b, h, w, 1), (b, h, w, 1)]
+    if k1 != 5 or min(d, h, w) < 2 or w > 256 or tuple(mask.shape) != (b, k1, d, h, w) \
+            or tuple(occ_w.shape) != (2, c * d, 7, 7) or tuple(occ1.shape) != (b, h, w, 1) \
+            or occ2.shape != occ1.shape or tuple(kp_s.shape) != (b, k1 - 1, 3) \
+            or kp_d.shape != kp_s.shape \
+            or any(t is not None and tuple(t.shape) != s for t, s in zip(grads, shapes)):
+        raise ValueError(f"{name}: kernel takes x [B,C,D,H,W] (D,H,W >= 2, W <= 256), "
+                         f"mask_w [5,C,7,7,7], occ_w [2,C*D,7,7], mask [B,5,D,H,W], "
+                         f"occlusions [B,H,W,1] and their gradients; got x {tuple(x.shape)}, "
+                         f"mask {tuple(mask.shape)}, occ_w {tuple(occ_w.shape)}, gradients "
+                         f"{[None if t is None else tuple(t.shape) for t in grads]}")
+    if grads[0] is None:
+        grads[0] = torch.zeros((b, d, h, w, 3), device=x.device)
+    dlogits = torch.empty((b, k1, d, h, w), device=x.device)
+    dpre = torch.empty((b, 2, h, w), device=x.device)
+    kernels.launch("r3dp_mfe_tail_backward_adjoint", grads[0], grads[1], grads[2], mask, occ1,
+                   occ2, kp_s, kp_d, b, d, h, w, dlogits, dpre)
+    dx = conv3d_data_grad(dlogits, mask_w)
+    dmask_w, dmask_b = conv3d_weight_grad(x, dlogits, 7)
+    docc_w = torch.empty_like(occ_w)
+    docc_b = torch.empty((2,), device=x.device)
+    kernels.launch("r3dp_mfe_tail_backward_occ", x, occ_w, dpre, b, c * d, h, w, dx, docc_w,
+                   docc_b)
+    mfe_tail_backward.launches += 1
+    return dx, dmask_w, dmask_b, docc_w, docc_b
+
+
+mfe_tail_backward.launches = 0
+
+
+class _MfeTail(torch.autograd.Function):
+    """K7b forward (with its softmax kept where ``keep`` asks for the
+    backward); backward: :func:`mfe_tail_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, keep):
+        b, c, d, h, w = x.shape
+        k1 = mask_w.shape[0]
+        tiles = kernel_tiles()
+        plan = mfe_tail_plan(b, c, d, h, w, tiles, sm_count(x.device))
+        partial = torch.empty((plan["n_split"], b, d * k1 + 2 * tiles["tail_groups"][d], h, w),
+                              device=x.device)
+        deformation = torch.empty((b, d, h, w, 3), device=x.device)
+        occ1, occ2 = (torch.empty((b, h, w, 1), device=x.device) for _ in range(2))
+        mask = torch.empty((b, k1, d, h, w), device=x.device) if keep else None
+        kernels.launch("r3dp_mfe_tail", x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d, b, c, d,
+                       h, w, k1, plan["c_per_split"], plan["n_split"], partial, deformation,
+                       occ1, occ2, mask)
+        mfe_tail.launches += 1
+        if keep:
+            ctx.save_for_backward(x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2)
+        return deformation, occ1, occ2
+
+    @staticmethod
+    def backward(ctx, ddef, docc1, docc2):
+        grads = mfe_tail_backward(*ctx.saved_tensors, ddef, docc1, docc2)
+        return (*grads, None, None, None)
 
 
 def mfe_tail(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
@@ -321,14 +628,18 @@ def mfe_tail(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
     which takes fp32, K + 1 = 5 candidates and a depth of 16 (the standard
     and small presets) or 2 (tiny), or raise. The input channels are split
     over CTAs (:func:`mfe_tail_plan`) that write partial sums; a second
-    launch adds them in split order, so two calls are bit-equal.
+    launch adds them in split order, so two calls are bit-equal. The call is
+    a ``torch.autograd.Function`` whose backward is
+    :func:`mfe_tail_backward`; where a gradient is wanted the second launch
+    also keeps the softmax. Keypoints that need a gradient raise.
     """
     if x.device.type == "cpu":
         return mfe_tail_plain(x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)
     name = "mfe_tail"
-    args = [t.detach().contiguous() for t in (x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)]
+    args = [t.contiguous() for t in (x, mask_w, mask_b, occ_w, occ_b, kp_s, kp_d)]
     for arg, t in zip(("x", "mask_w", "mask_b", "occ_w", "occ_b", "kp_s", "kp_d"), args):
         kernels.require(name, arg, t)
+    _no_keypoint_grad(name, args[5], args[6])
     x = args[0]
     b, c, d, h, w = x.shape if x.dim() == 5 else (0,) * 5
     k1 = args[1].shape[0]
@@ -339,16 +650,8 @@ def mfe_tail(x: torch.Tensor, mask_w: torch.Tensor, mask_b: torch.Tensor,
         raise ValueError(f"{name}: kernel takes x [B,C,D,H,W] with D in (2, 16), H, W >= 2, "
                          f"mask_w [5,C,7,7,7], occ_w [2,C*D,7,7] and keypoints [B,4,3]; got "
                          f"{[tuple(t.shape) for t in args]}")
-    tiles = kernel_tiles()
-    plan = mfe_tail_plan(b, c, d, h, w, tiles, sm_count(x.device))
-    partial = torch.empty((plan["n_split"], b, d * k1 + 2 * tiles["tail_groups"][d], h, w),
-                          device=x.device)
-    deformation = torch.empty((b, d, h, w, 3), device=x.device)
-    occ1, occ2 = (torch.empty((b, h, w, 1), device=x.device) for _ in range(2))
-    kernels.launch("r3dp_mfe_tail", *args, b, c, d, h, w, k1, plan["c_per_split"],
-                   plan["n_split"], partial, deformation, occ1, occ2)
-    mfe_tail.launches += 1
-    return deformation, occ1, occ2
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in args[:5])
+    return _MfeTail.apply(*args, keep)
 
 
 mfe_tail.launches = 0
@@ -513,6 +816,8 @@ TORSO_PRESETS: dict[str, dict] = {
 
 # landmark indices (of the 68) that drive the torso
 KP_SUBSETS = {4: (0, 8, 16, 27), 9: (0, 3, 6, 8, 10, 13, 16, 27, 33)}
+GRAD_SCALE = 0.1       # the share of the motion field's gradient that flows back
+UNMASK_WEIGHT = 0.3    # the occlusion regularisers' weight on the target torso
 
 
 class WarpBasedTorsoModel(nn.Module):
@@ -566,15 +871,53 @@ class WarpBasedTorsoModel(nn.Module):
         feats = feats * nchw(mask)[:, :, None]
         return feats.permute(0, 2, 3, 4, 1).contiguous()
 
+    @staticmethod
+    def _scale_grad(t: torch.Tensor) -> torch.Tensor:
+        """``t`` forward, ``GRAD_SCALE`` times its gradient backward (JAX's
+        ``t * s + stop_gradient(t) * (1 - s)``); ``t`` itself where no
+        gradient is recorded, so that inference is unchanged."""
+        if not (torch.is_grad_enabled() and t.requires_grad):
+            return t
+        return t * GRAD_SCALE + t.detach() * (1 - GRAD_SCALE)
+
+    @staticmethod
+    def occlusion_losses(occlusion: torch.Tensor, occ2: torch.Tensor,
+                         target_torso_mask: torch.Tensor | None = None) -> dict:
+        """The JAX model's occlusion regularisers: the means of both
+        occlusions (weighted 1 off and ``UNMASK_WEIGHT`` on the target torso
+        where ``target_torso_mask`` [B,H,W] is given, the mask resized to each
+        map by half-pixel nearest) and the binary entropy of ``occ2``."""
+        def masked(occ):
+            if target_torso_mask is None:
+                return occ.mean()
+            non = 1.0 - target_torso_mask.float()[:, None]
+            non = F.interpolate(non, size=occ.shape[1:3], mode="nearest-exact")
+            wts = nhwc(non) + (1.0 - nhwc(non)) * UNMASK_WEIGHT
+            return (occ.abs() * wts).mean()
+
+        alphas = occ2.clamp(1e-5, 1 - 1e-5)
+        return {
+            "facev2v/occlusion_reg_l1": masked(occlusion),
+            "facev2v/occlusion_2_reg_l1": masked(occ2),
+            "facev2v/occlusion_2_weights_entropy": (
+                -alphas * torch.log2(alphas) - (1 - alphas) * torch.log2(1 - alphas)).mean(),
+        }
+
     def forward(self, torso_src_img: torch.Tensor, segmap: torch.Tensor, kp_s: torch.Tensor,
                 kp_d: torch.Tensor, tgt_head_img: torch.Tensor | None = None,
                 tgt_head_weights: torch.Tensor | None = None,
+                target_torso_mask: torch.Tensor | None = None,
                 appearance_volume: torch.Tensor | None = None,
                 appearance_only: bool = False) -> dict:
-        """kp_s, kp_d [B,68,3]; the v2 head render and weights NHWC.
-        Returns deformed_torso_img [B,4h,4w,3], deformed_torso_hid,
-        occlusion [B,h,w,1], occlusion_2 [B,4h,4w,1], kp_src, kp_drv (the
-        keypoint subset); with ``appearance_only`` just the volume."""
+        """kp_s, kp_d [B,68,3]; the v2 head render and weights NHWC (taken
+        as data: no gradient flows back into them); ``target_torso_mask``
+        [B,H,W] weighs the occlusion regularisers. Returns
+        deformed_torso_img [B,4h,4w,3], deformed_torso_hid, occlusion
+        [B,h,w,1], occlusion_2 [B,4h,4w,1], kp_src, kp_drv (the keypoint
+        subset) and, where a gradient is recorded, ``losses``
+        (:meth:`occlusion_losses`); with ``appearance_only`` just the
+        volume. The motion field's outputs carry ``GRAD_SCALE`` of their
+        gradient back."""
         if appearance_volume is None:
             appearance_volume = self.appearance(torso_src_img, segmap)
         if appearance_only:
@@ -586,20 +929,26 @@ class WarpBasedTorsoModel(nn.Module):
         kps, kpd = kp_s[:, self.kp_subset], kp_d[:, self.kp_subset]
         head = {}
         if self.version == "v2":
-            head = dict(tgt_head_img=tgt_head_img, tgt_head_weights=tgt_head_weights)
-        deformation, occlusion, occlusion_2 = self.motion_field_estimator(
-            motion_inp, kps, kpd, **head)
+            head = dict(tgt_head_img=None if tgt_head_img is None else tgt_head_img.detach(),
+                        tgt_head_weights=None if tgt_head_weights is None
+                        else tgt_head_weights.detach())
+        deformation, occlusion, occlusion_2 = (self._scale_grad(t) for t in
+                                               self.motion_field_estimator(motion_inp, kps,
+                                                                           kpd, **head))
         rgb, hid = self.deform_based_generator(feats, deformation)
         occ2_up = resize_bilinear(occlusion_2, hid.shape[1], antialias=False)
         x = torch.cat([nchw(hid), nchw(occ2_up)], dim=1)
         x = F.relu(self.occ2_pred_conv0(x))
         x = F.relu(self.occ2_pred_conv1(x))
-        occ2 = torch.sigmoid(self.occ2_pred_conv2(x))
-        return {
+        occ2 = nhwc(torch.sigmoid(self.occ2_pred_conv2(x)))
+        ret = {
             "deformed_torso_img": rgb,
             "deformed_torso_hid": hid,
             "occlusion": occlusion,
-            "occlusion_2": nhwc(occ2),
+            "occlusion_2": occ2,
             "kp_src": kps,
             "kp_drv": kpd,
         }
+        if torch.is_grad_enabled():
+            ret["losses"] = self.occlusion_losses(occlusion, occ2, target_torso_mask)
+        return ret

@@ -9,6 +9,12 @@ stride-1 3D convolution with zero "same" padding and a cubic kernel of 3 or
 :func:`conv3d_plain` (``F.conv3d``) beside it. :class:`Conv3D` is
 ``nn.Conv3d`` with that forward, so parameter names, ``mock_init_`` and the
 weight bridge stay as they are.
+
+On CUDA tensors :func:`conv3d` is a ``torch.autograd.Function``: the data
+gradient is K7a itself on the output's gradient (the taps flipped, the
+input and output channels swapped), the weight and bias gradients kernel
+:func:`conv3d_weight_grad` (same source), plain version
+:func:`conv3d_weight_grad_plain` (``torch.nn.grad.conv3d_weight``).
 """
 
 from __future__ import annotations
@@ -125,21 +131,15 @@ def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
     return F.conv3d(x, weight, bias, padding=weight.shape[-1] // 2)
 
 
-def conv3d(x: torch.Tensor, weight: torch.Tensor,
-           bias: torch.Tensor | None = None) -> torch.Tensor:
-    """K7a wrapper, same contract as :func:`conv3d_plain`.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes fp32 and a cubic kernel of 3 or 7, or raise.
-    """
-    if x.device.type == "cpu":
-        return conv3d_plain(x, weight, bias)
+def _conv3d_launch(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None) -> torch.Tensor:
+    """Check and launch K7a on CUDA tensors (no autograd)."""
     name = "conv3d"
-    x, weight = x.contiguous(), weight.detach().contiguous()
+    x, weight = x.contiguous(), weight.contiguous()
     kernels.require(name, "x", x)
     kernels.require(name, "weight", weight)
     if bias is not None:
-        bias = bias.detach().contiguous()
+        bias = bias.contiguous()
         kernels.require(name, "bias", bias)
     k = weight.shape[-1]
     if x.dim() != 5 or weight.dim() != 5 or tuple(weight.shape[2:]) != (k, k, k) \
@@ -162,6 +162,100 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor,
                    plan["ci_per_split"], plan["n_split"], vec)
     conv3d.launches += 1
     return out
+
+
+def conv3d_data_grad(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The gradient of a K7a call's input from its output's gradient ``dy``
+    [B,Co,D,H,W]: the same stride-1 same-padded conv on ``dy`` with the
+    taps flipped and the channels swapped, launched as K7a (CPU tensors:
+    its plain version)."""
+    flipped = weight.transpose(0, 1).flip((2, 3, 4))
+    if dy.device.type == "cpu":
+        return conv3d_plain(dy, flipped)
+    return _conv3d_launch(dy, flipped, None)
+
+
+def conv3d_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor,
+                             k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B,Ci,D,H,W], dy [B,Co,D,H,W] -> (d weight [Co,Ci,k,k,k], d bias
+    [Co]) of the stride-1 conv with zero padding k // 2."""
+    shape = (dy.shape[1], x.shape[1], k, k, k)
+    return (torch.nn.grad.conv3d_weight(x, shape, dy, padding=k // 2),
+            dy.sum(dim=(0, 2, 3, 4)))
+
+
+def conv3d_weight_grad_plan(b: int, ci: int, co: int, d: int, h: int, w: int, k: int,
+                            sms: int) -> int:
+    """The kernel's shares of each tap's voxels (``n_split``): enough CTAs
+    (one a tap, 32 (or 8, Co <= 8) output channels and 32 input channels)
+    for ~24 of 64 threads on each of ``sms`` SMs, each share at least 2048
+    voxels."""
+    tiles = k ** 3 * (math.ceil(co / 32) if co > 8 else 1) * math.ceil(ci / 32)
+    want = math.ceil(24 * sms / tiles)
+    return max(1, min(want, b * d * h * w // 2048, 65535))
+
+
+def conv3d_weight_grad(x: torch.Tensor, dy: torch.Tensor,
+                       k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7a's weight-gradient wrapper, same contract as
+    :func:`conv3d_weight_grad_plain`. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (fp32, k 3 or 7) or raise.
+    ``conv3d_weight_grad.launches`` counts its launches."""
+    if x.device.type == "cpu":
+        return conv3d_weight_grad_plain(x, dy, k)
+    name = "conv3d_weight_grad"
+    x, dy = x.contiguous(), dy.contiguous()
+    kernels.require(name, "x", x)
+    kernels.require(name, "dy", dy)
+    if x.dim() != 5 or dy.dim() != 5 or x.shape[0] != dy.shape[0] \
+            or x.shape[2:] != dy.shape[2:] or k not in (3, 7) \
+            or math.prod(x.shape) // x.shape[1] >= 2 ** 31:
+        raise ValueError(f"{name}: kernel takes x [B,Ci,D,H,W], dy [B,Co,D,H,W] and k in "
+                         f"(3, 7); got x {tuple(x.shape)}, dy {tuple(dy.shape)}, k {k}")
+    b, ci, d, h, w = x.shape
+    co = dy.shape[1]
+    dw = torch.zeros((co, ci, k, k, k), device=x.device)
+    db = torch.zeros((co,), device=x.device)
+    n_split = conv3d_weight_grad_plan(b, ci, co, d, h, w, k, sm_count(x.device))
+    kernels.launch("r3dp_conv3d_weight_grad", x, dy, b, ci, co, d, h, w, k, n_split, dw, db)
+    conv3d_weight_grad.launches += 1
+    return dw, db
+
+
+conv3d_weight_grad.launches = 0
+
+
+class _Conv3D(torch.autograd.Function):
+    """K7a forward; backward: K7a on the flipped taps for the input, the
+    weight-gradient kernel for the weight and bias."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return _conv3d_launch(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = conv3d_data_grad(dy, weight) if ctx.needs_input_grad[0] else None
+        dw = db = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = conv3d_weight_grad(x, dy, weight.shape[-1])
+        return dx, dw, db if ctx.needs_input_grad[2] else None
+
+
+def conv3d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """K7a wrapper, same contract as :func:`conv3d_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes fp32 and a cubic kernel of 3 or 7, or raise. The call is a
+    ``torch.autograd.Function`` (:class:`_Conv3D`) under ``no_grad`` too.
+    """
+    if x.device.type == "cpu":
+        return conv3d_plain(x, weight, bias)
+    return _Conv3D.apply(x, weight, bias)
 
 
 conv3d.launches = 0

@@ -3,11 +3,16 @@
 files in the JAX package's msgpack layout, written through the port's own
 ``utils/msgpack_ckpt.py`` (atomically), keep-newest-K plus every milestone,
 and a best-validation copy. The JAX package's ``load_checkpoint`` reads
-them, and the port reads the JAX package's."""
+them, and the port reads the JAX package's. :func:`partial_load` merges a
+checkpoint's leaves into a state's tree where their dotted paths and shapes
+match (the trainer's lenient restore and ``init_from_ckpt``)."""
 
 from __future__ import annotations
 
+import copy
 import os
+
+import numpy as np
 
 from real3dportrait_tpu_torch.utils.msgpack_ckpt import (
     _step_of,
@@ -18,8 +23,8 @@ from real3dportrait_tpu_torch.utils.msgpack_ckpt import (
 )
 from real3dportrait_tpu_torch.utils.msgpack_ckpt import save_checkpoint as _save
 
-__all__ = ["get_all_ckpts", "get_last_checkpoint", "load_checkpoint", "save_checkpoint",
-           "save_best"]
+__all__ = ["get_all_ckpts", "get_last_checkpoint", "load_checkpoint", "partial_load",
+           "save_checkpoint", "save_best"]
 
 
 def save_checkpoint(work_dir: str, step: int, tree: dict, num_keep: int = 3,
@@ -41,3 +46,40 @@ def save_best(work_dir: str, tree: dict) -> str:
         f.write(msgpack_serialize(tree))
     os.replace(path + ".part", path)
     return path
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def _set_path(tree: dict, path: tuple, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node[p]
+    node[path[-1]] = value
+
+
+def partial_load(target: dict, source: dict) -> tuple[dict, dict]:
+    """Copy the leaves of ``source`` into (a copy of) ``target`` where their
+    dotted paths match; a leaf whose shape differs is skipped. Returns (the
+    merged tree, {"loaded", "shape_mismatch", "missing"} counts of the
+    target's leaves)."""
+    target = copy.deepcopy(target)
+    src_leaves = {".".join(p): v for p, v in _flatten(source)}
+    stats = {"loaded": 0, "shape_mismatch": 0, "missing": 0}
+    for path, tgt_leaf in list(_flatten(target)):
+        dotted = ".".join(path)
+        if dotted not in src_leaves:
+            stats["missing"] += 1
+            continue
+        src_leaf = src_leaves[dotted]
+        if np.shape(src_leaf) != np.shape(tgt_leaf):
+            stats["shape_mismatch"] += 1
+            continue
+        _set_path(target, path, np.asarray(src_leaf))
+        stats["loaded"] += 1
+    return target, stats

@@ -35,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from real3dportrait_tpu_torch.kernels import card_line
 from real3dportrait_tpu_torch.training import run as trun
 from real3dportrait_tpu_torch.utils.draws import seeded_draws
+from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 from real3dportrait_tpu_torch.utils.profiling import kernel_table
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -86,8 +87,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device is visible")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
     print(f"card: {card_line()}")
     with tempfile.TemporaryDirectory() as work:
         trainer = trun.make_trainer(["--config", os.path.join(_ROOT, "configs", args.config),

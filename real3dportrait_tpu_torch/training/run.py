@@ -44,6 +44,9 @@ def make_trainer(argv=None):
 
 
 def main(argv=None):
+    from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
+
+    set_fp32_policy()
     return make_trainer(argv).fit()
 
 

@@ -17,9 +17,11 @@ discriminator update, with the JAX task's step-indexed terms:
 The step runs on the host's step count, so the step-indexed choices are
 Python branches, and reads nothing back from the device. Every random draw
 comes from the step's :class:`~real3dportrait_tpu_torch.utils.draws.Draws`,
-in the JAX task's order. On the card the render's kernels K1-trigrid and K3,
-and the SR head's and the discriminator's K6a and K6b, run forward and
-backward as hand-written kernels. ``val_images``, ``ood_probe_batch`` and
+in the JAX task's order. On the card the render's kernels K1-trigrid (or
+K1 for tri-planes) and K3, and the SR head's and the discriminator's K6a
+and K6b, run forward and backward as hand-written kernels. A generator
+that returns ``facev2v_losses`` (the torso task's) adds them with the
+config's ``lam_occlusion_*`` weights. ``val_images``, ``ood_probe_batch`` and
 records-driven batches (``prepare_batch_from_records``) are not ported.
 """
 
@@ -73,9 +75,10 @@ class SeccImg2PlaneTask(BaseTask):
 
     # -- models ---------------------------------------------------------------
 
-    def build_generator(self) -> OSAvatarSECCImg2Plane:
+    def _generator_kwargs(self) -> dict:
+        """The generator's configuration, shared with the torso task."""
         cfg = self.cfg
-        return OSAvatarSECCImg2Plane(
+        return dict(
             triplane_hid_dim=int(cfg.get("triplane_hid_dim", 32)),
             triplane_depth=int(cfg.get("triplane_depth", 3)),
             triplane_feature_type=cfg.get("triplane_feature_type", "trigrid"),
@@ -92,6 +95,9 @@ class SeccImg2PlaneTask(BaseTask):
             num_samples_fine=int(cfg.get("num_samples_fine", 48)),
             sr_channel0=int(cfg.get("sr_channel0", 256)),
             sr_channel1=int(cfg.get("sr_channel1", 128)))
+
+    def build_generator(self) -> OSAvatarSECCImg2Plane:
+        return OSAvatarSECCImg2Plane(**self._generator_kwargs())
 
     def build_discriminator(self) -> DualDiscriminator:
         cfg = self.cfg
@@ -191,8 +197,13 @@ class SeccImg2PlaneTask(BaseTask):
 
     # -- generator losses -------------------------------------------------------------
 
+    def _gen_apply_kwargs(self, batch: dict) -> dict:
+        """Per-task forward inputs; the torso task's conditioning."""
+        return {}
+
     def _gen_forward(self, gen, batch: dict, draws) -> dict:
-        return gen(batch["src_img"], batch["camera"], secc=batch["secc_cond"], draws=draws)
+        return gen(batch["src_img"], batch["camera"], secc=batch["secc_cond"], draws=draws,
+                   **self._gen_apply_kwargs(batch))
 
     def _recon_losses(self, out: dict, batch: dict, losses: dict) -> dict:
         cfg = self.cfg
@@ -264,6 +275,8 @@ class SeccImg2PlaneTask(BaseTask):
         out = self._gen_forward(gen, batch, draws)
         losses: dict = {}
         self._recon_losses(out, batch, losses)
+        if "facev2v_losses" in out:
+            losses.update(out["facev2v_losses"])
         zero = torch.zeros((), device=self.device)
         if step >= int(cfg.get("start_adv_iters", 200000)):
             fake_logits = state.disc(out["image"], out["image_raw"], batch["camera"])
@@ -299,6 +312,10 @@ class SeccImg2PlaneTask(BaseTask):
             "lip_mae": float(cfg.get("lambda_lip_mae", 0.5)),
             "lip_percep": float(cfg.get("lambda_lip_lpips", 0.05)),
             "density_reg": float(cfg.get("lambda_density_reg", 0.25)) * reg_g,
+            "facev2v/occlusion_reg_l1": float(cfg.get("lam_occlusion_reg_l1", 0.0)),
+            "facev2v/occlusion_2_reg_l1": float(cfg.get("lam_occlusion_2_reg_l1", 0.0)),
+            "facev2v/occlusion_2_weights_entropy": float(
+                cfg.get("lam_occlusion_weights_entropy", 0.001)),
         }
         total = L.weighted_loss_sum(losses, weights)
         if "pertube_secc" in losses:

@@ -5,7 +5,8 @@ metrics stay on the device and are read back once per ``tb_log_interval``
 steps (one copy of all of them); validation and checkpoints every
 ``val_check_interval`` steps and at the end. Checkpoints are the JAX
 package's files (``training/checkpoint.py``); a run restores the newest
-one in its work dir. The JAX trainer's device mesh, multi-host launch,
+one in its work dir, or else starts from the newest of ``init_from_ckpt``,
+both merged leniently (``checkpoint.partial_load``). The JAX trainer's device mesh, multi-host launch,
 terminal tee, code snapshot and validation image dumps are not ported.
 """
 
@@ -68,11 +69,25 @@ class Trainer:
             yaml.safe_dump(cfg, f)
 
     def init_or_restore(self, seed: int) -> TrainState:
+        """The task's seeded state, then the newest checkpoint of the work
+        dir merged in leniently (leaves left out of it keep their built
+        values); with no such checkpoint, the newest one of
+        ``init_from_ckpt`` (a work dir) merged in the same way, as the torso
+        stage starts from the head stage's run."""
         state = self.task.build(seed)
         restored, path = ckpt.get_last_checkpoint(self.work_dir)
         if restored is not None:
-            state.load_state_dict(restored)
-            print(f"| restored checkpoint {path} at step {state.step}", flush=True)
+            merged, stats = ckpt.partial_load(state.state_dict(), restored)
+            state.load_state_dict(merged)
+            print(f"| restored checkpoint {path} at step {state.step} ({stats['loaded']} "
+                  f"leaves)", flush=True)
+        init_from = self.cfg.get("init_from_ckpt", "")
+        if restored is None and init_from:
+            src, path = ckpt.get_last_checkpoint(init_from)
+            if src is not None:
+                merged, stats = ckpt.partial_load(state.state_dict(), src)
+                state.load_state_dict(merged)
+                print(f"| partial init from {path}: {stats}", flush=True)
         return state
 
     def save(self, state: TrainState) -> str:

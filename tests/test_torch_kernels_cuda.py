@@ -20,7 +20,13 @@ slice's backward kernels (K1-trigrid's at odd grid sizes, points outside
 and either output's gradient alone, its Function's gradients reaching the
 decoder's parameters; K3's with ties and white background, through its
 Function; K6a's adjoint at every resampling with its second derivative;
-K6b's gradient with every term, through its Function). Every test needs a
+K6b's gradient with every term, through its Function); the torso stage's
+backward kernels (K1's on tri-planes with points outside; K7a's weight
+gradient at k 3 and 7 with ragged channels, Co <= 8, a depth under the
+kernel's reach and split voxels, and its data gradient through K7a; K5a's
+and K5b's trilinear adjoints with samples outside and clamped; K7b's at
+D = 16 and 2; each through its Function, and a whole tiny torso model's
+gradients against the CPU's). Every test needs a
 card and skips without one. On the card (where JAX, which tests/conftest.py imports, is
 not installed):
 
@@ -40,9 +46,11 @@ from real3dportrait_tpu_torch.geometry.rasterizer import (
 from real3dportrait_tpu_torch.models import torso
 from real3dportrait_tpu_torch.models.decoder import (
     OSGDecoder,
+    decode_backward_plain,
     trigrid_decode,
     trigrid_decode_plain,
     triplane_decode,
+    triplane_decode_backward,
     triplane_decode_plain,
 )
 from real3dportrait_tpu_torch.rendering.renderer import (
@@ -55,6 +63,7 @@ from real3dportrait_tpu_torch.rendering.renderer import (
 from real3dportrait_tpu_torch.ops import bias_act as ba
 from real3dportrait_tpu_torch.ops import conv3d as c3d
 from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+from real3dportrait_tpu_torch.utils.precision import set_fp32_policy
 from real3dportrait_tpu_torch.weights import mock_init_
 
 pytestmark = pytest.mark.cuda
@@ -64,8 +73,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_policy()
     return torch.device("cuda")
 
 
@@ -858,7 +866,7 @@ def test_k1_trigrid_backward_odd_sizes_points_outside(dev, b, dhw, n):
 
     for grads in ((drgb, dsig), (None, dsig), (drgb, None)):
         k = dm.trigrid_decode_backward(planes, coords, 1.0, *ws, *grads)
-        p = dm.trigrid_decode_backward_plain(planes, coords, 1.0, *ws, *grads)
+        p = dm.decode_backward_plain(planes, coords, 1.0, *ws, *grads)
         torch.cuda.synchronize()
         for x, y, name in zip(k, p, ("planes", "w0", "b0", "w1", "b1")):
             _rel_close(x, y, 1e-4, f"d {name}")
@@ -1000,3 +1008,144 @@ def test_k6b_grad_every_term(dev, dtype, act, clamp, terms):
             for fn in (ba.bias_act, ba.bias_act_plain)]
     for a, b_ in zip(*outs):
         _rel_close(a, b_, tol if dtype == torch.float32 else 3e-2, "Function")
+
+
+# -- the torso stage's backward kernels ------------------------------------------
+
+
+def test_k1_triplane_backward_points_outside(dev):
+    g = torch.Generator(device=dev).manual_seed(30)
+    planes = torch.randn((2, 3, 17, 23, 32), device=dev, generator=g)
+    coords = torch.rand((2, 777, 3), device=dev, generator=g) * 1.4 - 0.7
+    dec = OSGDecoder(32, 64, 32).to(dev)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, device=dev, generator=g))
+    ws = [t.detach() for t in (*dec.net0.folded(), *dec.net1.folded())]
+    drgb = torch.randn((2, 777, 32), device=dev, generator=g)
+    dsig = torch.randn((2, 777, 1), device=dev, generator=g)
+    for grads in ((drgb, dsig), (None, dsig), (drgb, None)):
+        with torch.no_grad():
+            k = triplane_decode_backward(planes, coords, 1.0, *ws, *grads)
+            p = decode_backward_plain(planes, coords, 1.0, *ws, *grads)
+        for a, b_, name in zip(k, p, ("dplanes", "dw0", "db0", "dw1", "db1")):
+            _rel_close(a, b_, 1e-4, name)
+    leaves = [planes.clone().requires_grad_(True)]
+    outs = []
+    for fn in (triplane_decode, triplane_decode_plain):
+        dec.zero_grad()
+        rgb, sigma = fn(leaves[0], coords, 1.0, dec)
+        gp = torch.autograd.grad((rgb, sigma), leaves + list(dec.parameters()), (drgb, dsig))
+        outs.append(gp)
+    for a, b_ in zip(*outs):
+        _rel_close(a, b_, 1e-4, "K1 Function")
+
+
+@pytest.mark.parametrize("b,ci,co,dhw,k", [(2, 13, 40, (3, 9, 6), 3), (1, 5, 5, (2, 7, 9), 7),
+                                           (2, 37, 6, (4, 5, 4), 7), (1, 70, 70, (16, 4, 4), 3)])
+def test_k7a_weight_and_data_grad(dev, b, ci, co, dhw, k):
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn((b, ci, *dhw), device=dev, generator=g)
+    w = torch.randn((co, ci, k, k, k), device=dev, generator=g) / (ci * k ** 3) ** 0.5
+    bias = torch.randn((co,), device=dev, generator=g)
+    dy = torch.randn((b, co, *dhw), device=dev, generator=g)
+    with torch.no_grad():
+        kw, kb = c3d.conv3d_weight_grad(x, dy, k)
+        pw, pb = c3d.conv3d_weight_grad_plain(x, dy, k)
+        dx = c3d.conv3d_data_grad(dy, w)
+    _rel_close(kw, pw, 1e-4, "d weight")
+    _rel_close(kb, pb, 1e-5, "d bias")
+    _rel_close(dx, torch.nn.grad.conv3d_input(x.shape, w, dy, padding=k // 2), 1e-4, "d x")
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    outs = [torch.autograd.grad(fn(*leaves), leaves, dy) for fn in (c3d.conv3d, c3d.conv3d_plain)]
+    for a, b_, name in zip(*outs, ("x", "weight", "bias")):
+        _rel_close(a, b_, 1e-4, f"Function d {name}")
+
+
+@pytest.mark.parametrize("dhw,reach", [((16, 64, 64), 0.8), ((3, 7, 9), 1.3)])
+def test_k5a_adjoint(dev, dhw, reach):
+    g = torch.Generator(device=dev).manual_seed(32)
+    b, k = 2, 4
+    fs = torch.randn((b, *dhw, 4), device=dev, generator=g)
+    kp_s = (torch.rand((b, k, 3), device=dev, generator=g) * 2 - 1) * reach
+    kp_d = (torch.rand((b, k, 3), device=dev, generator=g) * 2 - 1) * reach
+    dout = torch.randn((b, (k + 1) * 5, *dhw), device=dev, generator=g)
+    with torch.no_grad():
+        got = torso.torso_deform_input_backward(dout, kp_s, kp_d, tuple(fs.shape))
+        want = torso.torso_deform_input_backward_plain(dout, kp_s, kp_d, tuple(fs.shape))
+    _rel_close(got, want, 1e-5, "d fs")
+    leaf = fs.clone().requires_grad_(True)
+    outs = [torch.autograd.grad(fn(leaf, kp_s, kp_d), leaf, dout)[0]
+            for fn in (torso.torso_deform_input, torso.torso_deform_input_plain)]
+    _rel_close(outs[0], outs[1], 1e-5, "Function d fs")
+    with pytest.raises(ValueError):
+        torso.torso_deform_input(leaf, kp_s.clone().requires_grad_(True), kp_d)
+
+
+@pytest.mark.parametrize("c,dhw,spread", [(32, (16, 64, 64), 0.05), (4, (3, 7, 9), 1.3),
+                                          (32, (2, 5, 6), 1.3)])
+def test_k5b_adjoint(dev, c, dhw, spread):
+    g = torch.Generator(device=dev).manual_seed(33)
+    fs = torch.randn((2, *dhw, c), device=dev, generator=g)
+    base = torso.make_coordinate_grid_3d(*dhw, dev)[None].expand(2, -1, -1, -1, -1)
+    deform = (base + spread * torch.randn((2, *dhw, 3), device=dev, generator=g)).contiguous()
+    dout = torch.randn((2, c * dhw[0], *dhw[1:]), device=dev, generator=g)
+    with torch.no_grad():
+        got = torso.torso_warp_volume_backward(fs, deform, dout)
+        want = torso.torso_warp_volume_backward_plain(fs, deform, dout)
+    _rel_close(got[0], want[0], 1e-5, "d fs")
+    _rel_close(got[1], want[1], 1e-5, "d deformation")
+    leaves = [fs.clone().requires_grad_(True), deform.clone().requires_grad_(True)]
+    outs = [torch.autograd.grad(fn(*leaves), leaves, dout)
+            for fn in (torso.torso_warp_volume, torso.torso_warp_volume_plain)]
+    for a, b_ in zip(*outs):
+        _rel_close(a, b_, 1e-5, "Function")
+
+
+@pytest.mark.parametrize("b,c,d,hw", [(2, 32, 16, (64, 64)), (2, 5, 2, (9, 13))])
+def test_k7b_backward(dev, b, c, d, hw):
+    g = torch.Generator(device=dev).manual_seed(34)
+    h, w = hw
+    x = torch.randn((b, c, d, h, w), device=dev, generator=g)
+    mw = 0.05 * torch.randn((5, c, 7, 7, 7), device=dev, generator=g)
+    mb = 0.1 * torch.randn((5,), device=dev, generator=g)
+    ow = 0.05 * torch.randn((2, c * d, 7, 7), device=dev, generator=g)
+    ob = 0.1 * torch.randn((2,), device=dev, generator=g)
+    kp_s = torch.rand((b, 4, 3), device=dev, generator=g) * 1.6 - 0.8
+    kp_d = torch.rand((b, 4, 3), device=dev, generator=g) * 1.6 - 0.8
+    leaves = [t.clone().requires_grad_(True) for t in (x, mw, mb, ow, ob)]
+    ddef = torch.randn((b, d, h, w, 3), device=dev, generator=g)
+    docc = [torch.randn((b, h, w, 1), device=dev, generator=g) for _ in range(2)]
+    outs = [torch.autograd.grad(fn(*leaves, kp_s, kp_d), leaves, (ddef, *docc))
+            for fn in (torso.mfe_tail, torso.mfe_tail_plain)]
+    for a, b_, name in zip(*outs, ("x", "mask_w", "mask_b", "occ_w", "occ_b")):
+        _rel_close(a, b_, 1e-4, f"d {name}")
+
+
+def test_tiny_torso_model_grads_on_the_card(dev):
+    """The whole tiny torso model (every kernel forward and backward, no
+    plain version) against the CPU's plain versions: gradients within 1e-3
+    of the largest of all (fp32 sums in other orders through ~30 layers)."""
+    from real3dportrait_tpu_torch.weights import mock_init_
+
+    models = [mock_init_(torso.WarpBasedTorsoModel(scale="tiny"),
+                         torch.Generator().manual_seed(0)) for _ in range(2)]
+    g = torch.Generator().manual_seed(35)
+    seg = torch.zeros((1, 64, 64, 6))
+    seg[..., 4] = 1
+    inp = [torch.rand((1, 32, 32, 3), generator=g) * 2 - 1, seg,
+           torch.rand((1, 68, 3), generator=g) * 1.6 - 0.8,
+           torch.rand((1, 68, 3), generator=g) * 1.6 - 0.8,
+           torch.rand((1, 8, 8, 3), generator=g), torch.rand((1, 8, 8, 1), generator=g)]
+    grads = []
+    for m, d in zip(models, (dev, torch.device("cpu"))):
+        m.to(d)
+        out = m(*[t.to(d) for t in inp])
+        loss = out["deformed_torso_img"].square().mean() + out["occlusion_2"].mean() + sum(
+            out["losses"].values())
+        loss.backward()
+        grads.append({n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+    top = max(float(v.abs().max()) for v in grads[1].values())
+    for n, v in grads[1].items():
+        err = float((grads[0][n] - v).abs().max())
+        assert err <= 1e-3 * top, f"{n}: {err} of {top}"

@@ -117,7 +117,7 @@ def test_trigrid_decode_backward_plain_matches_autograd():
     want = torch.autograd.grad((rgb, sigma), [planes] + params, (drgb, dsig), retain_graph=True)
     w0, b0 = dec.net0.folded()
     w1, b1 = dec.net1.folded()
-    got = dm.trigrid_decode_backward_plain(planes.detach(), coords, 1.0, w0.detach(),
+    got = dm.decode_backward_plain(planes.detach(), coords, 1.0, w0.detach(),
                                            b0.detach(), w1.detach(), b1.detach(), drgb, dsig)
     gains = [dec.net0.weight_gain, dec.net0.lr_multiplier, dec.net1.weight_gain,
              dec.net1.lr_multiplier]
@@ -126,7 +126,7 @@ def test_trigrid_decode_backward_plain_matches_autograd():
         agree(g * gain, w, 1e-6, 1e-7, name)
     # one output's gradient alone (the other None)
     want = torch.autograd.grad(sigma, planes, dsig)[0]
-    got = dm.trigrid_decode_backward_plain(planes.detach(), coords, 1.0, w0.detach(),
+    got = dm.decode_backward_plain(planes.detach(), coords, 1.0, w0.detach(),
                                            b0.detach(), w1.detach(), b1.detach(), None, dsig)
     agree(got[0], want, 1e-6, 1e-7, "d planes (sigma only)")
 
