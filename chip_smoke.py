@@ -83,10 +83,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    torso step and its data gradient through K7a, the K5a and K5b adjoints,
    K7b's backward, K1's on tri-planes) against its plain version at the
    runs' own calls, K6a's and K6b's second derivatives, and a small
-   training step on the card against the same step on the CPU.
+   training step on the card against the same step on the CPU;
+9. records-driven training (``run_records_phases``): a full-width store
+   written by the port's ``binarize`` (2 videos x 40 frames of 512^2 head,
+   composed and torso frames, segmaps and a background, a ``train`` and a
+   ``val`` split), read back through the native reader (g++ builds
+   ``native/record_reader.cpp`` on this host) item for item against
+   ``IndexedDataset``; ``train_records``: ``training.run`` on
+   ``configs/secc_img2plane.yaml`` at full width and batch 4 from the
+   store for 3 steps (a sanity validation, a validation at step 3 with
+   the image dump, the ``vgg19_v2`` criterion on seeded VGG19 / VGGFace
+   trees, the SECC renderer on the 35,709-vertex mesh): K4's 4 launches
+   a batch in preparation, every step kernel launched, finite losses, the
+   PNGs named as JAX names them, ms/step with the batch preparation timed
+   apart (unpickling, rasters, blink edits) and peak memory, then the
+   criterion alone at the step's shapes; the torso stage for 2 steps from
+   its checkpoint on the same store; one record batch at the run's batch
+   of 4 on the card against the CPU; ``train_syncnet``:
+   ``configs/audio_lm3d_syncnet.yaml`` at full width (lm468, 8192 clip
+   pairs) for 4 steps, its checkpoint reloaded through ``partial_load``.
 
 The last lines are the kernels JSON (the backward kernels with their
-launches a step of the training run that is their main path), the card's
+launches a step of the training run that is their main path; K4's
+launches a batch of record preparation and the step kernels' a step of
+``train_records`` as ``train_records_launches_per_step``), the card's
 name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2192,7 +2212,8 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
                 path_kernels: tuple = ("trigrid_decode", "importance_sample", "merge_composite",
                                        "upfirdn2d", "bias_act", *TRAIN_KERNELS),
                 frozen: tuple = (), init_from: str | None = None, losses: tuple = (),
-                bf16: bool = True, reload: bool = True) -> tuple[dict, CallLog]:
+                bf16: bool = True, reload: bool = True, instrument=None
+                ) -> tuple[dict, CallLog]:
     """A full-width run of ``training.run`` on ``configs/<config>`` for
     ``steps`` steps on synthetic batches, with the launch counters from 0.
     By default (c): ``configs/secc_img2plane.yaml`` (b0 SegFormers, depth-3
@@ -2209,7 +2230,9 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
     first, a warm-up) and the peak memory. Returns the launches (with
     ``ms_per_step``, ``peak_gib`` and the run's ``work_dir``) and the record
     of the first step's kernel calls. ``hparams`` replaces the run's
-    overrides (a tiny configuration rehearses the phase on the CPU)."""
+    overrides (a tiny configuration rehearses the phase on the CPU);
+    ``instrument(trainer)``, where given, is called on the run's trainer
+    before it starts."""
     from real3dportrait_tpu_torch.models import decoder as dm
     from real3dportrait_tpu_torch.models import torso as tm
     from real3dportrait_tpu_torch.ops import bias_act as ba
@@ -2248,6 +2271,8 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
         t0 = time.perf_counter()
         trainer = trun.make_trainer(argv)
         task = trainer.task
+        if instrument is not None:
+            instrument(trainer)
         start_fn, step_fn = trainer.init_or_restore, task.train_step
 
         def start_and_keep(seed):
@@ -2639,6 +2664,448 @@ def run_train_phases(dev: torch.device) -> tuple[dict, dict, dict, dict]:
     return counts, torso_counts, tri_counts, rows
 
 
+# records-driven training (``run_records_phases``): a full-width store of
+# 2 videos of 40 frames, the flagship for 3 steps from it (one sanity
+# validation, a validation and the image dump at step 3, the vgg19_v2
+# criterion on seeded VGG19 / VGGFace trees), the torso stage for 2 steps
+# from its checkpoint, and SyncNet for 4 steps
+RECORD_FRAMES = 40
+RECORD_RES = 512
+RECORDS_STEPS = 3
+RECORDS_TORSO_STEPS = 2
+SYNCNET_STEPS = 4
+RECORD_KEYS = ("head_imgs", "com_imgs", "torso_imgs")
+# K4's calls of a record batch: the cano, src and tgt maps and the randn
+# perturbation's (``prepare_batch_from_records``)
+PREP_RASTERS = 4
+VAL_IMAGES = {f"{kind}_{i:05d}.png" for i in range(4) for kind in (
+    "ref_mv_reconraw_predraw_recon_pred", "depth_recon_pred")} | {"ood_probe.png"}
+
+
+def seeded_store(out_dir: str) -> str:
+    """The ``train`` and ``val`` splits of a record store written by the
+    port's ``binarize``: ``make_synthetic_records(n_videos=2,
+    t=RECORD_FRAMES)`` with seeded uint8 head / composed / torso frames
+    [T,R,R,3], int8 segmaps [T,R,R] and a background [R,R,3], R =
+    ``RECORD_RES``."""
+    from real3dportrait_tpu_torch.data.binarizer import binarize, make_synthetic_records
+
+    store, t, res = os.path.join(out_dir, "store"), RECORD_FRAMES, RECORD_RES
+    for i, split in enumerate(("train", "val")):
+        recs = make_synthetic_records(n_videos=2, t=t, seed=i)
+        gen = np.random.default_rng(10 + i)
+        for r in recs:
+            for k in RECORD_KEYS:
+                r[k] = gen.integers(0, 256, (t, res, res, 3), dtype=np.uint8)
+            r["segmaps"] = gen.integers(0, 6, (t, res, res), dtype=np.int8)
+            r["bg_img"] = gen.integers(0, 256, (res, res, 3), dtype=np.uint8)
+        binarize(recs, os.path.join(store, split))
+    return store
+
+
+def phase_records(out_dir: str) -> str:
+    """The store (``seeded_store``), then each split read back through the
+    native reader (``native/record_reader.cpp``, built by g++ on this host)
+    and held item for item against ``IndexedDataset``. Returns the store."""
+    from real3dportrait_tpu_torch.data.indexed_dataset import IndexedDataset
+    from real3dportrait_tpu_torch.data.native_reader import NativePrefetchReader, build_library
+
+    t0 = time.perf_counter()
+    store = seeded_store(out_dir)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_library()
+    t_build = time.perf_counter() - t0
+    text = []
+    for split in ("train", "val"):
+        path = os.path.join(store, split)
+        size = sum(os.path.getsize(os.path.join(store, f)) for f in os.listdir(store)
+                   if f.startswith(split + "."))
+        t0 = time.perf_counter()
+        with NativePrefetchReader(path) as reader:
+            native = list(reader.iterate(n_threads=4))
+        t_native = time.perf_counter() - t0
+        ds = IndexedDataset(path)
+        t0 = time.perf_counter()
+        python = [ds[i] for i in range(len(ds))]
+        t_python = time.perf_counter() - t0
+        ds.close()
+        check(len(native) == len(python) == 2, f"records {split}: {len(native)} / {len(python)}")
+        for a, b in zip(native, python):
+            check(list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in b),
+                  f"records {split}: the native reader's item differs from IndexedDataset's")
+        text.append(f"{split} {size / 2 ** 20:.1f} MiB: native {t_native * 1e3:.1f} ms, "
+                    f"IndexedDataset {t_python * 1e3:.1f} ms")
+    print(f"records[2 videos x {RECORD_FRAMES} frames of {RECORD_RES}^2 a split]: written in "
+          f"{t_write:.2f} s; native reader built in {t_build:.2f} s; " + "; ".join(text)
+          + "; every item equal")
+    return store
+
+
+def vgg_trees(out_dir: str) -> str:
+    """Seeded VGG19 and VGGFace trees as msgpack files; the overrides that
+    point the criterion at them (``vgg19_v2``)."""
+    from real3dportrait_tpu_torch.models.perceptual import init_vgg19_params, init_vggface_params
+    from real3dportrait_tpu_torch.utils.msgpack_ckpt import msgpack_serialize
+
+    paths = {}
+    for key, tree in (("vgg19_ckpt", init_vgg19_params(np.random.RandomState(0))),
+                      ("vggface_ckpt", init_vggface_params(np.random.RandomState(1)))):
+        paths[key] = os.path.join(out_dir, f"{key}.msgpack")
+        with open(paths[key], "wb") as f:
+            f.write(msgpack_serialize(tree))
+    return ",".join(f"{k}={v}" for k, v in paths.items())
+
+
+def full_mesh_renderer(task) -> None:
+    """The task's SECC renderer on the 35,709-vertex synthetic morphable
+    model (BFM09's vertex count, as a user's ``bfm_dir`` gives it; the
+    default synthetic model has 512 vertices)."""
+    from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
+    from real3dportrait_tpu_torch.geometry.secc_renderer import SECCRenderer
+
+    task._secc_r = SECCRenderer(
+        synthetic_bfm(n_vertices=35709), rasterize_size=int(task.cfg.get("secc_resolution", 256)),
+        output_resolution=int(task.cfg.get("final_resolution", 512)), device=task.device)
+
+
+class PrepTimer:
+    """Times a records task's batch preparation apart from its steps: each
+    training batch's wall (the store's unpickling and
+    ``prepare_batch_from_records``, synchronised), the preparation alone,
+    its SECC rasters (``SECCRenderer.render``) and its blink edits (host),
+    and K4's launches in it."""
+
+    def __init__(self):
+        self.batch, self.prep, self.raster, self.blink, self.k4 = [], [], [], [], []
+        self.in_train = False
+        self.step_launches: dict = {}  # every kernel's launches inside the train steps
+
+    @staticmethod
+    def _launches() -> dict:
+        counts = read_launches()
+        counts.update({k: w.launches for k, w in train_wrappers().items()})
+        return counts
+
+    def install(self, trainer) -> None:
+        from real3dportrait_tpu_torch.geometry.rasterizer import rasterize_verts
+        from real3dportrait_tpu_torch.inference import edit_secc
+
+        task = trainer.task
+        full_mesh_renderer(task)
+        renderer = task._secc_renderer()
+        timer = self
+
+        def timed(fn, into):
+            def call(*a, **k):
+                if not timer.in_train:
+                    return fn(*a, **k)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                into[-1] += time.perf_counter() - t
+                return out
+            return call
+
+        prepare = task.prepare_batch_from_records
+
+        def prepare_counted(rec):
+            if not timer.in_train:
+                return prepare(rec)
+            for lst in (timer.raster, timer.blink):
+                lst.append(0.0)
+            k4 = rasterize_verts.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = prepare(rec)
+            torch.cuda.synchronize()
+            timer.prep.append(time.perf_counter() - t)
+            timer.k4.append(rasterize_verts.launches - k4)
+            return out
+
+        task.prepare_batch_from_records = prepare_counted
+        renderer.render = timed(renderer.render, self.raster)
+        self.original_blink = edit_secc.blink_eye_for_secc
+        edit_secc.blink_eye_for_secc = timed(self.original_blink, self.blink)
+        train_data = task.train_data
+
+        def timed_train_data():
+            it = train_data()
+            while True:
+                timer.in_train = True
+                t = time.perf_counter()
+                batch = next(it)
+                torch.cuda.synchronize()
+                timer.batch.append(time.perf_counter() - t)
+                timer.in_train = False
+                yield batch
+
+        task.train_data = timed_train_data
+        train_step = task.train_step
+
+        def counted_step(*a, **k):
+            before = self._launches()
+            out = train_step(*a, **k)
+            for name, n in self._launches().items():
+                self.step_launches[name] = self.step_launches.get(name, 0) + n - before[name]
+            return out
+
+        task.train_step = counted_step
+
+    def uninstall(self) -> None:
+        from real3dportrait_tpu_torch.inference import edit_secc
+
+        if hasattr(self, "original_blink"):
+            edit_secc.blink_eye_for_secc = self.original_blink
+
+    def summary(self) -> str:
+        ms = lambda v: statistics.median(v) * 1e3  # noqa: E731
+        unpickle = [b - p for b, p in zip(self.batch, self.prep)]
+        return (f"batch preparation (median of {len(self.batch)}): {ms(self.batch):.1f} ms = "
+                f"unpickle and pair sampling {ms(unpickle):.1f} ms + prepare_batch_from_records "
+                f"{ms(self.prep):.1f} ms (SECC rasters {ms(self.raster):.1f} ms, blink edits "
+                f"on the host {ms(self.blink):.1f} ms); K4 launches a batch {self.k4}")
+
+
+def criterion_ms(fn, dev: torch.device) -> float:
+    """CUDA-event ms of the records step's criterion alone at the step's
+    shapes: ``fn`` on a [4,R,R,3] image and on its [4,R/5,R/5,3] lip crop
+    (``lip_rect_size``'s default), forward and the image's gradient."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, tgt = (torch.rand((4, RECORD_RES, RECORD_RES, 3), device=dev, generator=gen) * 2 - 1
+              for _ in range(2))
+    x.requires_grad_(True)
+    lip = RECORD_RES // 5
+
+    def call():
+        loss = fn(x, tgt) + fn(x[:, :lip, :lip], tgt[:, :lip, :lip])
+        torch.autograd.grad(loss, x)
+
+    ms = cuda_ms(call, reps=3, warmup=1)
+    del x, tgt
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_record_batch(dev: torch.device, store: str) -> None:
+    """One record batch of the store's train split, at the ``train_records``
+    run's own batch (``FULL_STEP_HPARAMS``: 4 pairs, whose frames K4 puts on
+    its grid's y axis), prepared on the card and on the CPU from the same
+    seed: the SECC maps (K4 against its plain version, from vertices that
+    the two devices' fp32 sums may move by an ulp) agree within K4's
+    tolerance, 1e-6, where both cover, with at most 1 pixel in 10^4
+    covered on one device only; the cameras and the keypoint-derived values
+    within 1e-5 (the images, uint8 / 127.5 - 1, within an ulp: the card
+    divides by a reciprocal), the lip centres (integer pixels) and the head
+    mask equal."""
+    from real3dportrait_tpu_torch.config import load_config, parse_overrides
+    from real3dportrait_tpu_torch.data import Motion2VideoDataset
+    from real3dportrait_tpu_torch.training.tasks.secc_img2plane_task import SeccImg2PlaneTask
+
+    cfg = load_config(os.path.join(ROOT, "configs", TRAIN_CONFIG),
+                      parse_overrides(f"{FULL_STEP_HPARAMS},binary_data_dir={store}"))
+    rec = next(Motion2VideoDataset(os.path.join(store, "train"), cfg, seed=0).batches())
+    b = int(cfg["batch_size"])
+    cpu = torch.device("cpu")
+    out, secs = {}, {}
+    for d in (dev, cpu):
+        task = SeccImg2PlaneTask(cfg, d)
+        full_mesh_renderer(task)
+        t0 = time.perf_counter()
+        out[d] = {k: v.cpu() for k, v in task.prepare_batch_from_records(rec).items()}
+        secs[d] = time.perf_counter() - t0
+    got, want = out[dev], out[cpu]
+    check(set(got) == set(want), f"record batch keys {sorted(set(got) ^ set(want))}")
+    text = []
+    for k, w in want.items():
+        g = got[k]
+        check(g.shape == w.shape and g.dtype == w.dtype and g.shape[0] == b,
+              f"record batch {k}: {g.shape}")
+        if k.startswith(("secc", "pertube_secc", "blink_secc")):
+            cov_g, cov_w = (g > -1).any(-1), (w > -1).any(-1)
+            one_side = float((cov_g != cov_w).float().mean())
+            both = cov_g & cov_w
+            err = float((g - w).abs().amax(-1)[both].max())
+            check(one_side <= 1e-4 and err <= 1e-6,
+                  f"record batch {k}: {one_side:.2e} of pixels covered on one device, "
+                  f"max err {err:.2e} where both cover")
+            text.append(f"{k} {err:.1e}/{one_side:.1e}")
+        elif w.dtype == torch.int32 or k == "head_mask":
+            check(torch.equal(g, w), f"record batch {k} differs")
+        else:
+            e = max_err(g, w)
+            check(e <= 1e-5 * max(float(w.abs().max()), 1.0), f"record batch {k}: err {e}")
+            text.append(f"{k} {e:.1e}")
+    print(f"record batch card vs CPU [{b} pairs of {RECORD_RES}^2, SECC maps "
+          f"{tuple(want['secc_cond'].shape)} from {b} x {cfg.get('secc_resolution', 256)}^2 "
+          f"rasters, 35,709-vertex mesh]: card "
+          f"{secs[dev] * 1e3:.1f} ms, CPU {secs[cpu] * 1e3:.1f} ms; max err / one-sided "
+          f"coverage: {', '.join(text)}; lip centres and head masks equal")
+
+
+def phase_train_syncnet(dev: torch.device, out_dir: str, store: str) -> dict:
+    """``training.run`` on ``configs/audio_lm3d_syncnet.yaml`` at full width
+    (lm468: 1404-d landmarks, 8192 clip pairs a batch, base 128, out 1024)
+    from the store for ``SYNCNET_STEPS`` steps: finite losses, a batch of the
+    config's shape, the checkpoint reloaded into a fresh state through
+    ``partial_load`` with equal weights and moments. Prints ms/step
+    (synchronised), the mining ms a batch, the peak memory and one more
+    step's device kernels (``torch.profiler``)."""
+    from real3dportrait_tpu_torch.training import run as trun
+    from real3dportrait_tpu_torch.training.checkpoint import get_last_checkpoint, partial_load
+
+    steps = SYNCNET_STEPS
+    argv = ["--config", os.path.join(ROOT, "configs", "audio_lm3d_syncnet.yaml"),
+            "--exp_name", "syncnet", "--work_dir_root", out_dir, "--device", str(dev),
+            "--hparams", f"binary_data_dir={store},max_updates={steps},"
+            f"val_check_interval={steps},eval_max_batches=1,num_sanity_val_steps=0,"
+            f"tb_log_interval={steps}"]
+    trainer = trun.make_trainer(argv)
+    task = trainer.task
+    mining, step_s, metrics, shapes, last = [], [], [], [], {}
+    train_data, train_step = task.train_data, task.train_step
+
+    def timed_data():
+        it = train_data()
+        while True:
+            t = time.perf_counter()
+            batch = next(it)
+            mining.append(time.perf_counter() - t)
+            shapes.append({k: tuple(v.shape) for k, v in batch.items()})
+            last["batch"] = batch
+            yield batch
+
+    def timed_step(state, batch, draws):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = train_step(state, batch, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return m
+
+    task.train_data, task.train_step = timed_data, timed_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = int(task.cfg.get("syncnet_num_clip_pairs", 256))
+    check(state.step == steps and len(step_s) == steps, f"syncnet: {state.step} steps")
+    check(task.lm_dim == 1404 and shapes[0] == {"hubert_clip": (n, 10, 1024),
+                                                "mouth_clip": (n, 5, 1404), "label": (n,)},
+          f"syncnet batch {shapes[0]}")
+    check(all(math.isfinite(v) for m in metrics for v in m.values()), f"syncnet {metrics}")
+    src, path = get_last_checkpoint(trainer.work_dir)
+    fresh = task.build(777)
+    merged, stats = partial_load(fresh.state_dict(), src)
+    check(stats["missing"] == 0 and stats["shape_mismatch"] == 0, f"syncnet reload {stats}")
+    fresh.load_state_dict(merged)
+    same = fresh.step == state.step and all(
+        torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
+                                          state.model.state_dict().values()))
+    same = same and all(torch.equal(fresh.opt.mu[k], state.opt.mu[k]) for k in state.opt.mu)
+    check(same, "syncnet: the checkpoint does not reload to the trained state")
+    # where a step's device time goes: one more step under torch.profiler
+    from real3dportrait_tpu_torch.utils.profiling import kernel_table
+
+    batch = task.to_device(last["batch"])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        train_step(state, batch, None)
+        torch.cuda.synchronize()
+    device_ms, top = kernel_table(prof, 6, port=False)
+    print(f"train_syncnet profile[one step]: kernel time {device_ms:.1f} ms; top: " + "; ".join(
+        f"{x.key[:70]} {x.self_device_time_total / 1e3:.1f} ms x{x.count}" for x in top))
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    print(f"train_syncnet run[audio_lm3d_syncnet.yaml, lm468, {n} clip pairs, {steps} steps]: "
+          f"{step_ms:.1f} ms/step (median of steps 2-{steps}; steps "
+          f"{[round(x * 1e3, 1) for x in step_s]}), mining {statistics.median(mining) * 1e3:.1f}"
+          f" ms a batch (batches {[round(x * 1e3, 1) for x in mining]}), peak memory "
+          f"{peak:.2f} GiB, wall {wall:.1f} s; sync_bce "
+          f"{[round(m['sync_bce'], 4) for m in metrics]}"
+          f"; checkpoint ({os.path.getsize(path) / 2 ** 20:.1f} MiB) reloaded through "
+          f"partial_load, {stats['loaded']} leaves, equal")
+    del state, fresh, trainer
+    torch.cuda.empty_cache()
+    return {"ms_per_step": step_ms, "mining_ms": statistics.median(mining) * 1e3, "peak_gib": peak}
+
+
+def run_records_phases(dev: torch.device) -> tuple[dict, dict]:
+    """Records-driven training: the store (``phase_records``), the flagship
+    (``train_records``: K4 in batch preparation, finite losses, the
+    validation PNGs named as JAX names them, the ``vgg19_v2`` criterion),
+    the torso stage from its checkpoint, one record batch on the card
+    against the CPU, and SyncNet. Returns the flagship run's launches (with
+    K4's a batch in preparation) and SyncNet's numbers."""
+    rec_kernels = ("secc_raster", "trigrid_decode", "importance_sample", "merge_composite",
+                   "upfirdn2d", "bias_act", *TRAIN_KERNELS)
+    torso_kernels = rec_kernels + ("torso_deform_input", "torso_warp_volume", "conv3d",
+                                   "mfe_tail", *TORSO_KERNELS)
+    with tempfile.TemporaryDirectory() as out_dir:
+        store = phase_records(out_dir)
+        torch.cuda.synchronize()
+        vgg = vgg_trees(out_dir)
+        common = f",binary_data_dir={store},{vgg},eval_max_batches=1,tb_log_interval=1"
+        prep = PrepTimer()
+        percep = {}
+
+        def install(trainer):
+            percep["kind"], percep["fn"] = trainer.task.percep_kind, trainer.task.percep_fn
+            prep.install(trainer)
+
+        try:
+            counts, _ = phase_train(
+                dev, out_dir, FULL_STEP_HPARAMS + f",max_updates={RECORDS_STEPS},"
+                f"val_check_interval={RECORDS_STEPS},num_sanity_val_steps=1" + common,
+                TRAIN_CONFIG, "train_records", RECORDS_STEPS, path_kernels=rec_kernels,
+                reload=False, instrument=install)
+        finally:
+            prep.uninstall()
+        check(percep["kind"] == "vgg19_v2", f"train_records criterion {percep}")
+        check(len(prep.k4) == RECORDS_STEPS and all(n == PREP_RASTERS for n in prep.k4),
+              f"train_records: K4 launches in batch preparation {prep.k4}")
+        dump = os.path.join(counts["work_dir"], "val_images", f"iter{RECORDS_STEPS}")
+        names = set(os.listdir(dump)) if os.path.isdir(dump) else set()
+        check(names == VAL_IMAGES, f"train_records: val images {sorted(names)}")
+        sizes = sorted(os.path.getsize(os.path.join(dump, n)) for n in names)
+        check(all(prep.step_launches[k] > 0 for k in rec_kernels if k != "secc_raster"),
+              f"train_records: launches in the steps {prep.step_launches}")
+        print(f"train_records: {prep.summary()}; percep {percep['kind']}; {len(names)} PNGs "
+              f"under val_images/iter{RECORDS_STEPS} ({sizes[0]}-{sizes[-1]} bytes); launches "
+              f"in the {RECORDS_STEPS} steps {prep.step_launches}")
+        crit = criterion_ms(percep.pop("fn"), dev)
+        print(f"train_records: the {percep['kind']} criterion alone at the step's shapes "
+              f"(4 x {RECORD_RES}^2 image and 4 x {RECORD_RES // 5}^2 lip crop, forward and "
+              f"backward): {crit:.1f} ms")
+        counts["prep_k4_per_step"] = sum(prep.k4) / RECORDS_STEPS
+        counts["step_launches"] = prep.step_launches
+        counts["prep_ms"] = statistics.median(prep.batch) * 1e3
+        torch.cuda.synchronize()
+        torso_prep = PrepTimer()
+        try:
+            phase_train(
+                dev, out_dir, f"batch_size=4,start_adv_iters=0,max_updates="
+                f"{RECORDS_STEPS + RECORDS_TORSO_STEPS},val_check_interval=100000,"
+                f"num_sanity_val_steps=0" + common, TORSO_CONFIG, "train_records_torso",
+                RECORDS_TORSO_STEPS, path_kernels=torso_kernels, frozen=HEAD_GROUPS,
+                init_from=counts["work_dir"], losses=FACEV2V, reload=False,
+                instrument=torso_prep.install)
+        finally:
+            torso_prep.uninstall()
+        check(all(n == PREP_RASTERS for n in torso_prep.k4),
+              f"train_records_torso: K4 launches in batch preparation {torso_prep.k4}")
+        print(f"train_records_torso: {torso_prep.summary()}")
+        torch.cuda.synchronize()
+        phase_record_batch(dev, store)
+        torch.cuda.synchronize()
+        sync = phase_train_syncnet(dev, out_dir, store)
+    torch.cuda.synchronize()
+    return counts, sync
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2679,6 +3146,7 @@ def main() -> int:
     phase_reference(dev)
     torch.cuda.synchronize()
     train_counts, torso_counts, tri_counts, train_rows = run_train_phases(dev)
+    rec_counts, sync = run_records_phases(dev)
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
@@ -2686,6 +3154,11 @@ def main() -> int:
               f"{k} launch {r['launch_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['launch_ms'] / r['bound_ms']:.2f}x"
               for k, r in train_rows.items()))
+    print(f"records summary: train_records {rec_counts['ms_per_step']:.1f} ms/step + batch "
+          f"preparation {rec_counts['prep_ms']:.1f} ms, peak {rec_counts['peak_gib']:.2f} GiB, "
+          f"K4 {rec_counts['prep_k4_per_step']:g} launches a batch in preparation; "
+          f"train_syncnet {sync['ms_per_step']:.1f} ms/step, mining {sync['mining_ms']:.1f} ms, "
+          f"peak {sync['peak_gib']:.2f} GiB")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     check(set(rows) == set(REPLACES), f"kernels measured: {sorted(rows)}")
     # each kernel's launches on the main path (run); K1, which the default
@@ -2708,9 +3181,17 @@ def main() -> int:
         launches[k]["train_torso_launches_per_step"] = torso_counts[k] / TORSO_STEPS
     launches["triplane_decode"]["train_triplane_launches_per_step"] = \
         tri_counts["triplane_decode"] / TRIPLANE_STEPS
+    # the records run: K4 in batch preparation, the step's kernels in its steps
+    launches["secc_raster"]["train_records_launches_per_step"] = rec_counts["prep_k4_per_step"]
+    for k in ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
+              "bias_act"):
+        launches[k]["train_records_launches_per_step"] = \
+            rec_counts["step_launches"][k] / RECORDS_STEPS
     kernels_json = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                          **launches[k], **rows[k]) for k in REPLACES]
-    kernels_json += [train_row(k, f, train_counts, train_rows, TRAIN_STEPS, "train run")
+    kernels_json += [dict(train_row(k, f, train_counts, train_rows, TRAIN_STEPS, "train run"),
+                          train_records_launches_per_step=rec_counts["step_launches"][k]
+                          / RECORDS_STEPS)
                      for k, f in TRAIN_KERNELS.items()]
     kernels_json += [train_row(k, f, torso_counts, train_rows, TORSO_STEPS, "train_torso run")
                      for k, f in TORSO_KERNELS.items()]

@@ -4,7 +4,9 @@ Port of ``real3dportrait_tpu/geometry/secc_renderer.py``: the BFM mesh,
 coloured with the fixed NCC code and with the eyeball faces removed, is
 rasterized from (id, exp, euler, trans) into a map in [-1, 1] plus a
 coverage mask. The z-buffer runs at ``rasterize_size`` (192² in the
-pipeline) and both maps are bilinearly upsampled to ``output_resolution``.
+pipeline, 256² in training) and both maps are bilinearly resized to
+``output_resolution`` (antialiased where that shrinks them, as JAX's
+``jax.image.resize`` does).
 The mesh goes through kernel K4 in one call for all frames, from the
 camera-space vertices, and K4 writes the map in [-1, 1] itself; no face
 bucketing is needed.
@@ -22,6 +24,7 @@ from real3dportrait_tpu_torch import entry_device
 from real3dportrait_tpu_torch.geometry import bfm as bfm_ops
 from real3dportrait_tpu_torch.geometry.bfm import BFMAssets
 from real3dportrait_tpu_torch.geometry.rasterizer import rasterize_verts
+from real3dportrait_tpu_torch.ops.resize import resize_linear
 
 
 def load_eye_free_faces(assets: BFMAssets, bfm_dir: str | None) -> torch.Tensor:
@@ -39,7 +42,11 @@ def load_eye_free_faces(assets: BFMAssets, bfm_dir: str | None) -> torch.Tensor:
 
 
 def resize_bilinear_nhwc(x: torch.Tensor, size: int) -> torch.Tensor:
-    """[B,H,W,C] -> [B,size,size,C], half-pixel bilinear (align_corners=False)."""
+    """[B,H,W,C] -> [B,size,size,C], ``jax.image.resize(..., "bilinear")``:
+    half-pixel bilinear (align_corners=False) when enlarging, antialiased
+    (the triangle filter widened by the scale) when shrinking."""
+    if size < x.shape[1]:
+        return resize_linear(x, size, size).contiguous()
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1).contiguous()

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from real3dportrait_tpu_torch.ops.resize import resize_linear
+
 # --- reconstruction ---------------------------------------------------------
 
 
@@ -170,14 +172,6 @@ def lip_crop_losses(pred, target, centers, size: int, perceptual_fn=None):
 # --- perceptual --------------------------------------------------------------
 
 
-def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """NHWC bilinear resize, antialiased when shrinking (``jax.image.resize``
-    ``"linear"``)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
-
-
 def laplacian_pyramid_loss(pred, target, levels: int = 3):
     """Multi-scale L1 (Laplacian pyramid) perceptual surrogate, the
     criterion ``models/perceptual.make_perceptual_fn`` picks without VGG19
@@ -188,9 +182,9 @@ def laplacian_pyramid_loss(pred, target, levels: int = 3):
         if min(pred.shape[1], pred.shape[2]) <= 8:
             break
         h, w = pred.shape[1] // 2, pred.shape[2] // 2
-        pd, td = _resize(pred, h, w), _resize(target, h, w)
-        up_p = _resize(pd, pred.shape[1], pred.shape[2])
-        up_t = _resize(td, target.shape[1], target.shape[2])
+        pd, td = resize_linear(pred, h, w), resize_linear(target, h, w)
+        up_p = resize_linear(pd, pred.shape[1], pred.shape[2])
+        up_t = resize_linear(td, target.shape[1], target.shape[2])
         loss = loss + ((pred - up_p) - (target - up_t)).abs().mean()
         pred, target = pd, td
     return loss / levels

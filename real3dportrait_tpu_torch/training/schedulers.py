@@ -1,13 +1,16 @@
 """Step-indexed learning rates and the Adam optimiser (port of
-``real3dportrait_tpu/training/schedulers.py`` and of the ``optax.adam`` /
-``optax.MultiSteps`` the JAX tasks build from it).
+``real3dportrait_tpu/training/schedulers.py``, with its ``build_schedule``,
+and of the ``optax.adam`` / ``optax.MultiSteps`` the JAX tasks build from
+it).
 
 Schedules are plain functions of the host step, evaluated in fp32 as the
 JAX package evaluates them. :class:`Adam` is ``optax.adam(schedule, b1, b2,
 eps=1e-8)`` written out over a dict of named parameters, its moments on the
 device and its counts on the host; ``every_k > 1`` is ``optax.MultiSteps``
 (gradients averaged over k calls, the update applied on every k-th, zero
-updates between). :meth:`Adam.state_dict` gives the optax state's tree as
+updates between), which JAX's ``with_grad_accumulation`` wraps around the
+optimiser where ``accumulate_grad_batches`` is k > 1; the tasks pass that
+key as ``every_k``. :meth:`Adam.state_dict` gives the optax state's tree as
 flax's ``to_state_dict`` lays it out in a checkpoint.
 """
 
@@ -93,13 +96,13 @@ class Adam:
     def __init__(self, params: dict[str, torch.Tensor], schedule: Callable[[int], float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, every_k: int = 1):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
-        self.every_k = int(every_k)
         self.mu = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
                    for n, p in params.items()}
         self.nu = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
                    for n, p in params.items()}
         self.count = 0          # scale_by_adam's count
         self.sched_count = 0    # scale_by_schedule's count
+        self.every_k = int(every_k)
         if self.every_k > 1:
             self.acc = {n: torch.zeros_like(p) for n, p in params.items()}
             self.mini_step = 0
@@ -160,3 +163,21 @@ class Adam:
         self.count = int(tree["0"]["count"])
         self.mu, self.nu = from_tree(tree["0"]["mu"]), from_tree(tree["0"]["nu"])
         self.sched_count = int(tree["1"]["count"])
+
+
+def build_schedule(cfg, lr_key: str = "lr") -> Callable[[int], float]:
+    """The schedule a config names (``scheduler``: exponential, rsqrt,
+    cosine, else constant) with its rate and decay keys."""
+    lr = float(cfg.get(lr_key, 1e-4))
+    kind = cfg.get("scheduler", "none")
+    if kind == "exponential":
+        return exponential_schedule(lr, float(cfg.get("lr_decay_rate", 0.98)),
+                                    int(cfg.get("lr_decay_interval", 5000)),
+                                    int(cfg.get("warmup_updates", 0)))
+    if kind == "rsqrt":
+        return rsqrt_schedule(lr, int(cfg.get("warmup_updates", 4000)),
+                              int(cfg.get("hidden_size", 256)))
+    if kind == "cosine":
+        return cosine_schedule(lr, int(cfg.get("max_updates", 100000)),
+                               int(cfg.get("warmup_updates", 0)))
+    return none_schedule(lr)

@@ -41,8 +41,13 @@ class BaseTask:
     def val_step(self, state, batch: dict):
         raise NotImplementedError
 
+    def to_device(self, batch: dict) -> dict:
+        """Host arrays to the device; tensors (made there) as they are."""
+        return {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+
     # data: synthetic batches, the same arrays as the JAX package's from the
-    # same seeds; records-driven batches wait for the data tools
+    # same seeds; a task that reads a record store overrides these
     def train_data(self):
         rng = np.random.RandomState(self.cfg.get("seed", 0))
         while True:

@@ -21,22 +21,35 @@ in the JAX task's order. On the card the render's kernels K1-trigrid (or
 K1 for tri-planes) and K3, and the SR head's and the discriminator's K6a
 and K6b, run forward and backward as hand-written kernels. A generator
 that returns ``facev2v_losses`` (the torso task's) adds them with the
-config's ``lam_occlusion_*`` weights. ``val_images``, ``ood_probe_batch`` and
-records-driven batches (``prepare_batch_from_records``) are not ported.
+config's ``lam_occlusion_*`` weights.
+
+Batches come from a binarized record store where
+``<binary_data_dir>/<split>.idx`` exists (``data/datasets.Motion2VideoDataset``
+pairs through :meth:`prepare_batch_from_records`, whose SECC maps K4
+rasterizes on the task's device), else from :meth:`synthetic_batch`, as in
+JAX. :meth:`val_images` renders the validation strips the trainer writes
+as PNGs, with the fixed :meth:`ood_probe_batch`.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from real3dportrait_tpu_torch.geometry.camera import fov_to_intrinsics, lookat_pose, pack_camera
+from real3dportrait_tpu_torch.geometry.camera import (
+    convert_eg3d_convention,
+    fov_to_intrinsics,
+    lookat_pose,
+    pack_camera,
+)
 from real3dportrait_tpu_torch.models.dual_discriminator import DualDiscriminator
 from real3dportrait_tpu_torch.models.img2plane import OSAvatarSECCImg2Plane
 from real3dportrait_tpu_torch.models.perceptual import make_perceptual_fn
+from real3dportrait_tpu_torch.ops.resize import resize_linear
 from real3dportrait_tpu_torch.training import losses as L
 from real3dportrait_tpu_torch.training.schedulers import Adam, gan_lr_schedule
 from real3dportrait_tpu_torch.training.tasks.base_task import BaseTask
@@ -44,12 +57,6 @@ from real3dportrait_tpu_torch.training.train_state import TrainState
 from real3dportrait_tpu_torch.weights import mock_init_
 
 f32 = np.float32
-
-
-def resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """NHWC ``jax.image.resize(x, (B, size, size, C), "linear")``:
-    bilinear, antialiased when shrinking."""
-    return L._resize(x, size, size)
 
 
 def resize_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -72,6 +79,9 @@ class SeccImg2PlaneTask(BaseTask):
         self.sched_g = gan_lr_schedule(float(cfg.get("lr_g", 1e-4)), decay, interval, warm)
         self.sched_d = gan_lr_schedule(float(cfg.get("lr_d", 2e-4)), decay, interval, warm)
         self.neural_rendering_resolution = int(cfg.get("neural_rendering_resolution", 128))
+        self._secc_r = None       # the SECC renderer of record batches, built at first use
+        self._prep_rng = None     # the record batches' RandomState, seeded at first use
+        self._ood_probe = None
 
     # -- models ---------------------------------------------------------------
 
@@ -178,9 +188,6 @@ class SeccImg2PlaneTask(BaseTask):
 
     # -- batches ------------------------------------------------------------------
 
-    def to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
-
     def _maybe_src2src(self, step: int, batch: dict) -> dict:
         """Every ``update_src2src_interval`` steps the target is the source
         frame itself, for G and D alike."""
@@ -209,7 +216,7 @@ class SeccImg2PlaneTask(BaseTask):
         cfg = self.cfg
         res = self.neural_rendering_resolution
         tgt = batch["tgt_img"]
-        tgt_raw = resize_linear(tgt, res)
+        tgt_raw = resize_linear(tgt, res, res)
         losses["mse"] = L.masked_l1(out["image"], tgt, clamp_quantile=0.95)
         losses["mse_raw"] = L.masked_l1(out["image_raw"], tgt_raw, clamp_quantile=0.95)
         losses["percep"] = self.percep_fn(out["image"], tgt)
@@ -328,15 +335,15 @@ class SeccImg2PlaneTask(BaseTask):
     # -- discriminator losses -----------------------------------------------------------
 
     def _d_loss(self, disc, fake_image, fake_raw, batch: dict) -> torch.Tensor:
-        tgt = batch["tgt_img"]
-        real_raw = resize_linear(tgt, self.neural_rendering_resolution)
+        tgt, nr = batch["tgt_img"], self.neural_rendering_resolution
+        real_raw = resize_linear(tgt, nr, nr)
         real_logits = disc(tgt, real_raw, batch["camera"])
         fake_logits = disc(fake_image, fake_raw, batch["camera"])
         return L.d_logistic_loss(real_logits, fake_logits)
 
     def _r1(self, disc, batch: dict) -> torch.Tensor:
-        tgt = batch["tgt_img"]
-        real_raw = resize_linear(tgt, self.neural_rendering_resolution)
+        tgt, nr = batch["tgt_img"], self.neural_rendering_resolution
+        real_raw = resize_linear(tgt, nr, nr)
         return L.r1_penalty(disc, tgt, real_raw, batch["camera"])
 
     # -- the step -------------------------------------------------------------------------
@@ -438,6 +445,235 @@ class SeccImg2PlaneTask(BaseTask):
                                    + 1e-10)
         return {"val_loss": losses["mse"], "val_psnr": psnr,
                 **{f"val_{k}": v for k, v in losses.items()}}
+
+    # -- validation images ----------------------------------------------------------------
+
+    @torch.no_grad()
+    def val_images(self, state: TrainState, batch: dict, draws,
+                   max_samples: int | None = None) -> dict:
+        """The validation dumps, rendered by the EMA generator: for each of
+        the first ``num_valid_plots`` samples a strip ``[ref | mv |
+        recon_raw | pred_raw | recon | pred | ref_secc | mv_secc]`` (recon
+        driven by the ref frame's own SECC and camera, pred by the mv
+        frame's) and a ``[recon | pred]`` depth pair, and the
+        :meth:`ood_probe_batch` render. Returns {name: uint8 HxWx3}, the JAX
+        task's names; the trainer writes them as PNGs."""
+        from real3dportrait_tpu_torch.utils import visualization as viz
+
+        gen = state.gen_ema if state.gen_ema is not None else state.gen
+        n = min(int(batch["src_img"].shape[0]),
+                max_samples or int(self.cfg.get("num_valid_plots", 4)))
+        batch = {k: v[:n] if getattr(v, "ndim", 0) > 0 else v for k, v in batch.items()}
+        pred = self._gen_forward(gen, batch, draws)
+        recon_b = dict(batch)
+        recon_b["secc_cond"] = batch.get("secc_cond_src", batch["secc_cond"])
+        recon_b["camera"] = batch.get("camera_src", batch["camera"])
+        recon = self._gen_forward(gen, recon_b, draws)
+        final = int(batch["tgt_img"].shape[1])
+
+        def host(x):
+            return x.float().cpu().numpy()
+
+        def up(x):
+            return host(resize_linear(x.float(), final, final))
+
+        ref, mv = host(batch["src_img"]), host(batch["tgt_img"])
+        pred_img, recon_img = host(pred["image"]), host(recon["image"])
+        pred_raw, recon_raw = up(pred["image_raw"]), up(recon["image_raw"])
+        # the cond layout is cano | src | tgt (``pncc_cond_mode: cano_src_tgt``)
+        secc = batch["secc_cond"]
+        ref_secc = up(secc[..., 3:6] if secc.shape[-1] >= 9 else secc[..., -3:])
+        mv_secc = up(secc[..., -3:])
+        recon_depth, pred_depth = host(recon["image_depth"]), host(pred["image_depth"])
+        images = {}
+        for i in range(n):
+            images[f"ref_mv_reconraw_predraw_recon_pred_{i:05d}"] = viz.side_by_side(
+                ref[i], mv[i], recon_raw[i], pred_raw[i], recon_img[i], pred_img[i],
+                ref_secc[i], mv_secc[i])
+            images[f"depth_recon_pred_{i:05d}"] = np.concatenate([
+                viz.depth_to_colormap(recon_depth[i, ..., 0]),
+                viz.depth_to_colormap(pred_depth[i, ..., 0])], axis=1)
+        ood = self._gen_forward(gen, self.ood_probe_batch(), draws)
+        images["ood_probe"] = viz.to_uint8(host(ood["image"])[0])
+        return images
+
+    def ood_probe_batch(self) -> dict:
+        """A fixed held-out probe, rendered at every validation so that the
+        dumps compare: with ``cfg['ood_image']`` its segmented head crop
+        (coefficients fitted from ``cfg['ood_landmarks']`` where given, a
+        [K,2] .npy of normalised landmarks), else a seeded synthetic
+        identity whose SECC map stands in for the image. Made once."""
+        if self._ood_probe is None:
+            r = self._secc_renderer()
+            dev = self.device
+            final = int(self.cfg.get("final_resolution", 512))
+            rng = np.random.RandomState(777)
+            idc = torch.from_numpy(rng.randn(1, 80).astype(np.float32) * 0.1).to(dev)
+            exp = torch.from_numpy(rng.randn(1, 64).astype(np.float32) * 0.1).to(dev)
+            src_img = None
+            path = str(self.cfg.get("ood_image", "") or "")
+            if path and os.path.exists(path):
+                import cv2
+
+                from real3dportrait_tpu_torch.preprocess.pipeline import naive_person_segmenter
+                from real3dportrait_tpu_torch.preprocess.segment_utils import prepare_source
+
+                img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+                img = cv2.resize(img, (final, final))
+                segmap = naive_person_segmenter(img[None])[0]
+                head = prepare_source(img, segmap)["head_img"]
+                src_img = torch.from_numpy(np.asarray(head, np.float32)).to(dev)[None] \
+                    / 127.5 - 1.0
+                lm_path = str(self.cfg.get("ood_landmarks", "") or "")
+                if lm_path and os.path.exists(lm_path):
+                    from real3dportrait_tpu_torch.geometry.fit_3dmm import fit_coeffs
+
+                    lm2d = np.load(lm_path).reshape(1, -1, 2).astype(np.float32)
+                    fit = fit_coeffs(r.assets, torch.from_numpy(lm2d), device=dev)
+                    idc, exp = fit.id.reshape(1, 80), fit.exp.reshape(1, 64)
+            zero3 = torch.zeros((1, 3), device=dev)
+            _, cano_secc = r.render(idc, torch.zeros_like(exp), zero3, zero3)
+            _, ref_secc = r.render(idc, exp, zero3, zero3)
+            if src_img is None:
+                src_img = ref_secc
+            _, c2w, _ = convert_eg3d_convention(zero3, zero3)
+            cam = pack_camera(c2w, fov_to_intrinsics().to(dev)).reshape(1, 25)
+            parts = [cano_secc, ref_secc]
+            if self.cfg.get("pncc_cond_mode", "cano_src_tgt") == "cano_src_tgt":
+                parts.append(ref_secc)
+            self._ood_probe = {"src_img": src_img, "tgt_img": src_img,
+                               "secc_cond": torch.cat(parts, dim=-1), "camera": cam,
+                               "camera_src": cam}
+        return self._ood_probe
+
+    # -- record batches -------------------------------------------------------------------
+
+    def _secc_renderer(self):
+        """The SECC renderer of record batches on the task's device: the
+        z-buffer at ``secc_resolution`` (256^2), resized to
+        ``final_resolution``."""
+        if self._secc_r is None:
+            from real3dportrait_tpu_torch.geometry.bfm import load_or_synthetic_bfm
+            from real3dportrait_tpu_torch.geometry.secc_renderer import SECCRenderer
+
+            bfm_dir = self.cfg.get("bfm_dir")
+            self._secc_r = SECCRenderer(
+                load_or_synthetic_bfm(bfm_dir), bfm_dir,
+                rasterize_size=int(self.cfg.get("secc_resolution", 256)),
+                output_resolution=int(self.cfg.get("final_resolution", 512)), device=self.device)
+        return self._secc_r
+
+    def _to_img(self, x) -> torch.Tensor:
+        """[B,H,W,3] uint8 (copied to the device as bytes) or float -> fp32 in
+        [-1,1] at ``final_resolution`` (antialiased where that shrinks)."""
+        final = int(self.cfg.get("final_resolution", 512))
+        x = torch.as_tensor(np.asarray(x)).to(self.device)
+        if x.dtype == torch.uint8:
+            x = x.float() / 127.5 - 1.0
+        if x.shape[1] != final:
+            x = resize_linear(x, final, final)
+        return x
+
+    def _coeffs(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+
+    @torch.no_grad()
+    def prepare_batch_from_records(self, rec: dict) -> dict:
+        """A ``Motion2VideoDataset`` pair batch -> the train step's inputs, on
+        the task's device: the cano / src / tgt SECC maps and the perturbed
+        ones through K4, the blink-edited triplet (on the host), the lip
+        centres and the cameras. Every random draw comes from the task's
+        ``RandomState`` (seeded with ``cfg['seed']``) in the JAX task's
+        order."""
+        from real3dportrait_tpu_torch.geometry.face3d_helper import reconstruct_lm2d
+        from real3dportrait_tpu_torch.inference.edit_secc import blink_eye_for_secc
+
+        cfg = self.cfg
+        if self._prep_rng is None:
+            self._prep_rng = np.random.RandomState(int(cfg.get("seed", 0)))
+        rng = self._prep_rng
+        r = self._secc_renderer()
+        c = self._coeffs
+        src_id = c(rec["src_id"])
+        zero = torch.zeros_like(c(rec["src_euler"]))
+        _, cano = r.render(src_id, torch.zeros_like(c(rec["src_exp"])), zero, zero)
+        _, src_secc = r.render(src_id, c(rec["src_exp"]), zero, zero)
+        _, tgt_secc = r.render(src_id, c(rec["tgt_exp"]), zero, zero)
+
+        # the perturbed-expression maps of the conditioning regulariser: the
+        # neighbour frames' exps (laplacian), else gaussian-noised exps
+        extra = {}
+        mode = cfg.get("secc_pertube_mode", "randn")
+        if mode != "none":
+            if mode == "laplacian" and "tgt_pertube_exp_1" in rec:
+                p1, p2 = c(rec["tgt_pertube_exp_1"]), c(rec["tgt_pertube_exp_2"])
+            else:
+                scale = float(cfg.get("secc_pertube_randn_scale", 0.01))
+                noise = rng.randn(*np.shape(rec["tgt_exp"])).astype(np.float32)
+                p1 = c(rec["tgt_exp"]) + c(noise * scale)
+                p2 = 2 * c(rec["tgt_exp"]) - p1
+            _, extra["pertube_secc_1"] = r.render(src_id, p1, zero, zero)
+            if mode == "laplacian":
+                _, extra["pertube_secc_2"] = r.render(src_id, p2, zero, zero)
+
+        # the blink triplet: with probability pertube_ref_prob the src map is
+        # edited, else the tgt map; close percents p1 < p2 < p3 over [0,1]
+        if bool(cfg.get("use_blink_reg", True)):
+            pick_src = rng.rand() < float(cfg.get("pertube_ref_prob", 0.25))
+            base = (src_secc if pick_src else tgt_secc).cpu().numpy()
+            b = base.shape[0]
+            p1s = rng.rand(b) * 0.5
+            p3s = 0.5 + rng.rand(b) * 0.5
+            p2s = (p1s + p3s) / 2
+            for key, ps in (("blink_secc_1", p1s), ("blink_secc_2", p2s),
+                            ("blink_secc_3", p3s)):
+                extra[key] = torch.from_numpy(np.stack([
+                    blink_eye_for_secc(base[i], float(ps[i])) for i in range(b)])).to(
+                        self.device)
+
+        final = int(cfg.get("final_resolution", 512))
+
+        def lip_center(exp, euler, trans):
+            lm2d = reconstruct_lm2d(r.assets, src_id, c(exp), c(euler), c(trans))
+            return L.lip_rect_centers(lm2d * final)
+
+        def cam(euler, trans):
+            _, conv, intr = convert_eg3d_convention(c(euler), c(trans))
+            return pack_camera(conv, intr[0])
+
+        src_img, tgt_img = self._to_img(rec["src_head_imgs"]), self._to_img(rec["tgt_head_imgs"])
+        return {
+            "src_img": src_img,
+            "tgt_img": tgt_img,
+            "secc_cond": torch.cat([cano, src_secc, tgt_secc], dim=-1),
+            "secc_cond_src": torch.cat([cano, src_secc, src_secc], dim=-1),
+            "camera": cam(rec["tgt_euler"], rec["tgt_trans"]),
+            "camera_src": cam(rec["src_euler"], rec["src_trans"]),
+            "head_mask": (tgt_img.mean(dim=-1, keepdim=True) > -0.999).float(),
+            "lip_center": lip_center(rec["tgt_exp"], rec["tgt_euler"], rec["tgt_trans"]),
+            "lip_center_src": lip_center(rec["src_exp"], rec["src_euler"], rec["src_trans"]),
+            **extra,
+        }
+
+    def _record_batches(self, split: str):
+        """Record batches of the store ``<binary_data_dir>/<split>``, or None
+        where it has no index."""
+        store = os.path.join(str(self.cfg.get("binary_data_dir", "")), split)
+        if not os.path.isfile(store + ".idx"):
+            return None
+        from real3dportrait_tpu_torch.data import Motion2VideoDataset
+
+        ds = Motion2VideoDataset(store, self.cfg, shuffle=(split == "train"),
+                                 seed=int(self.cfg.get("seed", 0)))
+        return (self.prepare_batch_from_records(rec) for rec in ds.batches())
+
+    def train_data(self):
+        real = self._record_batches("train")
+        yield from (real if real is not None else super().train_data())
+
+    def val_data(self):
+        real = self._record_batches("val")
+        yield from (real if real is not None else super().val_data())
 
     # -- synthetic batches ----------------------------------------------------------------
 

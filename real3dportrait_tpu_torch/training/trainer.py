@@ -3,11 +3,15 @@
 One process drives one device: the step is kept on the host, each step's
 metrics stay on the device and are read back once per ``tb_log_interval``
 steps (one copy of all of them); validation and checkpoints every
-``val_check_interval`` steps and at the end. Checkpoints are the JAX
-package's files (``training/checkpoint.py``); a run restores the newest
-one in its work dir, or else starts from the newest of ``init_from_ckpt``,
-both merged leniently (``checkpoint.partial_load``). The JAX trainer's device mesh, multi-host launch,
-terminal tee, code snapshot and validation image dumps are not ported.
+``val_check_interval`` steps and at the end; at each validation the
+task's ``val_images`` (where it has them) are written as PNGs under
+``work_dir/val_images/iter<step>/`` unless ``save_val_images`` is false.
+Checkpoints are the JAX package's files (``training/checkpoint.py``); a run
+restores the newest one in its work dir, or else starts from the newest of
+``init_from_ckpt``, both merged leniently (``checkpoint.partial_load``).
+One process drives one card, so the JAX trainer's device mesh and
+multi-host launch have no counterpart; neither have its terminal tee and
+code snapshot.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ def _read(metrics: dict[str, list]) -> dict[str, np.ndarray]:
 
 class Trainer:
     """Drives a task: ``build(seed)``, ``train_step(state, batch, draws)``,
-    ``val_step(state, batch)``, ``to_device(batch)`` and the batch
-    iterators ``train_data()`` / ``val_data()``."""
+    ``val_step(state, batch)``, ``to_device(batch)``, the batch iterators
+    ``train_data()`` / ``val_data()`` and, optionally,
+    ``val_images(state, batch, draws)``."""
 
     def __init__(self, cfg: dict, task, work_dir: str):
         self.cfg, self.task, self.work_dir = cfg, task, work_dir
@@ -124,9 +129,31 @@ class Trainer:
                 t0 = time.time()
             if step % self.val_check_interval == 0:
                 self.run_validation(state)
+                self.dump_val_images(state, step)
                 self.save(state)
         self.save(state)
         return state
+
+    def dump_val_images(self, state: TrainState, step: int) -> list[str]:
+        """The task's ``val_images(state, batch, draws)`` of the first
+        validation batch (draws seeded with 0), written as
+        ``work_dir/val_images/iter<step>/<name>.png``; returns the paths."""
+        if not hasattr(self.task, "val_images") or not bool(
+                self.cfg.get("save_val_images", True)):
+            return []
+        import cv2
+
+        batch = self.task.to_device(next(iter(self.task.val_data())))
+        images = self.task.val_images(state, batch, seeded_draws(0, self.task.device))
+        out_dir = os.path.join(self.work_dir, "val_images", f"iter{step}")
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for name, img in images.items():
+            path = os.path.join(out_dir, f"{name}.png")
+            if not cv2.imwrite(path, np.ascontiguousarray(np.asarray(img)[..., ::-1])):
+                raise OSError(f"cv2.imwrite could not write {path}")
+            paths.append(path)
+        return paths
 
     def run_validation(self, state: TrainState) -> dict:
         metrics: dict[str, list] = {}
