@@ -283,11 +283,13 @@ def phase_build() -> None:
                   f"ptxas stack frame or spills in {line.split()[-1]}: {lines[i + 1].strip()}")
     cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     if os.path.isfile(cuobjdump):
-        # K7a's products and K1's MLP run on the tensor cores: HMMA
-        # instructions in the SASS of each instantiation
+        # K7a's products and weight gradient, K1's MLP and its backward's
+        # products run on the tensor cores: HMMA instructions in the SASS of
+        # each instantiation
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                               check=True, timeout=300).stdout
-        for kernel in ("conv3d_kernel", "plane_decode_kernel"):
+        for kernel in ("conv3d_kernel", "plane_decode_kernel", "conv3d_wgrad_kernel",
+                       "plane_decode_backward_kernel"):
             hmma = {}
             for fn in sass.split("Function : ")[1:]:
                 name = fn.split(None, 1)[0]
@@ -1874,7 +1876,8 @@ def phase_train_kernels(dev: torch.device, log: CallLog) -> dict:
     at the training step's own calls (``log``, recorded from the full-width
     run's first step): K1-
     trigrid on one frame's 1.57 M points (coarse + fine) of the step's
-    grids, K3 at the step's [4,16384,48+48], K6a and K6b at every distinct
+    grids and at the step's own calls (their batches and point counts), K3
+    at the step's [4,16384,48+48], K6a and K6b at every distinct
     call, fp32 and bf16, and K6a's and K6b's second derivatives through
     ``torch.autograd.grad(create_graph=True)`` on a discriminator shape of
     each type. Tolerances: fp32 sums that the kernels take with atomics in
@@ -1968,6 +1971,45 @@ def phase_train_kernels(dev: torch.device, log: CallLog) -> dict:
         (n_bytes, mma_ops, f32, SPLIT_TF32_RATE, ((fp32_ops, PEAK_OPS[f32]),)),
         launch_ms=launch, extra=f"; FFMA bound {ffma_ms:.4f} ms")
     del planes, coords, drgb, dsig, got, want
+
+    # K1-trigrid backward at the step's own calls (their batches and point
+    # counts, points uniform in the box), held to the plain version at the
+    # largest: launches x launch time beside a profiled step's share. Its
+    # inputs come from a generator of its own, so that the rows after it
+    # keep theirs.
+    step_gen = torch.Generator(device=dev).manual_seed(17)
+    step_calls: dict = {}
+    for c in log.calls["trigrid"]:
+        key = (_meta_shape(c[0]), _meta_shape(c[1]))
+        step_calls[key] = step_calls.get(key, 0) + 1
+    step_launch_ms = 0.0
+    for i, ((pshape, cshape), count) in enumerate(
+            sorted(step_calls.items(), key=lambda kv: -math.prod(kv[0][1]))):
+        planes = torch.randn(pshape, device=dev, generator=step_gen)
+        coords = torch.rand(cshape, device=dev, generator=step_gen) - 0.5
+        drgb = torch.randn(cshape[:2] + (32,), device=dev, generator=step_gen)
+        dsig = torch.randn(cshape[:2] + (1,), device=dev, generator=step_gen)
+
+        def call(planes=planes, coords=coords, drgb=drgb, dsig=dsig):
+            return dm.trigrid_decode_backward(planes, coords, 1.0, *ws, drgb, dsig)
+        with torch.no_grad():
+            if i == 0:
+                got = call()
+                want = dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig)
+                errs = [_rel(g, w) for g, w in zip(got, want)]
+                check(max(errs) <= 1e-4, f"trigrid_decode_backward at the step's call "
+                      f"disagrees: {errs}")
+                del got, want
+            launch = device_ms(call, launches=3, reps=3, warmup=1)
+        step_launch_ms += count * launch
+        print(f"train trigrid_decode_backward[the step's call: grids {list(pshape)}, coords "
+              f"{list(cshape)}, {count} in step 0]: per launch {launch:.4f} ms"
+              + (f"; max_rel_err {max(errs):.3e} (tol 1e-4)" if i == 0 else ""))
+        del planes, coords, drgb, dsig, call
+    print(f"train trigrid_decode_backward: step 0's {sum(step_calls.values())} calls "
+          f"{step_launch_ms:.4f} ms")
+    rows["trigrid_decode_backward"].update(step0_calls=sum(step_calls.values()),
+                                           step0_launch_ms=step_launch_ms)
 
     # K3 backward: the step's sample lists (sorted depths in [2, 3.3]),
     # gradients of rgb, depth and weights
@@ -2388,8 +2430,10 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
     against its plain version, at the calls of the runs' first steps
     (``log``: the torso run; ``tri_log``: the tri-plane run): K7a's weight
     gradient at every distinct 3D conv of the step (and the mask conv inside
-    K7b), K7a's data gradient at the fuser, K5a's and K5b's adjoints, K7b's
-    backward, K1's on one frame's coarse + fine points. Tolerances: fp32
+    K7b), each beside cuDNN's per launch, with the step's sums and a count
+    of the calls it beats, K7a's data gradient at the fuser, K5a's and K5b's
+    adjoints, K7b's backward, K1's on one frame's coarse + fine points.
+    Tolerances: fp32
     sums in another order, with atomics in a run-dependent order, 1e-4 of
     the largest magnitude (K5a's and K5b's adjoints, sums of at most 8 x 5
     terms, 1e-5). Each row: the per-call and per-launch time, the plain
@@ -2446,7 +2490,8 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
     tail = log.calls["mfe_tail"][0]
     key = (_meta_shape(tail[0]), _meta_shape(tail[1]))
     convs[key] = convs.get(key, 0) + len(log.calls["mfe_tail"])
-    step_ms = step_lib = step_bound = 0.0
+    step_ms = step_lib = step_lib_launch = step_bound = 0.0
+    faster = 0
     first = None
     for (xs, ws), n in sorted(convs.items(), key=lambda kv: -c3d.conv3d_ops(
             kv[0][0][1], kv[0][1][0], *kv[0][0][2:], kv[0][1][-1], kv[0][0][0])):
@@ -2459,21 +2504,26 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
             errs = errors(got, want)
             ms, launch = times(lambda: c3d.conv3d_weight_grad(x, dy, k), heavy=True)
             pms = cuda_ms(lambda: c3d.conv3d_weight_grad_plain(x, dy, k), reps=3, warmup=1)
-        # the least time is on the tensor cores in split TF32, as for K7a's
-        # forward and data gradient; the kernel runs on FFMA (that bound beside)
+            lib_launch = device_ms(lambda: c3d.conv3d_weight_grad_plain(x, dy, k), launches=3,
+                                   reps=3, warmup=1)
+        # the least time is on the tensor cores in split TF32, where the
+        # kernel runs (the FFMA bound beside)
         ops = c3d.conv3d_ops(ci, co, d, h, w, k, b)
         cost = (nbytes(x, dy, *got), ops, f32, SPLIT_TF32_RATE)
         bnd = bound(*cost)[0]
         step_ms, step_lib, step_bound = step_ms + n * launch, step_lib + n * pms, \
             step_bound + n * bnd
+        step_lib_launch += n * lib_launch
+        faster += n * (launch < lib_launch)
         tag = f"x {list(xs)} -> {co}, k {k}, {n} a step"
         if first is None:
             first = (tag, errs, ms, launch, pms, cost, x, dy, ws)
         else:
             print(f"train conv3d_weight_grad[{tag}]: max_abs_err {errs[1]:.3e} (max_rel_err "
                   f"{max(errs[0]):.3e}, tol 1e-4) per launch {launch:.4f} ms, per call "
-                  f"{ms:.4f} ms, cuDNN (plain and library) {pms:.4f} ms, bound {bnd:.4f} ms "
-                  f"(split TF32; FFMA {bound(*cost[:3])[0]:.4f} ms)")
+                  f"{ms:.4f} ms, cuDNN (plain and library) {pms:.4f} ms, per launch "
+                  f"{lib_launch:.4f} ms, bound {bnd:.4f} ms (split TF32; FFMA "
+                  f"{bound(*cost[:3])[0]:.4f} ms)")
             check(max(errs[0]) <= 1e-4, f"conv3d_weight_grad[{tag}] disagrees: {errs}")
         del x, dy, got, want
     tag, errs, ms, launch, pms, cost, x, dy, ws = first
@@ -2491,8 +2541,13 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
     print(f"train conv3d data gradient (K7a)[{tag}]: max_rel_err {derr:.3e} (tol 1e-4) per "
           f"launch {dlaunch:.4f} ms, per call {dms:.4f} ms, cuDNN {dlib_ms:.4f} ms, bound "
           f"{dbound:.4f} ms (operations, split TF32)")
+    n_calls = sum(convs.values())
+    print(f"train conv3d_weight_grad, the step's {n_calls} calls: kernel {step_ms:.2f} ms a "
+          f"step per launch, cuDNN {step_lib_launch:.2f} per launch ({step_lib:.2f} per call), "
+          f"bound {step_bound:.3f}; the kernel faster than cuDNN on {faster} of {n_calls}")
     row("conv3d_weight_grad", tag, errs, ms, launch, pms, cost, library=pms,
         ffma_bound_ms=bound(*cost[:3])[0], step_launch_ms=step_ms, step_library_ms=step_lib,
+        step_library_launch_ms=step_lib_launch, step_calls=n_calls, step_calls_faster=faster,
         step_bound_ms=step_bound,
         shapes=len(convs), data_grad_launch_ms=dlaunch, data_grad_ms=dms,
         data_grad_library_ms=dlib_ms, data_grad_bound_ms=dbound, data_grad_rel_err=derr)
@@ -2578,7 +2633,7 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
         pms = cuda_ms(lambda: tm.mfe_tail_backward_plain(*args), reps=3, warmup=1)
     # the mask conv's data and weight gradients and the occlusion heads'
     # (convolutions all): the least time is on the tensor cores in split
-    # TF32; the weight gradient and the heads run on FFMA (that bound beside)
+    # TF32; the heads run on FFMA (the FFMA bound beside)
     k1 = shapes[1][0]
     ops = 2 * c3d.conv3d_ops(ch, k1, d, h, w, 7, b) + 2 * 2 * 2 * 49 * ch * d * b * h * w
     n_bytes = nbytes(x, mask, ddef, g1, g2, occ1, occ2, *got)

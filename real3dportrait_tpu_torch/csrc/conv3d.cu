@@ -759,112 +759,336 @@ int launch_mfe_tail(const float* x, const float* mask_w, const float* mask_b,
 // K7a backward, the weight gradient (conv3d_weight_grad in ops/conv3d.py;
 // the JAX package had jax.grad differentiate conv3d_via_2d): for each tap
 // (kd, kh, kw) and each (co, ci),
-//   dW[co][ci][kd][kh][kw] = sum over b and the output voxels v whose
-//     shifted input voxel v + (kd, kh, kw) - k/2 lies inside the volume of
-//     dy[b][co][v] * x[b][ci][v + (kd, kh, kw) - k/2],
+//   dW[co][ci][kd][kh][kw] = sum over b and the voxels v of
+//     dy[b][co][v] * x[b][ci][v + (kd, kh, kw) - k/2]   (zero outside),
 // and db[co] = sum dy[b][co][v] over every voxel. The data gradient is K7a
 // itself (ops/conv3d.py: the same conv on dy with the taps flipped and the
-// channels swapped). What bounds it: operations, 2 Co Ci per voxel and tap
-// (the fuser's [4,89,16,64,64] -> 32 at k = 7, 0.51 TFLOP, 7.6 ms at 67
-// TFLOP/s). Design, simple first: a GEMM per tap with the voxels as its
-// reduction, on FFMA. A CTA of 64 threads takes one tap, a tile of BM
-// output channels (32, or 8 where Co <= 8) x 32 input channels, and a
-// share of the tap's valid voxels (the box of output voxels whose input
-// is inside: no padding is computed); it stages 32 voxels at a time of dy
-// and of x shifted by the tap, [voxel][channel] in shared memory (rows of
-// BM + 1 and 33 floats: the stores and the fragment loads hit distinct
-// banks), and each thread sums a BM/8 x 4 tile in registers, 2 shared
-// loads a product pair at BM = 32. The voxel shares of a tap (the wrapper
-// picks enough to fill the card) and the taps' CTAs leave their sums by
-// atomicAdd into the zeroed gradients; the centre tap's CTAs of the first
-// input-channel tile also sum dy for db.
-constexpr int kWgThreads = 64;
-constexpr int kWgBK = 32;  // voxels a step
-constexpr int kWgBN = 32;  // input channels of a CTA tile
+// channels swapped).
+//
+// What bounds it on an H100: operations, 2 Co Ci per voxel and tap inside
+// the volume (the torso fuser's [4,89,16,64,64] -> 32 at k = 7: 0.43
+// TFLOP); on the tensor cores in split TF32, 3 x ops / 495 TFLOP/s (the
+// fuser 2.62 ms); on FFMA, ops / 67 TFLOP/s (6.46 ms).
+//
+// The design this replaces was a GEMM a tap on FFMA: a CTA of 64
+// threads took one tap and a share of its voxels and read x and dy anew for
+// every tap, two shared loads a product pair. The fuser took 44.6 ms a
+// launch against cuDNN's 16.8 (torch.nn.grad.conv3d_weight), the torso
+// step's 24 launches 101.1 ms against 76.6, K7b's mask conv 7.57 ms
+// (NVIDIA H100 80GB HBM3, 700 W).
+//
+// Design: an implicit GEMM on the tensor cores, mma.sync m16n8k8 in split
+// TF32 (common.cuh), the voxels its reduction axis, the input channels on M
+// (32 a CTA, two m16 tiles) and the output channels on N (32, four n8
+// tiles; 8 where Co <= 8, so that K7b's mask conv pads 5 to 8, not to a
+// 16-row tile). A CTA owns one row of taps (kd, kh) and all K of its kw
+// taps: warp w computes tap kw = w % K. Its voxels are the rows (b, d, h)
+// whose shifted row (d + kd - K/2, h + kh - K/2) lies inside the volume (no
+// row of padding is computed), cut into segments of SW columns ("units");
+// the CTA takes a share of them (blockIdx.x of n_split) and stages R units
+// at a time ("a brick") with cp.async into a two-stage ring, so that the
+// next brick lands while this one multiplies: dy [BN][DS] (voxel e = unit
+// * SW + column) and the x rows [32][CS] with K/2 halo columns on each side
+// (zero outside the volume), read from device memory once for all K taps.
+// Tap kw reads the x rows shifted by kw through a per-voxel offset table
+// (the same for every brick); voxels past the brick read zeros. The
+// operands are split as they are loaded: hi = tf32(v) (cvt.rna's rounding,
+// on the bits), lo = v - hi, whose low 13 bits the tensor cores ignore.
+// At k = 3 two groups of K warps take alternate k-steps of a brick and
+// add their sums through shared memory at the end. A brick's products sum
+// into a fresh tile that the running sum takes by a rounded fp32 add (the
+// tensor cores' accumulation truncates; see K7a's note above). The CTA's
+// sums leave by one atomicAdd an entry into the zeroed gradient, or by a
+// plain store where n_split = 1 (one CTA then owns each entry); the centre
+// tap's warps of the first input-channel tile also sum dy for db. So x is
+// read once per row of taps and output-channel tile, dy once per row of
+// taps and input-channel tile, where the design before read both per tap.
+constexpr int kWgM = 32;           // input channels of a CTA: two m16 tiles
+constexpr int kWgMaxUnits = 128;   // units a brick at most
+constexpr int kWgStages = 2;       // depth of the cp.async ring
+constexpr int kWgSlots = kWgStages + 1;  // unit descriptors: one slot ahead of the ring
 
-template <int BM>
-__global__ void __launch_bounds__(kWgThreads)
-conv3d_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy, int B, int Ci,
-                    int Co, int D, int H, int W, int K, int n_ci_tiles, float* __restrict__ dw,
-                    float* __restrict__ db) {
-  constexpr int TM = BM / 8;  // output channels a thread
-  __shared__ float s_dy[kWgBK][BM + 1];
-  __shared__ float s_x[kWgBK][kWgBN + 1];
-  const int tap = blockIdx.x, kk = K * K;
-  const int p = K / 2;
-  const int od = tap / kk - p, oh = tap / K % K - p, ow = tap % K - p;
-  const int co0 = (blockIdx.y / n_ci_tiles) * BM, ci0 = (blockIdx.y % n_ci_tiles) * kWgBN;
-  const int d_lo = max(0, -od), h_lo = max(0, -oh), w_lo = max(0, -ow);
-  const int Dv = min(D, D - od) - d_lo, Hv = min(H, H - oh) - h_lo, Wv = min(W, W - ow) - w_lo;
-  // a tap past the volume's extent (k = 7 over 2 depths) has no voxel
-  const int V = Dv > 0 && Hv > 0 && Wv > 0 ? B * Dv * Hv * Wv : 0;
-  const int v_begin = (int)((long long)V * blockIdx.z / gridDim.z);
-  const int v_end = (int)((long long)V * (blockIdx.z + 1) / gridDim.z);
-  const long long DHW = (long long)D * H * W;
-  const long long shift = ((long long)od * H + oh) * W + ow;
-  const int lane = threadIdx.x % 32, lrow = threadIdx.x / 32;  // staging: voxel, channel row
-  const int tm = threadIdx.x / 8, tn = threadIdx.x % 8;        // sums: channel tiles
-  const bool do_bias = db != nullptr && od == 0 && oh == 0 && ow == 0 && ci0 == 0 && tn == 0;
-  float acc[TM][4], bacc[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    bacc[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+// Everything of one weight-gradient call but its pointers, by value.
+struct WgGeom {
+  int Ci, Co, D, H, W;
+  int SW, nseg, R;      // columns a unit, units a row, units a brick
+  int OFF, RS, CS, DS;  // x row offset and stride, x and dy channel strides
+  int NK;               // k-steps (8 voxels) a brick
+  int n_ci, vec;        // input-channel tiles; 16 B copies
+  long long B;
+  K7Div by_xp, by_yp, by_units;  // copies a unit's x row, a unit's dy row; R
+};
+
+// The shared-memory layout (floats), as ops/conv3d.py
+// conv3d_weight_grad_layout computes it: the x rows of a unit start OFF
+// floats in (so that the interior lands 16 B aligned), stride RS; a
+// channel's R rows are followed by 8 zero floats, which the voxels past
+// the brick read; the channel strides CS and DS are 4 mod 8, so that a
+// warp's fragment loads (8 channels x 4 consecutive voxels) hit 32 banks.
+static void wg_layout(WgGeom& g, int K, int BN, int VP, size_t* smem) {
+  const int P = K / 2;
+  g.OFF = k7_halo_off(K);
+  g.RS = (g.OFF + g.SW + 2 * P + 3) & ~3;
+  g.NK = (g.R * g.SW + 7) / 8;
+  const int cs = g.R * g.RS + 8, ds = 8 * g.NK;
+  g.CS = cs + (12 - cs % 8) % 8;
+  g.DS = ds + 4;
+  const size_t stage = (size_t)kWgM * g.CS + (size_t)BN * g.DS;
+  const size_t reduce = (size_t)(VP - 1) * K * BN * 32;  // the groups' sums at the end
+  const size_t ring = kWgStages * stage;
+  *smem = sizeof(float) * (ring > reduce ? ring : reduce) + sizeof(int) * 8 * g.NK +
+          (size_t)kWgSlots * g.R * (2 * sizeof(long long) + sizeof(int));
+}
+
+// hi = the TF32 rounding of v (to nearest, ties away from zero: cvt.rna's),
+// lo = v - hi in fp32; the tensor cores read lo's top 19 bits
+__device__ __forceinline__ void wg_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+template <int K, int BN, int VP>
+__global__ void __launch_bounds__(32 * K * VP)
+conv3d_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy, const WgGeom g,
+                    float* __restrict__ dw, float* __restrict__ db) {
+  constexpr int P = K / 2, NT = BN / 8, THREADS = 32 * K * VP;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int stage_floats = kWgM * g.CS + BN * g.DS;
+  const int area = max(kWgStages * stage_floats, (VP - 1) * K * BN * 32);
+  int* xoff = reinterpret_cast<int*>(smem + area);
+  long long* xrow = reinterpret_cast<long long*>(xoff + 8 * g.NK);  // [slots][R]: descriptors
+  long long* yrow = xrow + kWgSlots * g.R;
+  int* col0 = reinterpret_cast<int*>(yrow + kWgSlots * g.R);
+
+  const int kd = blockIdx.y / K, kh = blockIdx.y % K;
+  const int ci0 = (blockIdx.z % g.n_ci) * kWgM, co0 = (blockIdx.z / g.n_ci) * BN;
+  const int d_lo = max(0, P - kd), Dv = min(g.D, g.D + P - kd) - d_lo;
+  const int h_lo = max(0, P - kh), Hv = min(g.H, g.H + P - kh) - h_lo;
+  if (Dv <= 0 || Hv <= 0) return;  // a row of taps past the volume (k = 7 over 2 depths)
+  const long long units = g.B * Dv * Hv * g.nseg;
+  const long long u_begin = units * blockIdx.x / gridDim.x;
+  const long long u_end = units * (blockIdx.x + 1) / gridDim.x;
+  const int n_bricks = (int)((u_end - u_begin + g.R - 1) / g.R);
+  const int tid = threadIdx.x;
+  const long long HW = (long long)g.H * g.W, DHW = g.D * HW;
+
+  // the zeros the copies never write: each channel's tail of the x rows and
+  // the dy columns past the brick's voxels, in every stage; the offsets of
+  // voxel e's x row at tap 0
+  for (int s = 0; s < kWgStages; ++s) {
+    float* st = smem + s * stage_floats;
+    for (int e = tid; e < kWgM * 8; e += THREADS) st[(e / 8) * g.CS + g.R * g.RS + e % 8] = 0.0f;
+    const int pad = g.DS - g.R * g.SW;
+    for (int e = tid; e < BN * pad; e += THREADS)
+      st[kWgM * g.CS + (e / pad) * g.DS + g.R * g.SW + e % pad] = 0.0f;
   }
-  for (int v0 = v_begin; v0 < v_end; v0 += kWgBK) {
-    const int v = v0 + lane;
-    const bool ok = v < v_end;
-    long long sp = 0, b = 0;  // the voxel's sample and offset in a channel
-    if (ok) {
-      int r = v;
-      const int w = r % Wv + w_lo;
-      r /= Wv;
-      const int h = r % Hv + h_lo;
-      r /= Hv;
-      const int d = r % Dv + d_lo;
-      b = r / Dv;
-      sp = ((long long)d * H + h) * W + w;
+  for (int e = tid; e < 8 * g.NK; e += THREADS) {
+    const int i = e / g.SW;
+    xoff[e] = e < g.R * g.SW ? i * g.RS + g.OFF + e - i * g.SW : g.R * g.RS;
+  }
+  // brick n's units into descriptor slot n % kWgSlots: the offsets of their x row
+  // (input channel ci0) and dy row (output channel co0), and their first
+  // column (past the row for a unit past the share: every copy zero-fills)
+  auto describe = [&](int n) {
+    const int slot = (n % kWgSlots) * g.R;
+    for (int i = tid; i < g.R; i += THREADS) {
+      const long long u = u_begin + (long long)n * g.R + i;
+      long long xr = 0, yr = 0;
+      int c0 = 1 << 30;
+      if (u < u_end) {
+        long long r = u / g.nseg;
+        const int sg = (int)(u - r * g.nseg);
+        const int h = h_lo + (int)(r % Hv);
+        r /= Hv;
+        const int d = d_lo + (int)(r % Dv);
+        const long long b = r / Dv;
+        xr = (b * g.Ci + ci0) * DHW + (d + kd - P) * HW + (long long)(h + kh - P) * g.W;
+        yr = (b * g.Co + co0) * DHW + d * HW + (long long)h * g.W;
+        c0 = sg * g.SW;
+      }
+      xrow[slot + i] = xr;
+      yrow[slot + i] = yr;
+      col0[slot + i] = c0;
     }
-    __syncthreads();  // the previous step's operands are read
-#pragma unroll
-    for (int c = lrow; c < BM; c += 2) {
-      const int co = co0 + c;
-      s_dy[lane][c] = ok && co < Co ? __ldg(dy + (b * Co + co) * DHW + sp) : 0.0f;
-    }
-#pragma unroll
-    for (int c = lrow; c < kWgBN; c += 2) {
-      const int ci = ci0 + c;
-      s_x[lane][c] = ok && ci < Ci ? __ldg(x + (b * Ci + ci) * DHW + sp + shift) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kWgBK; ++k) {
-      float a[TM], bv[4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = s_dy[k][tm * TM + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = s_x[k][tn * 4 + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-        if (do_bias) bacc[i] += a[i];
+  };
+  // issue brick n's copies into stage n % kWgStages: x [32][CS] (interior 16 B
+  // pieces where vec, the halo and every column otherwise 4 B), dy [BN][DS]
+  auto stage = [&](int n) {
+    float* xs = smem + (n % kWgStages) * stage_floats;
+    float* ys = xs + kWgM * g.CS;
+    const int slot = (n % kWgSlots) * g.R;
+    const int xp = g.vec ? g.SW / 4 + 2 * P : g.SW + 2 * P;
+    const int yp = g.vec ? g.SW / 4 : g.SW;
+    const int nx = kWgM * g.R * xp, total = nx + BN * g.R * yp;
+    for (int e = tid; e < total; e += THREADS) {
+      if (e < nx) {
+        const int r = k7_quot(e, g.by_xp), q = e - r * xp;
+        const int c = k7_quot(r, g.by_units), i = r - c * g.R;
+        const int c0 = col0[slot + i];
+        const bool row_ok = ci0 + c < g.Ci;
+        const float* src = x + xrow[slot + i] + c * DHW;
+        float* dst = xs + c * g.CS + i * g.RS + g.OFF;
+        if (g.vec && q < g.SW / 4) {
+          const int gc = c0 + 4 * q;
+          const bool ok = row_ok && gc < g.W;
+          cp_async16(dst + P + 4 * q, ok ? src + gc : x, ok);
+        } else {
+          const int q2 = g.vec ? q - g.SW / 4 : q;
+          const int sc = g.vec && q2 >= P ? g.SW + q2 : q2;  // the tile row's column
+          const int gc = c0 - P + sc;
+          const bool ok = row_ok && gc >= 0 && gc < g.W;
+          cp_async4(dst + sc, ok ? src + gc : x, ok);
+        }
+      } else {
+        const int e2 = e - nx;
+        const int r = k7_quot(e2, g.by_yp), q = e2 - r * yp;
+        const int c = k7_quot(r, g.by_units), i = r - c * g.R;
+        const int gc = col0[slot + i] + (g.vec ? 4 * q : q);
+        const bool ok = co0 + c < g.Co && gc < g.W;
+        const float* src = dy + yrow[slot + i] + c * DHW + gc;
+        float* dst = ys + c * g.DS + i * g.SW + (g.vec ? 4 * q : q);
+        if (g.vec)
+          cp_async16(dst, ok ? src : dy, ok);
+        else
+          cp_async4(dst, ok ? src : dy, ok);
       }
     }
+  };
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int kw = warp % K, grp = warp / K;
+  const bool do_bias = db != nullptr && kd == P && kh == P && kw == P && ci0 == 0;
+  float acc[2][NT][4], bsum[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    bsum[nt] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[0][nt][i] = acc[1][nt][i] = 0.0f;
   }
-  const int taps = kk * K;
+  for (int n = 0; n < kWgStages && n < n_bricks; ++n) describe(n);
+  __syncthreads();  // zeros, offsets and the first descriptors are written
+  for (int n = 0; n < kWgStages - 1; ++n) {
+    if (n < n_bricks) stage(n);
+    cp_async_commit();
+  }
+  for (int n = 0; n < n_bricks; ++n) {
+    cp_async_wait<kWgStages - 2>();
+    // brick n has landed; brick n - 1 is computed (its stage and descriptor
+    // slot are free); the descriptors written last round are seen
+    __syncthreads();
+    if (n + kWgStages - 1 < n_bricks) stage(n + kWgStages - 1);
+    cp_async_commit();
+    if (n + kWgStages < n_bricks) describe(n + kWgStages);
+    const float* xs = smem + (n % kWgStages) * stage_floats;
+    const float* ys = xs + kWgM * g.CS;
+    float part[2][NT][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int co = co0 + tm * TM + i;
-    if (co >= Co) continue;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = ci0 + tn * 4 + j;
-      if (ci < Ci) atomicAdd(dw + ((long long)co * Ci + ci) * taps + tap, acc[i][j]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.0f;
+#pragma unroll 1
+    for (int s = grp; s < g.NK; s += VP) {
+      // k = t and t + 4 of this step are voxels 8s + t and 8s + t + 4
+      const int e0 = 8 * s + tig;
+      const int o0 = xoff[e0] + kw, o1 = xoff[e0 + 4] + kw;
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* yb = ys + (8 * nt + gid) * g.DS + e0;
+        const float v0 = yb[0], v1 = yb[4];
+        if (do_bias) bsum[nt] += v0 + v1;
+        wg_split(v0, bh[nt][0], bl[nt][0]);
+        wg_split(v1, bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* xa = xs + (16 * mt + gid) * g.CS;
+        const float a[4] = {xa[o0], xa[8 * g.CS + o0], xa[o1], xa[8 * g.CS + o1]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wg_split(a[i], ah[i], al[i]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_tf32(part[mt][nt], al, bh[nt][0], bh[nt][1]);
+          mma_tf32(part[mt][nt], ah, bl[nt][0], bl[nt][1]);
+          mma_tf32(part[mt][nt], ah, bh[nt][0], bh[nt][1]);
+        }
+      }
     }
-    if (do_bias) atomicAdd(db + co, bacc[i]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
   }
+  cp_async_wait<0>();
+  if (VP > 1) {  // the groups' sums into group 0's, through the stages' memory
+    constexpr int PER = 2 * NT * 4;
+    __syncthreads();
+    float* red = smem + kw * PER * 32 + lane;
+    if (grp > 0) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        red[((grp - 1) * K * PER + j) * 32] = acc[j / (NT * 4)][j / 4 % NT][j % 4];
+    }
+    __syncthreads();
+    if (grp == 0) {
+      for (int gp = 1; gp < VP; ++gp)
+#pragma unroll
+        for (int j = 0; j < PER; ++j)
+          acc[j / (NT * 4)][j / 4 % NT][j % 4] += red[((gp - 1) * K * PER + j) * 32];
+    }
+  }
+  if (do_bias) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float v = bsum[nt];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tig == 0 && co0 + 8 * nt + gid < g.Co) atomicAdd(db + co0 + 8 * nt + gid, v);
+    }
+  }
+  if (grp != 0) return;
+  // accumulator (mt, nt) element i: input channel 16 mt + gid + 8 (i / 2),
+  // output channel 8 nt + 2 tig + i % 2
+  const int tap = (kd * K + kh) * K + kw;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ci = ci0 + 16 * mt + gid + 8 * (i / 2), co = co0 + 8 * nt + 2 * tig + i % 2;
+        if (ci >= g.Ci || co >= g.Co) continue;
+        float* p = dw + ((long long)co * g.Ci + ci) * (K * K * K) + tap;
+        if (gridDim.x == 1)
+          *p = acc[mt][nt][i];
+        else
+          atomicAdd(p, acc[mt][nt][i]);
+      }
+}
+
+template <int K, int BN, int VP>
+int launch_wgrad(const float* x, const float* dy, WgGeom g, int n_split, int n_co, float* dw,
+                 float* db, cudaStream_t stream) {
+  size_t smem = 0;
+  wg_layout(g, K, BN, VP, &smem);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  g.by_xp = k7_div(g.vec ? g.SW / 4 + 2 * (K / 2) : g.SW + 2 * (K / 2));
+  g.by_yp = k7_div(g.vec ? g.SW / 4 : g.SW);
+  g.by_units = k7_div(g.R);
+  auto kernel = conv3d_wgrad_kernel<K, BN, VP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)n_split, K * K, (unsigned)(g.n_ci * n_co)), 32 * K * VP, smem,
+           stream>>>(x, dy, g, dw, db);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1133,26 +1357,32 @@ R3DP_EXPORT int r3dp_mfe_tail(const float* x, const float* mask_w, const float* 
 
 
 // K7a's weight gradient: x [B,Ci,D,H,W] and dy [B,Co,D,H,W] fp32; dw
-// [Co,Ci,K,K,K] and db [Co] (or null) zeroed by the caller. n_split shares
-// of each tap's voxels (1 <= n_split <= 65535); B * D * H * W < 2^31.
+// [Co,Ci,K,K,K] and db [Co] (or null) zeroed by the caller. The caller
+// plans the launch (ops/conv3d.py conv3d_weight_grad_plan): units of SW
+// columns (a multiple of 4 where vec; ceil(W / SW) units a row), R <= 128
+// units a brick (its stages within the shared memory a CTA may use),
+// n_split shares of each row of taps' units; vec: W and SW multiples of 4
+// and x and dy 16 B aligned.
 R3DP_EXPORT int r3dp_conv3d_weight_grad(const float* x, const float* dy, int B, int Ci, int Co,
-                                        int D, int H, int W, int K, int n_split, float* dw,
-                                        float* db, cudaStream_t stream) {
-  if ((K != 3 && K != 7) || n_split < 1 || n_split > 65535 || Ci < 1 || Co < 1 ||
-      (long long)B * D * H * W >= (1LL << 31))
+                                        int D, int H, int W, int K, int SW, int R, int n_split,
+                                        int vec, float* dw, float* db, cudaStream_t stream) {
+  if ((K != 3 && K != 7) || B < 1 || Ci < 1 || Co < 1 || D < 1 || H < 1 || W < 1 || SW < 1 ||
+      R < 1 || R > kWgMaxUnits || n_split < 1 || n_split > 65535 ||
+      (vec && (W % 4 || SW % 4)) || (long long)B * D * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if ((long long)B * D * H * W == 0) return (int)cudaGetLastError();
-  const int n_ci = (Ci + kWgBN - 1) / kWgBN;
-  if (Co <= 8) {
-    conv3d_wgrad_kernel<8><<<dim3(K * K * K, n_ci, n_split), kWgThreads, 0, stream>>>(
-        x, dy, B, Ci, Co, D, H, W, K, n_ci, dw, db);
-  } else {
-    const long long tiles = (long long)((Co + 31) / 32) * n_ci;
-    if (tiles > 65535) return (int)cudaErrorInvalidValue;
-    conv3d_wgrad_kernel<32><<<dim3(K * K * K, (unsigned)tiles, n_split), kWgThreads, 0,
-                              stream>>>(x, dy, B, Ci, Co, D, H, W, K, n_ci, dw, db);
-  }
-  return (int)cudaGetLastError();
+  const int BN = Co <= 8 ? 8 : 32;
+  const long long tiles = (long long)((Ci + kWgM - 1) / kWgM) * ((Co + BN - 1) / BN);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  WgGeom g;
+  g.Ci = Ci, g.Co = Co, g.D = D, g.H = H, g.W = W, g.B = B;
+  g.SW = SW, g.nseg = (W + SW - 1) / SW, g.R = R;
+  g.n_ci = (Ci + kWgM - 1) / kWgM, g.vec = vec;
+  const int n_co = (Co + BN - 1) / BN;
+  if (K == 7)
+    return BN == 8 ? launch_wgrad<7, 8, 1>(x, dy, g, n_split, n_co, dw, db, stream)
+                   : launch_wgrad<7, 32, 1>(x, dy, g, n_split, n_co, dw, db, stream);
+  return BN == 8 ? launch_wgrad<3, 8, 2>(x, dy, g, n_split, n_co, dw, db, stream)
+                 : launch_wgrad<3, 32, 2>(x, dy, g, n_split, n_co, dw, db, stream);
 }
 
 // K7b backward, before the mask conv's gradients: ddef [B,D,H,W,3]; docc1,

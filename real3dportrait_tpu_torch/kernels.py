@@ -77,7 +77,7 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_bias_act_grad": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "r3dp_bias_act_grad_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
     "r3dp_conv3d": (_P, _P, _P, _P, _P, *(_I,) * 15, _P),
-    "r3dp_conv3d_weight_grad": (_P, _P, *(_I,) * 8, _P, _P, _P),
+    "r3dp_conv3d_weight_grad": (_P, _P, *(_I,) * 11, _P, _P, _P),
     "r3dp_mfe_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                       _P, _P, _P),
     "r3dp_mfe_tail_backward_adjoint": (*(_P,) * 8, *(_I,) * 4, _P, _P, _P),

@@ -184,15 +184,66 @@ def conv3d_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor,
             dy.sum(dim=(0, 2, 3, 4)))
 
 
+# the weight-gradient kernel's tiles (csrc/conv3d.cu conv3d_wgrad_kernel):
+# input channels a CTA (M), voxels a brick at most, stages of its copy ring,
+# the shared memory a CTA plans for (two CTAs an SM)
+WGRAD_M = 32
+WGRAD_BRICK = 128
+WGRAD_STAGES = 2
+WGRAD_SMEM = 112 * 1024
+
+
+def conv3d_weight_grad_layout(k: int, bn: int, vp: int, sw: int, r: int) -> dict:
+    """The weight-gradient kernel's shared-memory layout (floats), as
+    ``csrc/conv3d.cu`` ``wg_layout`` computes it, for units of ``sw``
+    columns, ``r`` units a brick, ``bn`` output channels and ``vp`` groups
+    of k warps: ``OFF`` and ``RS``, where a unit's x row starts and its
+    stride (k // 2 halo columns on each side, the interior 16 B aligned);
+    ``CS``, an input channel's rows and 8 zero floats, and ``DS``, an output
+    channel's ``8 NK`` voxels (``NK`` k-steps of 8), both 4 mod 8; ``smem``,
+    the bytes of a CTA (the ring's stages, the voxel offsets, a slot of
+    unit descriptors a stage and one more)."""
+    p = k // 2
+    off = (4 - p % 4) % 4
+    rs = (off + sw + 2 * p + 3) // 4 * 4
+    nk = (r * sw + 7) // 8
+    cs = r * rs + 8
+    cs += (12 - cs % 8) % 8
+    ds = 8 * nk + 4
+    stage = WGRAD_M * cs + bn * ds
+    area = max(WGRAD_STAGES * stage, (vp - 1) * k * bn * 32)
+    return dict(OFF=off, RS=rs, CS=cs, DS=ds, NK=nk,
+                smem=4 * area + 4 * 8 * nk + (WGRAD_STAGES + 1) * r * 20)
+
+
 def conv3d_weight_grad_plan(b: int, ci: int, co: int, d: int, h: int, w: int, k: int,
-                            sms: int) -> int:
-    """The kernel's shares of each tap's voxels (``n_split``): enough CTAs
-    (one a tap, 32 (or 8, Co <= 8) output channels and 32 input channels)
-    for ~24 of 64 threads on each of ``sms`` SMs, each share at least 2048
-    voxels."""
-    tiles = k ** 3 * (math.ceil(co / 32) if co > 8 else 1) * math.ceil(ci / 32)
-    want = math.ceil(24 * sms / tiles)
-    return max(1, min(want, b * d * h * w // 2048, 65535))
+                            sms: int) -> dict:
+    """The weight-gradient kernel's decomposition of one call on ``sms``
+    SMs. A CTA owns a row of taps (kd, kh), ``WGRAD_M`` input channels and
+    ``BN`` output channels (8 where ``co`` <= 8, else 32), with ``VP``
+    groups of k warps (2 at k = 3, 1 at k = 7); its voxels are the units (a
+    row's ``SW`` columns, ``nseg`` a row; with ``vec``, where w is a
+    multiple of 4, so is ``SW``) of the rows whose shifted row lies inside
+    the volume, ``R`` units a brick (at most ``WGRAD_BRICK`` voxels, fewer
+    where two stages would pass ``WGRAD_SMEM``), and ``n_split`` shares of
+    them: about 16 CTAs an SM at k = 7 and 6 at k = 3 (on the card the
+    fuser's rows of taps, whose units differ most at the volume's edges,
+    balance better in smaller shares; the 3^3 convs lose more to each
+    CTA's start), each share at least four bricks of the full volume's
+    units."""
+    vec = w % 4 == 0
+    nseg = math.ceil(w / WGRAD_BRICK)
+    sw = 4 * math.ceil(w / (4 * nseg)) if vec else math.ceil(w / nseg)
+    r = max(1, WGRAD_BRICK // sw)
+    bn = 8 if co <= 8 else 32
+    vp = 2 if k == 3 else 1
+    while r > 1 and conv3d_weight_grad_layout(k, bn, vp, sw, r)["smem"] > WGRAD_SMEM:
+        r -= 1
+    tiles = k * k * math.ceil(ci / WGRAD_M) * math.ceil(co / bn)
+    units = b * d * h * nseg
+    per_sm = 16 if k == 7 else 6
+    n_split = max(1, min(math.ceil(per_sm * sms / tiles), math.ceil(units / (4 * r)), 65535))
+    return dict(BN=bn, VP=vp, SW=sw, nseg=nseg, R=r, vec=vec, n_split=n_split)
 
 
 def conv3d_weight_grad(x: torch.Tensor, dy: torch.Tensor,
@@ -216,8 +267,10 @@ def conv3d_weight_grad(x: torch.Tensor, dy: torch.Tensor,
     co = dy.shape[1]
     dw = torch.zeros((co, ci, k, k, k), device=x.device)
     db = torch.zeros((co,), device=x.device)
-    n_split = conv3d_weight_grad_plan(b, ci, co, d, h, w, k, sm_count(x.device))
-    kernels.launch("r3dp_conv3d_weight_grad", x, dy, b, ci, co, d, h, w, k, n_split, dw, db)
+    plan = conv3d_weight_grad_plan(b, ci, co, d, h, w, k, sm_count(x.device))
+    vec = int(plan["vec"] and x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    kernels.launch("r3dp_conv3d_weight_grad", x, dy, b, ci, co, d, h, w, k, plan["SW"],
+                   plan["R"], plan["n_split"], vec, dw, db)
     conv3d_weight_grad.launches += 1
     return dw, db
 

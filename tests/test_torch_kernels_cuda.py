@@ -849,8 +849,10 @@ def _rel_close(got, want, tol, what):
     assert err <= tol, f"{what}: max err / scale {err:.3e} > {tol}"
 
 
-@pytest.mark.parametrize("b,dhw,n", [(2, (3, 9, 13), 1001), (1, (1, 5, 4), 64)],
-                         ids=["b2_d3_ragged", "d1_one_tile"])
+@pytest.mark.parametrize("b,dhw,n", [(2, (3, 9, 13), 1001), (1, (1, 5, 4), 64),
+                                     (3, (2, 7, 5), 37), (1, (3, 16, 16), 2 * 132 * 128 + 9)],
+                         ids=["b2_d3_ragged", "d1_one_tile", "b3_part_round",
+                              "rounds_and_a_tail"])
 def test_k1_trigrid_backward_odd_sizes_points_outside(dev, b, dhw, n):
     # atomics in a run-dependent order: 1e-4 of the largest magnitude
     g = torch.Generator(device=dev).manual_seed(21)
@@ -1014,16 +1016,28 @@ def test_k6b_grad_every_term(dev, dtype, act, clamp, terms):
 
 
 def test_k1_triplane_backward_points_outside(dev):
+    _k1_triplane_backward_case(dev, 2, (17, 23), 777)
+
+
+# a part of a round of 8 tiles (B = 3, 37 points), and several rounds a CTA
+# with a ragged last tile
+@pytest.mark.parametrize("b,hw,n", [(3, (5, 4), 37), (1, (64, 64), 2 * 132 * 128 + 9)],
+                         ids=["b3_part_round", "rounds_and_a_tail"])
+def test_k1_triplane_backward_edge_shapes(dev, b, hw, n):
+    _k1_triplane_backward_case(dev, b, hw, n)
+
+
+def _k1_triplane_backward_case(dev, b, hw, n):
     g = torch.Generator(device=dev).manual_seed(30)
-    planes = torch.randn((2, 3, 17, 23, 32), device=dev, generator=g)
-    coords = torch.rand((2, 777, 3), device=dev, generator=g) * 1.4 - 0.7
+    planes = torch.randn((b, 3, *hw, 32), device=dev, generator=g)
+    coords = torch.rand((b, n, 3), device=dev, generator=g) * 1.4 - 0.7
     dec = OSGDecoder(32, 64, 32).to(dev)
     with torch.no_grad():
         for p in dec.parameters():
             p.copy_(0.3 * torch.randn(p.shape, device=dev, generator=g))
     ws = [t.detach() for t in (*dec.net0.folded(), *dec.net1.folded())]
-    drgb = torch.randn((2, 777, 32), device=dev, generator=g)
-    dsig = torch.randn((2, 777, 1), device=dev, generator=g)
+    drgb = torch.randn((b, n, 32), device=dev, generator=g)
+    dsig = torch.randn((b, n, 1), device=dev, generator=g)
     for grads in ((drgb, dsig), (None, dsig), (drgb, None)):
         with torch.no_grad():
             k = triplane_decode_backward(planes, coords, 1.0, *ws, *grads)
@@ -1042,7 +1056,9 @@ def test_k1_triplane_backward_points_outside(dev):
 
 
 @pytest.mark.parametrize("b,ci,co,dhw,k", [(2, 13, 40, (3, 9, 6), 3), (1, 5, 5, (2, 7, 9), 7),
-                                           (2, 37, 6, (4, 5, 4), 7), (1, 70, 70, (16, 4, 4), 3)])
+                                           (2, 37, 6, (4, 5, 4), 7), (1, 70, 70, (16, 4, 4), 3),
+                                           (2, 37, 5, (2, 6, 8), 7), (2, 33, 33, (3, 5, 130), 3),
+                                           (1, 89, 32, (4, 8, 16), 7), (2, 32, 64, (2, 4, 4), 3)])
 def test_k7a_weight_and_data_grad(dev, b, ci, co, dhw, k):
     g = torch.Generator(device=dev).manual_seed(31)
     x = torch.randn((b, ci, *dhw), device=dev, generator=g)
