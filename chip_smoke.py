@@ -101,18 +101,38 @@ Phases, each of which raises on failure (exit code 1, no result line):
    its checkpoint on the same store; one record batch at the run's batch
    of 4 on the card against the CPU; ``train_syncnet``:
    ``configs/audio_lm3d_syncnet.yaml`` at full width (lm468, 8192 clip
-   pairs) for 4 steps, its checkpoint reloaded through ``partial_load``.
+   pairs) for 4 steps, its checkpoint reloaded through ``partial_load``;
+   ``train_a2m``: ``configs/audio2motion_vae.yaml`` at full width and batch
+   4 with the sync loss on, ``train_syncnet``'s checkpoint as its frozen
+   SyncNet (read through ``partial_load(prefix_map=...)``), 2 steps on
+   synthetic batches and 2 on the store's sequences (no kernel of the repo
+   on this path: its convolutions are cuDNN's);
+10. the EG3D teacher and img2plane (``run_teacher_phases``):
+   ``train_eg3d``: ``configs/eg3d.yaml`` at full width (the const-input
+   StyleGAN2 synthesis network to 256^2 tri-planes, K1 / K2 / K3 at 128^2
+   and 48+48, the bf16 SR head, the dual discriminator) and batch 4 for 4
+   steps, the density regulariser and R1 at step 0, then every distinct
+   K1, K1-backward (batch 4), K6a and K6b call of its first step and K2 at
+   its first call against the plain versions; ``train_img2plane``:
+   ``configs/img2plane.yaml`` at full width and batch 4 for 3 steps with
+   ``start_adv_iters`` cut to 1 (the frozen EG3D teacher renders the
+   targets; the student's K1-trigrid forward and backward), then its
+   step's distinct calls likewise. Each prints ms/step (the median after
+   the first step), peak memory and each kernel's launches a step.
 
 The last lines are the kernels JSON (the backward kernels with their
 launches a step of the training run that is their main path; K4's
 launches a batch of record preparation and the step kernels' a step of
-``train_records`` as ``train_records_launches_per_step``), the card's
+``train_records`` as ``train_records_launches_per_step``; the EG3D and
+img2plane stages' as ``train_eg3d_launches_per_step`` and
+``train_img2plane_launches_per_step``), the card's
 name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -216,6 +236,20 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     want = want.float()
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
     return float(((got.float() - want).abs() / ulp).max())
+
+
+def bf16_sum_err(got: torch.Tensor, want: torch.Tensor, mag: torch.Tensor,
+                 n_terms: int = 16) -> float:
+    """Largest |got - want| over its tolerance, for bf16 outputs of fp32
+    sums taken in another order: 2 bf16 ulps of ``want`` plus the fp32
+    reordering bound ``n_terms * 2^-24 * mag``, where ``mag`` is the sum of
+    the terms' magnitudes (where terms cancel near zero, the order of an
+    fp32 sum moves the result by up to that much, which is many ulps of a
+    result near 0). At most 1 passes."""
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    tol = 2 * ulp + n_terms * 2.0 ** -24 * mag.float()
+    return float(((got.float() - want).abs() / tol).max())
 
 
 def bound(n_bytes: float, ops: float, dtype: torch.dtype, rate: float | None = None,
@@ -2051,9 +2085,18 @@ def phase_train_kernels(dev: torch.device, log: CallLog) -> dict:
             want = ufd.upfirdn2d_backward_plain(dy, f, up, down, pad, gain, in_hw)
             check(got.shape == x.shape, f"upfirdn2d_backward shape {tuple(got.shape)}")
             if dtype == bf16:
-                u = bf16_ulps(got, want)
-                check(u <= 2, f"upfirdn2d_backward[{shape}] is {u} bf16 ulps off")
-                err = f"max_abs_err {max_err(got, want):.3e} ({u:g} bf16 ulps, tol 2)"
+                # 2 bf16 ulps of the plain output plus the fp32 reordering
+                # bound 16 * 2^-24 * sum|terms|: sum|terms| is the plain
+                # adjoint on |dy| and |f| in fp32, 16 the terms of each
+                # output's sum (the 4x4 FIR)
+                mag = ufd.upfirdn2d_backward_plain(dy.abs().float(),
+                                                   None if f is None else f.abs(), up, down,
+                                                   pad, abs(gain), in_hw)
+                u, r = bf16_ulps(got, want), bf16_sum_err(got, want, mag)
+                check(r <= 1, f"upfirdn2d_backward[{shape}] is {u} bf16 ulps off, {r:.3f} of "
+                      f"2 ulps + 16 * 2^-24 * sum|terms|")
+                err = (f"max_abs_err {max_err(got, want):.3e} ({u:g} bf16 ulps; {r:.3f} of "
+                       f"the tol 2 ulps + 16 * 2^-24 * sum|terms|)")
             else:
                 e = max_err(got, want)
                 check(e <= 1e-5, f"upfirdn2d_backward[{shape}] disagrees: {e}")
@@ -2254,21 +2297,23 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
                 path_kernels: tuple = ("trigrid_decode", "importance_sample", "merge_composite",
                                        "upfirdn2d", "bias_act", *TRAIN_KERNELS),
                 frozen: tuple = (), init_from: str | None = None, losses: tuple = (),
-                bf16: bool = True, reload: bool = True, instrument=None
-                ) -> tuple[dict, CallLog]:
+                bf16: bool = True, reload: bool = True, instrument=None,
+                modules: tuple = ("gen", "disc")) -> tuple[dict, CallLog]:
     """A full-width run of ``training.run`` on ``configs/<config>`` for
     ``steps`` steps on synthetic batches, with the launch counters from 0.
     By default (c): ``configs/secc_img2plane.yaml`` (b0 SegFormers, depth-3
     x 32 tri-grids, 128^2 render with 48+48 samples, the 512^2 SR head and
     dual discriminator with their bf16 resolutions) at the config's batch of
     4 for 4 steps. Checks: every loss finite (``losses`` among them); every
-    generator group and the discriminator moved, but the ``frozen`` groups,
-    which stay bit-equal to the run's start (and, with ``init_from``, a work
-    dir the run starts from by ``init_from_ckpt``, equal to that
-    checkpoint's); every kernel of ``path_kernels`` launched (and a bf16 K6a
-    and K6b where ``bf16``) and no plain version called; with ``reload``,
-    the checkpoint it wrote loads into a fresh task with equal parameters,
-    moments and lambdas. Prints ms/step (the median of the steps after the
+    group of the state's first module of ``modules`` (the generator, by its
+    top-level names) and each other module of ``modules`` (the
+    discriminator) moved, but the ``frozen`` groups or modules, which stay
+    bit-equal to the run's start (and, with ``init_from``, a work dir the
+    run starts from by ``init_from_ckpt``, the generator's frozen groups
+    equal to that checkpoint's); every kernel of ``path_kernels`` launched
+    (and a bf16 K6a and K6b where ``bf16``) and no plain version called;
+    with ``reload``, the checkpoint it wrote loads into a fresh task with
+    equal modules, moments and lambdas. Prints ms/step (the median of the steps after the
     first, a warm-up) and the peak memory. Returns the launches (with
     ``ms_per_step``, ``peak_gib`` and the run's ``work_dir``) and the record
     of the first step's kernel calls. ``hparams`` replaces the run's
@@ -2284,6 +2329,7 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
     from real3dportrait_tpu_torch.training import run as trun
     from real3dportrait_tpu_torch.training.checkpoint import (
         get_all_ckpts, get_last_checkpoint, load_checkpoint)
+    from real3dportrait_tpu_torch.training.schedulers import Adam
     from real3dportrait_tpu_torch.weights import torch_state_dict_from_jax
 
     # count the plain versions' calls: on the card none may run
@@ -2320,7 +2366,7 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
         def start_and_keep(seed):
             st = start_fn(seed)
             init["step"] = st.step
-            for mod in ("gen", "disc"):
+            for mod in modules:
                 init[mod] = {n: p.detach().clone() for n, p in getattr(st, mod).named_parameters()}
             return st
 
@@ -2364,14 +2410,14 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
     check(not bad, f"{exp}: non-finite metrics {bad}")
     check(all(f"g/{k}" in host for k in losses), f"{exp}: losses {sorted(host)}")
     groups = {}
-    for mod in ("gen", "disc"):
+    for mod in modules:
         for n, p in getattr(state, mod).named_parameters():
-            key = mod if mod == "disc" else n.split(".", 1)[0]
+            key = n.split(".", 1)[0] if mod == modules[0] else mod
             moved = not torch.equal(p.detach(), init[mod][n])
             groups[key] = groups.get(key, False) or moved
     check(all(v == (k not in frozen) for k, v in groups.items()),
           f"{exp}: groups moved {groups}, frozen {frozen}")
-    if init_from:
+    if init_from and modules[0] == "gen":
         src = torch_state_dict_from_jax({"params": get_last_checkpoint(init_from)[0][
             "params"]["gen"]})
         same = [torch.equal(p.detach().cpu(), src[n]) for n, p in state.gen.named_parameters()
@@ -2393,14 +2439,17 @@ def phase_train(dev: torch.device, out_dir: str, hparams: str = TRAIN_HPARAMS,
         fresh = fresh_trainer.task.build(12345)
         fresh.load_state_dict(load_checkpoint(ckpts[0]))
         same = fresh.step == state.step
-        for mod in ("gen", "disc", "gen_ema"):
-            a, b = getattr(state, mod).state_dict(), getattr(fresh, mod).state_dict()
-            same = same and list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
-        for opt in ("opt_g", "opt_d"):
-            o, f = getattr(state, opt), getattr(fresh, opt)
-            same = same and o.count == f.count and all(
-                torch.equal(o.mu[k], f.mu[k]) and torch.equal(o.nu[k], f.nu[k]) for k in o.mu)
-        same = same and all(torch.equal(state.extra[k], fresh.extra[k]) for k in state.extra)
+        for field in dataclasses.fields(state):
+            o, f = getattr(state, field.name), getattr(fresh, field.name)
+            if isinstance(o, torch.nn.Module):
+                a, b = o.state_dict(), f.state_dict()
+                same = same and list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+            elif isinstance(o, Adam):
+                same = same and o.count == f.count and all(
+                    torch.equal(o.mu[k], f.mu[k]) and torch.equal(o.nu[k], f.nu[k])
+                    for k in o.mu)
+            elif field.name == "extra":
+                same = same and all(torch.equal(o[k], f[k]) for k in o)
         check(same, f"{exp}: the checkpoint does not load back to the trained state")
         reloaded = f"; the checkpoint ({os.path.getsize(ckpts[0]) / 2 ** 20:.1f} MiB) " \
                    f"reloaded equal in {time.perf_counter() - t1:.1f} s"
@@ -3093,8 +3142,9 @@ def run_records_phases(dev: torch.device) -> tuple[dict, dict]:
     (``train_records``: K4 in batch preparation, finite losses, the
     validation PNGs named as JAX names them, the ``vgg19_v2`` criterion),
     the torso stage from its checkpoint, one record batch on the card
-    against the CPU, and SyncNet. Returns the flagship run's launches (with
-    K4's a batch in preparation) and SyncNet's numbers."""
+    against the CPU, SyncNet, and audio-to-motion with that SyncNet frozen,
+    half its steps from the store. Returns the flagship run's launches (with
+    K4's a batch in preparation), SyncNet's and audio-to-motion's numbers."""
     rec_kernels = ("secc_raster", "trigrid_decode", "importance_sample", "merge_composite",
                    "upfirdn2d", "bias_act", *TRAIN_KERNELS)
     torso_kernels = rec_kernels + ("torso_deform_input", "torso_warp_volume", "conv3d",
@@ -3157,8 +3207,389 @@ def run_records_phases(dev: torch.device) -> tuple[dict, dict]:
         phase_record_batch(dev, store)
         torch.cuda.synchronize()
         sync = phase_train_syncnet(dev, out_dir, store)
+        torch.cuda.synchronize()
+        a2m = phase_train_a2m(dev, out_dir, store, os.path.join(out_dir, "syncnet"))
     torch.cuda.synchronize()
-    return counts, sync
+    return counts, sync, a2m
+
+
+# the last three training stages: audio-to-motion with its frozen SyncNet
+# (inside the records phases: half its steps read the store, its SyncNet is
+# train_syncnet's), the EG3D tri-plane teacher and img2plane distillation
+A2M_CONFIG = "audio2motion_vae.yaml"
+A2M_STEPS = 4
+A2M_HPARAMS = "batch_size=4,lambda_sync=0.1" + RUN_HPARAMS
+EG3D_CONFIG = "eg3d.yaml"
+EG3D_STEPS = 4
+# the config's batch of 4; step 0 runs the density regulariser and R1
+# (reg_interval_g 4, reg_interval_d 16)
+EG3D_HPARAMS = f"batch_size=4,max_updates={EG3D_STEPS}" + RUN_HPARAMS
+# the backward kernels of the EG3D step (K1's on tri-planes, at batch 4)
+EG3D_KERNELS = ("triplane_decode", "importance_sample", "merge_composite", "upfirdn2d",
+                "bias_act", "triplane_decode_backward", "merge_composite_backward",
+                "upfirdn2d_backward", "bias_act_grad")
+I2P_CONFIG = "img2plane.yaml"
+I2P_STEPS = 3
+# start_adv_iters cut from 30000 to 1, so that the adversarial loss and the
+# decoder and SR gates run within the 3 steps (the cut is printed)
+I2P_HPARAMS = f"batch_size=4,start_adv_iters=1,max_updates={I2P_STEPS}" + RUN_HPARAMS
+I2P_KERNELS = ("trigrid_decode", "triplane_decode", "importance_sample", "merge_composite",
+               "upfirdn2d", "bias_act", "trigrid_decode_backward", "merge_composite_backward",
+               "upfirdn2d_backward", "bias_act_grad")
+
+
+def per_step(counts: dict, steps: int) -> dict:
+    """Each kernel's launches a step of a run (the kernels that ran)."""
+    return {k: v / steps for k, v in counts.items()
+            if isinstance(v, int) and v > 0}
+
+
+def phase_train_a2m(dev: torch.device, out_dir: str, store: str, syncnet_dir: str) -> dict:
+    """``training.run`` on ``configs/audio2motion_vae.yaml`` at full width
+    (the model's fixed widths, 1024-d HuBERT input) and batch 4 with the
+    sync loss on (``lambda_sync`` 0.1) and ``syncnet_ckpt_dir`` at
+    ``train_syncnet``'s work dir (lm468): 2 steps on synthetic batches, then
+    2 more from their checkpoint (``init_from_ckpt``) on the record store's
+    sequences. Checks: finite losses with ``sync``; every group of the
+    model moved; the frozen SyncNet bit-equal to ``train_syncnet``'s
+    checkpoint, loaded leaf for leaf through the prefix map; no kernel of
+    the repo launched (its convolutions are cuDNN's); the checkpoint
+    reloaded equal. Returns the launches (every count 0) with ms/step and
+    peak memory of the two runs."""
+    from real3dportrait_tpu_torch.training import checkpoint as ckpt
+    from real3dportrait_tpu_torch.training.tasks.audio2motion_task import Audio2MotionTask
+    from real3dportrait_tpu_torch.weights import torch_state_dict_from_jax
+
+    half = A2M_STEPS // 2
+    common = f"syncnet_ckpt_dir={syncnet_dir}," + A2M_HPARAMS
+    shapes, stats = [], {}
+
+    def instrument(trainer):
+        task = trainer.task
+        check(isinstance(task, Audio2MotionTask) and task.use_syncnet, "train_a2m: no SyncNet")
+        load, data = task.load_syncnet, task.train_data
+
+        def counted_load(syncnet):
+            stats.update(load(syncnet))
+            return stats
+
+        def seen():
+            for b in data():
+                shapes.append({k: tuple(np.shape(v)) for k, v in b.items()})
+                yield b
+        task.load_syncnet, task.train_data = counted_load, seen
+
+    runs = []
+    for i, (extra, exp) in enumerate(((f",max_updates={half}", "train_a2m"),
+                                      (f",max_updates={A2M_STEPS},binary_data_dir={store}",
+                                       "train_a2m_records"))):
+        counts, _ = phase_train(
+            dev, out_dir, common + extra, A2M_CONFIG, exp, half, path_kernels=(),
+            frozen=("syncnet",), init_from=runs[0]["work_dir"] if i else None,
+            losses=(), bf16=False, instrument=instrument, modules=("model", "syncnet"))
+        check(not any(v for k, v in counts.items() if isinstance(v, int)),
+              f"{exp}: a kernel of the repo launched: {counts}")
+        runs.append(counts)
+    src = torch_state_dict_from_jax({"params": ckpt.get_last_checkpoint(syncnet_dir)[0][
+        "params"]["syncnet"]})
+    last = ckpt.load_checkpoint(ckpt.get_last_checkpoint(runs[1]["work_dir"])[1])
+    got = torch_state_dict_from_jax({"params": last["params"]["syncnet"]})
+    check(set(src) == set(got) and all(torch.equal(src[k], got[k]) for k in src),
+          "train_a2m: the frozen SyncNet differs from train_syncnet's checkpoint")
+    check(stats.get("missing") == 0 and stats.get("shape_mismatch") == 0 and
+          stats.get("loaded") == len(src), f"train_a2m: SyncNet through the prefix map {stats}")
+    synthetic = [s for s in shapes if s["audio"][0] == 4]
+    from_store = [s for s in shapes if s not in synthetic]
+    check(synthetic and from_store, f"train_a2m: batches {shapes}")
+    print(f"train_a2m: SyncNet from {syncnet_dir} through prefix_map {{'syncnet': 'p'}}: "
+          f"{stats}; batches synthetic {synthetic[0]}, from the store {from_store[0]}; "
+          f"ms/step {runs[0]['ms_per_step']:.1f} (synthetic), {runs[1]['ms_per_step']:.1f} "
+          f"(store), peak {max(r['peak_gib'] for r in runs):.2f} GiB; launches a step of the "
+          f"repo's kernels: none (cuDNN 1-D convolutions)")
+    return {"ms_per_step": statistics.median([r["ms_per_step"] for r in runs]),
+            "peak_gib": max(r["peak_gib"] for r in runs)}
+
+
+class StashK2:
+    """Keeps the arguments of a run's first K2 call (``importance_sample``)
+    of its first step: installed at the first step, it replaces the
+    renderer's reference once and puts it back at that call."""
+
+    def __init__(self):
+        self.args = None
+
+    def install(self, trainer):
+        from real3dportrait_tpu_torch.rendering import renderer as rr
+
+        task, step = trainer.task, trainer.task.train_step
+        orig = rr.importance_sample
+
+        def stash(depths, densities, u):
+            rr.importance_sample = orig
+            self.args = tuple(t.detach().clone() for t in (depths, densities, u))
+            return orig(depths, densities, u)
+
+        def first_step(state, batch, draws):
+            if self.args is None:
+                rr.importance_sample = stash
+            try:
+                return step(state, batch, draws)
+            finally:
+                rr.importance_sample = orig
+        task.train_step = first_step
+
+
+def hold_calls(dev: torch.device, log: CallLog, tag: str, seed: int,
+               forward_only: tuple = ()) -> dict:
+    """Each kernel of a training step at each of its distinct calls in
+    ``log`` (the first step's), against its plain version, on seeded inputs
+    of the recorded shapes and arguments: K1 (tri-planes) and K1-trigrid
+    forward and backward (tol 1e-4 of scale), K6a forward and backward (fp32
+    1e-5 absolute; bf16 2 ulps of the plain output plus the fp32
+    reordering bound 16 * 2^-24 * sum|terms|, ``bf16_sum_err``), K6b
+    forward (fp32 1e-6 of scale, bf16 2 ulps) and gradient (dx as the
+    forward; the sums db, dscale and dnoise within 1e-5 of the sum of their
+    terms' magnitudes). Prints a line a kernel with the calls held and the
+    worst error; returns {kernel: (calls held, worst error, calls)}. The
+    K1 layouts of ``forward_only`` ("triplane", "trigrid") took no gradient
+    in the step: their backward is not held."""
+    from real3dportrait_tpu_torch.models import decoder as dm
+    from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.ops import upfirdn2d as ufd
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out: dict = {}
+
+    def randn(shape, dtype=f32):
+        return torch.randn(tuple(shape), device=dev, generator=gen).to(dtype)
+
+    def note(name, err, what):
+        n, worst, shapes = out.get(name, (0, 0.0, []))
+        out[name] = (n + 1, max(worst, err), shapes + [what])
+
+    def timed(name, what, call, plain, cost):
+        launch, ms, pms = device_ms(call, launches=3, reps=3, warmup=1), cuda_ms(call, reps=3), \
+            cuda_ms(plain, reps=3, warmup=1)
+        bound_ms, by = bound(*cost)
+        print(f"{tag} {name}[the step's largest call, {what}]: per launch {launch:.4f} ms, per "
+              f"call {ms:.4f} ms, plain {pms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+
+    # K1 / K1-trigrid at each distinct (planes, coords): a seeded decoder,
+    # points uniform in the box
+    dec = dm.OSGDecoder(32, 64, 32).to(dev)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.copy_(randn(p.shape) * 0.3)
+    ws = [t.detach() for t in (*dec.net0.folded(), *dec.net1.folded())]
+    for key, fwd, plain in (("triplane", dm.triplane_decode, dm.triplane_decode_plain),
+                            ("trigrid", dm.trigrid_decode, dm.trigrid_decode_plain)):
+        name = "triplane_decode" if key == "triplane" else "trigrid_decode"
+        back = dm.triplane_decode_backward if key == "triplane" else dm.trigrid_decode_backward
+        for i, (pshape, cshape) in enumerate(sorted(
+                {(_meta_shape(c[0]), _meta_shape(c[1])) for c in log.calls[key]},
+                key=lambda k: -math.prod(k[1]))):
+            planes = randn(pshape)
+            coords = torch.rand(cshape, device=dev, generator=gen) - 0.5
+            with torch.no_grad():
+                e = max(_rel(g, w) for g, w in zip(fwd(planes, coords, 1.0, dec),
+                                                   plain(planes, coords, 1.0, dec)))
+                check(e <= 1e-4, f"{tag} {name}[{pshape}, {cshape}] disagrees: {e}")
+                note(name, e, f"{list(pshape)} x {list(cshape)}")
+                if key in forward_only:
+                    continue
+                drgb, dsig = randn(cshape[:2] + (32,)), randn(cshape[:2] + (1,))
+                got = back(planes, coords, 1.0, *ws, drgb, dsig)
+                want = dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig)
+                e = max(_rel(g, w) for g, w in zip(got, want))
+                check(e <= 1e-4, f"{tag} {name}_backward[{pshape}, {cshape}] disagrees: {e}")
+                note(f"{name}_backward", e, f"{list(pshape)} x {list(cshape)}")
+                del got, want
+                if i == 0:
+                    # the bound as phase_train_kernels counts it: the planes
+                    # and their gradient once, six products a point at
+                    # split TF32, the corner lerps, the scatter and ~200
+                    # transcendentals a point at the fp32 rate
+                    n = cshape[0] * cshape[1]
+                    corners = 8 if key == "trigrid" else 4
+                    timed(f"{name}_backward", f"{list(pshape)} x {list(cshape)}",
+                          lambda: back(planes, coords, 1.0, *ws, drgb, dsig),
+                          lambda: dm.decode_backward_plain(planes, coords, 1.0, *ws, drgb, dsig),
+                          (2 * nbytes(planes) + nbytes(coords, drgb, dsig) + 2 * nbytes(*ws),
+                           n * 2 * 3 * (32 * 64 + 64 * 33), f32, SPLIT_TF32_RATE,
+                           ((n * (3 * corners * 32 * (2 + 2) + 200), PEAK_OPS[f32]),)))
+            del planes, coords, drgb, dsig
+
+    # K6a forward and backward at each distinct forward call
+    k6a = {}
+    for c in log.calls["upfirdn2d"]:
+        if c[6] == ("fn", "upfirdn2d"):
+            key = (c[0][1], c[0][2], c[2], c[3], tuple(c[4]) if isinstance(c[4], (list, tuple))
+                   else c[4], c[5])
+            k6a.setdefault(key, c[1])
+    for (shape, dtype, up, down, pad, gain), fmeta in k6a.items():
+        f = fmeta[1].to(dev) if fmeta is not None else None
+        fa = None if f is None else f.abs()
+        x = randn(shape, dtype)
+        in_hw = tuple(shape[-2:])
+        with torch.no_grad():
+            got, want = ufd.upfirdn2d(x, f, up, down, pad, gain), ufd.upfirdn2d_plain(
+                x, f, up, down, pad, gain)
+            dy = randn(tuple(want.shape), dtype)
+            gb = ufd.upfirdn2d_backward(dy, f, up, down, pad, gain, in_hw)
+            wb = ufd.upfirdn2d_backward_plain(dy, f, up, down, pad, gain, in_hw)
+            if dtype == bf16:
+                e = bf16_sum_err(got, want, ufd.upfirdn2d_plain(x.abs().float(), fa, up, down,
+                                                                pad, abs(gain)))
+                eb = bf16_sum_err(gb, wb, ufd.upfirdn2d_backward_plain(
+                    dy.abs().float(), fa, up, down, pad, abs(gain), in_hw))
+                check(e <= 1 and eb <= 1, f"{tag} upfirdn2d[{shape} bf16 up {up} down {down}]: "
+                      f"{e:.3f}, backward {eb:.3f} of 2 ulps + 16 * 2^-24 * sum|terms|")
+            else:
+                e, eb = max_err(got, want), max_err(gb, wb)
+                check(e <= 1e-5 and eb <= 1e-5, f"{tag} upfirdn2d[{shape} up {up} down {down}]"
+                      f": {e}, backward {eb} (tol 1e-5)")
+        what = f"{list(shape)} up {up} down {down} pad {pad}"
+        unit = "bf16 (of 2 ulps + 16 * 2^-24 * sum|terms|)" if dtype == bf16 else \
+            "fp32 (abs, tol 1e-5)"
+        note(f"upfirdn2d {unit}", e, what)
+        note(f"upfirdn2d_backward {unit}", eb, what)
+        del x, dy, got, want, gb, wb
+
+    # K6b forward and gradient at each distinct call: inputs N(0, 2^2), so
+    # that lrelu's negative side and the clamp act
+    def aux(meta, shape):
+        if meta is None:
+            return None
+        return torch.rand(_meta_shape(meta), device=dev, generator=gen) + 0.5 \
+            if shape == "scale" else randn(_meta_shape(meta)) * 0.3
+
+    k6b = {}
+    for c in log.calls["bias_act"]:
+        key = (c[0][1], c[0][2], c[1] is not None, c[2] is not None and _meta_shape(c[2]),
+               c[3] is not None and _meta_shape(c[3]), c[4], c[5], c[6], c[7])
+        k6b.setdefault(key, c)
+    for (shape, dtype, has_b, sshape, nshape, act, gain, clamp, axis), c in k6b.items():
+        x = (2 * randn(shape)).to(dtype)
+        b = aux(c[1], "b") if has_b else None
+        scale = aux(c[2], "scale") if sshape else None
+        noise = aux(c[3], "noise") if nshape else None
+        kw = dict(act=act, gain=gain, clamp=clamp, axis=axis, scale=scale)
+        with torch.no_grad():
+            got = ba.bias_act(x, b, noise=noise, **kw)
+            want = ba.bias_act_plain(x, b, noise=noise, **kw)
+            e = bf16_ulps(got, want) if dtype == bf16 else _rel(got, want)
+            check(e <= (2 if dtype == bf16 else 1e-6), f"{tag} bias_act[{shape}] disagrees: {e}")
+            need = dict(need_b=has_b, need_scale=bool(sshape), need_noise=bool(nshape))
+            dy = randn(shape, dtype)
+            gg = ba.bias_act_grad(dy, got, x, **kw, **need)
+            wg = ba.bias_act_grad_plain(dy, got, x, **kw, **need)
+            mags = ba.bias_act_grad_plain(dy.abs(), got, x.abs(), **kw, **need)
+            ex = bf16_ulps(gg[0], wg[0]) if dtype == bf16 else max_err(gg[0], wg[0])
+            sums = [float(((g_ - w_).abs() / m_.clamp_min(1e-30)).max())
+                    for g_, w_, m_ in zip(gg[1:], wg[1:], mags[1:]) if w_ is not None]
+            check(ex <= (2 if dtype == bf16 else 1e-6) and all(v <= 1e-5 for v in sums),
+                  f"{tag} bias_act_grad[{shape}] disagrees: dx {ex}, sums {sums}")
+        what = (f"{list(shape)} {act}{' scale' if sshape else ''}"
+                f"{' noise ' + str(list(nshape)) if nshape else ''}")
+        unit = "bf16 (ulps, tol 2)" if dtype == bf16 else "fp32 (of scale, tol 1e-6)"
+        note(f"bias_act {unit}", e, what)
+        note(f"bias_act_grad {unit}", ex, what)
+        note("bias_act_grad sums (of the sum of magnitudes, tol 1e-5)", max(sums, default=0.0),
+             what + (" (dnoise)" if nshape else ""))
+        del x, got, want, dy, gg, wg, mags
+    for name, (n, worst, shapes) in out.items():
+        print(f"{tag} {name}: {n} distinct calls of the step held to the plain version, worst "
+              f"error {worst:.3e}; calls {shapes}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_eg3d(dev: torch.device, out_dir: str) -> dict:
+    """``training.run`` on ``configs/eg3d.yaml`` at full width (256^2
+    tri-planes of 32 channels from the const-input StyleGAN2 synthesis
+    network, 128^2 render at 48+48, the 512^2 SR head and dual
+    discriminator with their bf16 resolutions) and batch 4 for
+    ``EG3D_STEPS`` steps, the density regulariser and R1 at step 0: finite
+    losses, every generator group and the discriminator moved, every kernel
+    of the step forward and backward launched (K1's backward on tri-planes
+    at batch 4), no plain version called, the checkpoint reloaded equal.
+    Then every distinct K1, K1-backward, K6a and K6b call of step 0 against
+    its plain version (``hold_calls``), and K2 at the step's first call
+    ("auto" ray bounds over the batch's cameras). Returns the launches with
+    ms/step and peak memory."""
+    from real3dportrait_tpu_torch.rendering.renderer import (
+        importance_sample, importance_sample_plain)
+
+    k2 = StashK2()
+    counts, log = phase_train(dev, out_dir, EG3D_HPARAMS, EG3D_CONFIG, "train_eg3d",
+                              EG3D_STEPS, path_kernels=EG3D_KERNELS,
+                              losses=("adv", "density_reg"), instrument=k2.install)
+    torch.cuda.synchronize()
+    pb = {(_meta_shape(c[0]), _meta_shape(c[1])) for c in log.calls["triplane"]}
+    check(any(p[0] == 4 and c[0] == 4 for p, c in pb), f"train_eg3d: K1 calls {pb}")
+    held = hold_calls(dev, log, "train_eg3d", 23)
+    check({"triplane_decode", "triplane_decode_backward"} <= set(held) and all(
+        any(k.startswith(f"{name} {t}") for k in held) for name in (
+            "upfirdn2d", "upfirdn2d_backward", "bias_act", "bias_act_grad")
+        for t in ("fp32", "bf16")), f"train_eg3d: held {sorted(held)}")
+    depths, sigma, u = k2.args
+    with torch.no_grad():
+        e = _rel(importance_sample(depths, sigma, u), importance_sample_plain(depths, sigma, u))
+    check(e <= 1e-4, f"train_eg3d importance_sample at the step's call disagrees: {e}")
+    print(f"train_eg3d importance_sample[the step's first call: depths {list(depths.shape)} "
+          f"from auto bounds over {depths.shape[0]} cameras, depth range "
+          f"{float(depths.min()):.4f}-{float(depths.max()):.4f}]: max_rel_err {e:.3e} "
+          f"(tol 1e-4)")
+    print(f"train_eg3d: launches a step {per_step(counts, EG3D_STEPS)}")
+    del k2, log
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_img2plane(dev: torch.device, out_dir: str) -> dict:
+    """``training.run`` on ``configs/img2plane.yaml`` at full width (the
+    frozen EG3D teacher at 256^2 tri-planes; the student's b0 SegFormer,
+    depth-3 x 32 tri-grids, 128^2 render at 48+48 and 512^2 SR; the dual
+    discriminator) and batch 4 for ``I2P_STEPS`` steps, with
+    ``start_adv_iters`` cut to 1 (from 30000) so that the adversarial loss
+    and the decoder and SR gates run: finite losses, every student group and
+    the discriminator moved, the teacher bit-equal to its start, the
+    teacher's K1 forward and the student's K1-trigrid forward and backward
+    launched, no K1 backward (the teacher takes no gradient), no plain
+    version called, the checkpoint (the teacher in it) reloaded equal; then
+    every distinct K1-trigrid backward call of the student at batch 4 (and
+    the step's K6a and K6b calls) against the plain versions. Returns the
+    launches with ms/step and peak memory."""
+    print(f"train_img2plane: start_adv_iters cut from 30000 to 1 (the adversarial loss and "
+          f"the decoder and SR gates within {I2P_STEPS} steps)")
+    counts, log = phase_train(dev, out_dir, I2P_HPARAMS, I2P_CONFIG, "train_img2plane",
+                              I2P_STEPS, path_kernels=I2P_KERNELS,
+                              losses=("adv", "mse_mv", "percep"), frozen=("teacher",),
+                              modules=("student", "disc", "teacher"))
+    check(counts["triplane_decode_backward"] == 0,
+          f"train_img2plane: the frozen teacher took a gradient: {counts}")
+    torch.cuda.synchronize()
+    held = hold_calls(dev, log, "train_img2plane", 29, forward_only=("triplane",))
+    calls = held.get("trigrid_decode_backward", (0, 0.0, []))[2]
+    check(any(s.startswith("[4,") for s in calls),
+          f"train_img2plane: K1-trigrid backward calls {calls}")
+    print(f"train_img2plane: launches a step {per_step(counts, I2P_STEPS)}")
+    del log
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_teacher_phases(dev: torch.device) -> tuple[dict, dict]:
+    """The EG3D teacher's stage, then img2plane distillation; returns their
+    launches."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        eg3d = phase_train_eg3d(dev, out_dir)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as out_dir:
+        i2p = phase_train_img2plane(dev, out_dir)
+    torch.cuda.synchronize()
+    return eg3d, i2p
 
 
 def main() -> int:
@@ -3201,7 +3632,8 @@ def main() -> int:
     phase_reference(dev)
     torch.cuda.synchronize()
     train_counts, torso_counts, tri_counts, train_rows = run_train_phases(dev)
-    rec_counts, sync = run_records_phases(dev)
+    rec_counts, sync, a2m = run_records_phases(dev)
+    eg3d_counts, i2p_counts = run_teacher_phases(dev)
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
@@ -3214,6 +3646,10 @@ def main() -> int:
           f"K4 {rec_counts['prep_k4_per_step']:g} launches a batch in preparation; "
           f"train_syncnet {sync['ms_per_step']:.1f} ms/step, mining {sync['mining_ms']:.1f} ms, "
           f"peak {sync['peak_gib']:.2f} GiB")
+    print(f"last stages summary: train_a2m {a2m['ms_per_step']:.1f} ms/step, peak "
+          f"{a2m['peak_gib']:.2f} GiB; train_eg3d {eg3d_counts['ms_per_step']:.1f} ms/step, peak "
+          f"{eg3d_counts['peak_gib']:.2f} GiB; train_img2plane {i2p_counts['ms_per_step']:.1f} "
+          f"ms/step, peak {i2p_counts['peak_gib']:.2f} GiB")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     check(set(rows) == set(REPLACES), f"kernels measured: {sorted(rows)}")
     # each kernel's launches on the main path (run); K1, which the default
@@ -3252,6 +3688,14 @@ def main() -> int:
                      for k, f in TORSO_KERNELS.items()]
     kernels_json += [train_row(k, f, tri_counts, train_rows, TRIPLANE_STEPS,
                                "train_triplane run") for k, f in TRIPLANE_KERNELS.items()]
+    # the EG3D and img2plane stages' launches a step, forward and backward
+    for entry in kernels_json:
+        for key, counts, steps in (("train_eg3d", eg3d_counts, EG3D_STEPS),
+                                   ("train_img2plane", i2p_counts, I2P_STEPS)):
+            if counts.get(entry["name"], 0) > 0:
+                entry[f"{key}_launches_per_step"] = counts[entry["name"]] / steps
+    check(all(any(f"{key}_launches_per_step" in e for e in kernels_json)
+              for key in ("train_eg3d", "train_img2plane")), "the last stages' launches")
     print(json.dumps({"kernels": kernels_json}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

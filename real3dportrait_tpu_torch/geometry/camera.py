@@ -68,6 +68,27 @@ def lookat_pose(horizontal: torch.Tensor, vertical: torch.Tensor,
     return create_cam2world_matrix(forward, origin, roll)
 
 
+def sample_uniform_pose(draws, batch_size: int, pitch_range: float = math.radians(26.0),
+                        yaw_range: float = math.radians(38.0),
+                        lookat_position: torch.Tensor | None = None,
+                        radius: float = EG3D_CAMERA_RADIUS,
+                        device: torch.device | str = "cpu") -> torch.Tensor:
+    """[B,4,4] cam2world with pitch and yaw uniform around frontal (the
+    distillation's +-26 / +-38 degrees), looking at ``lookat_position``
+    (default (0, 0, 0.2)). ``draws`` is a ``utils/draws.Draws`` or a
+    ``torch.Generator`` (on ``device``); pitch is drawn first, then yaw."""
+    if isinstance(draws, torch.Generator):
+        from real3dportrait_tpu_torch.utils.draws import Draws
+
+        draws = Draws(draws)
+    if lookat_position is None:
+        lookat_position = torch.tensor([0.0, 0.0, 0.2], device=device)
+    pitch = draws.uniform((batch_size,), device, -pitch_range, pitch_range)
+    yaw = draws.uniform((batch_size,), device, -yaw_range, yaw_range)
+    look = lookat_position.to(device).expand(batch_size, 3)
+    return lookat_pose(yaw, pitch, look, radius=radius)
+
+
 def pack_camera(c2w: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
     """[B,4,4],[B or 1,3,3] -> [B,25]."""
     b = c2w.shape[0]

@@ -6,11 +6,13 @@ mouth-amplitude conditioning drive a conv VAE with a stride-4 latent, a
 WaveNet-conditioned decoder and a residual-coupling (Glow) prior, sampled
 with a temperature at inference. Public tensors keep the JAX layout
 ([B, T, C]); the convolutions run [B, C, T] inside. Parameter names follow
-the Flax tree. Inference only: the encoder is present so that a trained
-tree loads strictly, and the prior noise comes from an explicit
+the Flax tree. At inference the prior noise comes from an explicit
 ``torch.Generator`` or a given ``z`` (Flax's RNG streams have no
 counterpart here, so the two packages agree at ``temperature=0`` or for
-the same ``z``). Norm epsilons are Flax's 1e-6; every GELU is the exact
+the same ``z``). The training branch (``train=True``: the posterior
+encoder, the decoder from its draw and the KL through the prior flow run
+forward) takes its posterior draw from a ``utils/draws.Draws``, in the
+JAX layout [B, T/4, 16], so that a test can replay the JAX package's. Norm epsilons are Flax's 1e-6; every GELU is the exact
 (erf) form, as in the JAX module.
 """
 
@@ -142,16 +144,28 @@ class ResidualCouplingBlock(nn.Module):
 
 
 class FVAEEncoder(nn.Module):
-    """Stride-s conv + WN -> the posterior (training; present so that a
-    trained tree loads strictly)."""
+    """Stride-s conv + WN -> the posterior (training)."""
 
     def __init__(self, in_channels: int, hidden: int, latent: int, kernel_size: int,
                  n_layers: int, gin_channels: int, stride: int):
         super().__init__()
+        self.stride, self.latent = stride, latent
         self.Conv_0 = _conv(in_channels, hidden, 2 * stride, stride=stride,
                             padding=stride // 2)
         self.wn = WN(hidden, kernel_size, 1, n_layers, gin_channels)
         self.out_proj = _conv(hidden, 2 * latent, 1)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor, draws
+                ) -> tuple:
+        """x [B,C,T], x_mask [B,1,T], g [B,Cg,T/s] -> (z, m, logs [B,latent,T/s],
+        the mask at T/s: every s-th frame of ``x_mask``). ``z = m + eps *
+        exp(logs)`` with eps from ``draws``, drawn [B,T/s,latent]."""
+        x = self.Conv_0(x)
+        mask = x_mask[:, :, ::self.stride][:, :, :x.shape[2]]
+        x = self.wn(x * mask, mask, g) * mask
+        m, logs = torch.split(self.out_proj(x), self.latent, dim=1)
+        eps = draws.normal((m.shape[0], m.shape[2], m.shape[1]), m.device).transpose(1, 2)
+        return m + eps * torch.exp(logs), m, logs, mask
 
 
 class FVAEDecoder(nn.Module):
@@ -171,7 +185,8 @@ class FVAEDecoder(nn.Module):
 
 
 class FVAE(nn.Module):
-    """Flow-prior VAE; :meth:`forward` is the inference branch."""
+    """Flow-prior VAE; :meth:`forward` is the inference branch,
+    :meth:`forward_train` the training one."""
 
     def __init__(self, in_out_channels: int = 64, hidden: int = 256, latent_size: int = 16,
                  kernel_size: int = 5, enc_n_layers: int = 8, dec_n_layers: int = 4,
@@ -191,6 +206,25 @@ class FVAE(nn.Module):
         if use_prior_glow:
             self.prior_flow = ResidualCouplingBlock(latent_size, glow_hidden, glow_kernel_size,
                                                     1, glow_n_blocks, 4, gin_channels)
+
+    def forward_train(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor,
+                      draws) -> tuple:
+        """The training branch: x [B,C,T], x_mask [B,1,T], g [B,Cg,T] ->
+        (x_recon [B,C,T], loss_kl, z_p, m_q, logs_q). The decoder runs from
+        the posterior draw z_q with the full mask; the KL is E_q[log q(z) -
+        log p(flow(z))] over the masked latent frames, divided by the latent
+        size (the coupling layers are mean-only and the flips permute, so
+        the flow's log-determinant is 0)."""
+        g_sqz = self.g_pre_net(g)
+        z_q, m_q, logs_q, mask_sqz = self.encoder(x, x_mask, g_sqz, draws)
+        x_recon = self.decoder(z_q, x_mask, g)
+        log2pi = math.log(2 * math.pi)
+        logqx = -0.5 * (((z_q - m_q) * torch.exp(-logs_q)).square() + 2 * logs_q + log2pi)
+        z_p = self.prior_flow(z_q, mask_sqz, g_sqz) if self.use_prior_glow else z_q
+        logpx = -0.5 * (z_p.square() + log2pi)
+        loss_kl = ((logqx - logpx) * mask_sqz).sum() / torch.clamp(mask_sqz.sum(), min=1.0) \
+            / self.latent_size
+        return x_recon, loss_kl, z_p, m_q, logs_q
 
     def forward(self, g: torch.Tensor, temperature: float = 1.0,
                 z: torch.Tensor | None = None,
@@ -257,11 +291,14 @@ class PitchContourVAEModel(nn.Module):
         return getattr(self, f"{name}_conv1")(F.gelu(x)).transpose(1, 2)
 
     def forward(self, batch: dict, temperature: float = 1.0, z: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, train: bool = False,
+                draws=None) -> dict:
         """batch: audio [B,T,C] at 50 Hz, f0 [B,T], y_mask [B,T/2] at 25 Hz,
         blink [B,T,1] (optional, 0), mouth_amp [B,1] (optional, 0.4);
         ``z`` [B,T/8,16] replaces the prior noise. Returns pred [B,T/2,64]
-        (masked), mask and z_p [B,T/8,16] (after the flow)."""
+        (masked), mask and z_p [B,T/8,16] (after the flow). ``train=True``
+        encodes ``batch["y"]`` [B,T/2,64] with the posterior draw from
+        ``draws`` and adds ``loss_kl``, ``m_q`` and ``logs_q``."""
         mask = batch["y_mask"]
         audio = batch["audio"]
         b = audio.shape[0]
@@ -285,6 +322,12 @@ class PitchContourVAEModel(nn.Module):
                 cond_feats.append((amp[:, :, None] * embed[None, None]).expand(
                     b, t_cond, self.feat_dim))
         cond = self.cond_proj(torch.cat(cond_feats, dim=-1))
+        if train:
+            x_recon, loss_kl, z_p, m_q, logs_q = self.vae.forward_train(
+                batch["y"].transpose(1, 2), mask[:, None], cond.transpose(1, 2), draws)
+            return {"pred": x_recon.transpose(1, 2) * mask[..., None], "mask": mask,
+                    "loss_kl": loss_kl, "z_p": z_p.transpose(1, 2),
+                    "m_q": m_q.transpose(1, 2), "logs_q": logs_q.transpose(1, 2)}
         x_recon, z_p = self.vae(cond.transpose(1, 2), temperature,
                                 None if z is None else z.transpose(1, 2), generator)
         return {"pred": x_recon.transpose(1, 2) * mask[..., None], "mask": mask,

@@ -1,7 +1,10 @@
 """StyleGAN2 building blocks (port of ``real3dportrait_tpu/models/stylegan2.py``):
-the synthesis side of the SR heads and the discriminator side of the
-dual discriminator (``MappingNetwork`` without latents, ``MinibatchStdLayer``,
-``DiscriminatorBlock``, ``DiscriminatorEpilogue``).
+the synthesis side of the SR heads and of the EG3D tri-plane generator
+(``SynthesisBlock`` with or without a constant input, ``SynthesisNetwork``,
+``MappingNetwork`` with latents, its w average and truncation) and the
+discriminator side of the dual discriminator (``MappingNetwork`` without
+latents, ``MinibatchStdLayer``, ``DiscriminatorBlock``,
+``DiscriminatorEpilogue``).
 
 Parameter names and shapes follow the reference torch modules (which the
 JAX tree reuses): dense weights [out, in], conv weights OIHW. Modulated
@@ -218,12 +221,14 @@ class ToRGBLayer(nn.Module):
 
 
 class SynthesisBlock(nn.Module):
-    """One resolution level: up-conv0 + conv1 + skip toRGB.
+    """One resolution level: (up-)conv0 + conv1 + skip toRGB.
 
-    ``ws`` [B, 3, w_dim]: conv0 and conv1 take the first two latents, toRGB
-    the third. ``use_fp16`` runs the block's activations in bf16; ``x``
-    leaves the block in that dtype and the image in fp32. Only blocks with
-    an input (``in_channels > 0``) are ported.
+    With an input (``in_channels > 0``), ``ws`` [B, 3, w_dim]: conv0 and
+    conv1 take the first two latents, toRGB the third. A first block
+    (``in_channels == 0``) starts from the learned constant ``const``
+    [C, res, res] (the JAX tree's [res, res, C]) and has conv1 alone: ``ws``
+    [B, 2, w_dim]. ``use_fp16`` runs the block's activations in bf16; ``x``
+    leaves the block in that dtype and the image in fp32.
     """
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
@@ -232,15 +237,16 @@ class SynthesisBlock(nn.Module):
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
                  conv_clamp: float | None = 256.0, use_fp16: bool = False, up: int = 2):
         super().__init__()
-        if in_channels == 0:
-            raise NotImplementedError(
-                "SynthesisBlock: const-input blocks are not ported "
-                "(ROADMAP queue 1, training slice)")
         self.up, self.is_last, self.architecture = up, is_last, architecture
+        self.in_channels = in_channels
         self.dtype = torch.bfloat16 if use_fp16 else torch.float32
-        self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution,
-                                    up=up, resample_filter=resample_filter,
-                                    conv_clamp=conv_clamp, dtype=self.dtype)
+        if in_channels == 0:
+            self.const = nn.Parameter(torch.empty(out_channels, resolution, resolution))
+            self.reset_parameters()
+        else:
+            self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution,
+                                        up=up, resample_filter=resample_filter,
+                                        conv_clamp=conv_clamp, dtype=self.dtype)
         self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim, resolution,
                                     conv_clamp=conv_clamp, dtype=self.dtype)
         if is_last or architecture == "skip":
@@ -249,25 +255,80 @@ class SynthesisBlock(nn.Module):
         self.register_buffer("resample_filter", setup_filter(resample_filter),
                              persistent=False)
 
-    def forward_nchw(self, x: torch.Tensor, img: torch.Tensor | None,
+    @property
+    def num_conv(self) -> int:
+        return 1 if self.in_channels == 0 else 2
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The constant's N(0, 1) draw (the layers reset their own)."""
+        with torch.no_grad():
+            self.const.normal_(generator=generator)
+
+    def forward_nchw(self, x: torch.Tensor | None, img: torch.Tensor | None,
                      ws: torch.Tensor, noise_mode: str = "none"
                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        x = self.conv0(x, ws[:, 0], noise_mode=noise_mode)
-        x = self.conv1(x, ws[:, 1], noise_mode=noise_mode)
+        if self.in_channels == 0:
+            x = self.const[None].expand(ws.shape[0], -1, -1, -1).to(self.dtype)
+        else:
+            x = self.conv0(x, ws[:, 0], noise_mode=noise_mode)
+        x = self.conv1(x, ws[:, self.num_conv - 1], noise_mode=noise_mode)
         if img is not None and self.up > 1:
             img = upsample2d(img, self.resample_filter, up=self.up)
         if self.is_last or self.architecture == "skip":
-            y = self.torgb(x, ws[:, 2]).float()
+            y = self.torgb(x, ws[:, self.num_conv]).float()
             img = img + y if img is not None else y
         return x, img
 
-    def forward(self, x: torch.Tensor, img: torch.Tensor | None, ws: torch.Tensor,
+    def forward(self, x: torch.Tensor | None, img: torch.Tensor | None, ws: torch.Tensor,
                 noise_mode: str = "none") -> tuple[torch.Tensor, torch.Tensor | None]:
-        """x [B,H,W,Cin], img [B,H,W,3] or None (NHWC) -> (x, img) NHWC."""
+        """x [B,H,W,Cin] (None for a first block), img [B,H,W,3] or None
+        (NHWC) -> (x, img) NHWC."""
         x, img = self.forward_nchw(
-            x.permute(0, 3, 1, 2), None if img is None else img.permute(0, 3, 1, 2),
-            ws, noise_mode)
+            None if x is None else x.permute(0, 3, 1, 2),
+            None if img is None else img.permute(0, 3, 1, 2), ws, noise_mode)
         return x.permute(0, 2, 3, 1), None if img is None else img.permute(0, 2, 3, 1)
+
+
+class SynthesisNetwork(nn.Module):
+    """The progressive synthesis stack, 4^2 -> ``img_resolution``: blocks
+    ``b4``, ``b8``, ... with ``min(channel_base // res, channel_max)``
+    channels, the first from a constant; block i takes ``ws[:, w : w +
+    num_conv + 1]`` and the next starts ``num_conv`` on (each toRGB shares
+    its latent with the next block's first conv); the last
+    ``num_fp16_res`` resolutions (not below 8^2) in bf16."""
+
+    def __init__(self, w_dim: int, img_resolution: int, img_channels: int,
+                 channel_base: int = 32768, channel_max: int = 512, num_fp16_res: int = 0,
+                 conv_clamp: float | None = 256.0):
+        super().__init__()
+        self.img_resolution = img_resolution
+        self.block_resolutions = [2 ** i for i in range(2, int(math.log2(img_resolution)) + 1)]
+        fp16_resolution = max(2 ** (int(math.log2(img_resolution)) + 1 - num_fp16_res), 8)
+
+        def channels(res: int) -> int:
+            return min(channel_base // res, channel_max)
+
+        for res in self.block_resolutions:
+            setattr(self, f"b{res}", SynthesisBlock(
+                channels(res // 2) if res > 4 else 0, channels(res), w_dim=w_dim,
+                resolution=res, img_channels=img_channels, is_last=res == img_resolution,
+                conv_clamp=conv_clamp, use_fp16=num_fp16_res > 0 and res >= fp16_resolution))
+        self.num_ws = sum(1 if res == 4 else 2 for res in self.block_resolutions) + 1
+
+    def forward_nchw(self, ws: torch.Tensor, noise_mode: str = "none") -> torch.Tensor:
+        """ws [B, num_ws, w_dim] -> the image [B, img_channels, res, res] (fp32)."""
+        x = img = None
+        w_idx = 0
+        for res in self.block_resolutions:
+            block = getattr(self, f"b{res}")
+            x, img = block.forward_nchw(x, img, ws[:, w_idx:w_idx + block.num_conv + 1],
+                                        noise_mode=noise_mode)
+            w_idx += block.num_conv
+        return img
+
+    def forward(self, ws: torch.Tensor, noise_mode: str = "none") -> torch.Tensor:
+        """ws [B, num_ws, w_dim] -> the image [B, res, res, img_channels] (NHWC)."""
+        return self.forward_nchw(ws, noise_mode).permute(0, 2, 3, 1)
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -275,26 +336,57 @@ def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> t
 
 
 class MappingNetwork(nn.Module):
-    """Conditioning mapping without latents (``z_dim = 0``), as the dual
-    discriminator uses it: c -> embed -> normalise -> ``num_layers`` lrelu
-    layers at ``lr_multiplier``; no w average (``num_ws`` None)."""
+    """z and / or c -> w: the latent normalised, the conditioning embedded
+    and normalised, the two concatenated (z first), then ``num_layers``
+    lrelu layers at ``lr_multiplier``. Without latents (``z_dim = 0``, the
+    dual discriminator's use) it maps c alone. With ``num_ws`` the result
+    is repeated to [B, num_ws, w_dim] and the buffer ``w_avg`` (the JAX
+    tree's ``ema`` collection) tracks its mean: ``update_emas`` moves it by
+    ``w_avg_beta``, and ``truncation_psi`` pulls w toward it (the first
+    ``truncation_cutoff`` latents only, where given)."""
 
     def __init__(self, c_dim: int, w_dim: int, num_layers: int = 8,
                  embed_features: int | None = None, activation: str = "lrelu",
-                 lr_multiplier: float = 0.01):
+                 lr_multiplier: float = 0.01, z_dim: int = 0, num_ws: int | None = None,
+                 w_avg_beta: float | None = 0.998):
         super().__init__()
         embed = embed_features or w_dim
-        self.num_layers = num_layers
-        self.embed = FullyConnectedLayer(c_dim, embed)
+        self.z_dim, self.c_dim, self.num_layers = z_dim, c_dim, num_layers
+        self.num_ws, self.w_avg_beta = num_ws, w_avg_beta
+        if c_dim > 0:
+            self.embed = FullyConnectedLayer(c_dim, embed)
+        in0 = z_dim + (embed if c_dim > 0 else 0)
         for i in range(num_layers):
             setattr(self, f"fc{i}", FullyConnectedLayer(
-                embed if i == 0 else w_dim, w_dim, activation=activation,
+                in0 if i == 0 else w_dim, w_dim, activation=activation,
                 lr_multiplier=lr_multiplier))
+        self.track_ema = num_ws is not None and w_avg_beta is not None
+        if self.track_ema:
+            self.register_buffer("w_avg", torch.zeros(w_dim))
 
-    def forward(self, c: torch.Tensor) -> torch.Tensor:
-        x = normalize_2nd_moment(self.embed(c.float()))
+    def forward(self, c: torch.Tensor | None = None, z: torch.Tensor | None = None,
+                truncation_psi: float = 1.0, truncation_cutoff: int | None = None,
+                update_emas: bool = False) -> torch.Tensor:
+        x = normalize_2nd_moment(z.float()) if self.z_dim > 0 else None
+        if self.c_dim > 0:
+            y = normalize_2nd_moment(self.embed(c.float()))
+            x = torch.cat([x, y], dim=1) if x is not None else y
         for i in range(self.num_layers):
             x = getattr(self, f"fc{i}")(x)
+        if update_emas and self.track_ema:
+            with torch.no_grad():
+                self.w_avg.copy_(x.detach().mean(dim=0) * (1 - self.w_avg_beta)
+                                 + self.w_avg * self.w_avg_beta)
+        if self.num_ws is not None:
+            x = x[:, None].expand(-1, self.num_ws, -1)
+        if truncation_psi != 1.0:
+            if not self.track_ema:
+                raise ValueError("MappingNetwork: truncation needs the w average")
+            if self.num_ws is None or truncation_cutoff is None:
+                x = self.w_avg + truncation_psi * (x - self.w_avg)
+            else:
+                head = self.w_avg + truncation_psi * (x[:, :truncation_cutoff] - self.w_avg)
+                x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
         return x
 
 

@@ -3,6 +3,10 @@
     python -m real3dportrait_tpu_torch.training.profile_step [--config secc_img2plane.yaml]
         [--hparams k=v,...] [--steps 3] [--top 25]
 
+Any training config: the SECC stages, ``eg3d.yaml``, ``img2plane.yaml``,
+``audio2motion_vae.yaml`` (without a ``syncnet_ckpt_dir`` override its
+sync loss is off, as the config ships).
+
 Builds the task of ``configs/NAME`` on the card with seeded weights (by
 default ``FULL_STEP_HPARAMS``: the config's batch of 4, the adversarial
 term on, every group training), takes step 0 (R1, the
@@ -11,9 +15,13 @@ density regulariser, src2src) as a warm-up, then ``steps`` steps of
 
 * wall ms per step (synchronised) and the peak memory allocated;
 * the step's parts by CUDA events around the task's own methods as
-  ``train_step`` calls them: generator forward with its losses, its
-  backward, the G update, the D forward, its backward, R1's forward and
-  double backward (on R1 steps), the D update, the lambdas and the EMA;
+  ``train_step`` calls them, those the task has: for the SECC tasks the
+  generator forward with its losses, its backward, the G update, the D
+  forward, its backward, R1's forward and double backward (on R1 steps),
+  the D update, the lambdas and the EMA; for ``eg3d.yaml`` the generator
+  forward with its losses and the EMA; for ``img2plane.yaml`` the
+  teacher's views and the student's forward with its losses; for
+  ``audio2motion_vae.yaml`` the forward with its losses;
 * from ``torch.profiler`` over the same steps, the kernel time a step and
   the busy share, the ``top`` kernels, and the port's own kernels
   (``csrc/``, forward and backward) below them.
@@ -49,16 +57,19 @@ FULL_STEP_HPARAMS = ("batch_size=4,start_adv_iters=0,two_stage_training=false,"
 
 class PartTimer:
     """CUDA events around methods of ``task`` (instance attributes wrap
-    them); a backward (``grads``) is named after the forward before it."""
+    them), those of them it has; a backward (``grads``) is named after the
+    forward before it."""
 
     def __init__(self, task):
         self.times: dict[str, list] = {}
         self.last = "?"
-        for attr, name in (("_g_loss", "G forward + losses"), ("_d_loss", "D forward"),
-                           ("_r1", "R1 forward"), ("grads", None),
+        for attr, name in (("prepare_batch", "teacher views"),
+                           ("_g_loss", "G forward + losses"), ("_losses", "forward + losses"),
+                           ("_d_loss", "D forward"), ("_r1", "R1 forward"), ("grads", None),
                            ("apply_gen_update", "G update"), ("apply_disc_update", "D update"),
                            ("tune_lambdas", "lambdas"), ("update_ema", "EMA")):
-            setattr(task, attr, self._wrap(getattr(task, attr), name))
+            if hasattr(task, attr):
+                setattr(task, attr, self._wrap(getattr(task, attr), name))
 
     def _wrap(self, fn, name):
         def timed(*a, **k):

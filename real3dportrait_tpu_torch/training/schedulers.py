@@ -6,12 +6,16 @@ it).
 Schedules are plain functions of the host step, evaluated in fp32 as the
 JAX package evaluates them. :class:`Adam` is ``optax.adam(schedule, b1, b2,
 eps=1e-8)`` written out over a dict of named parameters, its moments on the
-device and its counts on the host; ``every_k > 1`` is ``optax.MultiSteps``
-(gradients averaged over k calls, the update applied on every k-th, zero
-updates between), which JAX's ``with_grad_accumulation`` wraps around the
+device and its counts on the host; a float for ``schedule`` is optax's
+constant rate (whose state holds no count). ``clip_norm`` chains
+``optax.clip_by_global_norm`` before it (the audio-to-motion task's
+``optax.chain``). ``every_k > 1`` is ``optax.MultiSteps`` (gradients
+averaged over k calls, the update applied on every k-th, zero updates
+between), which JAX's ``with_grad_accumulation`` wraps around the
 optimiser where ``accumulate_grad_batches`` is k > 1; the tasks pass that
-key as ``every_k``. :meth:`Adam.state_dict` gives the optax state's tree as
-flax's ``to_state_dict`` lays it out in a checkpoint.
+key as ``every_k``, and the clip acts on the averaged gradient that
+``MultiSteps`` hands its inner optimiser. :meth:`Adam.state_dict` gives the
+optax state's tree as flax's ``to_state_dict`` lays it out in a checkpoint.
 """
 
 from __future__ import annotations
@@ -90,12 +94,21 @@ class Adam:
 
     :meth:`updates` takes the gradients (a dict by name) and returns the
     updates to add (``-lr * m_hat / (sqrt(v_hat) + eps)``, zero between
-    accumulation steps), advancing the state.
+    accumulation steps), advancing the state. With ``clip_norm`` the
+    gradients are first scaled by ``clip_norm / global_norm`` where their
+    global norm is at least ``clip_norm`` (optax's
+    ``clip_by_global_norm``).
     """
 
-    def __init__(self, params: dict[str, torch.Tensor], schedule: Callable[[int], float],
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, every_k: int = 1):
+    def __init__(self, params: dict[str, torch.Tensor],
+                 schedule: Callable[[int], float] | float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, every_k: int = 1,
+                 clip_norm: float | None = None):
+        self.constant = not callable(schedule)
+        if self.constant:
+            schedule = none_schedule(float(schedule))
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
+        self.clip_norm = clip_norm
         self.mu = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
                    for n, p in params.items()}
         self.nu = {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
@@ -108,7 +121,16 @@ class Adam:
             self.mini_step = 0
             self.gradient_step = 0
 
+    def _clip(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """optax's ``clip_by_global_norm``: ``g / norm * clip_norm`` where the
+        norm is at least ``clip_norm``, on the device (nothing read back)."""
+        norm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+        keep = norm < self.clip_norm
+        return {n: torch.where(keep, g, g / norm * self.clip_norm) for n, g in grads.items()}
+
     def _inner(self, grads: dict[str, torch.Tensor], commit: bool) -> dict[str, torch.Tensor]:
+        if self.clip_norm is not None:
+            grads = self._clip(grads)
         count = self.count + 1
         c1 = float(1 - f32(self.b1) ** f32(count))
         c2 = float(1 - f32(self.b2) ** f32(count))
@@ -145,7 +167,9 @@ class Adam:
         of tensors by parameter name into the Flax parameter tree."""
         inner = {"0": {"count": np.int32(self.count), "mu": to_tree(self.mu),
                        "nu": to_tree(self.nu)},
-                 "1": {"count": np.int32(self.sched_count)}}
+                 "1": {} if self.constant else {"count": np.int32(self.sched_count)}}
+        if self.clip_norm is not None:
+            inner = {"0": {}, "1": inner}
         if self.every_k == 1:
             return inner
         return {"mini_step": np.int32(self.mini_step),
@@ -160,9 +184,11 @@ class Adam:
             self.gradient_step = int(tree["gradient_step"])
             self.acc = from_tree(tree["acc_grads"])
             tree = tree["inner_opt_state"]
+        if self.clip_norm is not None:
+            tree = tree["1"]
         self.count = int(tree["0"]["count"])
         self.mu, self.nu = from_tree(tree["0"]["mu"]), from_tree(tree["0"]["nu"])
-        self.sched_count = int(tree["1"]["count"])
+        self.sched_count = self.count if self.constant else int(tree["1"]["count"])
 
 
 def build_schedule(cfg, lr_key: str = "lr") -> Callable[[int], float]:

@@ -23,6 +23,7 @@ from real3dportrait_tpu_torch.training.tasks.base_task import BaseTask
 from real3dportrait_tpu_torch.weights import (
     jax_variables_from_torch,
     mock_init_,
+    tensors_by_name,
     torch_state_dict_from_jax,
 )
 
@@ -44,12 +45,7 @@ class SyncNetState:
         return jax_variables_from_torch(self.model, named)["params"]
 
     def _from_tree(self, tree: dict) -> dict:
-        params = dict(self.model.named_parameters())
-        state = torch_state_dict_from_jax({"params": tree})
-        if set(state) != set(params):
-            raise KeyError(f"optimiser state names differ from the parameters': "
-                           f"{sorted(set(state) ^ set(params))[:5]}")
-        return {n: v.to(params[n].device).contiguous() for n, v in state.items()}
+        return tensors_by_name(self.model, tree)
 
     def state_dict(self) -> dict:
         return {"step": np.int32(self.step),

@@ -11,6 +11,7 @@ out the JAX state in a checkpoint (``step``, ``params``, ``variables``,
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -18,7 +19,11 @@ import torch
 import torch.nn as nn
 
 from real3dportrait_tpu_torch.training.schedulers import Adam
-from real3dportrait_tpu_torch.weights import jax_variables_from_torch, torch_state_dict_from_jax
+from real3dportrait_tpu_torch.weights import (
+    jax_variables_from_torch,
+    load_jax_variables,
+    tensors_by_name,
+)
 
 
 @dataclass
@@ -54,23 +59,10 @@ class TrainState:
     def load_state_dict(self, tree: dict) -> None:
         """Load a checkpoint tree of either package, strictly."""
         def load(module, params, variables=None):
-            state = torch_state_dict_from_jax({"params": params, **(variables or {})})
-            if not variables:
-                state.update({k: v for k, v in module.state_dict().items()
-                              if k.endswith("noise_const")})
-            module.load_state_dict(state, strict=True)
+            load_jax_variables(module, {"params": params, **(variables or {})})
 
         def from_tree(module):
-            names = dict(module.named_parameters())
-
-            def convert(t: dict) -> dict:
-                state = torch_state_dict_from_jax({"params": t})
-                if set(state) != set(names):
-                    raise KeyError(f"optimiser state names differ from the parameters': "
-                                   f"{sorted(set(state) ^ set(names))[:5]}")
-                return {n: v.to(names[n].device, names[n].dtype).contiguous()
-                        for n, v in state.items()}
-            return convert
+            return functools.partial(tensors_by_name, module)
 
         self.step = int(np.asarray(tree["step"]))
         load(self.gen, tree["params"]["gen"], tree.get("variables"))

@@ -95,10 +95,11 @@ class Trainer:
                 print(f"| partial init from {path}: {stats}", flush=True)
         return state
 
-    def save(self, state: TrainState) -> str:
+    def save(self, state: TrainState, not_save_keys: tuple = ()) -> str:
         return ckpt.save_checkpoint(self.work_dir, state.step, state.state_dict(),
                                     num_keep=self.num_ckpt_keep,
-                                    milestone_interval=self.milestone_interval)
+                                    milestone_interval=self.milestone_interval,
+                                    not_save_keys=not_save_keys)
 
     def fit(self) -> TrainState:
         seed = int(self.cfg.get("seed", 9999))
@@ -130,7 +131,9 @@ class Trainer:
             if step % self.val_check_interval == 0:
                 self.run_validation(state)
                 self.dump_val_images(state, step)
-                self.save(state)
+                # the validation saves leave out ``not_save_modules``; the
+                # final save keeps everything, as in the JAX trainer
+                self.save(state, tuple(self.cfg.get("not_save_modules", []) or ()))
         self.save(state)
         return state
 

@@ -5,7 +5,8 @@ port takes one :class:`Draws`, which makes each draw from a
 ``torch.Generator`` on the device, in the order the step asks for them:
 the renderer's jittered depths and K2's uniform ``u``
 (``rendering/renderer.py``), the density regulariser's points and their
-perturbation, the SECC perturbation noise (``training/tasks``). The two
+perturbation, the SECC perturbation noise, the latents, the pose swap and
+the SyncNet clips of the training tasks (``training/tasks``). The two
 packages' generators give different numbers from one seed, so a test that
 compares them hands the port the JAX package's draws through
 :class:`ReplayDraws`; :class:`RecordDraws` keeps a step's own draws, so
@@ -33,6 +34,10 @@ class Draws:
         """[shape] fp32, standard normal."""
         return torch.randn(shape, generator=self.generator, device=device)
 
+    def integers(self, shape: tuple, device, low: int, high: int) -> torch.Tensor:
+        """[shape] int64, uniform in [low, high)."""
+        return torch.randint(low, high, shape, generator=self.generator, device=device)
+
 
 def seeded_draws(seed: int, device) -> Draws:
     """:class:`Draws` on a generator of ``device`` seeded with ``seed``."""
@@ -56,11 +61,17 @@ class RecordDraws(Draws):
         self.records.append(("normal", v.cpu()))
         return v
 
+    def integers(self, shape, device, low, high):
+        v = self.draws.integers(shape, device, low, high)
+        self.records.append(("integers", v.cpu()))
+        return v
+
 
 class ReplayDraws(Draws):
-    """Recorded draws, (kind, fp32 values) in order, handed out again; a
-    draw of another kind or shape than the next record, or past the last,
-    raises. ``records`` keeps those not yet drawn."""
+    """Recorded draws, (kind, values) in order, handed out again (fp32, or
+    float64 where they were recorded so, and int64 for ``integers``); a draw
+    of another kind or shape than the next record, or past the last, raises.
+    ``records`` keeps those not yet drawn."""
 
     def __init__(self, records):
         self.records = list(records)
@@ -69,7 +80,11 @@ class ReplayDraws(Draws):
         if not self.records:
             raise RuntimeError(f"a {kind} {tuple(shape)} draw past the recorded ones")
         k, v = self.records.pop(0)
-        v = torch.as_tensor(v, dtype=torch.float32)
+        v = torch.as_tensor(v)
+        if kind == "integers":
+            v = v.long()
+        elif v.dtype != torch.float64:
+            v = v.float()
         if (k, tuple(v.shape)) != (kind, tuple(shape)):
             raise RuntimeError(f"a {kind} {tuple(shape)} draw where the record holds {k} "
                                f"{tuple(v.shape)}")
@@ -80,3 +95,6 @@ class ReplayDraws(Draws):
 
     def normal(self, shape, device):
         return self._next("normal", shape, device)
+
+    def integers(self, shape, device, low, high):
+        return self._next("integers", shape, device)

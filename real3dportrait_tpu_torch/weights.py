@@ -18,7 +18,10 @@ with shape-directed transforms, the reverse of
   per-channel BatchNorm affines, whose values carry over as they are);
 * ``nn.Embed``'s ``embedding`` -> ``weight``;
 * bare parameters (``mouth_amp_embed``) as they are;
-* the ``noise_const`` collection's ``.../noise`` -> buffer ``noise_const``.
+* a const-input StyleGAN block's ``const`` ``[res,res,C]`` -> ``[C,res,res]``;
+* the ``noise_const`` collection's ``.../noise`` -> buffer ``noise_const``;
+* the ``ema`` collection's ``.../w_avg`` (a mapping network's w average)
+  -> buffer ``w_avg``.
 
 :func:`jax_variables_from_torch` is the reverse walk, over the port's
 modules: it gives the Flax tree a checkpoint of the JAX package holds.
@@ -40,6 +43,7 @@ from real3dportrait_tpu_torch.models.img2plane_composite import ChannelAffine
 from real3dportrait_tpu_torch.models.stylegan2 import (
     Conv2dLayer,
     FullyConnectedLayer,
+    SynthesisBlock,
     SynthesisLayer,
     ToRGBLayer,
 )
@@ -76,6 +80,9 @@ def torch_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.T
             leaf = path[-1]
             if coll == "noise_const":
                 leaf = "noise_const"
+            elif coll == "ema":
+                if leaf != "w_avg":
+                    raise ValueError(f"unexpected ema variable {'.'.join(path)!r}")
             elif coll != "params":
                 raise ValueError(f"unexpected variable collection {coll!r}")
             elif len(path) >= 3 and path[-3] == "attention" and path[-2] in _ATTENTION:
@@ -98,6 +105,8 @@ def torch_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.T
                 leaf = "weight"
             elif leaf in ("scale", "embedding"):
                 leaf = "weight"
+            elif leaf == "const" and a.ndim == 3:    # [res,res,C]
+                a = a.transpose(2, 0, 1)
             # np.array (not ascontiguousarray) keeps 0-d leaves 0-d
             out[".".join(path[:-1] + (leaf,))] = (
                 torch.from_numpy(np.array(a, order="C")) if has_data
@@ -121,8 +130,9 @@ def jax_variables_from_torch(model: nn.Module,
                              state: Mapping[str, torch.Tensor] | None = None
                              ) -> dict[str, dict]:
     """The port's ``model`` -> the Flax variables of the JAX package's twin
-    (``{"params": ..., "noise_const": ...}``, the latter only where the
-    model has noise buffers) as nested dicts of numpy arrays: the reverse
+    (``{"params": ..., "noise_const": ..., "ema": ...}``, the latter two only
+    where the model has noise or w-average buffers) as nested dicts of
+    numpy arrays: the reverse
     of :func:`torch_state_dict_from_jax`. The leaf names come from the
     module each parameter belongs to: norms and affines ``scale``,
     embeddings ``embedding``, the StyleGAN layers ``weight``, attention
@@ -136,6 +146,9 @@ def jax_variables_from_torch(model: nn.Module,
         a = t.detach().float().cpu().numpy()
         if leaf == "noise_const":
             _set(out.setdefault("noise_const", {}), prefix + ["noise"], np.array(a, order="C"))
+            continue
+        if leaf == "w_avg":
+            _set(out.setdefault("ema", {}), prefix + ["w_avg"], np.array(a, order="C"))
             continue
         mod = modules[".".join(prefix)]
         parent = modules.get(".".join(prefix[:-1]))
@@ -152,6 +165,8 @@ def jax_variables_from_torch(model: nn.Module,
             leaf = "scale"
         elif leaf == "weight" and isinstance(mod, nn.Embedding):
             leaf = "embedding"
+        elif leaf == "const" and isinstance(mod, SynthesisBlock):
+            a = a.transpose(1, 2, 0)
         elif leaf == "weight":
             if a.ndim >= 2:
                 a = a.transpose(_TO_FLAX[a.ndim])
@@ -161,18 +176,39 @@ def jax_variables_from_torch(model: nn.Module,
     return out
 
 
+def tensors_by_name(module: nn.Module, tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A Flax parameter tree of ``module`` (its parameters, or an
+    optimiser's moments of them) -> tensors by parameter name, each on its
+    parameter's device and dtype; raises where the names differ."""
+    params = dict(module.named_parameters())
+    state = torch_state_dict_from_jax({"params": tree})
+    if set(state) != set(params):
+        raise KeyError(f"tree names differ from the parameters': "
+                       f"{sorted(set(state) ^ set(params))[:5]}")
+    return {n: v.to(params[n].device, params[n].dtype).contiguous() for n, v in state.items()}
+
+
 def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Load Flax ``variables`` (``{"params": ..., <collection>: ...}``) into
     the port's ``module`` through :func:`torch_state_dict_from_jax`,
     strictly: a missing, unexpected or mis-shaped key raises and names it.
-    A collection that ``variables`` lacks (``noise_const``) keeps the
-    module's own values, as the JAX package keeps its init there."""
+    A collection that ``variables`` lacks (``noise_const``, ``ema``) keeps
+    the module's own values, as the JAX package keeps its init there."""
     state = torch_state_dict_from_jax(variables)
-    if "noise_const" not in variables:
-        state.update({k: v for k, v in module.state_dict().items()
-                      if k.endswith("noise_const")})
+    state.update(_buffers_missing_from(variables, module))
     module.load_state_dict(state, strict=True)
     return module
+
+
+_BUFFER_COLLECTIONS = {"noise_const": "noise_const", "ema": "w_avg"}
+
+
+def _buffers_missing_from(variables: Mapping[str, Any], module: nn.Module
+                         ) -> dict[str, torch.Tensor]:
+    """``module``'s own buffers of the variable collections ``variables``
+    lacks (noise constants, w averages), to complete a strict load."""
+    leaves = tuple(leaf for coll, leaf in _BUFFER_COLLECTIONS.items() if coll not in variables)
+    return {k: v for k, v in module.state_dict().items() if k.rsplit(".", 1)[-1] in leaves}
 
 
 def mock_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -182,10 +218,12 @@ def mock_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     lecun-normal weights and zero biases (all zeros where the JAX layer is
     zero-initialised, ``zero_init``); embeddings N(0, 1/features); norms
     and affines ones and zeros; the residual scale of ``SameBlock3d`` 0.01;
-    the amplitude embeddings of the audio-to-motion model N(0,1)."""
+    the amplitude embeddings of the audio-to-motion model and the constant
+    of a first StyleGAN block N(0,1)."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, _STYLED):
+            if isinstance(mod, _STYLED) or (isinstance(mod, SynthesisBlock)
+                                            and mod.in_channels == 0):
                 mod.reset_parameters(generator)
             elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = mod.weight[0].numel()

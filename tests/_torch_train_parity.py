@@ -99,25 +99,39 @@ def port_state(ptask, jstate: JaxTrainState):
 
 
 def record_draws():
-    """Wrap ``jax.random.uniform`` / ``normal`` so that a run records every
-    draw it makes (through ordered debug callbacks, so jitted calls record
-    them at execution, in order; draws only traced, as flax's initialisers
-    in ``apply``, record nothing). Returns (records, restore)."""
+    """Wrap ``jax.random.uniform`` / ``normal`` / ``randint`` / ``bernoulli``
+    so that a run records every draw it makes (through ordered debug
+    callbacks, so jitted calls record them at execution, in order; draws
+    only traced, as flax's initialisers in ``apply``, record nothing).
+    ``randint`` records its integers (kind ``integers``); ``bernoulli``
+    records the uniform draw it compares with ``p`` (JAX draws ``uniform(key,
+    shape) < p``), which the port draws as a uniform. Returns (records,
+    restore)."""
     records: list = []
-    real = {"uniform": jax.random.uniform, "normal": jax.random.normal}
+    names = ("uniform", "normal", "randint", "bernoulli")
+    real = {k: getattr(jax.random, k) for k in names}
+
+    def keep(kind, r):
+        jax.debug.callback(lambda v: records.append((kind, np.asarray(v))), r, ordered=True)
 
     def wrap(kind):
         def fn(*args, **kwargs):
             r = real[kind](*args, **kwargs)
-            jax.debug.callback(lambda v: records.append((kind, np.asarray(v))), r,
-                               ordered=True)
+            keep("integers" if kind == "randint" else kind, r)
             return r
         return fn
 
-    jax.random.uniform, jax.random.normal = wrap("uniform"), wrap("normal")
+    def bernoulli(key, p=0.5, shape=None):
+        keep("uniform", real["uniform"](key, jnp.shape(p) if shape is None else shape))
+        return real["bernoulli"](key, p, shape)
+
+    for k in names[:3]:
+        setattr(jax.random, k, wrap(k))
+    jax.random.bernoulli = bernoulli
 
     def restore():
-        jax.random.uniform, jax.random.normal = real["uniform"], real["normal"]
+        for k in names:
+            setattr(jax.random, k, real[k])
 
     return records, restore
 
