@@ -12,9 +12,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    sm_90a (one nvcc per source, in parallel), or reuse the library built
    from identical sources (registers and spills from ptxas are printed
    either way, and, where the toolkit has ``cuobjdump``, the count of
-   tensor-core ``HMMA`` instructions in the SASS of K7a and of K1 /
-   K1-trigrid, which must not be 0; K3 and K7b must not spill, K2, K4, K5a
-   and K5b must keep no stack frame and not spill);
+   tensor-core ``HMMA`` instructions in the SASS of K7a, of K1 /
+   K1-trigrid and of K7b's data gradient, which must not be 0; K3 and K7b
+   and their backward kernels must not spill, K2, K4, K5a and K5b must keep
+   no stack frame and not spill);
 3. each kernel (K1, K1-trigrid, K2-K7b; K2 also on a rendered frame's
    coarse samples; K4 at one frame, as ``run`` calls it, and at 16; K6a/K6b
    in fp32 and bf16; K7a at every distinct 3D conv of the standard torso)
@@ -300,13 +301,15 @@ def phase_build() -> None:
     for line in lines:
         if "Function properties" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    # K3 and K7b's main kernel keep every value in registers: no spills;
-    # K2's, K4's, K5a's and K5b's kernels neither spill nor keep a stack
+    # K3 and K7b's main kernels and their backward kernels keep every value
+    # in registers: no spills; K2's, K4's, K5a's and K5b's kernels neither spill nor keep a stack
     # frame (K2's per-ray values live in registers and shared memory; K5b
     # fits 32 registers for 8 CTAs an SM)
     for i, line in enumerate(lines):
         if "Function properties for" in line and any(
-                k in line for k in ("merge_composite_kernel", "mfe_tail_kernel")):
+                k in line for k in ("merge_composite_kernel", "mfe_tail_kernel",
+                                    "merge_composite_backward_kernel", "tail_dgrad_kernel",
+                                    "occ_wgrad_kernel")):
             check(" 0 bytes spill stores, 0 bytes spill loads" in lines[i + 1],
                   f"ptxas spills in {line.split()[-1]}: {lines[i + 1].strip()}")
         if "Function properties for" in line and any(k in line for k in (
@@ -318,12 +321,12 @@ def phase_build() -> None:
     cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     if os.path.isfile(cuobjdump):
         # K7a's products and weight gradient, K1's MLP and its backward's
-        # products run on the tensor cores: HMMA instructions in the SASS of
-        # each instantiation
+        # products, K7b's data gradient run on the tensor cores: HMMA
+        # instructions in the SASS of each instantiation
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         for kernel in ("conv3d_kernel", "plane_decode_kernel", "conv3d_wgrad_kernel",
-                       "plane_decode_backward_kernel"):
+                       "plane_decode_backward_kernel", "tail_dgrad_kernel"):
             hmma = {}
             for fn in sass.split("Function : ")[1:]:
                 name = fn.split(None, 1)[0]
@@ -2680,15 +2683,34 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
         errs = errors(got, want)
         ms, launch = times(lambda: tm.mfe_tail_backward(*args), heavy=True)
         pms = cuda_ms(lambda: tm.mfe_tail_backward_plain(*args), reps=3, warmup=1)
+        # each launch of the call alone (CUDA events, 3 back to back), on
+        # the call's own intermediate tensors, in the call's order
+        steps, _ = tm.mfe_tail_backward_steps(*args)
+        parts = {}
+        for name, fn in steps:
+            parts[name] = device_ms(fn, launches=3, reps=3, warmup=1)
     # the mask conv's data and weight gradients and the occlusion heads'
     # (convolutions all): the least time is on the tensor cores in split
-    # TF32; the heads run on FFMA (the FFMA bound beside)
+    # TF32; the heads' weight gradient runs on FFMA (the FFMA bound beside).
+    # The part that is not the mask conv's weight gradient: its data
+    # gradient and both heads' gradients; x, the adjoint's inputs and
+    # outputs, dx and the heads' weight gradients once
     k1 = shapes[1][0]
-    ops = 2 * c3d.conv3d_ops(ch, k1, d, h, w, 7, b) + 2 * 2 * 2 * 49 * ch * d * b * h * w
+    mask_ops = c3d.conv3d_ops(ch, k1, d, h, w, 7, b)
+    head_ops = 2 * 2 * 2 * 49 * ch * d * b * h * w
+    ops = 2 * mask_ops + head_ops
     n_bytes = nbytes(x, mask, ddef, g1, g2, occ1, occ2, *got)
+    rest_bound = bound(nbytes(x, mask, ddef, g1, g2, occ1, occ2, got[0], *got[3:]),
+                       mask_ops + head_ops, f32, SPLIT_TF32_RATE)[0]
+    rest_ms = sum(v for k, v in parts.items() if k != "mask conv weight gradient")
+    print(f"train mfe_tail_backward parts[x {list(shapes[0])}]: "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + f"; all but the weight gradient {rest_ms:.4f} ms, bound {rest_bound:.4f} ms "
+          f"(operations, split TF32)")
     row("mfe_tail_backward", f"x {list(shapes[0])}, K+1 = {k1}", errs, ms, launch, pms,
-        (n_bytes, ops, f32, SPLIT_TF32_RATE), ffma_bound_ms=bound(n_bytes, ops, f32)[0])
-    del x, mask, ddef, g1, g2, got, want, args
+        (n_bytes, ops, f32, SPLIT_TF32_RATE), ffma_bound_ms=bound(n_bytes, ops, f32)[0],
+        parts_launch_ms=parts, rest_launch_ms=rest_ms, rest_bound_ms=rest_bound)
+    del x, mask, ddef, g1, g2, got, want, args, steps
 
     # K1's backward on tri-planes: one frame of the tri-plane run's planes,
     # the frame's coarse + fine points (uniform in the box)

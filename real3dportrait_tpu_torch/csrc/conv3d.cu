@@ -1093,42 +1093,146 @@ int launch_wgrad(const float* x, const float* dy, WgGeom g, int n_split, int n_c
 
 // ---------------------------------------------------------------------------
 // K7b backward (mfe_tail_backward in models/torso.py; the JAX package had
-// jax.grad differentiate the tail). Three kernels around the mask conv's
-// own two gradients (its data gradient through K7a, its weight gradient
-// through conv3d_wgrad_kernel, both launched by the wrapper between them):
+// jax.grad differentiate the tail, models/torso.py:429-482). Four launches,
+// one of them PR 18's weight-gradient kernel (conv3d_wgrad_kernel above,
+// the mask conv's weights, launched by the wrapper):
 // - mfe_tail_adjoint_kernel, one thread a voxel: the softmax adjoint of
 //   the K+1 logits against the sparse motions, dl_k = m_k (g_k - sum_j m_j
 //   g_j) with g_k = d deformation . motion_k (m the forward's softmax, kept
 //   by its epilogue), into [B,K+1,D,H,W]; the d = 0 threads also take both
 //   occlusion heads' sigmoid adjoints, dp = d occ * occ (1 - occ), into
-//   [B,2,H,W];
-// - occ_data_grad_kernel: the two 7^2 heads' data gradient on the C-major
-//   depth fold, dx[b][c*D + d][y][x] += sum_heads sum_taps w[c*D + d][ty][tx]
-//   dp[y + 3 - ty][x + 3 - tx], added to the mask conv's data gradient. A
-//   thread owns a pixel and keeps its 2 x 49 window of dp in registers over
-//   the CTA's 32 fold channels, whose weights are broadcast from shared
-//   memory as float4;
-// - occ_weight_grad_kernel: dW[head][c*D + d][ty][tx] = sum over b and the
-//   pixels of dp * x shifted by the tap, and the two biases' sums. A CTA
-//   owns a fold channel (no atomics), stages 8 rows of x with their halo
-//   and of dp at a time, and its threads take a tap each (5 groups of 49
-//   over the pixels), adding the groups at the end.
-// What bounds them: bytes (x and dx once: 2 x 33.5 MB at the standard
-// preset's [4,32,16,64,64]), the 98 products a fold element of the two
-// heads' gradients (1.6 GFLOP) well under that.
-constexpr int kOccTW = 32, kOccTH = 8;  // occ_data_grad_kernel's pixel tile
-constexpr int kOccCd = 32;              // fold channels a CTA
-constexpr int kOccWS = 100;             // a fold channel's 2 x 49 weights, padded to float4s
-constexpr int kOccR = 8;                // occ_weight_grad_kernel: rows staged at a time
+//   [B,2,H,W]. The grid's last blocks pack both convolutions' weights for
+//   the data gradient's B fragments (tail_pack_weight).
+// - tail_dgrad_kernel: the tail's whole data gradient,
+//     dx[b][c][v] = sum_k sum_tap w[k][c][tap] dl[k][v - tap + 3]
+//                 + sum_head sum_tap occ_w[head][c*D + d][tap] dp[head][y, x - tap + 3]
+//   (the heads on the C-major depth fold: element [b][c][d] of dx is fold
+//   channel c*D + d), written once.
+// - occ_wgrad_kernel: the heads' weight gradient, dW[head][cd][ty][tx] =
+//   sum over b and the pixels of dp[head] x the fold channel cd shifted by
+//   the tap, and the biases' sums.
+//
+// What bounds them on an H100: operations. The data gradient is 2 x 5 x 32
+// x 343 products a voxel (15 GFLOP at the standard preset's
+// [4,32,16,64,64], the taps inside the volume), 0.17 ms at split TF32 (3
+// x ops / 495 TFLOP/s); the heads' 2 x 2 x 49 a fold element twice more
+// (0.2 GFLOP each, ~0.01 ms); the bytes (x read once, dx written once,
+// 2 x 33.5 MB) 0.02 ms. The design before this (PR 16) ran the mask
+// conv's data gradient as a generic K7a launch, which steps over the input
+// channels in chunks of 8, so 3 of every 8 products were on the padding of
+// Ci = 5 (1.03 ms), sent dl through device memory to it, read and wrote dx
+// again for the heads' data gradient (0.10 ms), and gave each fold channel
+// one CTA walking every pixel for the heads' weight gradient, its lanes on
+// different taps hitting the same banks (0.73 ms; NVIDIA H100 80GB HBM3,
+// 700 W).
+//
+// Design of tail_dgrad_kernel: an implicit GEMM on the tensor cores in
+// split TF32 (mma.sync m16n8k8, common.cuh), the voxels on M, the 32
+// channels of a channel block on N, the (k, tap) pairs the reduction. A
+// CTA owns 4 rows x 64 columns of one (b, d) plane (8 warps, a warp 32
+// voxels of a row x 32 channels: two m16 by four n8 tiles). It steps over
+// the depth taps whose plane lies inside the volume (no plane of padding
+// is computed) and stages that plane of dl's 5 channels with its 3-pixel
+// halo by cp.async into a two-stage ring, so that the next plane lands
+// while this one multiplies. A plane's 5 x 49 (k, tap) pairs are packed
+// into 31 k-steps of 8 (k-major, taps fastest; 3 zero slots), where a
+// generic conv pads Ci = 5 to 8 for every tap; a per-lane offset table
+// (one int2 a k-step and lane) addresses them in the staged tile (a padding
+// slot, weight 0, reads the word of the last pair). Row and channel strides
+// are 16 mod 32, so a fragment load of 8 voxels x 4 slots hits 32 banks.
+// One more step stages dp's 2 channels of the pixel tile and runs the
+// heads' 2 x 49 taps as 13 k-steps of the same accumulators, with that
+// depth's fold-channel weights: the heads' data gradient is added before
+// the single store of dx. The B fragments come from device
+// memory packed in fragment order, split into TF32 hi and lo parts (16 B a
+// lane a k-step and n8 tile, read through L1 by the CTA's 8 warps), the
+// next k-step's loaded while this one multiplies. Each step's products sum
+// into a fresh tile that the running sum takes by a rounded fp32 add (the
+// tensor cores' accumulation truncates; K7a's note).
+//
+// Design of occ_wgrad_kernel (FFMA; through K7a's weight-gradient kernel
+// on the fold as a depth-1 volume it took 0.51 ms, most of it idle tiles of
+// N = 2): a CTA owns 32 fold channels (a lane each) and a share of the
+// pixel units (4 rows x 64 columns of one b); warp w owns tap row ty = w,
+// 14 sums (2 heads x 7 tx). A unit stages the 32 channels' 10 halo rows
+// (channel stride odd: the lanes' loads hit 32 banks) and dp's 4 rows
+// (read by all lanes at once: a broadcast) by cp.async; a thread slides
+// along its row 8 pixels at a time, 14 x values and 16 dp values for 112
+// FFMAs. The CTAs' sums are added into the zeroed gradient by atomicAdd.
+constexpr int kTgTH = 4, kTgTW = 64;      // tail_dgrad_kernel: a CTA's rows, columns
+constexpr int kTgRS = 80;                 // halo row stride (70 used), 16 mod 32
+constexpr int kTgCS = 816;                // halo channel stride (800 used), 16 mod 32
+constexpr int kTgStage = kTailK1 * kTgCS;
+constexpr int kTgMaskKS = 31;             // k-steps of a depth tap: 5 x 49 pairs in 248 slots
+constexpr int kTgOccKS = 13;              // k-steps of the heads: 2 x 49 in 104 slots
+constexpr int kTgN = 32;                  // channels of a channel block
+constexpr int kOwCd = 32, kOwRows = 4, kOwTW = 64;  // occ_wgrad_kernel's unit
+constexpr int kOwRS = kOwTW + 6;
+constexpr int kOwCS = (kOwRows + 6) * kOwRS + 1;    // odd
+constexpr int kOwThreads = 7 * 32;
+constexpr size_t kOwSmem = sizeof(float) * ((size_t)kOwCd * kOwCS + 2 * kOwRows * kOwTW);
 constexpr int kOccMaxW = 256;
 
+// float4s of packed weights a channel block: 7 depth taps of the mask conv,
+// then D depths of the heads
+__host__ __device__ constexpr long long tail_pack_size(int D) {
+  return (7LL * kTgMaskKS + (long long)D * kTgOccKS) * 4 * 32;
+}
+
+// One packed B fragment entry e of channel block cb: lane (g, t) of n8 tile
+// nt at k-step ks holds slots 8 ks + t and 8 ks + t + 4 of output channel c =
+// 32 cb + 8 nt + g, as (hi, hi, lo, lo). The mask conv's slot s of depth tap
+// j (plane d + j - 3) is pair (k = s / 49, tap = s % 49) with the taps
+// flipped: w[k][c][6 - j][6 - ty][6 - tx]; the heads' slot s of depth d is
+// (head = s / 49, tap): occ_w[head][c*D + d][6 - ty][6 - tx].
+__device__ void tail_pack_weight(const float* __restrict__ mask_w,
+                                 const float* __restrict__ occ_w, int C, int D, long long e,
+                                 float4* __restrict__ packed) {
+  const long long per_cb = tail_pack_size(D);
+  const int cb = (int)(e / per_cb);
+  const long long r = e - cb * per_cb;
+  const int lane = (int)(r % 32), nt = (int)(r / 32 % 4);
+  const int c = cb * kTgN + 8 * nt + lane / 4, t = lane % 4;
+  const long long step = r / 128;  // (j, ks) of the mask conv, then (d, ks) of the heads
+  float v[2];
+  for (int h = 0; h < 2; ++h) {
+    v[h] = 0.0f;
+    if (step < 7 * kTgMaskKS) {
+      const int j = (int)(step / kTgMaskKS), s = (int)(step % kTgMaskKS) * 8 + t + 4 * h;
+      if (c < C && s < kTailK1 * 49) {
+        const int k = s / 49, tap = s % 49;
+        v[h] = __ldg(mask_w + (((long long)k * C + c) * 7 + 6 - j) * 49 + 48 - tap);
+      }
+    } else {
+      const long long q = step - 7 * kTgMaskKS;
+      const int d = (int)(q / kTgOccKS), s = (int)(q % kTgOccKS) * 8 + t + 4 * h;
+      if (c < C && s < 2 * 49)
+        v[h] = __ldg(occ_w + ((long long)(s / 49) * C * D + (long long)c * D + d) * 49 + 48 -
+                     s % 49);
+    }
+  }
+  const uint32_t h0 = tf32_rna(v[0]), h1 = tf32_rna(v[1]);
+  const uint32_t l0 = tf32_rna(v[0] - __uint_as_float(h0)),
+                 l1 = tf32_rna(v[1] - __uint_as_float(h1));
+  packed[e] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                          __uint_as_float(l1));
+}
+
+// blocks [0, n_adj): a voxel a thread; the rest: a packed weight entry a thread
 __global__ void __launch_bounds__(256)
 mfe_tail_adjoint_kernel(const float* __restrict__ ddef, const float* __restrict__ docc1,
                         const float* __restrict__ docc2, const float* __restrict__ mask,
                         const float* __restrict__ occ1, const float* __restrict__ occ2,
-                        const float* __restrict__ kp_s, const float* __restrict__ kp_d, int B,
-                        int D, int H, int W, float* __restrict__ dlogits,
-                        float* __restrict__ dpre) {
+                        const float* __restrict__ kp_s, const float* __restrict__ kp_d,
+                        const float* __restrict__ mask_w, const float* __restrict__ occ_w,
+                        int B, int C, int D, int H, int W, unsigned n_adj, long long n_pack,
+                        float* __restrict__ dlogits, float* __restrict__ dpre,
+                        float4* __restrict__ packed) {
+  if (blockIdx.x >= n_adj) {
+    const long long e = (long long)(blockIdx.x - n_adj) * blockDim.x + threadIdx.x;
+    if (e < n_pack) tail_pack_weight(mask_w, occ_w, C, D, e, packed);
+    return;
+  }
   const long long HW = (long long)H * W;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= (long long)B * D * HW) return;
@@ -1167,110 +1271,220 @@ mfe_tail_adjoint_kernel(const float* __restrict__ ddef, const float* __restrict_
   }
 }
 
-// grid (ceil(W / 32), ceil(H / 8), B * ceil(CD / 32)); dx [B,CD,H,W] += ...
-__global__ void __launch_bounds__(256)
-occ_data_grad_kernel(const float* __restrict__ occ_w, const float* __restrict__ dpre, int CD,
-                     int H, int W, int n_cd_tiles, float* __restrict__ dx) {
-  __shared__ float4 s_w[kOccCd * kOccWS / 4];
-  const int b = blockIdx.z / n_cd_tiles, cd0 = (blockIdx.z % n_cd_tiles) * kOccCd;
-  const int n_cd = min(kOccCd, CD - cd0);
-  float* sw = reinterpret_cast<float*>(s_w);
-  for (int e = threadIdx.x; e < kOccCd * kOccWS; e += 256) {
-    const int c = e / kOccWS, r = e % kOccWS;  // r: head * 49 + tap
-    sw[e] = c < n_cd && r < 98 ? __ldg(occ_w + ((long long)(r / 49) * CD + cd0 + c) * 49 + r % 49)
-                               : 0.0f;
-  }
-  const int y = blockIdx.y * kOccTH + threadIdx.x / kOccTW;
-  const int xx = blockIdx.x * kOccTW + threadIdx.x % kOccTW;
+// grid (ceil(H / 4) x ceil(W / 64), D, B x channel blocks); dx [B,C,D,H,W]
+__global__ void __launch_bounds__(256, 2)
+tail_dgrad_kernel(const float* __restrict__ dl, const float* __restrict__ dp,
+                  const float4* __restrict__ packed, int C, int D, int H, int W, int n_cb,
+                  float* __restrict__ dx) {
+  __shared__ __align__(16) float stage_s[2][kTgStage];
+  __shared__ int2 tab_m[kTgMaskKS * 4], tab_o[kTgOccKS * 4];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int ntw = (W + kTgTW - 1) / kTgTW;
+  const int h0 = (blockIdx.x / ntw) * kTgTH, w0 = (blockIdx.x % ntw) * kTgTW;
+  const int d = blockIdx.y, b = blockIdx.z / n_cb, cb = blockIdx.z % n_cb;
   const long long HW = (long long)H * W;
-  // the pixel's window of both heads' dp: (ty, tx) holds dp[y + 3 - ty][x + 3 - tx]
-  float win[kOccWS];
-#pragma unroll
-  for (int i = 0; i < kOccWS; ++i) {
-    const int head = i / 49, ty = i % 49 / 7, tx = i % 7;
-    const int py = y + 3 - ty, px = xx + 3 - tx;
-    win[i] = i < 98 && py >= 0 && py < H && px >= 0 && px < W
-                 ? __ldg(dpre + (2LL * b + head) * HW + (long long)py * W + px)
-                 : 0.0f;
-  }
-  __syncthreads();
-  if (y >= H || xx >= W) return;
-  float* o = dx + ((long long)b * CD + cd0) * HW + (long long)y * W + xx;
-  for (int c = 0; c < n_cd; ++c) {
-    const float4* wc = s_w + c * (kOccWS / 4);
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kOccWS / 4; ++q) {
-      const float4 wv = wc[q];
-      a0 = fmaf(wv.x, win[4 * q], a0);
-      a1 = fmaf(wv.y, win[4 * q + 1], a1);
-      a0 = fmaf(wv.z, win[4 * q + 2], a0);
-      a1 = fmaf(wv.w, win[4 * q + 3], a1);
+  const int j_lo = max(0, 3 - d), j_hi = min(6, D + 2 - d);
+  const int n_mask = j_hi - j_lo + 1, n_steps = n_mask + 1;
+
+  // the slots' offsets in a stage: k-major, taps fastest; a padding slot
+  // (weight 0) reads the last pair's word, as a lane beside it does
+  for (int e = tid; e < (kTgMaskKS + kTgOccKS) * 4; e += blockDim.x) {
+    const bool occ = e >= kTgMaskKS * 4;
+    const int q = occ ? e - kTgMaskKS * 4 : e;
+    const int n_pairs = occ ? 2 * 49 : kTailK1 * 49;
+    int off[2];
+    for (int h = 0; h < 2; ++h) {
+      const int s = min((q / 4) * 8 + q % 4 + 4 * h, n_pairs - 1);
+      off[h] = (s / 49) * kTgCS + (s % 49 / 7) * kTgRS + s % 7;
     }
-    o[c * HW] += a0 + a1;
+    (occ ? tab_o : tab_m)[q] = make_int2(off[0], off[1]);
   }
+  // step n < n_mask: dl's 5 channels at plane d + j_lo + n - 3; step n_mask:
+  // dp's 2 channels; each with its halo (10 rows x 70 columns), zero outside
+  auto stage = [&](int n) {
+    float* st = stage_s[n & 1];
+    const bool occ = n == n_mask;
+    const float* src = occ ? dp + 2LL * b * HW
+                           : dl + ((long long)b * kTailK1 * D + d + j_lo + n - 3) * HW;
+    const long long ch_stride = occ ? HW : D * HW;
+    const int total = (occ ? 2 : kTailK1) * (kTgTH + 6) * (kTgTW + 6);
+    for (int e = tid; e < total; e += blockDim.x) {
+      const int ch = e / ((kTgTH + 6) * (kTgTW + 6));
+      const int rem = e - ch * ((kTgTH + 6) * (kTgTW + 6));
+      const int i = rem / (kTgTW + 6), jj = rem - i * (kTgTW + 6);
+      const int gy = h0 - 3 + i, gx = w0 - 3 + jj;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async4(st + ch * kTgCS + i * kTgRS + jj,
+                ok ? src + ch * ch_stride + (long long)gy * W + gx : src, ok);
+    }
+  };
+
+  const int row = warp >> 1, col0 = (warp & 1) * 32;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+  const long long per_cb = tail_pack_size(D);
+  stage(0);
+  cp_async_commit();
+  for (int n = 0; n < n_steps; ++n) {
+    cp_async_wait<0>();
+    __syncthreads();  // step n landed; step n - 1's stage is free; the tables written
+    if (n + 1 < n_steps) stage(n + 1);
+    cp_async_commit();
+    const bool occ = n == n_mask;
+    const int nks = occ ? kTgOccKS : kTgMaskKS;
+    const int2* tab = occ ? tab_o : tab_m;
+    const float4* pw = packed + cb * per_cb +
+                       (occ ? (7LL * kTgMaskKS + (long long)d * kTgOccKS)
+                            : (long long)(j_lo + n) * kTgMaskKS) * 128 + lane;
+    const float* ab = stage_s[n & 1] + row * kTgRS + col0 + gid;
+    float part[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.0f;
+    float4 bq[4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) bq[nt] = __ldg(pw + nt * 32);
+#pragma unroll 1
+    for (int ks = 0; ks < nks; ++ks) {
+      float4 bn[4];
+      const int kn = ks + 1 < nks ? ks + 1 : ks;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) bn[nt] = __ldg(pw + (kn * 4 + nt) * 32);
+      const int2 o = tab[ks * 4 + tig];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* a_m = ab + 16 * mt;
+        const float a[4] = {a_m[o.x], a_m[o.x + 8], a_m[o.y], a_m[o.y + 8]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wg_split(a[i], ah[i], al[i]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_split_tf32(part[mt][nt], ah, al, bq[nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) bq[nt] = bn[nt];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+  }
+  // accumulator (mt, nt) element i: voxel column col0 + 16 mt + gid + 8 (i / 2),
+  // channel 8 nt + 2 tig + i % 2
+  const int h = h0 + row;
+  if (h >= H) return;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int w = w0 + col0 + 16 * mt + gid + 8 * (i / 2);
+        const int c = cb * kTgN + 8 * nt + 2 * tig + i % 2;
+        if (w < W && c < C)
+          dx[(((long long)b * C + c) * D + d) * HW + (long long)h * W + w] = acc[mt][nt][i];
+      }
 }
 
-// grid (CD); docc_w [2,CD,7,7], docc_b [2] (written by CTA 0)
-__global__ void __launch_bounds__(256)
-occ_weight_grad_kernel(const float* __restrict__ x, const float* __restrict__ dpre, int B,
-                       int CD, int H, int W, float* __restrict__ docc_w,
-                       float* __restrict__ docc_b) {
-  __shared__ float s_x[(kOccR + 6) * (kOccMaxW + 6)];
-  __shared__ float s_dp[2 * kOccR * kOccMaxW];
-  __shared__ float s_red[5][100];
-  const int cd = blockIdx.x, t = threadIdx.x;
-  const int tap = t % 49, grp = t / 49;  // 5 groups of 49 taps; threads 245..255 stage only
-  const int ty = tap / 7, tx = tap % 7, RS = W + 6;
-  const bool sums = grp < 5, bias = blockIdx.x == 0 && tap == 0 && sums;
+// grid (ceil(CD / 32), n_split); docc_w [2,CD,7,7] and docc_b [2] zeroed by
+// the caller
+__global__ void __launch_bounds__(kOwThreads)
+occ_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dp, int B, int CD,
+                 int H, int W, float* __restrict__ docc_w, float* __restrict__ docc_b) {
+  extern __shared__ float4 ow_smem4[];
+  float* s_x = reinterpret_cast<float*>(ow_smem4);
+  float* s_dp = s_x + kOwCd * kOwCS;  // [head][row][column]
+  const int tid = threadIdx.x, lane = tid % 32, ty = tid / 32;
+  const int cd0 = blockIdx.x * kOwCd, cd = cd0 + lane;
+  const int nrow = (H + kOwRows - 1) / kOwRows, ncol = (W + kOwTW - 1) / kOwTW;
+  const long long units = (long long)B * nrow * ncol;
+  const long long u0 = units * blockIdx.y / gridDim.y, u1 = units * (blockIdx.y + 1) / gridDim.y;
   const long long HW = (long long)H * W;
-  float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
-  for (int b = 0; b < B; ++b) {
-    const float* xc = x + ((long long)b * CD + cd) * HW;
-    for (int r0 = 0; r0 < H; r0 += kOccR) {
-      const int nr = min(kOccR, H - r0);
-      __syncthreads();
-      for (int e = t; e < (kOccR + 6) * RS; e += 256) {
-        const int yy = r0 + e / RS - 3, xx = e % RS - 3;
-        s_x[e] = yy >= 0 && yy < H && xx >= 0 && xx < W ? __ldg(xc + (long long)yy * W + xx)
-                                                        : 0.0f;
-      }
-      for (int e = t; e < 2 * kOccR * W; e += 256) {
-        const int head = e / (kOccR * W), rr = e / W % kOccR, xx = e % W;
-        s_dp[e] = rr < nr ? __ldg(dpre + (2LL * b + head) * HW + (long long)(r0 + rr) * W + xx)
-                          : 0.0f;
-      }
-      __syncthreads();
-      if (sums) {
-        for (int pix = grp; pix < nr * W; pix += 5) {
-          const int rr = pix / W, xx = pix % W;
-          const float xv = s_x[(rr + ty) * RS + xx + tx];
-          const float p0 = s_dp[rr * W + xx], p1 = s_dp[(kOccR + rr) * W + xx];
-          a0 = fmaf(p0, xv, a0);
-          a1 = fmaf(p1, xv, a1);
-          if (bias) {
-            b0 += p0;
-            b1 += p1;
+  const bool bias = blockIdx.x == 0 && ty == 0;
+  float a0[7], a1[7], bs0 = 0.0f, bs1 = 0.0f;
+#pragma unroll
+  for (int tx = 0; tx < 7; ++tx) a0[tx] = a1[tx] = 0.0f;
+  for (long long u = u0; u < u1; ++u) {
+    const int b = (int)(u / (nrow * ncol));
+    const int rc = (int)(u - (long long)b * nrow * ncol);
+    const int y0 = rc / ncol * kOwRows, x0 = rc % ncol * kOwTW;
+    __syncthreads();  // the last unit's reads are done
+    for (int e = tid; e < kOwCd * (kOwRows + 6) * kOwRS; e += kOwThreads) {
+      const int c = e / ((kOwRows + 6) * kOwRS), rem = e % ((kOwRows + 6) * kOwRS);
+      const int i = rem / kOwRS, jj = rem % kOwRS;
+      const int gy = y0 - 3 + i, gx = x0 - 3 + jj;
+      const bool ok = cd0 + c < CD && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async4(s_x + c * kOwCS + rem,
+                ok ? x + ((long long)b * CD + cd0 + c) * HW + (long long)gy * W + gx : x, ok);
+    }
+    for (int e = tid; e < 2 * kOwRows * kOwTW; e += kOwThreads) {
+      const int head = e / (kOwRows * kOwTW), i = e / kOwTW % kOwRows, jj = e % kOwTW;
+      const int gy = y0 + i, gx = x0 + jj;
+      const bool ok = gy < H && gx < W;
+      cp_async4(s_dp + e, ok ? dp + (2LL * b + head) * HW + (long long)gy * W + gx : dp, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 1
+    for (int r = 0; r < kOwRows; ++r) {
+      const float* xr = s_x + lane * kOwCS + (r + ty) * kOwRS;
+      const float* p0r = s_dp + r * kOwTW;
+      const float* p1r = p0r + kOwRows * kOwTW;
+#pragma unroll 1
+      for (int c0 = 0; c0 < kOwTW; c0 += 8) {
+        float xv[14], p0[8], p1[8];
+#pragma unroll
+        for (int j = 0; j < 14; ++j) xv[j] = xr[c0 + j];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          p0[j] = p0r[c0 + j];
+          p1[j] = p1r[c0 + j];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int tx = 0; tx < 7; ++tx) {
+            a0[tx] = fmaf(p0[j], xv[j + tx], a0[tx]);
+            a1[tx] = fmaf(p1[j], xv[j + tx], a1[tx]);
+          }
+        if (bias) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            bs0 += lane == j ? p0[j] : 0.0f;
+            bs1 += lane == j ? p1[j] : 0.0f;
           }
         }
       }
     }
   }
-  if (sums) {
-    s_red[grp][tap] = a0;
-    s_red[grp][49 + tap] = a1;
-    if (tap == 0) {
-      s_red[grp][98] = b0;
-      s_red[grp][99] = b1;
+  if (cd < CD) {
+#pragma unroll
+    for (int tx = 0; tx < 7; ++tx) {
+      atomicAdd(docc_w + (long long)cd * 49 + ty * 7 + tx, a0[tx]);
+      atomicAdd(docc_w + ((long long)CD + cd) * 49 + ty * 7 + tx, a1[tx]);
     }
   }
-  __syncthreads();
-  if (t < 100) {
-    const float v = s_red[0][t] + s_red[1][t] + s_red[2][t] + s_red[3][t] + s_red[4][t];
-    if (t < 98)
-      docc_w[((long long)(t / 49) * CD + cd) * 49 + t % 49] = v;
-    else if (blockIdx.x == 0)
-      docc_b[t - 98] = v;
+  if (bias) {
+    for (int off = 16; off > 0; off >>= 1) {
+      bs0 += __shfl_xor_sync(0xffffffffu, bs0, off);
+      bs1 += __shfl_xor_sync(0xffffffffu, bs1, off);
+    }
+    if (lane == 0) {
+      atomicAdd(docc_b, bs0);
+      atomicAdd(docc_b + 1, bs1);
+    }
   }
 }
 
@@ -1385,40 +1599,64 @@ R3DP_EXPORT int r3dp_conv3d_weight_grad(const float* x, const float* dy, int B, 
                  : launch_wgrad<3, 32, 2>(x, dy, g, n_split, n_co, dw, db, stream);
 }
 
-// K7b backward, before the mask conv's gradients: ddef [B,D,H,W,3]; docc1,
-// docc2 [B,H,W] or null (zero); mask [B,5,D,H,W] the forward's softmax;
-// occ1, occ2 [B,H,W] the forward's occlusions; kp_s, kp_d [B,4,3] ->
-// dlogits [B,5,D,H,W], dpre [B,2,H,W]. D, H, W >= 2.
+// K7b backward, before the mask conv's weight gradient: ddef [B,D,H,W,3];
+// docc1, docc2 [B,H,W] or null (zero); mask [B,5,D,H,W] the forward's
+// softmax; occ1, occ2 [B,H,W] the forward's occlusions; kp_s, kp_d [B,4,3];
+// mask_w [5,C,7,7,7], occ_w [2,C*D,7,7] -> dlogits [B,5,D,H,W], dpre
+// [B,2,H,W], and both weights packed for r3dp_mfe_tail_backward_data
+// (4 x ceil(C / 32) x (7 x 31 + D x 13) x 128 floats,
+// models/torso.py:mfe_tail_backward_layout). D, H, W >= 2.
 R3DP_EXPORT int r3dp_mfe_tail_backward_adjoint(const float* ddef, const float* docc1,
                                                const float* docc2, const float* mask,
                                                const float* occ1, const float* occ2,
-                                               const float* kp_s, const float* kp_d, int B,
-                                               int D, int H, int W, float* dlogits,
-                                               float* dpre, cudaStream_t stream) {
-  if (D < 2 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+                                               const float* kp_s, const float* kp_d,
+                                               const float* mask_w, const float* occ_w, int B,
+                                               int C, int D, int H, int W, float* dlogits,
+                                               float* dpre, float* packed,
+                                               cudaStream_t stream) {
+  if (D < 2 || H < 2 || W < 2 || C < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const long long voxels = (long long)B * D * H * W;
-  if (voxels == 0) return (int)cudaGetLastError();
-  mfe_tail_adjoint_kernel<<<r3dp_blocks(voxels, 256), 256, 0, stream>>>(
-      ddef, docc1, docc2, mask, occ1, occ2, kp_s, kp_d, B, D, H, W, dlogits, dpre);
+  const long long n_pack = (long long)((C + kTgN - 1) / kTgN) * tail_pack_size(D);
+  const long long n_adj = (voxels + 255) / 256, blocks = n_adj + (n_pack + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  mfe_tail_adjoint_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      ddef, docc1, docc2, mask, occ1, occ2, kp_s, kp_d, mask_w, occ_w, B, C, D, H, W,
+      (unsigned)n_adj, n_pack, dlogits, dpre, reinterpret_cast<float4*>(packed));
   return (int)cudaGetLastError();
 }
 
-// K7b backward, the occlusion heads: x [B,C*D,H,W] (the C-major fold of the
-// tail's input), occ_w [2,C*D,7,7], dpre [B,2,H,W]; adds their data
-// gradient to dx [B,C*D,H,W] and writes docc_w [2,C*D,7,7], docc_b [2].
-// W <= 256.
-R3DP_EXPORT int r3dp_mfe_tail_backward_occ(const float* x, const float* occ_w,
-                                           const float* dpre, int B, int CD, int H, int W,
-                                           float* dx, float* docc_w, float* docc_b,
-                                           cudaStream_t stream) {
-  if (W < 1 || W > kOccMaxW || H < 1 || CD < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const int n_cd = (CD + kOccCd - 1) / kOccCd;
-  if ((long long)B * n_cd > 65535 || (H + kOccTH - 1) / kOccTH > 65535)
+// K7b backward, the data gradient: dlogits [B,5,D,H,W], dpre [B,2,H,W] and
+// packed from r3dp_mfe_tail_backward_adjoint -> dx [B,C,D,H,W] (every
+// element written): the mask conv's and both occlusion heads' data
+// gradients. D, H, W >= 2.
+R3DP_EXPORT int r3dp_mfe_tail_backward_data(const float* dlogits, const float* dpre,
+                                            const float* packed, int B, int C, int D, int H,
+                                            int W, float* dx, cudaStream_t stream) {
+  if (D < 2 || H < 2 || W < 2 || C < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const int n_cb = (C + kTgN - 1) / kTgN;
+  const long long tiles = (long long)((H + kTgTH - 1) / kTgTH) * ((W + kTgTW - 1) / kTgTW);
+  if (tiles > 0x7fffffffLL || D > 65535 || (long long)B * n_cb > 65535)
     return (int)cudaErrorInvalidValue;
-  occ_data_grad_kernel<<<dim3((W + kOccTW - 1) / kOccTW, (H + kOccTH - 1) / kOccTH, B * n_cd),
-                         256, 0, stream>>>(occ_w, dpre, CD, H, W, n_cd, dx);
-  cudaError_t err = cudaGetLastError();
+  tail_dgrad_kernel<<<dim3((unsigned)tiles, D, B * n_cb), 256, 0, stream>>>(
+      dlogits, dpre, reinterpret_cast<const float4*>(packed), C, D, H, W, n_cb, dx);
+  return (int)cudaGetLastError();
+}
+
+// K7b backward, the occlusion heads' weight gradient: x [B,C*D,H,W] (the
+// C-major fold of the tail's input), dpre [B,2,H,W]; adds it into docc_w
+// [2,C*D,7,7] and docc_b [2], zeroed by the caller. The pixel units (4 rows
+// x 64 columns of one b) are shared among n_split CTAs of each 32 fold
+// channels. W <= 256.
+R3DP_EXPORT int r3dp_mfe_tail_backward_occ(const float* x, const float* dpre, int B, int CD,
+                                           int H, int W, int n_split, float* docc_w,
+                                           float* docc_b, cudaStream_t stream) {
+  if (W < 1 || W > kOccMaxW || H < 1 || CD < 1 || B < 1 || n_split < 1 || n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(occ_wgrad_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kOwSmem);
   if (err != cudaSuccess) return (int)err;
-  occ_weight_grad_kernel<<<CD, 256, 0, stream>>>(x, dpre, B, CD, H, W, docc_w, docc_b);
+  occ_wgrad_kernel<<<dim3((CD + kOwCd - 1) / kOwCd, n_split), kOwThreads, kOwSmem, stream>>>(
+      x, dpre, B, CD, H, W, docc_w, docc_b);
   return (int)cudaGetLastError();
 }

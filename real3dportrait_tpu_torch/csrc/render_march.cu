@@ -393,57 +393,79 @@ __global__ void __launch_bounds__(32 * kMergeWarps, 2) merge_composite_kernel(
 
 
 // K3 backward (merge_composite_backward in rendering/renderer.py; the JAX
-// package had jax.grad differentiate _march_merged). Depths take no
-// gradient (the coarse ones come from the camera, K2's are stopped). From
-// the gradients of rgb [R,C], depth [R] and weights [R,S-1] (each may be
-// NULL: zero) it recomputes the merge order and the march and returns the
-// gradients of both lists' colours and densities:
+// package had jax.grad differentiate _march_merged, renderer.py:367). Depths
+// take no gradient (the coarse ones come from the camera, K2's are
+// stopped). From the gradients of rgb [R,C], depth [R] and weights [R,S-1]
+// (each may be NULL: zero) it recomputes the merge order and the march and
+// returns the gradients of both lists' colours and densities:
 //   d colour[t] = 2 g_rgb * wc[pos t];  e[t] = sum_c 2 g_rgb[c] colour[t][c];
 //   d w[k] = g_w[k] + (e[k] + e[k+1]) / 2 (merged order)
 //            + g_depth (mid[k] - depth) / sum w  - 2 sum_c g_rgb[c] (white_back);
 //   d alpha[k] = T[k] (d w[k] - R[k]),  R[k] = d w[k+1] alpha[k+1]
 //            + (1 - alpha[k+1] + 1e-10) R[k+1]  (the transmittance's adjoint,
-//            a reverse scan with no division);
+//            a reverse recurrence with no division);
 //   d sigma_mid[k] = d alpha[k] exp(-sigma_mid[k] delta[k]) delta[k], through
 //   softplus' = sigmoid to half of each neighbour's density.
-// Bound by bytes, like the forward: both colour lists read once, written
-// once. Design, simple first: a warp a ray, as the forward; the merge as
-// the forward's; the interval quantities lane-parallel with the
-// transmittance by the forward's product scan; e[t] and d colour one lane a
-// channel; the reverse scan on lane 0 (S - 1 steps of a multiply-add).
-__global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_backward_kernel(
+//
+// What bounds it on an H100: bytes. Both colour lists are read once (for
+// e) and their gradients written once: 2 x (S1 + S2) x C x 4 B a ray, 1.6
+// GB at the training steps' [4,16384,48+48,32], 0.48 ms at 3.35 TB/s; the
+// rest is a few hundred flops a sample. The first design (PR 15) took
+// 1.52 ms there: it read the colours one 128 B row at a time, one lane a
+// channel, each row waiting on a 5-shuffle warp sum, one load in flight a
+// lane; and ran the reverse recurrence on lane 0 alone, 95 serial steps of
+// expf, softplus and sigmoid while 31 lanes waited.
+//
+// Design: one warp a ray, 8 rays a block, as the forward. The colour rows
+// are read as the forward reads them: float4s, C / 4 lanes a row and
+// 128 / C rows a warp instruction; the lane's 2 g_rgb channels and its
+// first kBackBatch colour loads are issued before the merge and the march,
+// which they overlap. Each lane dots its float4 with its 2 g_rgb float4,
+// and a row's C / 4 lanes add their parts by log2(C / 4) shuffles into
+// e[t], written to the sample's merged position. The next batch of loads is
+// issued before this batch's d colour rows are stored (float4 stores of
+// wc[pos t] * 2 g_rgb), so loads and stores overlap. The reverse recurrence
+// is a warp-parallel suffix scan of the affine maps r -> d w[k] alpha[k] +
+// (1 - alpha[k] + 1e-10) r (lane k of a 32-interval chunk; R[k - 1] is the
+// composite of lanes k.. applied to the R carried from the chunk after),
+// the backward twin of the forward's product scan, run from the last chunk
+// to the first; d alpha and d u are lane-parallel, and each sample's density
+// gradient is read back in concatenation order and stored coalesced. Other
+// colour widths (C / 4 not a power of two up to 32) and colour, gradient or
+// output views not 16 B aligned take a scalar path of the same order, one
+// lane a channel, four rows at a time.
+constexpr int kBackBatch = 8;  // 16 B colour loads a lane has in flight (backward)
+
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kMergeWarps, 2) merge_composite_backward_kernel(
     const float* __restrict__ d1, const float* __restrict__ c1,
     const float* __restrict__ s1, int S1, const float* __restrict__ d2,
     const float* __restrict__ c2, const float* __restrict__ s2, int S2, int R, int C,
     int white_back, const float* __restrict__ g_rgb, const float* __restrict__ g_depth,
     const float* __restrict__ g_w, float* __restrict__ dc1, float* __restrict__ ds1,
     float* __restrict__ dc2, float* __restrict__ ds2) {
-  __shared__ float sh_key[kMergeWarps][kMaxS];
-  __shared__ float sh_d[kMergeWarps][kMaxS];
-  __shared__ float sh_s[kMergeWarps][kMaxS];
-  __shared__ float sh_a[kMergeWarps][kMaxS];   // alpha
-  __shared__ float sh_t[kMergeWarps][kMaxS];   // exclusive transmittance
-  __shared__ float sh_w[kMergeWarps][kMaxS];   // weights
-  __shared__ float sh_e[kMergeWarps][kMaxS];   // e, concatenation order
-  __shared__ float sh_g[kMergeWarps][kMaxS];   // d w, then d u
-  __shared__ int sh_pos[kMergeWarps][kMaxS];   // concatenation -> merged
-  __shared__ int sh_src[kMergeWarps][kMaxS];   // merged -> concatenation
+  __shared__ float sh_key[kMergeWarps][kMaxS];  // merge keys, then wc by concatenation
+  __shared__ float sh_d[kMergeWarps][kMaxS];    // merged depths
+  __shared__ float sh_s[kMergeWarps][kMaxS];    // merged densities
+  __shared__ float sh_w[kMergeWarps][kMaxS];    // weights, then d u
+  __shared__ float sh_e[kMergeWarps][kMaxS];    // e, merged order
+  __shared__ int sh_pos[kMergeWarps][kMaxS];    // concatenation -> merged
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long ray = (long long)blockIdx.x * kMergeWarps + warp;
   if (ray >= R) return;
   const int S = S1 + S2;
   float* key = sh_key[warp];
+  float* wcat = key;
   float* md = sh_d[warp];
   float* ms = sh_s[warp];
-  float* al = sh_a[warp];
-  float* tr = sh_t[warp];
   float* w = sh_w[warp];
+  float* du = w;
   float* e = sh_e[warp];
-  float* g = sh_g[warp];
-  int* pos = sh_pos[warp];
-  int* src = sh_src[warp];
+  int* posa = sh_pos[warp];
+  const bool has_rgb = g_rgb != nullptr;
 
-  // the merge, as the forward's
+  // the ray's depths and densities, then the lane's channels of 2 g_rgb and
+  // its first batch of colour rows, issued before the merge and the march
   float dv[kMergeSlots], sv[kMergeSlots];
 #pragma unroll
   for (int q = 0; q < kMergeSlots; ++q) {
@@ -454,6 +476,28 @@ __global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_backward_ker
       sv[q] = t < S1 ? s1[ray * S1 + t] : s2[ray * S2 + (t - S1)];
     }
   }
+  const int C4 = C >> 2;
+  const int rows = kVec ? 32 / C4 : 1;  // rows a warp instruction reads
+  const int grp = kVec ? lane / C4 : 0, col = kVec ? lane % C4 : 0;
+  const float4* r1 = reinterpret_cast<const float4*>(c1 + ray * S1 * C) + col;
+  const float4* r2 = reinterpret_cast<const float4*>(c2 + ray * S2 * C) + col;
+  float4 g2 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 buf[kVec ? kBackBatch : 1];
+  if constexpr (kVec) {
+    if (has_rgb) {
+      const float4 gv = __ldg(reinterpret_cast<const float4*>(g_rgb + ray * C) + col);
+      g2 = make_float4(2.0f * gv.x, 2.0f * gv.y, 2.0f * gv.z, 2.0f * gv.w);
+#pragma unroll
+      for (int i = 0; i < kBackBatch; ++i) {
+        const int r = i * rows + grp;
+        buf[i] = r < S ? __ldg(r < S1 ? r1 + r * C4 : r2 + (r - S1) * C4)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+
+  // the merge, as the forward's
+  int pos[kMergeSlots];
   float carry = -INFINITY;
 #pragma unroll
   for (int q = 0; q < kMergeSlots; ++q) {
@@ -463,32 +507,38 @@ __global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_backward_ker
     float m = dv[q];
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, m, off);
+      const float o = __shfl_up_sync(kFull, m, off);
       if (lane >= off && t - off >= seg) m = fmaxf(m, o);
     }
     if (q * 32 - 1 >= seg) m = fmaxf(m, carry);
-    carry = __shfl_sync(0xffffffffu, m, 31);
+    carry = __shfl_sync(kFull, m, 31);
     if (t < S) key[t] = m;
   }
   __syncwarp();
 #pragma unroll
   for (int q = 0; q < kMergeSlots; ++q) {
     const int t = q * 32 + lane;
+    pos[q] = 0;
     if (t < S) {
-      const int p = t < S1 ? t + count_below<false>(key + S1, S2, key[t])
-                           : (t - S1) + count_below<true>(key, S1, key[t]);
-      pos[t] = p;
-      src[p] = t;
-      md[p] = dv[q];
-      ms[p] = sv[q];
+      pos[q] = t < S1 ? t + count_below<false>(key + S1, S2, key[t])
+                      : (t - S1) + count_below<true>(key, S1, key[t]);
+      posa[t] = pos[q];
+      md[pos[q]] = dv[q];
+      ms[pos[q]] = sv[q];
     }
   }
   __syncwarp();
 
-  // the march, as the forward's, keeping alpha, T and w
+  // the march, as the forward's, keeping each interval's transmittance in
+  // the lane that owns it
+  float tr[kMergeSlots];
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) tr[q] = 0.0f;
   float trans = 1.0f, total = 0.0f, dnum = 0.0f;
-  for (int base = 0; base < S - 1; base += 32) {
-    const int k = base + lane;
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    if (q * 32 >= S - 1) break;
+    const int k = q * 32 + lane;
     const bool on = k < S - 1;
     float alpha = 0.0f, mid = 0.0f;
     if (on) {
@@ -498,81 +548,166 @@ __global__ void __launch_bounds__(32 * kMergeWarps) merge_composite_backward_ker
       mid = (md[k] + md[k + 1]) / 2.0f;
     }
     float incl = on ? 1.0f - alpha + 1e-10f : 1.0f;
+#pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      float o = __shfl_up_sync(0xffffffffu, incl, off);
+      float o = __shfl_up_sync(kFull, incl, off);
       if (lane >= off) incl *= o;
     }
-    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    float excl = __shfl_up_sync(kFull, incl, 1);
     if (lane == 0) excl = 1.0f;
-    const float tk = trans * excl;
-    const float wk = alpha * tk;
-    if (on) {
-      al[k] = alpha;
-      tr[k] = tk;
-      w[k] = wk;
-    }
+    tr[q] = trans * excl;
+    const float wk = alpha * tr[q];
+    if (on) w[k] = wk;
     total += wk;
     dnum += wk * mid;
-    trans *= __shfl_sync(0xffffffffu, incl, 31);
+    trans *= __shfl_sync(kFull, incl, 31);
   }
   total = warp_sum(total);
   dnum = warp_sum(dnum);
   __syncwarp();
-
-  // e[t] and d colour[t], one lane a channel
-  const float* rgb_g = g_rgb ? g_rgb + ray * C : nullptr;
-  float gsum = 0.0f;
-  for (int c = lane; c < C; c += 32) gsum += rgb_g ? 2.0f * rgb_g[c] : 0.0f;
-  gsum = warp_sum(gsum);
-  for (int t = 0; t < S; ++t) {
-    const int p = pos[t];
-    const float wc = ((p > 0 ? w[p - 1] : 0.0f) + (p < S - 1 ? w[p] : 0.0f)) / 2.0f;
-    const float* crow = t < S1 ? c1 + (ray * S1 + t) * C : c2 + (ray * S2 + (t - S1)) * C;
-    float* drow = t < S1 ? dc1 + (ray * S1 + t) * C : dc2 + (ray * S2 + (t - S1)) * C;
-    float part = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float gc = rgb_g ? 2.0f * rgb_g[c] : 0.0f;
-      part += gc * __ldg(crow + c);
-      drow[c] = wc * gc;
+  // each sample's composite weight in concatenation order (the keys are
+  // dead), as the forward's
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    if (t < S) {
+      const int p = pos[q];
+      wcat[t] = ((p > 0 ? w[p - 1] : 0.0f) + (p < S - 1 ? w[p] : 0.0f)) / 2.0f;
     }
-    part = warp_sum(part);
-    if (lane == 0) e[t] = part;
+  }
+  if (!has_rgb)
+    for (int p = lane; p < S; p += 32) e[p] = 0.0f;
+  __syncwarp();
+
+  // e and d colour, sum_c 2 g_rgb[c] for white_back
+  float gsum;
+  if constexpr (kVec) {
+    float4* o1 = reinterpret_cast<float4*>(dc1 + ray * S1 * C) + col;
+    float4* o2 = reinterpret_cast<float4*>(dc2 + ray * S2 * C) + col;
+    gsum = (g2.x + g2.y) + (g2.z + g2.w);
+    for (int off = C4 >> 1; off > 0; off >>= 1) gsum += __shfl_xor_sync(kFull, gsum, off);
+    for (int base = 0;;) {
+      if (has_rgb) {
+#pragma unroll
+        for (int i = 0; i < kBackBatch; ++i) {
+          const int r = base + i * rows + grp;
+          float p = g2.x * buf[i].x;
+          p = fmaf(g2.y, buf[i].y, p);
+          p = fmaf(g2.z, buf[i].z, p);
+          p = fmaf(g2.w, buf[i].w, p);
+          for (int off = C4 >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
+          if (col == 0 && r < S) e[posa[r]] = p;
+        }
+      }
+      const int next = base + kBackBatch * rows;
+      if (has_rgb && next < S) {
+#pragma unroll
+        for (int i = 0; i < kBackBatch; ++i) {
+          const int r = next + i * rows + grp;
+          buf[i] = r < S ? __ldg(r < S1 ? r1 + r * C4 : r2 + (r - S1) * C4)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBackBatch; ++i) {
+        const int r = base + i * rows + grp;
+        if (r < S) {
+          const float wr = wcat[r];
+          const float4 v = make_float4(wr * g2.x, wr * g2.y, wr * g2.z, wr * g2.w);
+          if (r < S1)
+            o1[r * C4] = v;
+          else
+            o2[(r - S1) * C4] = v;
+        }
+      }
+      if (next >= S) break;
+      base = next;
+    }
+  } else {
+    const float* b1 = c1 + ray * S1 * C;
+    const float* b2 = c2 + ray * S2 * C;
+    float* o1 = dc1 + ray * S1 * C;
+    float* o2 = dc2 + ray * S2 * C;
+    const float* gr = has_rgb ? g_rgb + ray * C : nullptr;
+    gsum = 0.0f;
+    for (int c = lane; c < C; c += 32) gsum += gr ? 2.0f * gr[c] : 0.0f;
+    gsum = warp_sum(gsum);
+    for (int t0 = 0; t0 < S; t0 += 4) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int c = lane; c < C; c += 32) {
+        const float gc = gr ? 2.0f * gr[c] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = t0 + j;
+          if (t < S) {
+            const long long off = (t < S1 ? (long long)t : (long long)(t - S1)) * C + c;
+            if (gr) part[j] = fmaf(gc, __ldg((t < S1 ? b1 : b2) + off), part[j]);
+            (t < S1 ? o1 : o2)[off] = wcat[t] * gc;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = warp_sum(part[j]);
+        if (gr && lane == 0 && t0 + j < S) e[posa[t0 + j]] = v;
+      }
+    }
   }
   __syncwarp();
 
-  // d w in merged order
+  // d w, then the reverse recurrence as a suffix scan of affine maps, from
+  // the last chunk of 32 intervals to the first; d alpha and d u per lane
   const float gd = g_depth ? g_depth[ray] : 0.0f;
   const float depth = dnum / total;
-  for (int k = lane; k < S - 1; k += 32) {
-    float dw = g_w ? g_w[ray * (S - 1) + k] : 0.0f;
-    dw += (e[src[k]] + e[src[k + 1]]) / 2.0f;
-    if (gd != 0.0f) dw += gd * ((md[k] + md[k + 1]) / 2.0f - depth) / total;
-    if (white_back) dw -= gsum;
-    g[k] = dw;
-  }
-  __syncwarp();
-  // the reverse scan: d alpha[k] = T[k] (d w[k] - R[k]), then d u[k] in g[k]
-  if (lane == 0) {
-    float rk = 0.0f;
-    for (int k = S - 2; k >= 0; --k) {
-      const float dwk = g[k];
-      const float dalpha = tr[k] * (dwk - rk);
-      rk = dwk * al[k] + (1.0f - al[k] + 1e-10f) * rk;
-      const float delta = md[k + 1] - md[k];
-      const float u = (ms[k] + ms[k + 1]) / 2.0f - 1.0f;
-      const float dens = r3dp_softplus(u);
-      g[k] = dalpha * expf(-(dens * delta)) * delta * r3dp_sigmoid(u);
+  float rcarry = 0.0f;  // R at the last interval of the chunk after this one
+#pragma unroll
+  for (int q = kMergeSlots - 1; q >= 0; --q) {
+    if (q * 32 >= S - 1) continue;
+    const int k = q * 32 + lane;
+    const bool on = k < S - 1;
+    float dw = 0.0f, alpha = 0.0f, ex = 1.0f, delta = 0.0f, u = 0.0f;
+    if (on) {
+      delta = md[k + 1] - md[k];
+      u = (ms[k] + ms[k + 1]) / 2.0f - 1.0f;
+      ex = expf(-(r3dp_softplus(u) * delta));
+      alpha = 1.0f - ex;
+      dw = g_w ? g_w[ray * (S - 1) + k] : 0.0f;
+      dw += (e[k] + e[k + 1]) / 2.0f;
+      if (gd != 0.0f) dw += gd * ((md[k] + md[k + 1]) / 2.0f - depth) / total;
+      if (white_back) dw -= gsum;
     }
+    // lane k's map, composed with those of lanes k + 1 .. 31
+    float a = on ? 1.0f - alpha + 1e-10f : 1.0f;
+    float b = on ? dw * alpha : 0.0f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float a2 = __shfl_down_sync(kFull, a, off);
+      const float b2 = __shfl_down_sync(kFull, b, off);
+      if (lane + off < 32) {
+        b = fmaf(a, b2, b);
+        a *= a2;
+      }
+    }
+    const float rprev = fmaf(a, rcarry, b);  // R[k - 1]
+    float rk = __shfl_down_sync(kFull, rprev, 1);
+    if (lane == 31) rk = rcarry;             // R[k]
+    rcarry = __shfl_sync(kFull, rprev, 0);
+    if (on) du[k] = tr[q] * (dw - rk) * ex * delta * r3dp_sigmoid(u);
   }
   __syncwarp();
-  // each merged sample's density gets half of its two intervals' d u
-  for (int p = lane; p < S; p += 32) {
-    const float dsig = ((p > 0 ? g[p - 1] : 0.0f) + (p < S - 1 ? g[p] : 0.0f)) / 2.0f;
-    const int t = src[p];
-    if (t < S1)
-      ds1[ray * S1 + t] = dsig;
-    else
-      ds2[ray * S2 + (t - S1)] = dsig;
+  // each sample's density gets half of its two intervals' d u, stored in
+  // concatenation order
+#pragma unroll
+  for (int q = 0; q < kMergeSlots; ++q) {
+    const int t = q * 32 + lane;
+    if (t < S) {
+      const int p = pos[q];
+      const float dsig = ((p > 0 ? du[p - 1] : 0.0f) + (p < S - 1 ? du[p] : 0.0f)) / 2.0f;
+      if (t < S1)
+        ds1[ray * S1 + t] = dsig;
+      else
+        ds2[ray * S2 + (t - S1)] = dsig;
+    }
   }
 }
 
@@ -639,10 +774,22 @@ R3DP_EXPORT int r3dp_merge_composite_backward(const float* d1, const float* c1,
                                               float* dc2, float* ds2, cudaStream_t stream) {
   if (S1 < 0 || S2 < 0 || S1 + S2 > kMaxS || S1 + S2 < 2 || C < 1)
     return (int)cudaErrorInvalidValue;
-  if (R > 0)
-    merge_composite_backward_kernel<<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps, 0,
-                                      stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R, C,
-                                                white_back, g_rgb, g_depth, g_w, dc1, ds1,
-                                                dc2, ds2);
+  const int c4 = C / 4;
+  const bool vec = C % 4 == 0 && c4 <= 32 && (c4 & (c4 - 1)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(c2) |
+                    reinterpret_cast<uintptr_t>(g_rgb) | reinterpret_cast<uintptr_t>(dc1) |
+                    reinterpret_cast<uintptr_t>(dc2)) % 16 == 0;
+  if (R > 0) {
+    if (vec)
+      merge_composite_backward_kernel<true><<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps,
+                                              0, stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R,
+                                                           C, white_back, g_rgb, g_depth, g_w,
+                                                           dc1, ds1, dc2, ds2);
+    else
+      merge_composite_backward_kernel<false><<<r3dp_blocks(R, kMergeWarps), 32 * kMergeWarps,
+                                               0, stream>>>(d1, c1, s1, S1, d2, c2, s2, S2, R,
+                                                            C, white_back, g_rgb, g_depth, g_w,
+                                                            dc1, ds1, dc2, ds2);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """K1, K1-trigrid, K2, K3, K4, K5a, K5b, K6b and K7b at the shapes of
 ``chip_smoke.py``'s kernel rows, beside their plain versions, and
 K1-trigrid, K2, K3, K5a and K5b on the inputs of a rendered frame, on a
-CUDA device.
+CUDA device; K3's and K7b's backward kernels (``k3b``, ``k7bb``) at the
+training steps' calls.
 
     python3 real3dportrait_tpu_torch/inference/kernel_times.py [--tree DIR]
-        [--only k1,k2,k3,k4,k5a,k5b,k6b,k7b]
+        [--only k1,k2,k3,k4,k5a,k5b,k6b,k7b,k3b,k7bb]
 
 Per row: the device time of one launch (20 back-to-back calls behind a spin
 kernel, ``kernels.device_ms``: the wrapper's launches, the kernel's and any
@@ -16,7 +17,14 @@ epilogues with demodulation, noise, bias, lrelu, gain sqrt 2 and a clamp,
 and toRGB's bias alone; K3 on 16,384 rays of stratified coarse depths and
 sorted fine depths with 32 uniform colour channels at 16+32 and 48+48; K2
 on the same rays' coarse samples; K7b on the frame's [1,32,16,64,64]
-volume, 4 keypoints uniform in [-0.8, 0.8]. K5a on the [1,16,64,64,4]
+volume, 4 keypoints uniform in [-0.8, 0.8]. ``k3b``: K3's backward on
+chip_smoke's [4,16384,48+48,32] lists (sorted depths in [2, 3.3], N(0, 5)
+densities, N(0, 1) gradients of rgb, depth and weights). ``k7bb``: K7b's
+backward at the torso step's x [4,32,16,64,64], as chip_smoke makes its
+inputs, with each launch of the call timed alone by CUDA events on that
+call's own intermediate tensors, the call's device kernels from
+``torch.profiler``, and the occlusion heads' weight gradient through K7a's
+weight-gradient kernel on the fold as a depth-1 volume beside it. K5a on the [1,16,64,64,4]
 compressed volume with 4 keypoints uniform in [-0.8, 0.8], in [-1.6,
 1.6] (samples outside the volume) and source keypoints within 0.1 of the
 driving ones (near the identity); K5b on the [1,16,64,64,32] appearance
@@ -237,10 +245,92 @@ def sm_clock_while(fn, calls: int = 2000) -> str:
     return f"SM clock, power {out}"
 
 
+def k3b_inputs(dev, gen) -> tuple:
+    """K3's backward arguments as ``chip_smoke.py`` makes them at the
+    training steps' [4,16384,48+48,32]."""
+    import torch
+
+    b, m, s1, s2, c = 4, 16384, 48, 48, 32
+
+    def rand(shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    def randn(shape):
+        return torch.randn(shape, device=dev, generator=gen)
+    d1 = torch.sort(2 + 1.3 * rand((b, m, s1, 1)), dim=2).values
+    d2 = torch.sort(2 + 1.3 * rand((b, m, s2, 1)), dim=2).values
+    c1, c2 = rand((b, m, s1, c)), rand((b, m, s2, c))
+    sg1, sg2 = 5 * randn((b, m, s1, 1)), 5 * randn((b, m, s2, 1))
+    g = (randn((b, m, c)), randn((b, m, 1)), randn((b, m, s1 + s2 - 1, 1)))
+    return (d1, c1, sg1, d2, c2, sg2, False, *g)
+
+
+def k7bb_inputs(dev, gen) -> tuple:
+    """K7b's backward arguments as ``chip_smoke.py`` makes them at the torso
+    step's x [4,32,16,64,64]: the forward's softmax and occlusions from the
+    same inputs, N(0, 1) output gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from real3dportrait_tpu_torch.models import torso
+
+    b, c, d, h, w = 4, 32, 16, 64, 64
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+    x = randn(b, c, d, h, w)
+    mw, mb = 0.01 * randn(5, c, 7, 7, 7), 0.1 * randn(5)
+    ow, ob = 0.01 * randn(2, c * d, 7, 7), 0.1 * randn(2)
+    kp_s, kp_d = rand(b, 4, 3) * 1.6 - 0.8, rand(b, 4, 3) * 1.6 - 0.8
+    with torch.no_grad():
+        _, occ1, occ2 = torso.mfe_tail(x, mw, mb, ow, ob, kp_s, kp_d)
+        mask = torch.softmax(F.conv3d(x, mw, mb, padding=3), dim=1)
+    return (x, mw, ow, kp_s, kp_d, mask, occ1, occ2, randn(b, d, h, w, 3), randn(b, h, w, 1),
+            randn(b, h, w, 1))
+
+
+def tail_backward_parts(args) -> list[tuple[str, object]]:
+    """Each launch of ``mfe_tail_backward`` as a call of its own on that
+    call's intermediate tensors: the port's ``mfe_tail_backward_steps``
+    where the tree has it, else the steps of the design before it (the
+    adjoint, K7a's data gradient, the weight gradient, the occlusion heads'
+    two kernels in one entry)."""
+    import torch
+
+    from real3dportrait_tpu_torch import kernels
+    from real3dportrait_tpu_torch.models import torso
+    from real3dportrait_tpu_torch.ops import conv3d as c3d
+
+    if hasattr(torso, "mfe_tail_backward_steps"):
+        steps, _ = torso.mfe_tail_backward_steps(*args)
+        for _, fn in steps:
+            fn()
+        return steps
+    x, mw, ow, kp_s, kp_d, mask, occ1, occ2, ddef, g1, g2 = args
+    b, c, d, h, w = x.shape
+    dlogits = torch.empty((b, 5, d, h, w), device=x.device)
+    dpre = torch.empty((b, 2, h, w), device=x.device)
+    dx = torch.zeros_like(x)
+    docc_w, docc_b = torch.empty_like(ow), torch.empty((2,), device=x.device)
+    steps = [
+        ("adjoint", lambda: kernels.launch(
+            "r3dp_mfe_tail_backward_adjoint", ddef, g1, g2, mask, occ1, occ2, kp_s, kp_d, b,
+            d, h, w, dlogits, dpre)),
+        ("mask conv data gradient (K7a)", lambda: c3d.conv3d_data_grad(dlogits, mw)),
+        ("mask conv weight gradient", lambda: c3d.conv3d_weight_grad(x, dlogits, 7)),
+        ("occlusion heads (data + weight gradient kernels)", lambda: kernels.launch(
+            "r3dp_mfe_tail_backward_occ", x, ow, dpre, b, c * d, h, w, dx, docc_w, docc_b))]
+    steps[0][1]()
+    return steps
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", help="a checkout of the repo to import the port from")
-    parser.add_argument("--only", default="k1,k2,k3,k4,k5a,k5b,k6b,k7b",
+    parser.add_argument("--only", default="k1,k2,k3,k4,k5a,k5b,k6b,k7b,k3b,k7bb",
                         help="the kernels to time, comma-separated (default: all)")
     args = parser.parse_args()
     only = set(args.only.split(","))
@@ -445,6 +535,64 @@ def main() -> None:
             print(f"bias_act {tag} {list(shape)}: per launch {launch:.4f} ms, per call "
                   f"{call:.4f} ms; {err}")
             del x, got, want
+
+    if "k3b" in only:
+        margs = k3b_inputs(dev, gen)
+        with torch.no_grad():
+            got = renderer.merge_composite_backward(*margs)
+            want = renderer.merge_composite_backward_plain(*margs)
+            err = max(float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                      for g, w_ in zip(got, want))
+            launch = kernels.device_ms(lambda: renderer.merge_composite_backward(*margs),
+                                       launches=10)
+            call = kernels.cuda_ms(lambda: renderer.merge_composite_backward(*margs))
+            split, kernel_ms, n = device_split(
+                lambda: renderer.merge_composite_backward(*margs), calls=5)
+        print(f"merge_composite_backward [4,16384,48+48,32]: per launch {launch:.4f} ms, per "
+              f"call {call:.4f} ms; max err {err:.2e} of scale; device kernels a call "
+              f"(profiler): {split}")
+        del margs, got, want
+
+    if "k7bb" in only:
+        from real3dportrait_tpu_torch.ops import conv3d as c3d
+
+        targs = k7bb_inputs(dev, gen)
+        x, ow = targs[0], targs[2]
+        with torch.no_grad():
+            got = torso.mfe_tail_backward(*targs)
+            want = torso.mfe_tail_backward_plain(*targs)
+            errs = [float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                    for g, w_ in zip(got, want)]
+            launch = kernels.device_ms(lambda: torso.mfe_tail_backward(*targs), launches=5)
+            call = kernels.cuda_ms(lambda: torso.mfe_tail_backward(*targs), reps=5)
+            split, kernel_ms, n = device_split(lambda: torso.mfe_tail_backward(*targs),
+                                               calls=5)
+            print(f"mfe_tail_backward x {list(x.shape)}: per launch {launch:.4f} ms, per call "
+                  f"{call:.4f} ms; max err of scale (dx, d mask_w, d mask_b, d occ_w, d occ_b) "
+                  f"{', '.join(f'{e:.2e}' for e in errs)}; device kernels a call (profiler, "
+                  f"{kernel_ms:.4f} ms): {split}")
+            for name, fn in tail_backward_parts(targs):
+                print(f"mfe_tail_backward part [{name}]: per launch "
+                      f"{kernels.device_ms(fn, launches=5):.4f} ms")
+            # the occlusion heads' weight gradient through K7a's weight-gradient
+            # kernel on the fold as a depth-1 volume: only its kd = 3 row of taps
+            # lies inside the volume
+            b, c, d, h, w = x.shape
+            fold = x.reshape(b, c * d, 1, h, w)
+            dpre = torch.randn((b, 2, 1, h, w), device=dev, generator=gen)
+
+            def occ_wgrad():
+                dw, db = c3d.conv3d_weight_grad(fold, dpre, 7)
+                return dw[:, :, 3].contiguous(), db
+            gw, gb = occ_wgrad()
+            pw = torch.nn.grad.conv2d_weight(fold[:, :, 0], ow.shape, dpre[:, :, 0], padding=3)
+            werr = float((gw - pw).abs().max()) / float(pw.abs().max())
+            print(f"occlusion heads' weight gradient through conv3d_weight_grad "
+                  f"[{b},{c * d},1,{h},{w}] k 7 -> [:, :, 3]: per launch "
+                  f"{kernels.device_ms(occ_wgrad, launches=5):.4f} ms; max err {werr:.2e} of "
+                  f"scale; device kernels a call (profiler): {device_split(occ_wgrad, 5)[0]}")
+        del targs, got, want, fold, dpre
+
 
 if __name__ == "__main__":
     main()

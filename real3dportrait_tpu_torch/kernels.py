@@ -80,8 +80,9 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_conv3d_weight_grad": (_P, _P, *(_I,) * 11, _P, _P, _P),
     "r3dp_mfe_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                       _P, _P, _P),
-    "r3dp_mfe_tail_backward_adjoint": (*(_P,) * 8, *(_I,) * 4, _P, _P, _P),
-    "r3dp_mfe_tail_backward_occ": (_P, _P, _P, *(_I,) * 4, _P, _P, _P, _P),
+    "r3dp_mfe_tail_backward_adjoint": (*(_P,) * 10, *(_I,) * 5, _P, _P, _P, _P),
+    "r3dp_mfe_tail_backward_data": (_P, _P, _P, *(_I,) * 5, _P, _P),
+    "r3dp_mfe_tail_backward_occ": (_P, _P, *(_I,) * 5, _P, _P, _P),
 }
 
 

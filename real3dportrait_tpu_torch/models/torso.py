@@ -33,10 +33,11 @@ On CUDA tensors each of the three wrappers is a ``torch.autograd.Function``
 beside it: :func:`torso_deform_input_backward` and
 :func:`torso_warp_volume_backward`, one trilinear adjoint in two modes
 (``csrc/torso_warp.cu``), and :func:`mfe_tail_backward`
-(``csrc/conv3d.cu``, with the mask conv's gradients through K7a and its
-weight-gradient kernel). The model's training outputs follow the JAX
-model's: the 0.1 gradient scale on the motion field, the detached head
-conditioning and the occlusion regularisers in ``losses``.
+(``csrc/conv3d.cu``: the tail's whole data gradient in one kernel, the mask
+conv's weight gradient through K7a's weight-gradient kernel). The model's
+training outputs follow the JAX model's: the 0.1 gradient scale on the
+motion field, the detached head conditioning and the occlusion regularisers
+in ``losses``.
 """
 
 from __future__ import annotations
@@ -54,7 +55,6 @@ from real3dportrait_tpu_torch.models.segformer import nchw, nhwc
 from real3dportrait_tpu_torch.models.superresolution import resize_bilinear
 from real3dportrait_tpu_torch.ops.conv3d import (
     Conv3D,
-    conv3d_data_grad,
     conv3d_weight_grad,
     kernel_tiles,
     sm_count,
@@ -534,21 +534,47 @@ def mfe_tail_backward_plain(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.
             dpre.sum(dim=(0, 2, 3)))
 
 
-def mfe_tail_backward(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.Tensor,
-                      kp_s: torch.Tensor, kp_d: torch.Tensor, mask: torch.Tensor,
-                      occ1: torch.Tensor, occ2: torch.Tensor, ddef: torch.Tensor | None,
-                      docc1: torch.Tensor | None, docc2: torch.Tensor | None) -> tuple:
-    """K7b's backward wrapper, same contract as
-    :func:`mfe_tail_backward_plain`. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (fp32, K + 1 = 5, W <= 256): the softmax
-    and sigmoid adjoints, then the mask conv's data gradient through K7a
-    and its weight gradient through :func:`conv3d_weight_grad`, then the
-    occlusion heads' data (added) and weight gradients; or raise.
-    ``mfe_tail_backward.launches`` counts its calls (the K7a and
-    weight-gradient launches count on their own wrappers)."""
-    if x.device.type == "cpu":
-        return mfe_tail_backward_plain(x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2, ddef,
-                                       docc1, docc2)
+# tail_dgrad_kernel's packing (csrc/conv3d.cu): output channels of a channel
+# block, k-steps of 8 (k, tap) slots of a depth tap of the mask conv (5 x 49
+# pairs) and of the occlusion heads at a depth (2 x 49), float4s a k-step
+TAIL_N = 32
+TAIL_MASK_KS = 31
+TAIL_OCC_KS = 13
+# occ_wgrad_kernel: fold channels a CTA, pixel rows and columns of a unit
+TAIL_OCC_CD, TAIL_OCC_ROWS, TAIL_OCC_TW = 32, 4, 64
+
+
+def mfe_tail_backward_layout(c: int, d: int, b: int, h: int, w: int, sms: int) -> dict:
+    """The host side of K7b's backward kernels for x [b,c,d,h,w] on ``sms``
+    SMs: ``n_cb`` channel blocks of ``TAIL_N``; ``pack_floats``, the floats of
+    both convolutions' weights packed in mma fragment order (a channel
+    block: 7 depth taps of ``TAIL_MASK_KS`` k-steps, then ``d`` depths of
+    ``TAIL_OCC_KS``; 4 n8 tiles x 32 lanes x a float4 a k-step); ``units``,
+    the heads' weight gradient's pixel units (``TAIL_OCC_ROWS`` rows x
+    ``TAIL_OCC_TW`` columns of one b), and ``n_split``, the CTAs that share
+    them for each ``TAIL_OCC_CD`` fold channels: at most two CTAs an SM (the
+    kernel's shared memory holds two), so that they run in one wave, and at
+    least two units a CTA."""
+    n_cb = math.ceil(c / TAIL_N)
+    units = b * math.ceil(h / TAIL_OCC_ROWS) * math.ceil(w / TAIL_OCC_TW)
+    n_cd = math.ceil(c * d / TAIL_OCC_CD)
+    n_split = max(1, min(2 * sms // n_cd, math.ceil(units / 2), 65535))
+    return dict(n_cb=n_cb, pack_floats=4 * n_cb * (7 * TAIL_MASK_KS + d * TAIL_OCC_KS) * 128,
+                units=units, n_split=n_split)
+
+
+def mfe_tail_backward_steps(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.Tensor,
+                            kp_s: torch.Tensor, kp_d: torch.Tensor, mask: torch.Tensor,
+                            occ1: torch.Tensor, occ2: torch.Tensor, ddef: torch.Tensor | None,
+                            docc1: torch.Tensor | None, docc2: torch.Tensor | None
+                            ) -> tuple[list, dict]:
+    """The launches of :func:`mfe_tail_backward` on CUDA tensors, checked,
+    each a call of its own in the order the wrapper runs them, and the
+    tensors they fill (``dx``, ``dmask_w``, ``dmask_b``, ``docc_w``,
+    ``docc_b``): the adjoint (with the weights packed for the data
+    gradient), the tail's whole data gradient, the mask conv's weight
+    gradient (:func:`conv3d_weight_grad`), the occlusion heads' weight
+    gradient. A timing tool can run each alone after the ones before it."""
     name = "mfe_tail_backward"
     x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2 = (
         t.contiguous() for t in (x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2))
@@ -573,18 +599,57 @@ def mfe_tail_backward(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.Tensor
                          f"{[None if t is None else tuple(t.shape) for t in grads]}")
     if grads[0] is None:
         grads[0] = torch.zeros((b, d, h, w, 3), device=x.device)
+    lay = mfe_tail_backward_layout(c, d, b, h, w, sm_count(x.device))
     dlogits = torch.empty((b, k1, d, h, w), device=x.device)
     dpre = torch.empty((b, 2, h, w), device=x.device)
-    kernels.launch("r3dp_mfe_tail_backward_adjoint", grads[0], grads[1], grads[2], mask, occ1,
-                   occ2, kp_s, kp_d, b, d, h, w, dlogits, dpre)
-    dx = conv3d_data_grad(dlogits, mask_w)
-    dmask_w, dmask_b = conv3d_weight_grad(x, dlogits, 7)
-    docc_w = torch.empty_like(occ_w)
-    docc_b = torch.empty((2,), device=x.device)
-    kernels.launch("r3dp_mfe_tail_backward_occ", x, occ_w, dpre, b, c * d, h, w, dx, docc_w,
-                   docc_b)
+    packed = torch.empty((lay["pack_floats"],), device=x.device)
+    out = dict(dx=torch.empty_like(x), docc_w=torch.empty_like(occ_w),
+               docc_b=torch.empty((2,), device=x.device))
+
+    def adjoint():
+        kernels.launch("r3dp_mfe_tail_backward_adjoint", grads[0], grads[1], grads[2], mask,
+                       occ1, occ2, kp_s, kp_d, mask_w, occ_w, b, c, d, h, w, dlogits, dpre,
+                       packed)
+
+    def data():
+        kernels.launch("r3dp_mfe_tail_backward_data", dlogits, dpre, packed, b, c, d, h, w,
+                       out["dx"])
+
+    def weight():
+        out["dmask_w"], out["dmask_b"] = conv3d_weight_grad(x, dlogits, 7)
+
+    def occlusion():
+        out["docc_w"].zero_()
+        out["docc_b"].zero_()
+        kernels.launch("r3dp_mfe_tail_backward_occ", x, dpre, b, c * d, h, w, lay["n_split"],
+                       out["docc_w"], out["docc_b"])
+    return [("adjoint and weight packing", adjoint), ("data gradient", data),
+            ("mask conv weight gradient", weight),
+            ("occlusion heads' weight gradient", occlusion)], out
+
+
+def mfe_tail_backward(x: torch.Tensor, mask_w: torch.Tensor, occ_w: torch.Tensor,
+                      kp_s: torch.Tensor, kp_d: torch.Tensor, mask: torch.Tensor,
+                      occ1: torch.Tensor, occ2: torch.Tensor, ddef: torch.Tensor | None,
+                      docc1: torch.Tensor | None, docc2: torch.Tensor | None) -> tuple:
+    """K7b's backward wrapper, same contract as
+    :func:`mfe_tail_backward_plain`. CPU tensors take the plain version;
+    CUDA tensors launch the kernels (fp32, K + 1 = 5, W <= 256): the softmax
+    and sigmoid adjoints, then the tail's whole data gradient (the mask
+    conv's and both occlusion heads'), the mask conv's weight gradient
+    through :func:`conv3d_weight_grad` and the heads' weight gradient
+    (:func:`mfe_tail_backward_steps`); or raise.
+    ``mfe_tail_backward.launches`` counts its calls (the weight-gradient
+    launches count on their own wrapper)."""
+    if x.device.type == "cpu":
+        return mfe_tail_backward_plain(x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2, ddef,
+                                       docc1, docc2)
+    steps, out = mfe_tail_backward_steps(x, mask_w, occ_w, kp_s, kp_d, mask, occ1, occ2, ddef,
+                                         docc1, docc2)
+    for _, step in steps:
+        step()
     mfe_tail_backward.launches += 1
-    return dx, dmask_w, dmask_b, docc_w, docc_b
+    return out["dx"], out["dmask_w"], out["dmask_b"], out["docc_w"], out["docc_b"]
 
 
 mfe_tail_backward.launches = 0

@@ -18,14 +18,17 @@ inputs of 1e4 next to 1e-4; the estimator's tail at D = 16 and 2, at
 B = 2 with ragged tiles, and bit-equal from launch to launch); the training
 slice's backward kernels (K1-trigrid's at odd grid sizes, points outside
 and either output's gradient alone, its Function's gradients reaching the
-decoder's parameters; K3's with ties and white background, through its
-Function; K6a's adjoint at every resampling with its second derivative;
-K6b's gradient with every term, through its Function); the torso stage's
+decoder's parameters; K3's with ties and white background, the scalar
+path's widths and misaligned views, odd and 128 samples, every gradient
+alone and each one missing, through its Function; K6a's adjoint at
+every resampling with its second derivative; K6b's gradient with every
+term, through its Function); the torso stage's
 backward kernels (K1's on tri-planes with points outside; K7a's weight
 gradient at k 3 and 7 with ragged channels, Co <= 8, a depth under the
 kernel's reach and split voxels, and its data gradient through K7a; K5a's
 and K5b's trilinear adjoints with samples outside and clamped; K7b's at
-D = 16 and 2; each through its Function, and a whole tiny torso model's
+D = 16 and 2, W = 256, ragged tiles and channel blocks, either occlusion
+gradient missing; each through its Function, and a whole tiny torso model's
 gradients against the CPU's). Every test needs a
 card and skips without one. On the card (where JAX, which tests/conftest.py imports, is
 not installed):
@@ -902,12 +905,27 @@ def test_k1_trigrid_function_grads_reach_the_parameters(dev):
         dm.trigrid_decode(planes, coords.clone().requires_grad_(True), 1.0, dec)
 
 
-@pytest.mark.parametrize("s1,s2,c,white", [(48, 48, 32, False), (7, 13, 12, True),
-                                           (64, 64, 32, False)],
-                         ids=["path", "scalar_white", "128_samples"])
-def test_k3_backward_ties_white_back(dev, s1, s2, c, white):
-    # ties between the lists and repeated depths; fp32 reverse scan:
-    # 1e-4 of the largest magnitude
+def _shifted(t):
+    """A contiguous copy of ``t`` 4 B past a 16 B boundary."""
+    flat = torch.empty(t.numel() + 1, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("s1,s2,c,white,shift", [
+    (48, 48, 32, False, None), (7, 13, 12, True, None), (64, 64, 32, False, None),
+    (16, 32, 30, False, None), (17, 30, 32, True, None), (9, 14, 24, False, None),
+    (5, 11, 128, True, None), (48, 48, 32, False, "colours"), (48, 48, 32, True, "grad")],
+    ids=["path", "scalar_white", "128_samples", "c_not_4", "odd_s_white", "c4_not_pow2",
+         "c128_white", "misaligned_colours", "misaligned_grad"])
+def test_k3_backward_ties_white_back(dev, s1, s2, c, white, shift):
+    # ties between the lists and repeated depths; the scalar path (C % 4,
+    # C / 4 no power of two, a colour or gradient view 4 B past 16 B), odd
+    # and 128 samples, C = 128 (one row a warp instruction); every gradient
+    # alone and each one missing; fp32 reverse scan: 1e-4 of the largest
+    # magnitude
     from real3dportrait_tpu_torch.rendering import renderer as rr
 
     g = torch.Generator(device=dev).manual_seed(23)
@@ -921,12 +939,21 @@ def test_k3_backward_ties_white_back(dev, s1, s2, c, white):
     grads = (torch.randn((b, m, c), device=dev, generator=g),
              torch.randn((b, m, 1), device=dev, generator=g),
              torch.randn((b, m, s1 + s2 - 1, 1), device=dev, generator=g))
+    if shift == "colours":
+        cols = [_shifted(x) for x in cols]
+    if shift == "grad":
+        grads = (_shifted(grads[0]),) + grads[1:]
     args = (d1, cols[0], sig[0], d2, cols[1], sig[1], white)
-    for gr in (grads, (grads[0], None, None), (None, None, grads[2])):
+    sets = [grads] + [tuple(x if i == j else None for j, x in enumerate(grads))
+                      for i in range(3)] + [tuple(None if i == j else x
+                                                  for j, x in enumerate(grads))
+                                            for i in range(3)]
+    for gr in sets:
         k = rr.merge_composite_backward(*args, *gr)
         p = rr.merge_composite_backward_plain(*args, *gr)
         torch.cuda.synchronize()
         for x, y, name in zip(k, p, ("c1", "s1", "c2", "s2")):
+            assert torch.isfinite(x).all(), name
             _rel_close(x, y, 1e-4, f"d {name}")
     # through the Function: colours and densities only
     leaves = [cols[0].requires_grad_(True), sig[0].requires_grad_(True)]
@@ -1118,8 +1145,16 @@ def test_k5b_adjoint(dev, c, dhw, spread):
         _rel_close(a, b_, 1e-5, "Function")
 
 
-@pytest.mark.parametrize("b,c,d,hw", [(2, 32, 16, (64, 64)), (2, 5, 2, (9, 13))])
+@pytest.mark.parametrize("b,c,d,hw", [(2, 32, 16, (64, 64)), (2, 5, 2, (9, 13)),
+                                     (1, 4, 2, (6, 256)), (1, 37, 2, (7, 70)),
+                                     (2, 12, 16, (5, 100))],
+                         ids=["standard", "tiny", "w256", "two_channel_blocks",
+                              "c_not_8_ragged"])
 def test_k7b_backward(dev, b, c, d, hw):
+    # the standard and tiny presets' depths, W = 256 (the wrapper's limit),
+    # W across the data gradient's 64-column tile, C across its 32-channel
+    # block and no multiple of 8, ragged 4-row tiles; through the Function,
+    # then the kernels with each occlusion gradient missing; 1e-4 of scale
     g = torch.Generator(device=dev).manual_seed(34)
     h, w = hw
     x = torch.randn((b, c, d, h, w), device=dev, generator=g)
@@ -1136,6 +1171,20 @@ def test_k7b_backward(dev, b, c, d, hw):
             for fn in (torso.mfe_tail, torso.mfe_tail_plain)]
     for a, b_, name in zip(*outs, ("x", "mask_w", "mask_b", "occ_w", "occ_b")):
         _rel_close(a, b_, 1e-4, f"d {name}")
+    with torch.no_grad():
+        _, occ1, occ2 = torso.mfe_tail_plain(x, mw, mb, ow, ob, kp_s, kp_d)
+        mask = torch.softmax(torch.nn.functional.conv3d(x, mw, mb, padding=3), dim=1)
+        for gr in ((ddef, None, docc[1]), (ddef, docc[0], None), (ddef, None, None)):
+            args = (x, mw, ow, kp_s, kp_d, mask, occ1, occ2, *gr)
+            k = torso.mfe_tail_backward(*args)
+            p = torso.mfe_tail_backward_plain(*args)
+            torch.cuda.synchronize()
+            for a, b_, name in zip(k, p, ("x", "mask_w", "mask_b", "occ_w", "occ_b")):
+                assert torch.isfinite(a).all(), name
+                if name in ("occ_w", "occ_b") and gr[1] is None and gr[2] is None:
+                    assert float(a.abs().max()) == 0.0, name
+                else:
+                    _rel_close(a, b_, 1e-4, f"d {name}")
 
 
 def test_tiny_torso_model_grads_on_the_card(dev):

@@ -182,3 +182,32 @@ def test_port_imports_leave_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    """Every import statement of the port and of chip_smoke.py, at any depth
+    (a function's lazy import too, which the import test above does not
+    run), and every literal ``importlib.import_module`` / ``__import__``
+    name: none is JAX, Flax, Optax or the JAX package."""
+    import ast
+    import pathlib
+
+    banned = ("jax", "flax", "optax", "real3dportrait_tpu")
+    files = sorted(pathlib.Path(ROOT, "real3dportrait_tpu_torch").rglob("*.py"))
+    files.append(pathlib.Path(ROOT, "chip_smoke.py"))
+    assert len(files) > 60
+    found = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                    node.func, "id", None)) in ("import_module", "__import__") \
+                    and node.args and isinstance(node.args[0], ast.Constant):
+                names = [str(node.args[0].value)]
+            found += [f"{f.name}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in banned]
+    assert not found, found
