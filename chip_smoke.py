@@ -14,8 +14,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    either way, and, where the toolkit has ``cuobjdump``, the count of
    tensor-core ``HMMA`` instructions in the SASS of K7a, of K1 /
    K1-trigrid and of K7b's data gradient, which must not be 0; K3 and K7b
-   and their backward kernels must not spill, K2, K4, K5a and K5b must keep
-   no stack frame and not spill);
+   and their backward kernels and K5a's and K5b's adjoints must not spill,
+   K2, K4, K5a and K5b must keep no stack frame and not spill);
 3. each kernel (K1, K1-trigrid, K2-K7b; K2 also on a rendered frame's
    coarse samples; K4 at one frame, as ``run`` calls it, and at 16; K6a/K6b
    in fp32 and bf16; K7a at every distinct 3D conv of the standard torso)
@@ -79,11 +79,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    K7a, K7b and their backwards among them) launched, no plain version
    called, its checkpoint reloaded equal; then ``train_triplane``: 2 steps
    of ``configs/real3d_orig/secc_img2plane_orig.yaml`` at batch 1 (K1
-   forward and backward); then each backward kernel (K1-trigrid, K3, K6a
+   forward and backward); then ``train_torso_orig``: the released
+   lineage's torso stage, ``configs/real3d_orig/secc_img2plane_torso_orig.yaml``
+   (tri-planes, ``rgb_alpha`` torso input) at batch 1 for 2 steps from
+   that run's checkpoint, the same checks as ``train_torso``'s but the
+   reload; then each backward kernel (K1-trigrid, K3, K6a
    through itself, K6b; K7a's weight gradient at every 3D conv of the
-   torso step and its data gradient through K7a, the K5a and K5b adjoints,
-   K7b's backward, K1's on tri-planes) against its plain version at the
-   runs' own calls, K6a's and K6b's second derivatives, and a small
+   torso step and its data gradient through K7a, the K5a adjoint also near
+   the identity and the K5b adjoint also at a deformation uniform in
+   [-1.2, 1.2], K7b's backward, K1's on tri-planes) against its plain
+   version at the runs' own calls, K6a's and K6b's second derivatives, and a small
    training step on the card against the same step on the CPU;
 9. records-driven training (``run_records_phases``): a full-width store
    written by the port's ``binarize`` (2 videos x 40 frames of 512^2 head,
@@ -301,15 +306,17 @@ def phase_build() -> None:
     for line in lines:
         if "Function properties" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    # K3 and K7b's main kernels and their backward kernels keep every value
-    # in registers: no spills; K2's, K4's, K5a's and K5b's kernels neither spill nor keep a stack
-    # frame (K2's per-ray values live in registers and shared memory; K5b
-    # fits 32 registers for 8 CTAs an SM)
+    # K3 and K7b's main kernels and their backward kernels, and K5a's and
+    # K5b's adjoints, keep every value in registers: no spills; K2's, K4's,
+    # K5a's and K5b's kernels neither spill nor keep a stack frame (K2's
+    # per-ray values live in registers and shared memory; K5b fits 32
+    # registers for 8 CTAs an SM)
     for i, line in enumerate(lines):
         if "Function properties for" in line and any(
                 k in line for k in ("merge_composite_kernel", "mfe_tail_kernel",
                                     "merge_composite_backward_kernel", "tail_dgrad_kernel",
-                                    "occ_wgrad_kernel")):
+                                    "occ_wgrad_kernel", "deform_input_adjoint_kernel",
+                                    "warp_volume_adjoint_kernel")):
             check(" 0 bytes spill stores, 0 bytes spill loads" in lines[i + 1],
                   f"ptxas spills in {line.split()[-1]}: {lines[i + 1].strip()}")
         if "Function properties for" in line and any(k in line for k in (
@@ -1831,6 +1838,12 @@ TORSO_HPARAMS = f"batch_size=4,start_adv_iters=0,max_updates={TRAIN_STEPS + TORS
 TRIPLANE_STEPS = 2
 TRIPLANE_HPARAMS = FULL_STEP_HPARAMS.replace("batch_size=4", "batch_size=1") + \
     f",max_updates={TRIPLANE_STEPS}" + RUN_HPARAMS
+# the released lineage's torso stage on tri-planes, from the tri-plane run's
+# checkpoint at its batch of 1, the adversarial term on: 2 steps
+TORSO_ORIG_CONFIG = "real3d_orig/secc_img2plane_torso_orig.yaml"
+TORSO_ORIG_STEPS = 2
+TORSO_ORIG_HPARAMS = "batch_size=1,start_adv_iters=0," \
+    f"max_updates={TRIPLANE_STEPS + TORSO_ORIG_STEPS}" + RUN_HPARAMS
 
 
 def train_wrappers() -> dict:
@@ -2483,8 +2496,10 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
     (``log``: the torso run; ``tri_log``: the tri-plane run): K7a's weight
     gradient at every distinct 3D conv of the step (and the mask conv inside
     K7b), each beside cuDNN's per launch, with the step's sums and a count
-    of the calls it beats, K7a's data gradient at the fuser, K5a's and K5b's
-    adjoints, K7b's backward, K1's on one frame's coarse + fine points.
+    of the calls it beats, K7a's data gradient at the fuser, K5a's adjoint
+    at the step's call and near the identity, K5b's at the step's call and
+    at a deformation uniform in [-1.2, 1.2], K7b's backward, K1's on one
+    frame's coarse + fine points.
     Tolerances: fp32
     sums in another order, with atomics in a run-dependent order, 1e-4 of
     the largest magnitude (K5a's and K5b's adjoints, sums of at most 8 x 5
@@ -2532,6 +2547,17 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
     def times(fn, heavy=False):
         return (cuda_ms(fn, reps=3, warmup=1),
                 device_ms(fn, launches=3 if heavy else 10, reps=3, warmup=1))
+
+    def hold_row(name, tag, case, errs, ms, launch, pms, cost, library):
+        """A K5 adjoint held at one more input (``case``), tolerance 1e-5 of
+        scale (sums of at most 8 x 5 terms, atomics in a run-dependent
+        order): the step's call is the kernel's row, each case also in its
+        ``holds``."""
+        bound_ms = row(name, f"{tag}, {case}", errs, ms, launch, pms, cost, library=library,
+                       tol=1e-5)
+        rows[name].setdefault("holds", {})[case] = dict(
+            max_rel_err=max(errs[0]), max_abs_err=errs[1], launch_ms=launch, ms=ms,
+            plain_ms=pms, bound_ms=bound_ms, library_ms=library)
 
     # K7a's weight gradient at the step's distinct 3D convs (the count of
     # each in a step), the mask conv in K7b's backward among them
@@ -2605,66 +2631,74 @@ def phase_torso_kernels(dev: torch.device, log: CallLog, tri_log: CallLog) -> di
         data_grad_library_ms=dlib_ms, data_grad_bound_ms=dbound, data_grad_rel_err=derr)
     del x, dy, wt, dx
 
-    # K5a's adjoint at the step's call
+    # K5a's adjoint at the step's call (keypoints uniform in [-0.8, 0.8]), then
+    # near the identity (source keypoints within 0.1 of the driving ones)
     c = log.calls["deform"][0]
     vol_shape, kps = _meta_shape(c[0]), _meta_shape(c[1])
     b, d, h, w, ch = vol_shape
     k1 = kps[1] + 1
-    kp_s, kp_d = rand(*kps) * 1.6 - 0.8, rand(*kps) * 1.6 - 0.8
+    kp_d = rand(*kps) * 1.6 - 0.8
+    cases = [("the step's call", rand(*kps) * 1.6 - 0.8, rand(*kps) * 1.6 - 0.8),
+             ("near the identity", kp_d + 0.2 * rand(*kps) - 0.1, kp_d)]
     dout = randn(b, k1 * (1 + ch), d, h, w)
-    vol = randn(*vol_shape)
-    with torch.no_grad():
-        got = tm.torso_deform_input_backward(dout, kp_s, kp_d, vol_shape)
-        want = tm.torso_deform_input_backward_plain(dout, kp_s, kp_d, vol_shape)
-        ms, launch = times(lambda: tm.torso_deform_input_backward(dout, kp_s, kp_d, vol_shape))
-        pms = cuda_ms(lambda: tm.torso_deform_input_backward_plain(dout, kp_s, kp_d,
-                                                                   vol_shape), reps=3)
-        # the library call: grid_sample's 3D backward with the candidates
-        # stacked along the output's depth
-        grid = tm.create_sparse_motions(kp_s, kp_d, d, h, w).reshape(b, k1 * d, h, w, 3)
-        gout = dout.reshape(b, k1, 1 + ch, d, h, w)[:, :, 1:].transpose(1, 2).reshape(
-            b, ch, k1 * d, h, w).contiguous()
-        vin = vol.permute(0, 4, 1, 2, 3).contiguous()
-
-        def lib():
-            return torch.ops.aten.grid_sampler_3d_backward(gout, vin, grid, 0, 0, True,
-                                                           [True, False])[0]
-        lerr = _rel(lib().permute(0, 2, 3, 4, 1), want)
-        check(lerr <= 1e-4, f"grid_sampler_3d_backward (zeros) disagrees: {lerr}")
-        lms = cuda_ms(lib)
+    vin = randn(*vol_shape).permute(0, 4, 1, 2, 3).contiguous()
+    gout = dout.reshape(b, k1, 1 + ch, d, h, w)[:, :, 1:].transpose(1, 2).reshape(
+        b, ch, k1 * d, h, w).contiguous()
     n_out = b * k1 * ch * d * h * w
-    row("torso_deform_input_backward", f"{list(vol_shape)}, K+1 = {k1}", errors([got], [want]), ms,
-        launch, pms, (4 * n_out + nbytes(got, kp_s, kp_d), 16 * n_out, f32), library=lms,
-        tol=1e-5)
-    del dout, vol, got, want, grid, gout, vin
+    for case, kp_s, kp_d in cases:
+        with torch.no_grad():
+            got = tm.torso_deform_input_backward(dout, kp_s, kp_d, vol_shape)
+            want = tm.torso_deform_input_backward_plain(dout, kp_s, kp_d, vol_shape)
+            ms, launch = times(lambda: tm.torso_deform_input_backward(dout, kp_s, kp_d,
+                                                                      vol_shape))
+            pms = cuda_ms(lambda: tm.torso_deform_input_backward_plain(dout, kp_s, kp_d,
+                                                                       vol_shape), reps=3)
+            # the library call: grid_sample's 3D backward with the candidates
+            # stacked along the output's depth
+            grid = tm.create_sparse_motions(kp_s, kp_d, d, h, w).reshape(b, k1 * d, h, w, 3)
 
-    # K5b's adjoint at the step's call, a deformation near the identity
+            def lib():
+                return torch.ops.aten.grid_sampler_3d_backward(gout, vin, grid, 0, 0, True,
+                                                               [True, False])[0]
+            lerr = _rel(lib().permute(0, 2, 3, 4, 1), want)
+            check(lerr <= 1e-4, f"grid_sampler_3d_backward (zeros) [{case}] disagrees: {lerr}")
+            lms = cuda_ms(lib)
+        hold_row("torso_deform_input_backward", f"{list(vol_shape)}, K+1 = {k1}", case,
+                 errors([got], [want]), ms, launch, pms,
+                 (4 * n_out + nbytes(got, kp_s, kp_d), 16 * n_out, f32), lms)
+        del got, want, grid
+    del dout, vin, gout
+
+    # K5b's adjoint at the step's call (a deformation near the identity,
+    # 0.05 N(0, 1)), then uniform in [-1.2, 1.2], the worst case for locality
     c = log.calls["warp"][0]
     fs_shape = _meta_shape(c[0])
     b, d, h, w, ch = fs_shape
     fs = randn(*fs_shape)
     base = tm.make_coordinate_grid_3d(d, h, w, dev)[None].expand(b, -1, -1, -1, -1)
-    deform = (base + 0.05 * randn(b, d, h, w, 3)).contiguous()
+    cases = [("the step's call", (base + 0.05 * randn(b, d, h, w, 3)).contiguous()),
+             ("uniform in [-1.2, 1.2]", 2.4 * rand(b, d, h, w, 3) - 1.2)]
     dout = randn(b, ch * d, h, w)
-    with torch.no_grad():
-        got = tm.torso_warp_volume_backward(fs, deform, dout)
-        want = tm.torso_warp_volume_backward_plain(fs, deform, dout)
-        errs = errors(got, want)
-        ms, launch = times(lambda: tm.torso_warp_volume_backward(fs, deform, dout))
-        pms = cuda_ms(lambda: tm.torso_warp_volume_backward_plain(fs, deform, dout), reps=3)
-        gout, vin = dout.view(b, ch, d, h, w), fs.permute(0, 4, 1, 2, 3).contiguous()
+    gout, vin = dout.view(b, ch, d, h, w), fs.permute(0, 4, 1, 2, 3).contiguous()
+    for case, deform in cases:
+        with torch.no_grad():
+            got = tm.torso_warp_volume_backward(fs, deform, dout)
+            want = tm.torso_warp_volume_backward_plain(fs, deform, dout)
+            errs = errors(got, want)
+            ms, launch = times(lambda: tm.torso_warp_volume_backward(fs, deform, dout))
+            pms = cuda_ms(lambda: tm.torso_warp_volume_backward_plain(fs, deform, dout), reps=3)
 
-        def lib():
-            return torch.ops.aten.grid_sampler_3d_backward(gout, vin, deform, 0, 1, True,
-                                                           [True, True])
-        lg = lib()
-        lerr = max(_rel(lg[0].permute(0, 2, 3, 4, 1), want[0]), _rel(lg[1], want[1]))
-        check(lerr <= 1e-4, f"grid_sampler_3d_backward (border) disagrees: {lerr}")
-        lms = cuda_ms(lib)
-    row("torso_warp_volume_backward", f"{list(fs_shape)}", errs, ms, launch, pms,
-        (nbytes(dout, fs, deform, *got), b * d * h * w * ch * 8 * 4, f32), library=lms,
-        tol=1e-5)
-    del fs, deform, dout, got, want, gout, vin, lg
+            def lib():
+                return torch.ops.aten.grid_sampler_3d_backward(gout, vin, deform, 0, 1, True,
+                                                               [True, True])
+            lg = lib()
+            lerr = max(_rel(lg[0].permute(0, 2, 3, 4, 1), want[0]), _rel(lg[1], want[1]))
+            check(lerr <= 1e-4, f"grid_sampler_3d_backward (border) [{case}] disagrees: {lerr}")
+            lms = cuda_ms(lib)
+        hold_row("torso_warp_volume_backward", f"{list(fs_shape)}", case, errs, ms, launch, pms,
+                 (nbytes(dout, fs, deform, *got), b * d * h * w * ch * 8 * 4, f32), lms)
+        del got, want, lg, deform
+    del fs, dout, gout, vin, cases
 
     # K7b's backward at the step's call
     shapes = [_meta_shape(a) for a in tail[:7]]
@@ -2754,13 +2788,16 @@ def train_row(name: str, fwd: str, counts: dict, rows: dict, steps: int, path: s
     return row
 
 
-def run_train_phases(dev: torch.device) -> tuple[dict, dict, dict, dict]:
+def run_train_phases(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
     """The training slices: the flagship's full-width run (c), the torso
     stage's run started from its checkpoint (``train_torso``, with
     ``init_from_ckpt``), the released lineage's tri-plane run
-    (``train_triplane``), then each backward kernel at the runs' own calls
-    (a, b), then the small flagship step on the card against the CPU.
-    Returns the three runs' launches and the kernel rows."""
+    (``train_triplane``) and its torso stage from that run's checkpoint
+    (``train_torso_orig``: tri-planes through K1, ``rgb_alpha`` torso
+    input, the torso's kernels and their backwards), then each backward
+    kernel at the runs' own calls (a, b), then the small flagship step on
+    the card against the CPU. Returns the four runs' launches and the
+    kernel rows."""
     torso_kernels = ("trigrid_decode", "importance_sample", "merge_composite", "upfirdn2d",
                      "bias_act", "torso_deform_input", "torso_warp_volume", "conv3d",
                      "mfe_tail", *TRAIN_KERNELS, *TORSO_KERNELS)
@@ -2777,6 +2814,14 @@ def run_train_phases(dev: torch.device) -> tuple[dict, dict, dict, dict]:
             dev, out_dir, TRIPLANE_HPARAMS, TRIPLANE_CONFIG, "train_triplane", TRIPLANE_STEPS,
             path_kernels=("triplane_decode", "triplane_decode_backward"), bf16=False,
             reload=False)
+        torch.cuda.synchronize()
+        orig_counts, _ = phase_train(
+            dev, out_dir, TORSO_ORIG_HPARAMS, TORSO_ORIG_CONFIG, "train_torso_orig",
+            TORSO_ORIG_STEPS, path_kernels=("triplane_decode", "triplane_decode_backward",
+                                            "torso_deform_input", "torso_warp_volume",
+                                            "conv3d", "mfe_tail", *TORSO_KERNELS),
+            frozen=HEAD_GROUPS, init_from=tri_counts["work_dir"], losses=FACEV2V, bf16=False,
+            reload=False)
     torch.cuda.synchronize()
     rows = phase_train_kernels(dev, log)
     torch.cuda.synchronize()
@@ -2787,7 +2832,7 @@ def run_train_phases(dev: torch.device) -> tuple[dict, dict, dict, dict]:
           f"backward kernels measured: {sorted(rows)}")
     phase_train_step(dev)
     torch.cuda.synchronize()
-    return counts, torso_counts, tri_counts, rows
+    return counts, torso_counts, tri_counts, orig_counts, rows
 
 
 # records-driven training (``run_records_phases``): a full-width store of
@@ -3653,13 +3698,15 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_reference(dev)
     torch.cuda.synchronize()
-    train_counts, torso_counts, tri_counts, train_rows = run_train_phases(dev)
+    train_counts, torso_counts, tri_counts, orig_counts, train_rows = run_train_phases(dev)
     rec_counts, sync, a2m = run_records_phases(dev)
     eg3d_counts, i2p_counts = run_teacher_phases(dev)
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
-          f"ms/step, peak {tri_counts['peak_gib']:.2f} GiB; " + "; ".join(
+          f"ms/step, peak {tri_counts['peak_gib']:.2f} GiB; tri-plane torso "
+          f"{orig_counts['ms_per_step']:.1f} ms/step, peak {orig_counts['peak_gib']:.2f} GiB; "
+          + "; ".join(
               f"{k} launch {r['launch_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['launch_ms'] / r['bound_ms']:.2f}x"
               for k, r in train_rows.items()))
@@ -3692,6 +3739,7 @@ def main() -> int:
         launches[k]["train_launches_per_step"] = train_counts[k] / TRAIN_STEPS
     for k in ("torso_deform_input", "torso_warp_volume", "conv3d", "mfe_tail"):
         launches[k]["train_torso_launches_per_step"] = torso_counts[k] / TORSO_STEPS
+        launches[k]["train_torso_orig_launches_per_step"] = orig_counts[k] / TORSO_ORIG_STEPS
     launches["triplane_decode"]["train_triplane_launches_per_step"] = \
         tri_counts["triplane_decode"] / TRIPLANE_STEPS
     # the records run: K4 in batch preparation, the step's kernels in its steps
@@ -3706,7 +3754,9 @@ def main() -> int:
                           train_records_launches_per_step=rec_counts["step_launches"][k]
                           / RECORDS_STEPS)
                      for k, f in TRAIN_KERNELS.items()]
-    kernels_json += [train_row(k, f, torso_counts, train_rows, TORSO_STEPS, "train_torso run")
+    kernels_json += [dict(train_row(k, f, torso_counts, train_rows, TORSO_STEPS,
+                                    "train_torso run"),
+                          train_torso_orig_launches_per_step=orig_counts[k] / TORSO_ORIG_STEPS)
                      for k, f in TORSO_KERNELS.items()]
     kernels_json += [train_row(k, f, tri_counts, train_rows, TRIPLANE_STEPS,
                                "train_triplane run") for k, f in TRIPLANE_KERNELS.items()]

@@ -291,123 +291,277 @@ int launch_warp(const float* vol, const float* grid, int B, int D, int H, int W,
 
 
 // ---------------------------------------------------------------------------
-// The trilinear adjoint of K5a and K5b (torso_deform_input_backward and
+// The trilinear adjoints of K5a and K5b (torso_deform_input_backward and
 // torso_warp_volume_backward in models/torso.py; the JAX package had
-// jax.grad differentiate its gathers): one thread an output voxel (K5a: a
-// voxel of one candidate), lanes along w, recomputing the voxel's sampling
-// coordinate and corner weights exactly as the forward does, then
-// scattering the output's gradient into the volume's gradient with one
-// 16 B atomicAdd a corner and 4 channels. Not a shifted gather: float
-// rounding of a coordinate can move a voxel's floor, and a gather would
-// then add to the wrong voxel.
-// - kDeform (K5a): zero padding; a corner outside, or one of zero weight,
-//   adds nothing; the heatmap channels and the keypoints take no gradient
-//   (the keypoints are data). Each candidate's warp is a translation, so
-//   neighbouring lanes write neighbouring corners: few collisions.
-// - else (K5b): border padding, C = 32 or 4 channels, the output's
-//   gradient read from the C-major fold [B,C*D,H,W]. Also the gradient of
-//   the deformation: d out / d coordinate from the corners' values (the
-//   volume read again, 8 corner rows), times (n - 1) / 2, and 0 on an axis
-//   whose coordinate was clamped (at or past 0 or n - 1), torch's rule.
-// What bounds them: the atomics into L2 (8 a voxel and 4 channels, 16 B
-// each: K5b at [4,16,64,64,32], 16.8 M of them) and the bytes (the output's
-// gradient once, the volume's gradient written, K5b the volume read).
-template <bool kDeform>
+// jax.grad differentiate its gathers). Each recomputes the forward's
+// sampling coordinates and corner weights with the forward's roundings and
+// scatters the output's gradient into the volume's with 16 B atomics, one
+// warp instruction covering 512 contiguous bytes, 4 whole lines. Not a
+// gather: a deformation has no inverse map to gather by (K5b), and K5a's
+// gather (each destination finding its <= 3 sources an axis) ran slower,
+// 0.0281 against 0.0199 ms at the torso step's call, every destination
+// reading 8 sources x 4 planar channels through L1.
+//
+// What bounds them on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+// inference/kernel_times.py --only k5ab,k5bb,k5bp):
+// - K5b's, x [4,16,64,64,32] at the torso step: its bytes, 0.0319 ms (dout,
+//   the volume and the deformation read once, the two gradients written
+//   once), but in practice its 16.8 M atomics of 16 B (8 corners a voxel
+//   and 4 channels) into the 33.5 MB gradient, which L2 holds. The first
+//   design (a thread a voxel looping over its 8 channel quads: a warp
+//   instruction touched 32 lines, 16 B of each) took 0.2760 ms a launch,
+//   its atomics alone 0.2137, its corner reads with the deformation's
+//   gradient alone 0.0898, and the zero fill of its output 0.0109. In this
+//   kernel's layout the atomics alone take 0.0784 (the same run): with
+//   the fill, 0.0893 of the kernel's 0.1236. At a deformation
+//   of 0.05 N(0, 1) (1.6 voxels along w and h) no two voxels of a tile
+//   share a corner row, so no on-chip sum can save an atomic; a shared box
+//   of the tile's corners, flushed once (tried), was
+//   slower at every deformation measured, and issuing the atomics before
+//   the corner reads, or 5 CTAs an SM, changed nothing.
+// - K5a's, the [4,16,64,64,4] volume and K + 1 = 5 candidates: its bytes,
+//   0.0075 ms (dout's 4 sampled channels of each candidate read once, the
+//   gradient written once); the first design paid 8 atomics a (voxel,
+//   candidate), 0.0345 ms.
+//
+// K5b's adjoint, warp_volume_adjoint_kernel: the forward's CTA (a 32-voxel
+// tile of one (b, d, h) row, C / 4 lanes a voxel, one float4 of channels
+// each) and the forward's shared coordinates, corner steps and weights.
+// dout's fold rows c * D + d of the tile come in coalesced along w and
+// turn through a padded shared tile [C][33]. Each lane issues its 8 corner
+// reads, then its 8 atomics: one warp instruction covers 4 voxels' whole
+// 128 B rows. The deformation's gradient: each lane's 4-channel dot
+// products with the corners, its partial sums reduced over the voxel's
+// lanes by shuffle, one lane writing the voxel's three floats through
+// shared memory, coalesced. Border padding: a corner past the last voxel
+// reads the lower one again (the forward's step 0) and weighs 0, so it adds
+// nothing; the gradient of a clamped coordinate is 0 (at the bound too),
+// torch's rule.
+//
+// K5a's adjoint, deform_input_adjoint_kernel: a thread a (voxel,
+// candidate), lanes along w, a warp one candidate of a 32-voxel row, a
+// thread kAdjRows rows h. Each candidate's warp is a translation, so
+// neighbouring voxels' corners coincide: a lane adds its left neighbour's
+// upper-x terms (by shuffle) to its lower-x ones where that neighbour's
+// upper x corner is its lower one, and a row's upper-y terms ride in
+// registers to the next row's lower-y ones where the y corners coincide.
+// Every term is added where the plain scatter adds it, only summed first:
+// 1.9 atomics a (voxel, candidate) where 6.6 corner terms lie inside the
+// volume (keypoints within 0.1 of each other; 1.1 for 3.7 at keypoints in
+// +-0.8: the count of tests/test_torch_k5_backward.py's emulation at the
+// torso step's shape), each warp-wide one 32 consecutive float4s. The
+// corners and weights are lerp_zeros', a corner outside weighing 0 (a zero
+// sum is not sent). 16 rows a thread ran faster than 8 and 4 (0.0199,
+// 0.0210, 0.0235 ms).
+constexpr int kAdjRows = 16;  // K5a's adjoint: rows h a thread carries its terms over
+
+// K5a's adjoint. blockDim (32, cand), cand = min(K + 1, 8) candidates (a
+// thread loops over the rest); grid (ceil(W / 32), ceil(H / kAdjRows), B * D).
 __global__ void __launch_bounds__(256)
-trilinear_adjoint_kernel(const float* __restrict__ dout, const float4* __restrict__ vol,
-                         const float* __restrict__ grid, const float* __restrict__ kp_s,
-                         const float* __restrict__ kp_d, int B, int K, int C, int D, int H,
-                         int W, float* __restrict__ dvol, float* __restrict__ dgrid) {
-  const long long hw = (long long)H * W, vox = (long long)D * hw;
-  const int cand = kDeform ? K + 1 : 1;
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)B * cand * vox) return;
-  const long long sp = n % vox;  // d * H * W + h * W + w
-  const int bk = (int)(n / vox), b = bk / cand, k = bk % cand;
-  const int d = (int)(sp / hw), h = (int)(sp % hw / W), w = (int)(sp % W);
-  float wgt[8];
-  int idx[8];  // corner voxels in [D,H,W], -1 outside
-  float dwx = 0.0f, dwy = 0.0f, dwz = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
-  float lx0 = 0.0f, lx1 = 0.0f, ly0 = 0.0f, ly1 = 0.0f, lz0 = 0.0f, lz1 = 0.0f;
-  if constexpr (kDeform) {
-    float sx = grid_axis(w, __frcp_rn((float)(W - 1)));
-    float sy = grid_axis(h, __frcp_rn((float)(H - 1)));
-    float sz = grid_axis(d, __frcp_rn((float)(D - 1)));
-    if (k > 0) {
-      const float* pd = kp_d + (b * K + k - 1) * 3;
-      const float* ps = kp_s + (b * K + k - 1) * 3;
-      sx = __fadd_rn(__fsub_rn(sx, __ldg(pd)), __ldg(ps));
-      sy = __fadd_rn(__fsub_rn(sy, __ldg(pd + 1)), __ldg(ps + 1));
-      sz = __fadd_rn(__fsub_rn(sz, __ldg(pd + 2)), __ldg(ps + 2));
+deform_input_adjoint_kernel(const float* __restrict__ dout, const float* __restrict__ kp_s,
+                            const float* __restrict__ kp_d, int K, int D, int H, int W,
+                            float4* __restrict__ dvol) {
+  const unsigned all = 0xffffffffu;
+  const int bd = blockIdx.z, b = bd / D, d = bd - b * D;
+  const int h0 = blockIdx.y * kAdjRows, nrows = min(kAdjRows, H - h0);
+  const int lane = threadIdx.x, w = blockIdx.x * 32 + lane, wc = min(w, W - 1);
+  const int hw = H * W, vox = D * hw;
+  const float inv_h = __frcp_rn((float)(H - 1));
+  const float gx = grid_axis(wc, __frcp_rn((float)(W - 1)));
+  const float gz = grid_axis(d, __frcp_rn((float)(D - 1)));
+  float* vb = reinterpret_cast<float*>(dvol + (long long)b * vox);
+  auto add = [&](int zi, int yi, int xi, float4 v) {
+    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+      r3dp_atomic_add4(vb + 4 * ((zi * H + yi) * W + xi), v);
+  };
+  for (int k = threadIdx.y; k <= K; k += blockDim.y) {
+    float kd[3] = {0.0f, 0.0f, 0.0f}, ks[3] = {0.0f, 0.0f, 0.0f};
+    if (k > 0)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        kd[a] = __ldg(kp_d + (b * K + k - 1) * 3 + a);
+        ks[a] = __ldg(kp_s + (b * K + k - 1) * 3 + a);
+      }
+    Lerp lx = lerp_zeros(k > 0 ? __fadd_rn(__fsub_rn(gx, kd[0]), ks[0]) : gx, W);
+    const Lerp lz = lerp_zeros(k > 0 ? __fadd_rn(__fsub_rn(gz, kd[2]), ks[2]) : gz, D);
+    if (w >= W) lx.w0 = lx.w1 = 0.0f;
+    // every lane shuffles (full mask), then the edge lanes drop the result
+    const int left_i1 = __shfl_up_sync(all, lx.i1, 1);
+    const bool take = lane > 0 && left_i1 == lx.i0;
+    const int right_takes = __shfl_down_sync(all, (int)take, 1);
+    const bool give = lane < 31 && right_takes;
+    const int zs[2] = {lz.i0, lz.i1};
+    const float* o = dout + ((long long)(b * (K + 1) + k) * 5 + 1) * vox + d * hw + wc;
+    float4 carry[2][2];  // [z corner][x corner] of the last row's upper y corner
+    int carry_y = -1;
+    for (int r = 0; r < nrows; ++r) {
+      const int h = h0 + r;
+      const float gy = grid_axis(h, inv_h);
+      const Lerp ly = lerp_zeros(k > 0 ? __fadd_rn(__fsub_rn(gy, kd[1]), ks[1]) : gy, H);
+      const float* oh = o + h * W;
+      const float4 go = make_float4(__ldg(oh), __ldg(oh + vox), __ldg(oh + 2 * vox),
+                                    __ldg(oh + 3 * vox));
+      float wgt[8];
+      corner_weights(wgt, lx.w0, lx.w1, ly.w0, ly.w1, lz.w0, lz.w1);
+      float4 t[2][2][2];  // [z][y][x]
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        t[i >> 2][(i >> 1) & 1][i & 1] =
+            make_float4(go.x * wgt[i], go.y * wgt[i], go.z * wgt[i], go.w * wgt[i]);
+      // the left neighbour's upper-x terms into this lane's lower-x ones
+#pragma unroll
+      for (int cz = 0; cz < 2; ++cz)
+#pragma unroll
+        for (int cy = 0; cy < 2; ++cy) {
+          const float4 u = t[cz][cy][1];
+          const float4 left = make_float4(__shfl_up_sync(all, u.x, 1), __shfl_up_sync(all, u.y, 1),
+                                          __shfl_up_sync(all, u.z, 1), __shfl_up_sync(all, u.w, 1));
+          if (take) {
+            float4& l = t[cz][cy][0];
+            l.x += left.x, l.y += left.y, l.z += left.z, l.w += left.w;
+          }
+          if (give) t[cz][cy][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      // the last row's upper-y terms into this row's lower-y ones
+      const bool join = carry_y == ly.i0;
+#pragma unroll
+      for (int cz = 0; cz < 2; ++cz)
+#pragma unroll
+        for (int cx = 0; cx < 2; ++cx) {
+          if (carry_y >= 0) {
+            if (join) {
+              float4& l = t[cz][0][cx];
+              const float4 c = carry[cz][cx];
+              l.x += c.x, l.y += c.y, l.z += c.z, l.w += c.w;
+            } else {
+              add(zs[cz], carry_y, cx ? lx.i1 : lx.i0, carry[cz][cx]);
+            }
+          }
+          add(zs[cz], ly.i0, cx ? lx.i1 : lx.i0, t[cz][0][cx]);
+          carry[cz][cx] = t[cz][1][cx];
+        }
+      carry_y = ly.i1;
     }
-    const Lerp lx = lerp_zeros(sx, W), ly = lerp_zeros(sy, H), lz = lerp_zeros(sz, D);
-    corner_weights(wgt, lx.w0, lx.w1, ly.w0, ly.w1, lz.w0, lz.w1);
-    const int xs[2] = {lx.i0, lx.i1}, ys[2] = {ly.i0, ly.i1}, zs[2] = {lz.i0, lz.i1};
+#pragma unroll
+    for (int cz = 0; cz < 2; ++cz)
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx)
+        if (carry_y >= 0) add(zs[cz], carry_y, cx ? lx.i1 : lx.i0, carry[cz][cx]);
+  }
+}
+
+// K5b's adjoint: the forward's CTA, at half the forward's CTAs an SM (4 of
+// 256 threads for C = 32, 64 registers).
+template <int C>
+__global__ void __launch_bounds__(WarpTile<C>::kThreads, WarpTile<C>::kMinBlocks / 2)
+warp_volume_adjoint_kernel(const float4* __restrict__ vol, const float* __restrict__ grid,
+                           const float* __restrict__ dout, int D, int H, int W,
+                           float4* __restrict__ dvol, float* __restrict__ dgrid) {
+  using T = WarpTile<C>;
+  __shared__ float4 s_wgt[kWarpTile][2];
+  __shared__ int4 s_step[kWarpTile];
+  // lx0, lx1, ly0, ly1 and lz0, lz1 and the three clamp multipliers
+  __shared__ float4 s_lerp[kWarpTile][2];
+  __shared__ float s_mult[kWarpTile][3];
+  __shared__ float s_go[C][kWarpTile + 1];
+  __shared__ float s_dg[kWarpTile * 3];
+  const int bd = blockIdx.z, b = bd / D, d = bd - b * D, h = blockIdx.y;
+  const int w0 = blockIdx.x * kWarpTile, t = threadIdx.x;
+  const int nvox = min(kWarpTile, W - w0);
+  const int hw = H * W, vox = D * hw;
+
+  // the tile's rows c * D + d of dout, coalesced along w
+  const float* ob = dout + ((long long)b * C * D + d) * hw + h * W + w0;
+#pragma unroll
+  for (int i = t; i < C * kWarpTile; i += T::kThreads) {
+    const int ch = i / kWarpTile, x = i % kWarpTile;
+    s_go[ch][x] = x < nvox ? __ldg(ob + ch * vox + x) : 0.0f;
+  }
+  // each voxel's clamped coordinate, corner steps, weights and clamp
+  // multipliers, once (the forward's arithmetic)
+  if (t < kWarpTile) {
+    float wgt[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float l[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, m[3] = {0.0f, 0.0f, 0.0f};
+    int4 step = make_int4(0, 0, 0, 0);
+    if (t < nvox) {
+      const float* g = grid + ((long long)bd * hw + h * W + w0 + t) * 3;
+      const float rx = unnorm_ac(g[0], W), ry = unnorm_ac(g[1], H), rz = unnorm_ac(g[2], D);
+      m[0] = rx > 0.0f && rx < (float)(W - 1) ? 0.5f * (float)(W - 1) : 0.0f;
+      m[1] = ry > 0.0f && ry < (float)(H - 1) ? 0.5f * (float)(H - 1) : 0.0f;
+      m[2] = rz > 0.0f && rz < (float)(D - 1) ? 0.5f * (float)(D - 1) : 0.0f;
+      const float x = fminf(fmaxf(rx, 0.0f), (float)(W - 1));
+      const float y = fminf(fmaxf(ry, 0.0f), (float)(H - 1));
+      const float z = fminf(fmaxf(rz, 0.0f), (float)(D - 1));
+      const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
+      const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+      step = make_int4(((iz * H + iy) * W + ix) * T::kLanes, ix < W - 1 ? T::kLanes : 0,
+                       iy < H - 1 ? W * T::kLanes : 0, iz < D - 1 ? hw * T::kLanes : 0);
+      l[0] = __fsub_rn(fx + 1.0f, x), l[1] = __fsub_rn(x, fx);
+      l[2] = __fsub_rn(fy + 1.0f, y), l[3] = __fsub_rn(y, fy);
+      l[4] = __fsub_rn(fz + 1.0f, z), l[5] = __fsub_rn(z, fz);
+      corner_weights(wgt, l[0], l[1], l[2], l[3], l[4], l[5]);
+    }
+    s_step[t] = step;
+    s_wgt[t][0] = make_float4(wgt[0], wgt[1], wgt[2], wgt[3]);
+    s_wgt[t][1] = make_float4(wgt[4], wgt[5], wgt[6], wgt[7]);
+    s_lerp[t][0] = make_float4(l[0], l[1], l[2], l[3]);
+    s_lerp[t][1] = make_float4(l[4], l[5], 0.0f, 0.0f);
+    s_mult[t][0] = m[0], s_mult[t][1] = m[1], s_mult[t][2] = m[2];
+  }
+  __syncthreads();
+
+  const int q = t % T::kLanes, v = t / T::kLanes;
+  const int4 s = s_step[v];
+  const int off[8] = {0, s.y, s.z, s.z + s.y, s.w, s.w + s.y, s.w + s.z, s.w + s.z + s.y};
+  const long long base = (long long)b * vox * T::kLanes + s.x + q;
+  const float4 go = make_float4(s_go[4 * q][v], s_go[4 * q + 1][v], s_go[4 * q + 2][v],
+                                s_go[4 * q + 3][v]);
+  float4 c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i] = __ldg(vol + base + off[i]);
+  {
+    const float4 wa = s_wgt[v][0], wb = s_wgt[v][1];
+    const float wgt[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      idx[i] = wgt[i] != 0.0f ? (zs[i >> 2] * H + ys[(i >> 1) & 1]) * W + xs[i & 1] : -1;
-  } else {
-    const float* g = grid + (b * vox + sp) * 3;
-    const float rx = unnorm_ac(__ldg(g), W), ry = unnorm_ac(__ldg(g + 1), H),
-                rz = unnorm_ac(__ldg(g + 2), D);
-    // border padding as the forward: clamp, then weigh; torch's gradient
-    // of a clamped coordinate is 0 (at the bound too)
-    mx = rx > 0.0f && rx < (float)(W - 1) ? 0.5f * (float)(W - 1) : 0.0f;
-    my = ry > 0.0f && ry < (float)(H - 1) ? 0.5f * (float)(H - 1) : 0.0f;
-    mz = rz > 0.0f && rz < (float)(D - 1) ? 0.5f * (float)(D - 1) : 0.0f;
-    const float x = fminf(fmaxf(rx, 0.0f), (float)(W - 1));
-    const float y = fminf(fmaxf(ry, 0.0f), (float)(H - 1));
-    const float z = fminf(fmaxf(rz, 0.0f), (float)(D - 1));
-    const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
-    const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
-    lx0 = __fsub_rn(fx + 1.0f, x), lx1 = __fsub_rn(x, fx);
-    ly0 = __fsub_rn(fy + 1.0f, y), ly1 = __fsub_rn(y, fy);
-    lz0 = __fsub_rn(fz + 1.0f, z), lz1 = __fsub_rn(z, fz);
-    corner_weights(wgt, lx0, lx1, ly0, ly1, lz0, lz1);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int cx = ix + (i & 1), cy = iy + ((i >> 1) & 1), cz = iz + (i >> 2);
-      idx[i] = cx < W && cy < H && cz < D ? (cz * H + cy) * W + cx : -1;
-    }
-  }
-  float* dv = dvol + (long long)b * vox * C;
-  for (int q = 0; q < C / 4; ++q) {
-    float4 go;
-    if constexpr (kDeform) {
-      // channels 1..4 of the candidate's 5 (channel 0 is its heatmap)
-      const float* o = dout + (long long)bk * 5 * vox + sp;
-      go = make_float4(__ldg(o + vox), __ldg(o + 2 * vox), __ldg(o + 3 * vox),
-                       __ldg(o + 4 * vox));
-    } else {
-      const float* o = dout + ((long long)b * C + 4 * q) * vox + sp;  // fold row c * D + d
-      go = make_float4(__ldg(o), __ldg(o + vox), __ldg(o + 2 * vox), __ldg(o + 3 * vox));
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (idx[i] < 0) continue;
-      if constexpr (!kDeform) {
-        const float4 v = __ldg(vol + ((long long)b * vox + idx[i]) * (C / 4) + q);
-        const float dot = go.x * v.x + go.y * v.y + go.z * v.z + go.w * v.w;
-        const float wx = i & 1 ? lx1 : lx0, wy = (i >> 1) & 1 ? ly1 : ly0,
-                    wz = i >> 2 ? lz1 : lz0;
-        const float sx = i & 1 ? 1.0f : -1.0f, sy = (i >> 1) & 1 ? 1.0f : -1.0f,
-                    sz = i >> 2 ? 1.0f : -1.0f;
-        dwx += dot * sx * wy * wz;
-        dwy += dot * wx * sy * wz;
-        dwz += dot * wx * wy * sz;
-      }
       if (wgt[i] != 0.0f)
-        r3dp_atomic_add4(dv + (long long)idx[i] * C + 4 * q,
+        r3dp_atomic_add4(reinterpret_cast<float*>(dvol + base + off[i]),
                          make_float4(go.x * wgt[i], go.y * wgt[i], go.z * wgt[i],
                                      go.w * wgt[i]));
-    }
   }
-  if constexpr (!kDeform) {
-    float* g = dgrid + (b * vox + sp) * 3;
-    g[0] = dwx * mx;
-    g[1] = dwy * my;
-    g[2] = dwz * mz;
+  // d out / d coordinate: sum over the corners of dot(go, corner) times the
+  // other two axes' weights, signed by the corner's side
+  const float4 la = s_lerp[v][0], lb = s_lerp[v][1];
+  const float wx[2] = {la.x, la.y}, wy[2] = {la.z, la.w}, wz[2] = {lb.x, lb.y};
+  float dw[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int cx = i & 1, cy = (i >> 1) & 1, cz = i >> 2;
+    const float dot = go.x * c[i].x + go.y * c[i].y + go.z * c[i].z + go.w * c[i].w;
+    dw[0] += (cx ? dot : -dot) * wy[cy] * wz[cz];
+    dw[1] += (cy ? dot : -dot) * wx[cx] * wz[cz];
+    dw[2] += (cz ? dot : -dot) * wx[cx] * wy[cy];
   }
+#pragma unroll
+  for (int lane = T::kLanes / 2; lane > 0; lane /= 2)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dw[a] += __shfl_xor_sync(0xffffffffu, dw[a], lane);
+  if (q == 0)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) s_dg[v * 3 + a] = dw[a] * s_mult[v][a];
+  __syncthreads();
+  float* gg = dgrid + ((long long)bd * hw + h * W + w0) * 3;
+  for (int i = t; i < 3 * nvox; i += T::kThreads) gg[i] = s_dg[i];
+}
+
+template <int C>
+int launch_warp_adjoint(const float* vol, const float* grid, const float* dout, int B, int D,
+                        int H, int W, float* dvol, float* dgrid, cudaStream_t stream) {
+  dim3 blocks((W + kWarpTile - 1) / kWarpTile, H, B * D);
+  warp_volume_adjoint_kernel<C><<<blocks, WarpTile<C>::kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(vol), grid, dout, D, H, W,
+      reinterpret_cast<float4*>(dvol), dgrid);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -443,32 +597,32 @@ R3DP_EXPORT int r3dp_torso_warp_volume(const float* vol, const float* grid, int 
 
 // K5a's adjoint: dout [B,(K+1)*5,D,H,W] (the forward's output gradient),
 // kp_s, kp_d [B,K,3] -> dvol [B,D,H,W,4] (zeroed by the caller, 16 B
-// aligned), by scatter-add. D, H, W >= 2; D * H * W * 4 < 2^31.
+// aligned), by scatter-add. D, H, W >= 2; B * D at most 65535; D * H * W * 4
+// < 2^31.
 R3DP_EXPORT int r3dp_torso_deform_input_backward(const float* dout, const float* kp_s,
                                                  const float* kp_d, int B, int K, int D, int H,
                                                  int W, int C, float* dvol,
                                                  cudaStream_t stream) {
-  if (C != 4 || K < 0 || D < 2 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * (K + 1) * D * H * W;
-  if (n == 0) return (int)cudaGetLastError();
-  trilinear_adjoint_kernel<true><<<r3dp_blocks(n, 256), 256, 0, stream>>>(
-      dout, nullptr, nullptr, kp_s, kp_d, B, K, C, D, H, W, dvol, nullptr);
+  if (C != 4 || K < 0 || D < 2 || H < 2 || W < 2 || (long long)B * D > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  dim3 blocks((W + 31) / 32, (H + kAdjRows - 1) / kAdjRows, B * D);
+  deform_input_adjoint_kernel<<<blocks, dim3(32, min(K + 1, 8)), 0, stream>>>(
+      dout, kp_s, kp_d, K, D, H, W, reinterpret_cast<float4*>(dvol));
   return (int)cudaGetLastError();
 }
 
 // K5b's adjoint: vol [B,D,H,W,C] and grid [B,D,H,W,3] (the forward's
 // inputs), dout [B,C*D,H,W] -> dvol [B,D,H,W,C] (zeroed by the caller, 16 B
 // aligned), by scatter-add, and dgrid [B,D,H,W,3]. C = 32 or 4; D, H, W >=
-// 2; D * H * W * C < 2^31.
+// 2; B * D and H at most 65535; D * H * W * C < 2^31.
 R3DP_EXPORT int r3dp_torso_warp_volume_backward(const float* vol, const float* grid,
                                                 const float* dout, int B, int D, int H, int W,
                                                 int C, float* dvol, float* dgrid,
                                                 cudaStream_t stream) {
-  if ((C != 32 && C != 4) || D < 2 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * D * H * W;
-  if (n == 0) return (int)cudaGetLastError();
-  trilinear_adjoint_kernel<false><<<r3dp_blocks(n, 256), 256, 0, stream>>>(
-      dout, reinterpret_cast<const float4*>(vol), grid, nullptr, nullptr, B, 0, C, D, H, W,
-      dvol, dgrid);
-  return (int)cudaGetLastError();
+  if ((C != 32 && C != 4) || D < 2 || H < 2 || W < 2 || (long long)B * D > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  if (C == 32) return launch_warp_adjoint<32>(vol, grid, dout, B, D, H, W, dvol, dgrid, stream);
+  return launch_warp_adjoint<4>(vol, grid, dout, B, D, H, W, dvol, dgrid, stream);
 }

@@ -1,11 +1,11 @@
 """K1, K1-trigrid, K2, K3, K4, K5a, K5b, K6b and K7b at the shapes of
 ``chip_smoke.py``'s kernel rows, beside their plain versions, and
 K1-trigrid, K2, K3, K5a and K5b on the inputs of a rendered frame, on a
-CUDA device; K3's and K7b's backward kernels (``k3b``, ``k7bb``) at the
-training steps' calls.
+CUDA device; K3's, K7b's, K5a's and K5b's backward kernels (``k3b``,
+``k7bb``, ``k5ab``, ``k5bb``) at the training steps' calls.
 
     python3 real3dportrait_tpu_torch/inference/kernel_times.py [--tree DIR]
-        [--only k1,k2,k3,k4,k5a,k5b,k6b,k7b,k3b,k7bb]
+        [--only k1,k2,k3,k4,k5a,k5b,k6b,k7b,k3b,k7bb,k5ab,k5bb,k5bp]
 
 Per row: the device time of one launch (20 back-to-back calls behind a spin
 kernel, ``kernels.device_ms``: the wrapper's launches, the kernel's and any
@@ -24,7 +24,19 @@ backward at the torso step's x [4,32,16,64,64], as chip_smoke makes its
 inputs, with each launch of the call timed alone by CUDA events on that
 call's own intermediate tensors, the call's device kernels from
 ``torch.profiler``, and the occlusion heads' weight gradient through K7a's
-weight-gradient kernel on the fold as a depth-1 volume beside it. K5a on the [1,16,64,64,4]
+weight-gradient kernel on the fold as a depth-1 volume beside it.
+``k5ab``: K5a's adjoint at the torso step's dout [4,25,16,64,64] (the
+[4,16,64,64,4] volume, K+1 = 5), keypoints uniform in [-0.8, 0.8], in
+[-1.6, 1.6] and source keypoints within 0.1 of the driving ones.
+``k5bb``: K5b's adjoint at the step's [4,16,64,64,32] volume, the
+deformation the identity + 0.05 N(0, 1) (chip_smoke's) and uniform in
+[-1.2, 1.2] and within 0.02 of the identity. Both beside
+``grid_sampler_3d_backward``, with their max error of scale against the
+plain version (K5a's also whether two calls are bit-equal). ``k5bp``: the
+first design of K5b's adjoint (``k5b_adjoint_parts.cu`` beside this file,
+built here) whole, with its atomics alone and with its corner reads alone,
+the atomics alone in the layout of the current kernel, and the zero fill
+of the output, at ``k5bb``'s near identity. K5a on the [1,16,64,64,4]
 compressed volume with 4 keypoints uniform in [-0.8, 0.8], in [-1.6,
 1.6] (samples outside the volume) and source keypoints within 0.1 of the
 driving ones (near the identity); K5b on the [1,16,64,64,32] appearance
@@ -327,10 +339,82 @@ def tail_backward_parts(args) -> list[tuple[str, object]]:
     return steps
 
 
+def k5_adjoint_inputs(dev, gen) -> tuple[list, list]:
+    """K5a's and K5b's adjoint rows (tag, arguments) at the torso step's
+    calls, as ``chip_smoke.py`` makes their inputs (see the module's note)."""
+    import torch
+
+    from real3dportrait_tpu_torch.models import torso
+
+    b, k, d, h, w = 4, 4, 16, 64, 64
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+    dout = randn(b, (k + 1) * 5, d, h, w)
+    k5a = []
+    for tag, reach in (("kp 0.8 (the step's)", 0.8), ("kp 1.6, outside", 1.6)):
+        k5a.append((tag, (dout, reach * (2 * rand(b, k, 3) - 1), reach * (2 * rand(b, k, 3) - 1),
+                          (b, d, h, w, 4))))
+    kp_d = 0.8 * (2 * rand(b, k, 3) - 1)
+    k5a.append(("near identity, kp offsets <= 0.1",
+                (dout, kp_d + 0.1 * (2 * rand(b, k, 3) - 1), kp_d, (b, d, h, w, 4))))
+    fs, gout = randn(b, d, h, w, 32), randn(b, 32 * d, h, w)
+    base = torso.make_coordinate_grid_3d(d, h, w, dev)[None].expand(b, -1, -1, -1, -1)
+    k5b = [("identity + 0.05 N(0,1) (the step's)", (fs, (base + 0.05 * randn(b, d, h, w, 3))
+                                                     .contiguous(), gout)),
+           ("uniform in [-1.2,1.2]", (fs, 2.4 * rand(b, d, h, w, 3) - 1.2, gout)),
+           ("identity + 0.02 U(-1,1)", (fs, (base + 0.02 * (2 * rand(b, d, h, w, 3) - 1))
+                                        .contiguous(), gout))]
+    return k5a, k5b
+
+
+def k5b_adjoint_parts(k5b_args) -> None:
+    """Build ``k5b_adjoint_parts.cu`` and time the first design of K5b's
+    adjoint in its three modes, the current layout's atomics alone and the
+    zero fill of the output, per launch."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from real3dportrait_tpu_torch import kernels
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "k5b_adjoint_parts.cu")
+    out = kernels.BUILD_DIR / "k5b_adjoint_parts.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared", "-I",
+                    str(kernels.CSRC), "-o", str(out), src], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).r3dp_k5b_adjoint_parts
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fs, grid, dout = k5b_args
+    b, d, h, w, c = fs.shape
+    dfs, dgrid = torch.zeros_like(fs), torch.empty_like(grid)
+    names = ("whole", "atomics alone", "corner reads and the deformation gradient alone",
+             "the current layout: its atomics alone")
+    for mode, name in enumerate(names):
+        def run(mode=mode):
+            status = fn(fs.data_ptr(), grid.data_ptr(), dout.data_ptr(), b, d, h, w, c,
+                        dfs.data_ptr(), dgrid.data_ptr(), mode,
+                        torch.cuda.current_stream().cuda_stream)
+            if status:
+                raise RuntimeError(f"r3dp_k5b_adjoint_parts: CUDA error {status}")
+        what = name if mode == 3 else f"first-design torso_warp_volume_backward kernel, {name}"
+        print(f"{what} [{list(fs.shape)}, near identity]: per launch "
+              f"{kernels.device_ms(run):.4f} ms")
+    print(f"torch.zeros_like(fs) [{list(fs.shape)}]: per launch "
+          f"{kernels.device_ms(lambda: torch.zeros_like(fs)):.4f} ms")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", help="a checkout of the repo to import the port from")
-    parser.add_argument("--only", default="k1,k2,k3,k4,k5a,k5b,k6b,k7b,k3b,k7bb",
+    parser.add_argument("--only",
+                        default="k1,k2,k3,k4,k5a,k5b,k6b,k7b,k3b,k7bb,k5ab,k5bb,k5bp",
                         help="the kernels to time, comma-separated (default: all)")
     args = parser.parse_args()
     only = set(args.only.split(","))
@@ -592,6 +676,51 @@ def main() -> None:
                   f"{kernels.device_ms(occ_wgrad, launches=5):.4f} ms; max err {werr:.2e} of "
                   f"scale; device kernels a call (profiler): {device_split(occ_wgrad, 5)[0]}")
         del targs, got, want, fold, dpre
+
+    if only & {"k5ab", "k5bb", "k5bp"}:
+        k5a, k5b = k5_adjoint_inputs(dev, gen)
+        with torch.no_grad():
+            for tag, kargs in k5a if "k5ab" in only else ():
+                dout, kp_s, kp_d, vol_shape = kargs
+                got = torso.torso_deform_input_backward(*kargs)
+                same = torch.equal(got, torso.torso_deform_input_backward(*kargs))
+                want = torso.torso_deform_input_backward_plain(*kargs)
+                err = float((got - want).abs().max()) / float(want.abs().max())
+                launch = kernels.device_ms(lambda: torso.torso_deform_input_backward(*kargs))
+                call = kernels.cuda_ms(lambda: torso.torso_deform_input_backward(*kargs))
+                b, d, h, w, c = vol_shape
+                k1 = kp_s.shape[1] + 1
+                grid = torso.create_sparse_motions(kp_s, kp_d, d, h, w).reshape(b, k1 * d, h, w, 3)
+                gout = dout.reshape(b, k1, 1 + c, d, h, w)[:, :, 1:].transpose(1, 2).reshape(
+                    b, c, k1 * d, h, w).contiguous()
+                vin = torch.zeros((b, c, d, h, w), device=dev)
+                lib = kernels.device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+                    gout, vin, grid, 0, 0, True, [True, False]))
+                print(f"torso_deform_input_backward {list(vol_shape)} K+1={k1} [{tag}]: per "
+                      f"launch {launch:.4f} ms, per call {call:.4f} ms, grid_sampler_3d_backward "
+                      f"per launch {lib:.4f} ms; max err {err:.2e} of scale; two calls "
+                      f"{'bit-equal' if same else 'DIFFER'}")
+                del got, want, grid, gout, vin
+            for tag, kargs in k5b if "k5bb" in only else ():
+                fs, deform, dout = kargs
+                got = torso.torso_warp_volume_backward(*kargs)
+                want = torso.torso_warp_volume_backward_plain(*kargs)
+                errs = [float((g - w_).abs().max()) / float(w_.abs().max())
+                        for g, w_ in zip(got, want)]
+                launch = kernels.device_ms(lambda: torso.torso_warp_volume_backward(*kargs))
+                call = kernels.cuda_ms(lambda: torso.torso_warp_volume_backward(*kargs))
+                b, d, h, w, c = fs.shape
+                gout, vin = dout.view(b, c, d, h, w), fs.permute(0, 4, 1, 2, 3).contiguous()
+                lib = kernels.device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+                    gout, vin, deform, 0, 1, True, [True, True]))
+                print(f"torso_warp_volume_backward {list(fs.shape)} [{tag}]: per launch "
+                      f"{launch:.4f} ms, per call {call:.4f} ms, grid_sampler_3d_backward per "
+                      f"launch {lib:.4f} ms; max err of scale (d fs, d deformation) "
+                      f"{errs[0]:.2e}, {errs[1]:.2e}")
+                del got, want, vin
+            if "k5bp" in only:
+                k5b_adjoint_parts(k5b[0][1])
+        del k5a, k5b
 
 
 if __name__ == "__main__":

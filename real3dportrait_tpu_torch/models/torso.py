@@ -31,8 +31,9 @@ beside it (every 3D convolution of the model is kernel K7a,
 On CUDA tensors each of the three wrappers is a ``torch.autograd.Function``
 (under ``no_grad`` too) whose backward is a kernel with its plain version
 beside it: :func:`torso_deform_input_backward` and
-:func:`torso_warp_volume_backward`, one trilinear adjoint in two modes
-(``csrc/torso_warp.cu``), and :func:`mfe_tail_backward`
+:func:`torso_warp_volume_backward` (``csrc/torso_warp.cu``: two scatters
+with 16 B atomics over whole lines, K5a's summing the terms of neighbouring
+voxels that share a corner first), and :func:`mfe_tail_backward`
 (``csrc/conv3d.cu``: the tail's whole data gradient in one kernel, the mask
 conv's weight gradient through K7a's weight-gradient kernel). The model's
 training outputs follow the JAX model's: the 0.1 gradient scale on the
@@ -295,10 +296,10 @@ def torso_deform_input_backward(dout: torch.Tensor, kp_s: torch.Tensor, kp_d: to
     k = kp_s.shape[1]
     if c != 4 or min(d, h, w) < 2 or tuple(dout.shape) != (b, (k + 1) * (1 + c), d, h, w) \
             or tuple(kp_s.shape) != (b, k, 3) or kp_d.shape != kp_s.shape \
-            or d * h * w * c >= 2 ** 31:
+            or b * d > 65535 or d * h * w * c >= 2 ** 31:
         raise ValueError(f"{name}: kernel takes dout [B,(K+1)*5,D,H,W] of a volume "
-                         f"[B,D,H,W,4] (D,H,W >= 2) and keypoints [B,K,3]; got dout "
-                         f"{tuple(dout.shape)}, volume {tuple(vol_shape)}, kp_s "
+                         f"[B,D,H,W,4] (D,H,W >= 2, B*D <= 65535) and keypoints [B,K,3]; got "
+                         f"dout {tuple(dout.shape)}, volume {tuple(vol_shape)}, kp_s "
                          f"{tuple(kp_s.shape)}")
     dvol = torch.zeros(vol_shape, device=dout.device)
     kernels.launch("r3dp_torso_deform_input_backward", dout, kp_s, kp_d, b, k, d, h, w, c, dvol)
@@ -405,10 +406,11 @@ def torso_warp_volume_backward(fs: torch.Tensor, deformation: torch.Tensor,
         kernels.require(name, arg, t)
     b, d, h, w, c = fs.shape
     if c not in (4, 32) or min(d, h, w) < 2 or tuple(deformation.shape) != (b, d, h, w, 3) \
-            or tuple(dout.shape) != (b, c * d, h, w) or d * h * w * c >= 2 ** 31:
-        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4|32] (D,H,W >= 2), deformation "
-                         f"[B,D,H,W,3] and dout [B,C*D,H,W]; got {tuple(fs.shape)}, "
-                         f"{tuple(deformation.shape)}, {tuple(dout.shape)}")
+            or tuple(dout.shape) != (b, c * d, h, w) or max(b * d, h) > 65535 \
+            or d * h * w * c >= 2 ** 31:
+        raise ValueError(f"{name}: kernel takes fs [B,D,H,W,4|32] (D,H,W >= 2, B*D and H <= "
+                         f"65535), deformation [B,D,H,W,3] and dout [B,C*D,H,W]; got "
+                         f"{tuple(fs.shape)}, {tuple(deformation.shape)}, {tuple(dout.shape)}")
     dfs = torch.zeros_like(fs)
     dgrid = torch.empty_like(deformation)
     kernels.launch("r3dp_torso_warp_volume_backward", fs, deformation, dout, b, d, h, w, c,
