@@ -124,7 +124,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``start_adv_iters`` cut to 1 (the frozen EG3D teacher renders the
    targets; the student's K1-trigrid forward and backward), then its
    step's distinct calls likewise. Each prints ms/step (the median after
-   the first step), peak memory and each kernel's launches a step.
+   the first step), peak memory and each kernel's launches a step;
+11. the evaluation metrics (``run_eval_phases``): ``metrics``, 64 + 64
+   seeded 512^2 images through the Inception pool features (seeded weights
+   read back from a ``convert_inception`` tree; 4 held against the CPU),
+   ``calc_metric`` fid / kid / pr50k with the Inception extractor and the
+   random projection, PSNR, SSIM, the LPIPS surrogate and LPIPS(vgg) on 16
+   pairs held against the CPU, PPL of the full-width EG3D generator;
+12. ``parity``: the port's parity tool ``--selftest`` at full width (the
+   released geometry, 512^2, 48+48, 4 frames, the preset delta), whose
+   re-render must be bit-equal to its fixture frames;
+13. ``ddp``: ``training.run`` on ``configs/secc_img2plane.yaml`` at full
+   width and global batch 4 for 2 steps under ``torch.distributed.run``:
+   one rank over NCCL against no launch, two ranks sharing the card over
+   gloo against one rank (``phase_ddp`` says what is held; its processes
+   are ``python3 chip_smoke.py --ddp-worker SPEC``).
 
 The last lines are the kernels JSON (the backward kernels with their
 launches a step of the training run that is their main path; K4's
@@ -139,6 +153,7 @@ name and power limit, and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -3659,6 +3674,477 @@ def run_teacher_phases(dev: torch.device) -> tuple[dict, dict]:
     return eg3d, i2p
 
 
+# -- 11-13: the evaluation metrics, the parity tool, data-parallel training ----------
+
+METRIC_RES = 512
+METRIC_IMAGES = 64      # a side: real and fake
+METRIC_PAIRS = 16
+METRIC_HOLD = 4         # images held against the CPU path
+PPL_SAMPLES = 16
+PARITY_KERNELS = ("triplane_decode", "importance_sample", "merge_composite", "secc_raster",
+                  "torso_deform_input", "torso_warp_volume", "upfirdn2d", "bias_act",
+                  "conv3d", "mfe_tail")
+# psnr's MSE floor (1e-12) over a range of 2: what bit-equal frames read
+PSNR_EXACT = round(10 * math.log10(4.0 / 1e-12), 3)
+DDP_STEPS = 2
+# fp32 throughout, as the train phase's card-vs-CPU step: the bf16 layers
+# round otherwise at 2 rows than at 4 (R1 1.6e-3 apart on an H100)
+DDP_HPARAMS = FULL_STEP_HPARAMS + f",max_updates={DDP_STEPS},group_size_for_mini_batch_std=1," \
+    "tb_log_interval=1,num_sanity_val_steps=0,val_check_interval=100000," \
+    "num_fp16_layers_in_discriminator=0,num_fp16_layers_in_super_resolution=0"
+# Adam's first steps take each gradient element to about +-lr whatever its
+# size, so an element at the noise of the card's reordered sums may change
+# sign: the parameter change is held by the share of elements past the
+# tolerance (on an H100: two identical runs 1-8 of 126.7 M, two ranks
+# against one ~1500)
+DDP_FLIP_SHARE = 1e-4
+DDP_TIMEOUT = 400
+DDP_SCRIPT = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _wall_ms(fn, dev: torch.device):
+    """(fn's result, host wall ms of one call with the device synchronised
+    around it)."""
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def seeded_inception(seed: int = 0):
+    """``InceptionV3Features`` with seeded weights: He-normal convs, BN
+    affines 1 + 0.1 N(0,1) and 0.1 N(0,1) (mock weights: no pytorch-fid
+    file is in the repo)."""
+    from real3dportrait_tpu_torch.metrics.inception import BasicConv2d, InceptionV3Features
+
+    g = torch.Generator().manual_seed(seed)
+    model = InceptionV3Features()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BasicConv2d):
+                w = m.conv.weight
+                w.normal_(generator=g).mul_((2.0 / w[0].numel()) ** 0.5)
+                m.bn_scale.normal_(generator=g).mul_(0.1).add_(1.0)
+                m.bn_bias.normal_(generator=g).mul_(0.1)
+    return model.eval()
+
+
+def phase_metrics(dev: torch.device, out_dir: str, ppl_hparams: str = "") -> dict:
+    """The evaluation metrics at full size on seeded mock weights: 64 + 64
+    seeded 512^2 images through ``inception_pool_features`` (the seeded
+    network written as a ``convert_inception`` msgpack tree and read back
+    by ``resolve_extractor``), 4 of them held against the CPU path at 1e-4
+    of the features' scale; ``calc_metric`` fid, kid and pr50k with the
+    Inception extractor and with the random projection; PSNR, SSIM, the
+    LPIPS surrogate and ``lpips_vgg`` (``init_lpips_params``) on 16 pairs of
+    512^2 frames, held against the CPU at 1e-4 of scale; ``ppl`` of
+    ``configs/eg3d.yaml``'s ``TriPlaneGenerator`` at full width (16
+    samples). Prints each one's ms; returns them. ``ppl_hparams`` (config
+    overrides) make the generator small to rehearse the phase on the CPU."""
+    from real3dportrait_tpu_torch.config import load_config, parse_overrides
+    from real3dportrait_tpu_torch.metrics import calc_metric, image_metrics
+    from real3dportrait_tpu_torch.metrics.gan_metrics import resolve_extractor
+    from real3dportrait_tpu_torch.metrics.inception import (
+        inception_pool_features, load_inception_params)
+    from real3dportrait_tpu_torch.models.perceptual import init_lpips_params, lpips_vgg
+    from real3dportrait_tpu_torch.training.tasks.eg3d_task import EG3DTask
+    from real3dportrait_tpu_torch.utils.msgpack_ckpt import msgpack_serialize
+    from real3dportrait_tpu_torch.weights import (
+        jax_variables_from_torch, lpips_weights_from_jax, mock_init_)
+
+    ms: dict = {}
+    cpu = torch.device("cpu")
+    path = os.path.join(out_dir, "inception.msgpack")
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(jax_variables_from_torch(seeded_inception())))
+    extract, kind = resolve_extractor({"inception_ckpt": path}, device=dev)
+    check(kind == "inception_v3", f"metrics: extractor {kind}")
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = (METRIC_IMAGES, METRIC_RES, METRIC_RES, 3)
+    real = torch.tanh(torch.randn(shape, generator=g, device=dev))
+    fake = torch.tanh(1.3 * torch.randn(shape, generator=g, device=dev) + 0.1)
+    model = load_inception_params(path, dev)
+    with torch.no_grad():
+        feats, ms["inception_128"] = _wall_ms(
+            lambda: torch.cat([inception_pool_features(model, x) for x in (
+                real[:32], real[32:], fake[:32], fake[32:])]), dev)
+        want = inception_pool_features(load_inception_params(path, cpu),
+                                       real[:METRIC_HOLD].cpu())
+    e = _rel(feats[:METRIC_HOLD].cpu(), want)
+    check(feats.shape == (2 * METRIC_IMAGES, 2048) and bool(torch.isfinite(feats).all())
+          and e <= 1e-4, f"metrics: inception features {tuple(feats.shape)}, card vs CPU {e}")
+    print(f"metrics inception[{2 * METRIC_IMAGES} x {METRIC_RES}^2 -> 299^2, seeded weights]: "
+          f"{ms['inception_128']:.1f} ms ({ms['inception_128'] / (2 * METRIC_IMAGES):.2f} "
+          f"ms an image), card vs CPU on {METRIC_HOLD} images max_rel_err {e:.3e} (tol 1e-4)")
+    del model
+    results = {}
+    for tag, kw in (("inception_v3", {"extractor": extract}),
+                    ("random_projection", {"device": dev})):
+        for name, extra in (("fid", {}), ("kid", {}), ("pr50k", {})):
+            out, t = _wall_ms(lambda: calc_metric(name, real_images=real, fake_images=fake,
+                                                  **kw, **extra), dev)
+            ms[f"{name} {tag}"] = t
+            value = out["results"][name]
+            vals = list(value.values()) if isinstance(value, dict) else [value]
+            check(all(math.isfinite(v) for v in vals) and out["extractor"] == (
+                "custom" if tag == "inception_v3" else "random_projection"),
+                f"metrics: {name} {tag} {out}")
+            results[f"{name} {tag}"] = value
+            print(f"metrics {name}[{METRIC_IMAGES} + {METRIC_IMAGES} images, extractor "
+                  f"{tag}, payload extractor {out['extractor']!r}, comparable_to_published "
+                  f"{out['comparable_to_published']}]: {value} in {t:.1f} ms")
+    del real, fake, feats
+    # image metrics on frame pairs
+    a = torch.tanh(torch.randn((METRIC_PAIRS, METRIC_RES, METRIC_RES, 3), generator=g,
+                               device=dev))
+    b = torch.clamp(a + 0.2 * torch.randn(a.shape, generator=g, device=dev), -1, 1)
+    lp_tree = init_lpips_params()
+    lp_dev, lp_cpu = lpips_weights_from_jax(lp_tree, dev), lpips_weights_from_jax(lp_tree, cpu)
+    fns = {"psnr": image_metrics.psnr, "ssim": image_metrics.ssim,
+           "lpips_surrogate": image_metrics.lpips_surrogate,
+           "lpips_vgg": lambda x, y, w=None: lpips_vgg(w or lp_dev, x, y)}
+    for name, fn in fns.items():
+        with torch.no_grad():
+            got, ms[name] = _wall_ms(lambda: fn(a, b), dev)
+            got, ms[name] = _wall_ms(lambda: fn(a, b), dev)     # the first call warms cuDNN
+            t = time.perf_counter()
+            args = (a.cpu(), b.cpu())
+            want = fn(*args, lp_cpu) if name == "lpips_vgg" else fn(*args)
+            cpu_s = time.perf_counter() - t
+        e = _rel(got.cpu(), want)
+        check(got.shape == (METRIC_PAIRS,) and bool(torch.isfinite(got).all()) and e <= 1e-4,
+              f"metrics {name}: {tuple(got.shape)}, card vs CPU {e}")
+        print(f"metrics {name}[{METRIC_PAIRS} pairs of {METRIC_RES}^2]: mean "
+              f"{float(got.mean()):.6f}, {ms[name]:.2f} ms, card vs CPU on every pair "
+              f"max_rel_err {e:.3e} (tol 1e-4; the CPU's {cpu_s:.1f} s)")
+    del a, b, lp_dev
+    # PPL of the EG3D generator at full width, a fixed camera
+    cfg = load_config(os.path.join(ROOT, "configs", EG3D_CONFIG), parse_overrides(ppl_hparams))
+    task = EG3DTask(cfg, dev)
+    gen = mock_init_(task.build_generator(), torch.Generator().manual_seed(0)).to(dev).eval()
+    cam = torch.as_tensor(task.synthetic_batch(np.random.RandomState(0))["camera"][:1]).to(dev)
+
+    def synth(z):
+        return gen(z, cam.expand(z.shape[0], -1))["image"]
+
+    out, ms["ppl"] = _wall_ms(lambda: calc_metric("ppl", synth_fn=synth, z_dim=gen.z_dim,
+                                                  n_samples=PPL_SAMPLES, device=dev), dev)
+    value = out["results"]["ppl"]
+    check(math.isfinite(value) and value >= 0, f"metrics: ppl {out}")
+    print(f"metrics ppl[configs/eg3d.yaml TriPlaneGenerator, full width, {PPL_SAMPLES} samples, "
+          f"epsilon 1e-4, LPIPS surrogate]: {value:.6g} in {ms['ppl']:.1f} ms")
+    print(f"metrics: {card_line()}")
+    del task, gen
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_parity(dev: torch.device, out_dir: str) -> dict:
+    """The port's parity tool, ``--selftest --device cuda`` at full width
+    (``configs/real3d_orig.yaml``, 512^2, the ``reference`` 48+48 quadrature,
+    4 frames, the preset delta): exit 0, pass, and the fixture frames
+    rendered again bit-equal (PSNR at its 1e-12 MSE floor, which JAX's tool
+    calls inf); every kernel of the released geometry's torso path
+    launched. Returns the report."""
+    from real3dportrait_tpu_torch.tools import eval_parity
+
+    out = os.path.join(out_dir, "parity")
+    reset_launches()
+    rc, t = _wall_ms(lambda: eval_parity.main(["--selftest", "--device", str(dev), "--out",
+                                               out]), dev)
+    counts = read_launches()
+    with open(os.path.join(out, "parity_report.json")) as f:
+        report = json.load(f)
+    rendered = np.load(os.path.join(out, "rendered_frames.npy"))
+    ref = np.load(os.path.join(out, "fixtures", "ref_frames.npy"))
+    diff = float(np.abs(rendered.astype(np.float64) - ref).max())
+    delta = report["sampling_preset_delta"]
+    print(f"parity selftest[configs/real3d_orig.yaml, {rendered.shape[1]}^2, reference 48+48, "
+          f"{report['frames']} frames]: rc {rc}, pass {report['pass']}, psnr_mean "
+          f"{report['psnr_mean']} (per frame {report['psnr_per_frame']}), lpips "
+          f"{report['lpips_kind']} {report['lpips_mean']}, max |frame - fixture| {diff:g}; "
+          f"fast vs reference: psnr mean {delta['psnr_fast_vs_reference_mean']} min "
+          f"{delta['psnr_fast_vs_reference_min']}, lpips "
+          f"{delta['lpips_fast_vs_reference_mean']}; {t / 1e3:.1f} s; {card_line()}")
+    print(f"parity launches: { {k: counts[k] for k in PARITY_KERNELS} }")
+    check(rc == 0 and report["pass"] and report["frames"] == 4,
+          f"parity: rc {rc}, report {report}")
+    check(diff == 0.0 and report["psnr_mean"] == PSNR_EXACT,
+          f"parity: two renders from the same weights differ by {diff} (psnr "
+          f"{report['psnr_mean']}): the card is not bit-reproducible here")
+    check(all(counts[k] > 0 for k in PARITY_KERNELS), f"parity: launches {counts}")
+    check(math.isfinite(delta["psnr_fast_vs_reference_mean"]), f"parity: delta {delta}")
+    report["wall_s"] = t / 1e3
+    return report
+
+
+def ddp_worker(spec_json: str) -> int:
+    """One process of the ``ddp`` phase (``python3 chip_smoke.py --ddp-worker
+    SPEC``, under ``torch.distributed.run`` or alone): ``training.run``'s
+    trainer (``run.make_trainer``, then ``fit``) on ``spec["argv"]``, the
+    work dir under ``spec["root"]/rank<RANK>``; with ``spec["gloo"]`` the
+    process joins its group over gloo first (two ranks sharing one card),
+    and the trainer's join then only reports; its draws recorded to
+    ``records_out`` or replayed, split by rows, from ``records_in``; each
+    step timed; the parameters' change over the run written to
+    ``deltas_out`` by rank 0; a line ``ddp_worker {...}`` with the rank,
+    ms/step, peak GiB and the parameters' sha1."""
+    import hashlib
+
+    from real3dportrait_tpu_torch.training import run as trun
+    from real3dportrait_tpu_torch.training import trainer as tmod
+    from real3dportrait_tpu_torch.utils.draws import RecordDraws, ReplayDraws, rank_records
+
+    spec = json.loads(spec_json)
+    set_fp32_policy()
+    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    if spec.get("gloo"):
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method="env://")
+    seeded = tmod.seeded_draws
+    if spec.get("records_in"):
+        draws = ReplayDraws(rank_records(torch.load(spec["records_in"]), world, rank))
+        tmod.seeded_draws = lambda seed, device: draws
+    elif spec.get("records_out"):
+        draws = None
+
+        def recording(seed, device):
+            nonlocal draws
+            draws = RecordDraws(seeded(seed, device))
+            return draws
+        tmod.seeded_draws = recording
+    argv = spec["argv"] + ["--work_dir_root", os.path.join(spec["root"], f"rank{rank}")]
+    trainer = trun.make_trainer(argv)
+    task, init, times = trainer.task, {}, []
+    start_fn, step_fn = trainer.init_or_restore, task.train_step
+
+    grads0: dict = {}
+
+    def start_and_keep(seed):
+        st = start_fn(seed)
+        init.update({f"{m}.{n}": p.detach().clone() for m in ("gen", "disc")
+                     for n, p in getattr(st, m).named_parameters()})
+        for m, opt in (("gen", st.opt_g), ("disc", st.opt_d)):
+            def first(grads, _updates=opt.updates, _m=m):
+                out = _updates(grads)       # the gradients, all-reduced in place
+                if not any(k.startswith(f"{_m}.") for k in grads0):
+                    grads0.update({f"{_m}.{n}": g.detach().cpu().clone()
+                                   for n, g in grads.items()})
+                return out
+            opt.updates = first
+        return st
+
+    on_card = task.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timed_step(state, batch, d):
+        sync()
+        t = time.perf_counter()
+        m = step_fn(state, batch, d)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t))
+        return m
+
+    trainer.init_or_restore, task.train_step = start_and_keep, timed_step
+    if spec.get("no_save"):
+        trainer.save = lambda *a, **k: None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state = trainer.fit()
+    sync()
+    if spec.get("records_in"):
+        check(not draws.records, "ddp: a rank drew less than the single process")
+    if spec.get("records_out"):
+        torch.save(draws.records, spec["records_out"])
+    deltas = {k: (p.detach() - init[k]).cpu() for k, p in (
+        (f"{m}.{n}", p) for m in ("gen", "disc")
+        for n, p in getattr(state, m).named_parameters())}
+    h = hashlib.sha1()
+    for k in sorted(deltas):
+        h.update(deltas[k].numpy().tobytes())
+    if rank == 0:
+        torch.save({"grads": grads0, "deltas": deltas}, spec["deltas_out"])
+    print("ddp_worker " + json.dumps({
+        "rank": rank, "world": world, "device": str(task.device), "ms_per_step": times,
+        "peak_gib": torch.cuda.max_memory_allocated(task.device) / 2 ** 30 if on_card else 0.0,
+        "sha1": h.hexdigest()}), flush=True)
+    return 0
+
+
+def _ddp_launch(tag: str, nproc: int | None, spec: dict, extra: list[str]) -> list[dict]:
+    """Run ``ddp_worker`` alone (``nproc`` None) or under
+    ``torch.distributed.run --standalone --nproc_per_node nproc`` with a
+    timeout; returns its ranks' ``ddp_worker`` lines."""
+    cmd = [sys.executable] + (["-m", "torch.distributed.run", "--standalone",
+                               f"--nproc_per_node={nproc}"] if nproc else []) + \
+        [DDP_SCRIPT, "--ddp-worker", json.dumps({**spec, "argv": spec["argv"] + extra})]
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DDP_TIMEOUT, cwd=ROOT,
+                          env=env)
+    lines = [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+             if line.startswith("ddp_worker ")]
+    check(proc.returncode == 0 and len(lines) == (nproc or 1),
+          f"ddp {tag}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return sorted(lines, key=lambda r: r["rank"])
+
+
+def _train_log(work_dir: str) -> list[dict]:
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _logs_agree(tag: str, got: list[dict], want: list[dict]) -> str:
+    """Every logged value of every step, the losses, the loss lambdas and
+    the gradient norms, at 1e-4 relative (the train phase's card-vs-CPU
+    loss tolerance; in fp32 the norms read within 2.2e-6 on an H100); all
+    printed before the check. Returns the worst of each kind, as text."""
+    check([r["step"] for r in got] == [r["step"] for r in want], f"ddp {tag}: logged steps")
+    worst = {}
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            if k not in ("step", "prefix", "steps_per_sec"):
+                e = abs(g[k] - v) / max(abs(v), 1e-6) if math.isfinite(g[k]) else math.inf
+                kind = "grad_norm" if k.endswith("grad_norm") else "loss"
+                worst.setdefault(kind, []).append((e, f"step {w['step']} {k}"))
+    text = "; ".join(f"{label} worst {max(es)[1]} {max(es)[0]:.3e} (tol {tol:g})"
+                     for kind, label, tol in (("loss", "losses", 1e-4),
+                                              ("grad_norm", "gradient norms", 1e-4))
+                     for es in [worst.get(kind, [(0.0, "-")])])
+    print(f"ddp {tag}: logged values: {text}")
+    for kind, tol in (("loss", 1e-4), ("grad_norm", 1e-4)):
+        bad = [f"{n} {e:.3e}" for e, n in worst.get(kind, []) if not e <= tol]
+        check(not bad, f"ddp {tag}: {kind}s beyond {tol:g}: {bad}")
+    return text
+
+
+def _trees_agree(tag: str, what: str, got: dict, want: dict, tol: tuple = (5e-2, 1e-3),
+                 share: float | None = None) -> str:
+    """Each leaf of ``got`` (tensors by parameter name) against ``want``'s,
+    relative to its largest magnitude floored at 1e-3 of the largest of all
+    (the train phase's gradient rule and tolerance), all printed before the
+    check: the worst leaf by max and by mean, and the number of elements
+    past the max tolerance. With ``share``, the check is instead that at
+    most that share of all elements is past the max tolerance."""
+    top = max(float(w.abs().max()) for w in want.values())
+    rows, n_past, n_all = [], 0, 0
+    for n, w in want.items():
+        g = got[n].to(w.device).float()
+        scale = max(float(w.abs().max()), 1e-3 * top, 1e-30)
+        err = (g - w).abs() / scale
+        n_past += int((err > tol[0]).sum())
+        n_all += err.numel()
+        rows.append((float(err.max()) if bool(torch.isfinite(g).all()) else math.inf,
+                     float(err.mean()), n))
+    by_max, by_mean = max(rows), max(rows, key=lambda r: r[1])
+    text = (f"worst by max {by_max[2]}: {by_max[0]:.3e}; worst by mean {by_mean[2]}: "
+            f"{by_mean[1]:.3e}; {n_past} of {n_all} elements past {tol[0]:g} (tol {tol[0]:g} "
+            f"/ {tol[1]:g})")
+    print(f"ddp {tag}: {what} {text}")
+    if share is not None:
+        check(n_past <= share * n_all, f"ddp {tag}: {what}: {n_past} of {n_all} elements "
+              f"past {tol[0]:g}, more than a share of {share:g}")
+        return text
+    bad = [r for r in rows if not (r[0] <= tol[0] and r[1] <= tol[1])]
+    check(not bad, f"ddp {tag}: {what} beyond tolerance: {bad[:5]}")
+    return text
+
+
+def phase_ddp(dev: torch.device, out_dir: str, hparams: str = DDP_HPARAMS) -> dict:
+    """Data-parallel training of ``configs/secc_img2plane.yaml`` at full
+    width, global batch 4, 2 steps, ``group_size_for_mini_batch_std`` 1, in
+    fp32 (``DDP_HPARAMS``): (a) one rank under ``torch.distributed.run
+    --nproc_per_node 1`` over NCCL (its draws recorded), against (a0) the
+    same run with no launch; (b) two ranks on the one card over gloo (CUDA
+    tensors), 2 + 2 rows, (a)'s draws replayed on each rank's rows, against
+    (a). Each run goes through ``training.run``'s ``make_trainer`` and
+    ``fit``. Held, with the train phase's tolerances: every logged loss
+    and gradient norm (rank 0's log, the means over the ranks) at 1e-4
+    relative; step 0's gradients after the all-reduce within 5e-2 max /
+    1e-3 mean of each leaf's largest magnitude (floored at 1e-3 of the
+    largest of all); the parameters' change over the steps, each leaf
+    against its own change's scale, at most ``DDP_FLIP_SHARE`` of its
+    elements past 5e-2 (the parameters themselves start equal, so this
+    holds them after the steps); (b)'s two ranks bit-equal; rank 1's work
+    dir holds no file, rank 0's its config, log and checkpoint. Prints
+    ms/step and each rank's peak memory."""
+    # (a) and (a0) on "cuda" (torchrun's LOCAL_RANK picks the card), (b) on
+    # the one card named; on the CPU (a rehearsal) gloo throughout
+    on_card = dev.type == "cuda"
+    base = {"argv": ["--config", os.path.join(ROOT, "configs", TRAIN_CONFIG), "--exp_name",
+                     "ddp"]}
+    runs, deltas = {}, {}
+    t0 = time.perf_counter()
+    for tag, nproc, extra, spec in (
+            ("a", 1, ["--device", dev.type, "--hparams", hparams],
+             {"records_out": "a_draws.pt", "no_save": True}),
+            ("a0", None, ["--device", dev.type, "--hparams", hparams], {"no_save": True}),
+            ("b", 2, ["--device", str(dev), "--hparams", hparams],
+             {"records_in": "a_draws.pt", "gloo": on_card})):
+        spec = {**base, **{k: os.path.join(out_dir, v) if k.startswith("records") else v
+                           for k, v in spec.items()},
+                "root": os.path.join(out_dir, tag), "deltas_out": os.path.join(out_dir,
+                                                                               f"{tag}.pt")}
+        t = time.perf_counter()
+        runs[tag] = _ddp_launch(tag, nproc, spec, extra)
+        wall = time.perf_counter() - t
+        deltas[tag] = torch.load(spec["deltas_out"])
+        for r in runs[tag]:
+            print(f"ddp {tag}[rank {r['rank']} of {r['world']}, {r['device']}]: ms/step "
+                  f"{[round(x, 1) for x in r['ms_per_step']]}, peak {r['peak_gib']:.2f} GiB; "
+                  f"process wall {wall:.1f} s")
+    logs = {tag: _train_log(os.path.join(out_dir, tag, "rank0", "ddp")) for tag in runs}
+    check(len(logs["a"]) == DDP_STEPS, f"ddp: logged {logs['a']}")
+    check(runs["b"][0]["sha1"] == runs["b"][1]["sha1"], "ddp b: the ranks' parameters differ")
+    rank1 = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(out_dir, "b", "rank1"))
+             for f in fs]
+    check(not rank1, f"ddp b: rank 1 wrote {rank1}")
+    wrote = sorted(os.listdir(os.path.join(out_dir, "b", "rank0", "ddp")))
+    check({"config.yaml", "metrics.jsonl", f"model_ckpt_steps_{DDP_STEPS}.ckpt"} <= set(wrote),
+          f"ddp b: rank 0 wrote {wrote}")
+    failed = []
+    for tag, ref in (("a", "a0"), ("b", "a")):
+        for fn, args in ((_logs_agree, (logs[tag], logs[ref])),
+                         (_trees_agree, ("step 0 gradient", deltas[tag]["grads"],
+                                         deltas[ref]["grads"])),
+                         (functools.partial(_trees_agree, share=DDP_FLIP_SHARE),
+                          ("parameter change", deltas[tag]["deltas"],
+                           deltas[ref]["deltas"]))):
+            try:
+                fn(f"{tag} vs {ref}", *args)
+            except AssertionError as e:     # print every comparison before failing
+                failed.append(str(e))
+    check(not failed, "; ".join(failed))
+    print(f"ddp: rank 1 wrote no file; rank 0 wrote {wrote}; {time.perf_counter() - t0:.1f} s; "
+          f"{card_line()}")
+    del deltas
+    return {tag: [dict(rank=r["rank"], ms_per_step=r["ms_per_step"], peak_gib=r["peak_gib"])
+                  for r in rs] for tag, rs in runs.items()}
+
+
+def run_eval_phases(dev: torch.device) -> tuple[dict, dict, dict]:
+    """The metrics, the parity tool and data-parallel training; prints
+    each phase's wall seconds."""
+    walls = {}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        metrics = phase_metrics(dev, out_dir)
+    torch.cuda.synchronize()
+    walls["metrics"], t = time.perf_counter() - t, time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        parity = phase_parity(dev, out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    walls["parity"], t = time.perf_counter() - t, time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ddp = phase_ddp(dev, out_dir)
+    walls["ddp"] = time.perf_counter() - t
+    print("eval phases wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return metrics, parity, ddp
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3701,6 +4187,7 @@ def main() -> int:
     train_counts, torso_counts, tri_counts, orig_counts, train_rows = run_train_phases(dev)
     rec_counts, sync, a2m = run_records_phases(dev)
     eg3d_counts, i2p_counts = run_teacher_phases(dev)
+    metric_ms, parity, ddp = run_eval_phases(dev)
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
@@ -3719,6 +4206,15 @@ def main() -> int:
           f"{a2m['peak_gib']:.2f} GiB; train_eg3d {eg3d_counts['ms_per_step']:.1f} ms/step, peak "
           f"{eg3d_counts['peak_gib']:.2f} GiB; train_img2plane {i2p_counts['ms_per_step']:.1f} "
           f"ms/step, peak {i2p_counts['peak_gib']:.2f} GiB")
+    print(f"eval summary: inception {metric_ms['inception_128']:.1f} ms for "
+          f"{2 * METRIC_IMAGES} images, lpips_vgg {metric_ms['lpips_vgg']:.1f} ms for "
+          f"{METRIC_PAIRS} pairs, ppl {metric_ms['ppl']:.1f} ms; parity selftest psnr "
+          f"{parity['psnr_mean']}, fast vs reference "
+          f"{parity['sampling_preset_delta']['psnr_fast_vs_reference_mean']} dB, "
+          f"{parity['wall_s']:.1f} s; ddp ms/step (the last step) " + "; ".join(
+              f"{tag} rank {r['rank']} {r['ms_per_step'][-1]:.1f}, peak "
+              f"{r['peak_gib']:.2f} GiB" for tag, rs in ddp.items() for r in rs))
+    print("eval metric ms: " + ", ".join(f"{k} {v:.1f}" for k, v in metric_ms.items()))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     check(set(rows) == set(REPLACES), f"kernels measured: {sorted(rows)}")
     # each kernel's launches on the main path (run); K1, which the default
@@ -3777,4 +4273,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,0 +1,209 @@
+"""InceptionV3 pool features for FID / KID / IS / precision-recall (port of
+``real3dportrait_tpu/metrics/inception.py``).
+
+The pytorch-fid network: the torchvision ``inception_v3`` layout with
+FID's pooling (``count_include_pad=False`` average pools, a max-pool
+branch in ``Mixed_7c``), its eval-time BatchNorms folded into per-channel
+affines. The modules keep the Flax tree's names (``Mixed_5b.branch1x1.conv``,
+``bn_scale``, ``bn_bias``), so a ``tools/convert_torch_ckpt.py:convert_inception``
+tree loads through ``weights.inception_from_jax``. The convolutions are
+cuDNN's; JAX computes them outside any kernel. Without a weight file the
+metric suite uses its random-projection extractor and says so.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BasicConv2d(nn.Module):
+    """conv (no bias) -> the folded eval BatchNorm (``bn_scale``,
+    ``bn_bias``) -> relu."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1, padding=0):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, stride, padding, bias=False)
+        self.bn_scale = nn.Parameter(torch.ones(cout))
+        self.bn_bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        return F.relu(self.conv(x) * self.bn_scale[:, None, None] + self.bn_bias[:, None, None])
+
+
+def _avg_pool_3x3_exclude_pad(x):
+    """3x3 stride-1 average pool, padding not counted (pytorch-fid)."""
+    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+
+
+def _max_pool(x, k: int = 3, s: int = 2):
+    return F.max_pool2d(x, k, s)
+
+
+class InceptionA(nn.Module):
+    def __init__(self, cin: int, pool_features: int):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 64, 1)
+        self.branch5x5_1 = BasicConv2d(cin, 48, 1)
+        self.branch5x5_2 = BasicConv2d(48, 64, 5, padding=2)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, 1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, padding=1)
+        self.branch_pool = BasicConv2d(cin, pool_features, 1)
+
+    def forward(self, x):
+        b5 = self.branch5x5_2(self.branch5x5_1(x))
+        b3 = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        bp = self.branch_pool(_avg_pool_3x3_exclude_pad(x))
+        return torch.cat([self.branch1x1(x), b5, b3, bp], dim=1)
+
+
+class InceptionB(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch3x3 = BasicConv2d(cin, 384, 3, stride=2)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, 1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, stride=2)
+
+    def forward(self, x):
+        bd = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch3x3(x), bd, _max_pool(x)], dim=1)
+
+
+class InceptionC(nn.Module):
+    def __init__(self, cin: int, channels_7x7: int):
+        super().__init__()
+        c7 = channels_7x7
+        self.branch1x1 = BasicConv2d(cin, 192, 1)
+        self.branch7x7_1 = BasicConv2d(cin, c7, 1)
+        self.branch7x7_2 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3))
+        self.branch7x7_3 = BasicConv2d(c7, 192, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_1 = BasicConv2d(cin, c7, 1)
+        self.branch7x7dbl_2 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_3 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3))
+        self.branch7x7dbl_4 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_5 = BasicConv2d(c7, 192, (1, 7), padding=(0, 3))
+        self.branch_pool = BasicConv2d(cin, 192, 1)
+
+    def forward(self, x):
+        b7 = self.branch7x7_3(self.branch7x7_2(self.branch7x7_1(x)))
+        bd = self.branch7x7dbl_1(x)
+        for m in (self.branch7x7dbl_2, self.branch7x7dbl_3, self.branch7x7dbl_4,
+                  self.branch7x7dbl_5):
+            bd = m(bd)
+        bp = self.branch_pool(_avg_pool_3x3_exclude_pad(x))
+        return torch.cat([self.branch1x1(x), b7, bd, bp], dim=1)
+
+
+class InceptionD(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch3x3_1 = BasicConv2d(cin, 192, 1)
+        self.branch3x3_2 = BasicConv2d(192, 320, 3, stride=2)
+        self.branch7x7x3_1 = BasicConv2d(cin, 192, 1)
+        self.branch7x7x3_2 = BasicConv2d(192, 192, (1, 7), padding=(0, 3))
+        self.branch7x7x3_3 = BasicConv2d(192, 192, (7, 1), padding=(3, 0))
+        self.branch7x7x3_4 = BasicConv2d(192, 192, 3, stride=2)
+
+    def forward(self, x):
+        b3 = self.branch3x3_2(self.branch3x3_1(x))
+        b7 = self.branch7x7x3_1(x)
+        for m in (self.branch7x7x3_2, self.branch7x7x3_3, self.branch7x7x3_4):
+            b7 = m(b7)
+        return torch.cat([b3, b7, _max_pool(x)], dim=1)
+
+
+class InceptionE(nn.Module):
+    """pytorch-fid: ``Mixed_7b`` pools by the padding-excluding average,
+    ``Mixed_7c`` by a stride-1 max pool padded with -inf (JAX's ``SAME``)."""
+
+    def __init__(self, cin: int, pool_mode: str = "avg"):
+        super().__init__()
+        self.pool_mode = pool_mode
+        self.branch1x1 = BasicConv2d(cin, 320, 1)
+        self.branch3x3_1 = BasicConv2d(cin, 384, 1)
+        self.branch3x3_2a = BasicConv2d(384, 384, (1, 3), padding=(0, 1))
+        self.branch3x3_2b = BasicConv2d(384, 384, (3, 1), padding=(1, 0))
+        self.branch3x3dbl_1 = BasicConv2d(cin, 448, 1)
+        self.branch3x3dbl_2 = BasicConv2d(448, 384, 3, padding=1)
+        self.branch3x3dbl_3a = BasicConv2d(384, 384, (1, 3), padding=(0, 1))
+        self.branch3x3dbl_3b = BasicConv2d(384, 384, (3, 1), padding=(1, 0))
+        self.branch_pool = BasicConv2d(cin, 192, 1)
+
+    def forward(self, x):
+        b3 = self.branch3x3_1(x)
+        b3 = torch.cat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], dim=1)
+        bd = self.branch3x3dbl_2(self.branch3x3dbl_1(x))
+        bd = torch.cat([self.branch3x3dbl_3a(bd), self.branch3x3dbl_3b(bd)], dim=1)
+        if self.pool_mode == "avg":
+            bp = _avg_pool_3x3_exclude_pad(x)
+        else:
+            bp = F.max_pool2d(x, 3, 1, padding=1)
+        return torch.cat([self.branch1x1(x), b3, bd, self.branch_pool(bp)], dim=1)
+
+
+class InceptionV3Features(nn.Module):
+    """Images [B,H,W,3] in [-1,1] (already 299^2) -> 2048-d pool3 features."""
+
+    def __init__(self):
+        super().__init__()
+        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
+        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
+        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1)
+        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, 1)
+        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, 3)
+        self.Mixed_5b = InceptionA(192, 32)
+        self.Mixed_5c = InceptionA(256, 64)
+        self.Mixed_5d = InceptionA(288, 64)
+        self.Mixed_6a = InceptionB(288)
+        self.Mixed_6b = InceptionC(768, 128)
+        self.Mixed_6c = InceptionC(768, 160)
+        self.Mixed_6d = InceptionC(768, 160)
+        self.Mixed_6e = InceptionC(768, 192)
+        self.Mixed_7a = InceptionD(768)
+        self.Mixed_7b = InceptionE(1280, "avg")
+        self.Mixed_7c = InceptionE(2048, "max")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
+        x = _max_pool(x)
+        x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x))
+        x = _max_pool(x)
+        for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b", "Mixed_6c",
+                     "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b", "Mixed_7c"):
+            x = getattr(self, name)(x)
+        return x.mean(dim=(2, 3))
+
+
+def resize_299(images: torch.Tensor) -> torch.Tensor:
+    """[B,H,W,3] -> [B,299,299,3]: half-pixel bilinear without antialias
+    (``jax.image.resize(..., "bilinear", antialias=False)``, pytorch-fid's
+    resize)."""
+    if tuple(images.shape[1:3]) == (299, 299):
+        return images
+    y = F.interpolate(images.permute(0, 3, 1, 2), size=(299, 299), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def inception_pool_features(model: InceptionV3Features, images: torch.Tensor) -> torch.Tensor:
+    """images [B,H,W,3] in [-1,1] -> [B,2048], resized to 299^2 first."""
+    return model(resize_299(images))
+
+
+def load_inception_params(path: str, device="cpu") -> InceptionV3Features | None:
+    """The network with a ``convert_inception`` msgpack tree's weights
+    (strictly), in eval mode on ``device``; None where ``path`` is empty
+    or missing."""
+    if not path or not os.path.exists(path):
+        return None
+    from real3dportrait_tpu_torch.utils.msgpack_ckpt import load_checkpoint
+    from real3dportrait_tpu_torch.weights import inception_from_jax
+
+    return inception_from_jax(load_checkpoint(path)).to(device)

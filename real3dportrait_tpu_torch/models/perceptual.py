@@ -6,7 +6,10 @@ with frozen, loadable weights that enter no optimiser or checkpoint:
 * ``"vgg19_v2"``, the released configs' ``lpips_mode``: the dual
   VGG19 + VGGFace :func:`perceptual_v2`;
 * ``"pyramid"``: the Laplacian-pyramid surrogate
-  (``training/losses.laplacian_pyramid_loss``) where no weights are given.
+  (``training/losses.laplacian_pyramid_loss``) where no weights are given;
+
+and the LPIPS(net='vgg') evaluation metric, :func:`lpips_vgg` on a
+``convert_lpips_vgg`` tree (:func:`make_lpips_fn`).
 
 :func:`make_perceptual_fn` picks one from the config as the JAX package
 does. The convs are cuDNN's (``F.conv2d``); JAX computes them outside any
@@ -201,3 +204,97 @@ def make_perceptual_fn(cfg, device="cpu") -> tuple:
             face_w = conv_weights(face, device, VGGFACE_CONVS)
             return (lambda p, t: perceptual_v2(weights, face_w, p, t)), "vgg19_v2"
     return (lambda p, t: vgg19_perceptual(weights, p, t)), "vgg19"
+
+
+# ---------------------------------------------------------------------------
+# lpips-package LPIPS(net='vgg'), the standard evaluation metric
+# ---------------------------------------------------------------------------
+# lpips/lpips.py, LPIPS(net='vgg', lpips=True): the scaling layer, then
+# torchvision vgg16 features tapped at relu1_2/2_2/3_3/4_3/5_3, each tap
+# unit-normalised over its channels, squared differences, the learned 1x1
+# "lin" weights (C -> 1, no bias), the spatial mean, the sum over taps.
+
+LPIPS_VGG16_CONVS = (
+    (0, 64, False),
+    (2, 64, True),     # relu1_2 (tap 0)
+    (5, 128, False),
+    (7, 128, True),    # relu2_2
+    (10, 256, False),
+    (12, 256, False),
+    (14, 256, True),   # relu3_3
+    (17, 512, False),
+    (19, 512, False),
+    (21, 512, True),   # relu4_3
+    (24, 512, False),
+    (26, 512, False),
+    (28, 512, True),   # relu5_3
+)
+LPIPS_POOL_BEFORE = (5, 10, 17, 24)
+# the lpips ScalingLayer's shift and scale buffers
+LPIPS_SHIFT = (-0.030, -0.088, -0.188)
+LPIPS_SCALE = (0.458, 0.448, 0.450)
+
+
+def init_lpips_params(rng: np.random.RandomState | None = None) -> dict:
+    """Seeded LPIPS-vgg tree (``conv<i>``: HWIO ``kernel``, ``bias``;
+    ``lin<k>``: ``kernel`` [C,1]), the JAX package's arrays from the same
+    ``RandomState`` (2 by default)."""
+    rng = rng or np.random.RandomState(2)
+    params = {}
+    in_ch = 3
+    lin_ch = []
+    for idx, out_ch, tap in LPIPS_VGG16_CONVS:
+        fan_in = 3 * 3 * in_ch
+        params[f"conv{idx}"] = {
+            "kernel": (rng.randn(3, 3, in_ch, out_ch) *
+                       np.sqrt(2.0 / fan_in)).astype(np.float32),
+            "bias": np.zeros((out_ch,), np.float32),
+        }
+        if tap:
+            lin_ch.append(out_ch)
+        in_ch = out_ch
+    for k, c in enumerate(lin_ch):
+        params[f"lin{k}"] = {
+            "kernel": np.abs(rng.randn(c, 1)).astype(np.float32) * 0.1,
+        }
+    return params
+
+
+def lpips_vgg(weights: tuple, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """LPIPS distance per batch element: x, y [B,H,W,3] in [-1,1] -> [B].
+    ``weights``: ``weights.lpips_weights_from_jax(tree, device)``."""
+    convs, lins = weights
+
+    def feats(img):
+        shift = torch.tensor(LPIPS_SHIFT, device=img.device)
+        scale = torch.tensor(LPIPS_SCALE, device=img.device)
+        z = ((img - shift) / scale).permute(0, 3, 1, 2)
+        return _conv_stack(convs, z, LPIPS_VGG16_CONVS, LPIPS_POOL_BEFORE)
+
+    total = 0.0
+    for w, a, b in zip(lins, feats(x), feats(y)):
+        a = a / torch.sqrt(a.square().sum(dim=1, keepdim=True) + 1e-10)
+        b = b / torch.sqrt(b.square().sum(dim=1, keepdim=True) + 1e-10)
+        d = torch.einsum("bchw,c->bhw", (a - b).square(), w)
+        total = total + d.mean(dim=(1, 2))
+    return total
+
+
+def load_msgpack_params(path: str) -> dict | None:
+    """JAX's name: any converted perceptual tree, unchecked (``load_tree``
+    with no conv to check)."""
+    return load_tree(path, ())
+
+
+def make_lpips_fn(cfg, device="cpu"):
+    """LPIPS(net='vgg') from ``cfg['lpips_vgg_ckpt']`` (a
+    ``convert_lpips_vgg`` msgpack tree, its convs checked) with its weights
+    on ``device``; None where the file is absent, and the callers fall back
+    to the surrogate and say so."""
+    tree = load_tree(str(cfg.get("lpips_vgg_ckpt", "") or ""), LPIPS_VGG16_CONVS)
+    if tree is None:
+        return None
+    from real3dportrait_tpu_torch.weights import lpips_weights_from_jax
+
+    weights = lpips_weights_from_jax(tree, device)
+    return lambda x, y: lpips_vgg(weights, x, y)

@@ -25,6 +25,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from real3dportrait_tpu_torch.parallel.distributed import all_reduce_mean
+
 f32 = np.float32
 
 
@@ -92,9 +94,10 @@ class Adam:
     """``optax.adam(schedule, b1, b2, eps)`` over named parameters, wrapped in
     ``optax.MultiSteps`` when ``every_k > 1``.
 
-    :meth:`updates` takes the gradients (a dict by name) and returns the
-    updates to add (``-lr * m_hat / (sqrt(v_hat) + eps)``, zero between
-    accumulation steps), advancing the state. With ``clip_norm`` the
+    :meth:`updates` takes the gradients (a dict by name; in a multi-process
+    run each is first replaced in place by its mean over the processes)
+    and returns the updates to add (``-lr * m_hat / (sqrt(v_hat) + eps)``,
+    zero between accumulation steps), advancing the state. With ``clip_norm`` the
     gradients are first scaled by ``clip_norm / global_norm`` where their
     global norm is at least ``clip_norm`` (optax's
     ``clip_by_global_norm``).
@@ -148,6 +151,9 @@ class Adam:
 
     @torch.no_grad()
     def updates(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        # data parallel: the gradient of the global batch's mean, before the
+        # clip and the accumulation, as JAX's one program computes it
+        all_reduce_mean(grads)
         if self.every_k == 1:
             return self._inner(grads, True)
         n_acc = self.mini_step

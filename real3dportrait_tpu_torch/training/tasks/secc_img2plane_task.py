@@ -50,6 +50,7 @@ from real3dportrait_tpu_torch.models.dual_discriminator import DualDiscriminator
 from real3dportrait_tpu_torch.models.img2plane import OSAvatarSECCImg2Plane
 from real3dportrait_tpu_torch.models.perceptual import make_perceptual_fn
 from real3dportrait_tpu_torch.ops.resize import resize_linear
+from real3dportrait_tpu_torch.parallel.distributed import all_reduce_mean
 from real3dportrait_tpu_torch.training import losses as L
 from real3dportrait_tpu_torch.training.schedulers import Adam, gan_lr_schedule
 from real3dportrait_tpu_torch.training.tasks.base_task import BaseTask
@@ -385,8 +386,13 @@ class SeccImg2PlaneTask(BaseTask):
     def tune_lambdas(self, state: TrainState, losses: dict) -> None:
         """log10-space proportional control of the perturbation lambdas
         toward their target losses, on cond-reg steps, clamped; a target of
-        0 zeroes the lambda. On the device, nothing read back."""
+        0 zeroes the lambda. On the device, nothing read back. In a
+        multi-process run the two losses are first averaged over the
+        processes (the global batch's, as in JAX), so every lambda stays
+        the same on every process."""
         cfg = self.cfg
+        all_reduce_mean({k: losses[k] for k in ("pertube_secc", "pertube_blink_secc")
+                         if k in losses})
         do_cond = (state.step + 1) % int(cfg.get("reg_interval_g_cond", 4)) == 0
         lr_lam = float(cfg.get("lr_lambda_pertube_secc", 0.01))
 

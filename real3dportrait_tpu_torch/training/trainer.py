@@ -1,17 +1,29 @@
 """The training loop (port of ``real3dportrait_tpu/training/trainer.py``).
 
-One process drives one device: the step is kept on the host, each step's
-metrics stay on the device and are read back once per ``tb_log_interval``
-steps (one copy of all of them); validation and checkpoints every
-``val_check_interval`` steps and at the end; at each validation the
-task's ``val_images`` (where it has them) are written as PNGs under
-``work_dir/val_images/iter<step>/`` unless ``save_val_images`` is false.
-Checkpoints are the JAX package's files (``training/checkpoint.py``); a run
-restores the newest one in its work dir, or else starts from the newest of
-``init_from_ckpt``, both merged leniently (``checkpoint.partial_load``).
-One process drives one card, so the JAX trainer's device mesh and
-multi-host launch have no counterpart; neither have its terminal tee and
-code snapshot.
+The step is kept on the host, each step's metrics stay on the device and
+are read back once per ``tb_log_interval`` steps (one copy of all of
+them); validation and checkpoints every ``val_check_interval`` steps and
+at the end; at each validation the task's ``val_images`` (where it has
+them) are written as PNGs under ``work_dir/val_images/iter<step>/`` unless
+``save_val_images`` is false. Checkpoints are the JAX package's files
+(``training/checkpoint.py``); a run restores the newest one in its work
+dir, or else starts from the newest of ``init_from_ckpt``, both merged
+leniently (``checkpoint.partial_load``).
+
+Data parallel (``parallel/``): one process a card, launched by
+``python -m torch.distributed.run --nproc_per_node N -m
+real3dportrait_tpu_torch.training.run ...`` (NCCL on the cards, gloo on
+the CPU). ``batch_size`` is the global batch: every process builds the
+same global batch and keeps its rows (``parallel.shard_global_batch``:
+its rows must divide by the number of processes); the
+state is broadcast from rank 0 after the restore; each optimiser
+all-reduces the gradients to the global batch's mean
+(``schedulers.Adam.updates``); the logged and validation metrics are
+means over the processes, in one collective a read; each process draws
+its noise from a generator seeded with (seed, step, rank). Rank 0 alone
+writes the work dir: ``config.yaml``, ``metrics.jsonl``, checkpoints and
+the validation PNGs. The JAX trainer's terminal tee and code snapshot have
+no counterpart.
 """
 
 from __future__ import annotations
@@ -24,32 +36,45 @@ import numpy as np
 import torch
 import yaml
 
+from real3dportrait_tpu_torch.parallel import (
+    is_main_process,
+    make_mesh,
+    maybe_initialize_distributed,
+    replicate_to_mesh,
+    shard_global_batch,
+)
+from real3dportrait_tpu_torch.parallel.distributed import all_reduce_mean, rank
 from real3dportrait_tpu_torch.training import checkpoint as ckpt
 from real3dportrait_tpu_torch.training.train_state import TrainState
 from real3dportrait_tpu_torch.utils.draws import seeded_draws
 
 
 class MetricLogger:
-    """``metrics.jsonl`` in the work dir, and a line on stdout."""
+    """``metrics.jsonl`` in the work dir (where ``write_files``: rank 0),
+    and a line on stdout (every process, so that a stuck one shows)."""
 
-    def __init__(self, work_dir: str, log_interval: int = 100):
-        os.makedirs(work_dir, exist_ok=True)
-        self.path = os.path.join(work_dir, "metrics.jsonl")
+    def __init__(self, work_dir: str, log_interval: int = 100, write_files: bool = True):
+        self.path = None
+        if write_files:
+            os.makedirs(work_dir, exist_ok=True)
+            self.path = os.path.join(work_dir, "metrics.jsonl")
         self.log_interval = log_interval
 
     def log(self, step: int, metrics: dict, prefix: str = "train") -> None:
         rec = {"step": int(step), "prefix": prefix, **{k: float(v) for k, v in metrics.items()}}
-        with open(self.path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        if self.path is not None:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
         msg = " ".join(f"{k}={float(v):.4g}" for k, v in list(metrics.items())[:8])
         print(f"| {prefix} step {step}: {msg}", flush=True)
 
 
 def _read(metrics: dict[str, list]) -> dict[str, np.ndarray]:
-    """Every metric's values, read back in one device-to-host copy."""
+    """Every metric's values, averaged over the processes in one collective
+    (where there are several) and read back in one device-to-host copy."""
     names = list(metrics)
     stacked = torch.stack([torch.stack([v.float() for v in metrics[k]]) for k in names])
-    host = stacked.cpu().numpy()
+    host = all_reduce_mean({"m": stacked})["m"].cpu().numpy()
     return dict(zip(names, host))
 
 
@@ -61,8 +86,14 @@ class Trainer:
 
     def __init__(self, cfg: dict, task, work_dir: str):
         self.cfg, self.task, self.work_dir = cfg, task, work_dir
-        os.makedirs(work_dir, exist_ok=True)
-        self.logger = MetricLogger(work_dir, int(cfg.get("tb_log_interval", 100)))
+        # the process group first (``training/run.py`` has joined it already)
+        maybe_initialize_distributed(cfg, task.device)
+        self.is_main = is_main_process()
+        self.mesh = make_mesh(dict(cfg.get("mesh_shape", None) or {"data": -1}))
+        if self.is_main:
+            os.makedirs(work_dir, exist_ok=True)
+        self.logger = MetricLogger(work_dir, int(cfg.get("tb_log_interval", 100)),
+                                   write_files=self.is_main)
         self.max_updates = int(cfg.get("max_updates", 1000))
         self.val_check_interval = int(cfg.get("val_check_interval", 2000))
         self.num_ckpt_keep = int(cfg.get("num_ckpt_keep", 3))
@@ -70,15 +101,17 @@ class Trainer:
         self.monitor_mode = cfg.get("valid_monitor_mode", "min")
         self.monitor_key = cfg.get("valid_monitor_key", "val_loss")
         self.best_val = np.inf if self.monitor_mode == "min" else -np.inf
-        with open(os.path.join(work_dir, "config.yaml"), "w") as f:
-            yaml.safe_dump(cfg, f)
+        if self.is_main:
+            with open(os.path.join(work_dir, "config.yaml"), "w") as f:
+                yaml.safe_dump(cfg, f)
 
     def init_or_restore(self, seed: int) -> TrainState:
         """The task's seeded state, then the newest checkpoint of the work
         dir merged in leniently (leaves left out of it keep their built
         values); with no such checkpoint, the newest one of
         ``init_from_ckpt`` (a work dir) merged in the same way, as the torso
-        stage starts from the head stage's run."""
+        stage starts from the head stage's run. In a multi-process run the
+        result is then broadcast from rank 0."""
         state = self.task.build(seed)
         restored, path = ckpt.get_last_checkpoint(self.work_dir)
         if restored is not None:
@@ -93,7 +126,12 @@ class Trainer:
                 merged, stats = ckpt.partial_load(state.state_dict(), src)
                 state.load_state_dict(merged)
                 print(f"| partial init from {path}: {stats}", flush=True)
-        return state
+        return replicate_to_mesh(state, self.mesh)
+
+    def batch(self, batch: dict) -> dict:
+        """This process's rows of a global batch, on the task's device; a
+        batch whose rows do not divide by the number of processes raises."""
+        return shard_global_batch(batch, self.task.device)
 
     def save(self, state: TrainState, not_save_keys: tuple = ()) -> str:
         return ckpt.save_checkpoint(self.work_dir, state.step, state.state_dict(),
@@ -105,16 +143,16 @@ class Trainer:
         seed = int(self.cfg.get("seed", 9999))
         state = self.init_or_restore(seed)
         # the step's draws: one generator on the device, seeded from the run
-        # seed and the step it starts at
-        draws = seeded_draws(seed * 1000003 + state.step, self.task.device)
+        # seed, the step it starts at and the rank (0 for a single process)
+        draws = seeded_draws((rank() << 48) + seed * 1000003 + state.step, self.task.device)
         for _, batch in zip(range(int(self.cfg.get("num_sanity_val_steps", 1))),
                             self.task.val_data()):
-            self.task.val_step(state, self.task.to_device(batch))
+            self.task.val_step(state, self.batch(batch))
         train_iter = iter(self.task.train_data())
         meters: dict[str, list] = {}
         t0 = time.time()
         while state.step < self.max_updates:
-            batch = self.task.to_device(next(train_iter))
+            batch = self.batch(next(train_iter))
             metrics = self.task.train_step(state, batch, draws)
             for k, v in metrics.items():
                 meters.setdefault(k, []).append(v)
@@ -130,17 +168,20 @@ class Trainer:
                 t0 = time.time()
             if step % self.val_check_interval == 0:
                 self.run_validation(state)
-                self.dump_val_images(state, step)
-                # the validation saves leave out ``not_save_modules``; the
-                # final save keeps everything, as in the JAX trainer
-                self.save(state, tuple(self.cfg.get("not_save_modules", []) or ()))
-        self.save(state)
+                if self.is_main:
+                    self.dump_val_images(state, step)
+                    # the validation saves leave out ``not_save_modules``; the
+                    # final save keeps everything, as in the JAX trainer
+                    self.save(state, tuple(self.cfg.get("not_save_modules", []) or ()))
+        if self.is_main:
+            self.save(state)
         return state
 
     def dump_val_images(self, state: TrainState, step: int) -> list[str]:
         """The task's ``val_images(state, batch, draws)`` of the first
-        validation batch (draws seeded with 0), written as
-        ``work_dir/val_images/iter<step>/<name>.png``; returns the paths."""
+        validation batch (whole; draws seeded with 0), written as
+        ``work_dir/val_images/iter<step>/<name>.png`` (by rank 0: ``fit``
+        calls it there only); returns the paths."""
         if not hasattr(self.task, "val_images") or not bool(
                 self.cfg.get("save_val_images", True)):
             return []
@@ -162,7 +203,7 @@ class Trainer:
         metrics: dict[str, list] = {}
         for _, batch in zip(range(int(self.cfg.get("eval_max_batches", 10))),
                             self.task.val_data()):
-            for k, v in self.task.val_step(state, self.task.to_device(batch)).items():
+            for k, v in self.task.val_step(state, self.batch(batch)).items():
                 metrics.setdefault(k, []).append(v)
         avg = {k: float(np.mean(v)) for k, v in _read(metrics).items()}
         self.logger.log(state.step, avg, prefix="val")
@@ -171,5 +212,6 @@ class Trainer:
             better = val < self.best_val if self.monitor_mode == "min" else val > self.best_val
             if better:
                 self.best_val = val
-                ckpt.save_best(self.work_dir, state.state_dict())
+                if self.is_main:
+                    ckpt.save_best(self.work_dir, state.state_dict())
         return avg

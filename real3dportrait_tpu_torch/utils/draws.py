@@ -10,7 +10,8 @@ the SyncNet clips of the training tasks (``training/tasks``). The two
 packages' generators give different numbers from one seed, so a test that
 compares them hands the port the JAX package's draws through
 :class:`ReplayDraws`; :class:`RecordDraws` keeps a step's own draws, so
-that the same step on another device replays them.
+that the same step on another device replays them; :func:`rank_records`
+cuts a single process's records to one data-parallel rank's rows.
 """
 
 from __future__ import annotations
@@ -98,3 +99,22 @@ class ReplayDraws(Draws):
 
     def integers(self, shape, device, low, high):
         return self._next("integers", shape, device)
+
+
+def rank_records(records, world: int, rank: int) -> list:
+    """A single process's recorded draws, (kind, values) in order, as rank
+    ``rank`` of ``world`` processes draws them for its rows of the global
+    batch: a record of leading size above 1 (batch-major: B rows, or B x
+    rays) gives the rank its block of rows; a record of leading size 1 (a
+    draw the batch shares) stays whole. A batch-major record that does not
+    split raises."""
+    out = []
+    for kind, v in records:
+        if v.ndim >= 1 and v.shape[0] > 1:
+            if v.shape[0] % world:
+                raise ValueError(f"a {kind} draw of {tuple(v.shape)} does not split over "
+                                 f"{world} processes")
+            per = v.shape[0] // world
+            v = v[rank * per:(rank + 1) * per]
+        out.append((kind, v))
+    return out

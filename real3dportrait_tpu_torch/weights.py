@@ -244,3 +244,35 @@ def mock_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     if p is not None:
                         p.normal_(generator=generator)
     return model
+
+
+# --- the evaluation metrics' networks ---------------------------------------------
+
+
+def inception_from_jax(variables: Mapping[str, Any]) -> nn.Module:
+    """A ``convert_inception`` tree (``{"params": ...}``, or JAX's Flax
+    variables of ``InceptionV3Features``) -> the port's network holding it,
+    loaded strictly, in eval mode on the CPU."""
+    from real3dportrait_tpu_torch.metrics.inception import InceptionV3Features
+
+    return load_jax_variables(InceptionV3Features(), variables).eval()
+
+
+def lpips_weights_from_jax(tree: Mapping[str, Any], device) -> tuple:
+    """A ``convert_lpips_vgg`` tree (``conv<i>``: HWIO ``kernel``, ``bias``;
+    ``lin<k>``: ``kernel`` [C,1]) -> ``models/perceptual.lpips_vgg``'s
+    weights on ``device``: ({idx: (OIHW weight, bias)}, [lin_k [C]])."""
+    from real3dportrait_tpu_torch.models.perceptual import LPIPS_VGG16_CONVS, conv_weights
+
+    n_taps = sum(tap for _, _, tap in LPIPS_VGG16_CONVS)
+    lins = [torch.as_tensor(np.asarray(tree[f"lin{k}"]["kernel"], np.float32)).reshape(-1)
+            .to(device) for k in range(n_taps)]
+    return conv_weights(tree, device, LPIPS_VGG16_CONVS), lins
+
+
+def random_projection_from_jax(w1, w2, w_out) -> tuple:
+    """The JAX random-projection extractor's arrays (HWIO ``w1`` [5,5,3,32],
+    ``w2`` [3,3,32,64], ``w_out`` [128,D]) as fp32 CPU tensors in the same
+    layout, for ``metrics/gan_metrics.make_random_projection_extractor(
+    weights=...)``."""
+    return tuple(torch.as_tensor(np.asarray(w, np.float32)) for w in (w1, w2, w_out))

@@ -1,0 +1,144 @@
+"""One process of tests/test_torch_ddp.py's data-parallel runs on the CPU:
+
+    python tests/_torch_ddp_worker.py '<json spec>'
+
+``spec``: ``mode`` ("gan_step", "fit" or "replicate"), ``world`` (0: no
+process group) and ``rank``, ``port`` (rank 0's, on localhost), ``config``
+and ``hparams`` (a dict), ``steps``, the draws (``draws_seed``, recorded to
+``records_out``, or replayed from ``records_in``, each record split by rows
+across the world), ``ref_params`` (a reference's parameters to measure
+against), ``params_out``, ``work_dir`` and ``out_json``. Imports nothing of
+JAX."""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import pickle
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+# the join and every collective of a multi-rank world fail after this long
+JOIN_TIMEOUT_S = 120
+
+
+def draws_for(spec: dict, device):
+    from real3dportrait_tpu_torch.utils.draws import (
+        RecordDraws, ReplayDraws, rank_records, seeded_draws)
+
+    if spec.get("records_in"):
+        with open(spec["records_in"], "rb") as f:
+            records = pickle.load(f)
+        return ReplayDraws(rank_records(records, max(spec["world"], 1), spec["rank"]))
+    draws = seeded_draws(spec.get("draws_seed", 7), device)
+    return RecordDraws(draws) if spec.get("records_out") else draws
+
+
+def params_of(state) -> dict:
+    """Every parameter of the state's modules, by ``<module>.<name>``."""
+    out = {}
+    for key in ("gen", "disc", "model"):
+        mod = getattr(state, key, None)
+        if mod is not None:
+            out.update({f"{key}.{n}": p.detach().clone() for n, p in mod.named_parameters()})
+    return out
+
+
+def summarise(params: dict, ref_path: str | None) -> dict:
+    """The parameters' sha1, and against a reference: the largest
+    |difference| over each leaf's scale (its largest magnitude, floored at
+    1e-3 of the tree's), the leaf where it is, and the largest absolute one."""
+    h = hashlib.sha1()
+    for n in sorted(params):
+        h.update(params[n].numpy().tobytes())
+    out = {"sha1": h.hexdigest(), "n_params": len(params)}
+    if ref_path:
+        ref = torch.load(ref_path)
+        assert set(ref) == set(params)
+        top = max(float(r.abs().max()) for r in ref.values())
+        worst, where, abs_max = 0.0, "", 0.0
+        for n, r in ref.items():
+            err = float((params[n].double() - r.double()).abs().max())
+            rel = err / max(float(r.abs().max()), 1e-3 * top)
+            abs_max = max(abs_max, err)
+            if rel > worst:
+                worst, where = rel, n
+        out.update(worst_rel=worst, worst_leaf=where, max_abs=abs_max, top=top)
+    return out
+
+
+def main(spec: dict) -> None:
+    from real3dportrait_tpu_torch.config import load_config
+    from real3dportrait_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed, replicate_to_mesh, shard_global_batch)
+    from real3dportrait_tpu_torch.training.tasks.base_task import resolve_task
+
+    dev = torch.device("cpu")
+    hparams = spec["hparams"]
+    if spec["world"] > 0:
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(spec["port"]),
+                          WORLD_SIZE=str(spec["world"]), RANK=str(spec["rank"]),
+                          LOCAL_RANK="0")
+    if spec["world"] > 1:
+        # several ranks join here, under a timeout, so that a dead rank fails
+        # the test instead of hanging it; the trainer's join then only
+        # reports. A world of one joins through the launch contract.
+        import datetime
+
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method="env://",
+                                timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
+    result: dict = {}
+    if spec["mode"] == "fit":
+        from real3dportrait_tpu_torch.training import run, trainer
+
+        draws = draws_for(spec, dev)
+        trainer.seeded_draws = lambda seed, device: draws
+        argv = ["--config", os.path.join(ROOT, "configs", spec["config"]), "--device", "cpu",
+                "--work_dir_root", spec["work_dir"], "--exp_name", "run", "--hparams",
+                ",".join(f"{k}={v}" for k, v in hparams.items())]
+        t = run.make_trainer(argv)
+        state = t.fit()
+        with open(os.path.join(spec["work_dir"], "run", "metrics.jsonl")
+                  if t.is_main else os.devnull) as f:
+            result["log"] = [json.loads(line) for line in f if line.strip()]
+    else:
+        cfg = load_config(os.path.join(ROOT, "configs", spec["config"]), hparams)
+        maybe_initialize_distributed(cfg, dev)
+        task = resolve_task(cfg, dev)
+        mesh = make_mesh({"data": -1})
+        # "replicate": each rank builds from its own seed; the broadcast
+        # must leave rank 0's state everywhere
+        state = task.build(spec["rank"] if spec["mode"] == "replicate" else 0)
+        replicate_to_mesh(state, mesh)
+        draws = draws_for(spec, dev)
+        result["metrics"] = []
+        for _ in range(spec.get("steps", 0)):
+            batch = shard_global_batch(task.synthetic_batch(np.random.RandomState(0)), dev)
+            metrics = task.train_step(state, batch, draws)
+            result["metrics"].append({k: float(v) for k, v in metrics.items()})
+        result["lambdas"] = {k: float(v) for k, v in getattr(state, "extra", {}).items()}
+        if spec.get("records_in"):
+            assert not draws.records, "fewer draws than the single process made"
+    if spec.get("records_out"):
+        with open(spec["records_out"], "wb") as f:
+            pickle.dump([(k, v.numpy()) for k, v in draws.records], f)
+    params = params_of(state)
+    if spec.get("params_out"):
+        torch.save(params, spec["params_out"])
+    result.update(summarise(params, spec.get("ref_params")))
+    with open(spec["out_json"], "w") as f:
+        json.dump(result, f)
+
+
+if __name__ == "__main__":
+    main(json.loads(sys.argv[1]))

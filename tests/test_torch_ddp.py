@@ -1,0 +1,271 @@
+"""The port's data-parallel training (``real3dportrait_tpu_torch/parallel``,
+the all-reduce in ``training/schedulers.py:Adam.updates``, the trainer's
+wiring) on the CPU: the batch slice, the mesh and the launch contract in
+one process; then processes over gloo on localhost (tests/_torch_ddp_worker.py),
+each under a join timeout and a process timeout, so that a dead rank fails
+its test instead of hanging the suite. Two ranks on 2 + 2 rows reproduce
+one process's steps on the 4-row global batch, as JAX's single program
+computes them (tools/dryrun_multihost.py's contract), with the single
+process's per-row draws replayed on each rank's rows."""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from real3dportrait_tpu_torch.parallel import distributed, mesh as pmesh
+from real3dportrait_tpu_torch.parallel import (
+    make_mesh,
+    maybe_initialize_distributed,
+    process_local_batch_slice,
+    shard_batch,
+    shard_global_batch,
+)
+from tests._torch_train_parity import TINY_GAN
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(ROOT, "tests", "_torch_ddp_worker.py")
+GAN = {**{k: v for k, v in TINY_GAN.items() if k != "mesh_shape"},
+       "batch_size": 4, "group_size_for_mini_batch_std": 1}
+GAN_STEPS = 2
+# the audio-to-motion stage with a clip so small that every step clips
+A2M = {"batch_size": 4, "sample_min_length": 16, "clip_grad_norm": 0.001, "max_updates": 2,
+       "tb_log_interval": 1, "num_sanity_val_steps": 0, "val_check_interval": 100000}
+PROC_TIMEOUT = 400
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(specs: list[dict], fail: bool = False) -> list:
+    """Start every spec's worker at once; wait for all under the process
+    timeout (killing the rest when one fails or times out); their results.
+    With ``fail``, every worker must fail instead: their outputs."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, WORKER, json.dumps(s)], env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s in specs]
+    try:
+        outs = [p.communicate(timeout=PROC_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if fail:
+        assert all(p.returncode != 0 for p in procs), [p.returncode for p in procs]
+        return outs
+    for s, p, out in zip(specs, procs, outs):
+        assert p.returncode == 0, f"rank {s['rank']} of {s['world']}: rc {p.returncode}\n" \
+                                  f"{out[-4000:]}"
+    results = []
+    for s in specs:
+        with open(s["out_json"]) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _spec(tmp, name: str, **kw) -> dict:
+    return {"world": 0, "rank": 0, "port": 0, "out_json": str(tmp / f"{name}.json"), **kw}
+
+
+def _world(tmp, name: str, world: int, **kw) -> list[dict]:
+    port = _free_port()
+    return [_spec(tmp, f"{name}{r}", world=world, rank=r, port=port, **kw)
+            for r in range(world)]
+
+
+# -- one process ----------------------------------------------------------------------
+
+
+def test_process_local_batch_slice_and_shards(monkeypatch):
+    assert not dist.is_initialized()
+    assert process_local_batch_slice(4) == slice(0, 4)
+    batch = {"a": np.arange(8).reshape(4, 2), "s": np.float32(3.0), "odd": np.arange(3)}
+    m = make_mesh()
+    assert m.shape == {"data": 1}
+    assert all(np.array_equal(shard_batch(batch, m)[k], v) for k, v in batch.items())
+    # rank 1 of 2 (JAX's arithmetic; no group needed to slice)
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    monkeypatch.setattr(pmesh, "rank", lambda: 1)
+    assert process_local_batch_slice(4) == slice(2, 4)
+    with pytest.raises(AssertionError):
+        process_local_batch_slice(3)
+    local = shard_batch(batch, pmesh.Mesh({"data": 2}))
+    np.testing.assert_array_equal(local["a"], batch["a"][2:])
+    np.testing.assert_array_equal(local["odd"], batch["odd"])   # 3 rows: kept whole
+    assert local["s"] == batch["s"]
+    # the trainer's: the batch's rows (4) cut to the rank's slice on every
+    # leaf of 4 rows, the rest kept whole, on the device
+    on_dev = shard_global_batch(batch, torch.device("cpu"))
+    assert torch.equal(on_dev["a"], torch.from_numpy(batch["a"][2:]))
+    assert torch.equal(on_dev["odd"], torch.from_numpy(batch["odd"]))
+    assert float(on_dev["s"]) == 3.0
+    host = shard_global_batch({"a": torch.arange(4), "b": np.ones((4, 3))})
+    assert torch.equal(host["a"], torch.arange(2, 4)) and host["b"].shape == (2, 3)
+    # a global batch whose rows do not split over the processes is refused
+    with pytest.raises(AssertionError):
+        shard_global_batch({"a": np.arange(6).reshape(3, 2), "s": np.float32(1.0)})
+
+
+def test_make_mesh_axes_and_errors():
+    assert make_mesh({"data": -1}).shape == make_mesh({"data": 1}).shape == {"data": 1}
+    with pytest.raises(ValueError):
+        make_mesh({"data": 2})
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        make_mesh({"data": -1, "rays": 2})
+
+
+def test_launch_contract_env_wins_and_partial_launch_raises(monkeypatch):
+    calls = []
+
+    class Joined(Exception):
+        pass
+
+    def fake_init(backend, init_method, world_size, rank):
+        calls.append((backend, init_method, world_size, rank))
+        raise Joined
+
+    monkeypatch.setattr(dist, "init_process_group", fake_init)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    # no launch asked for: a single process
+    assert maybe_initialize_distributed({"seed": 1}) is False
+    assert maybe_initialize_distributed(None) is False
+    # JAX's config keys alone
+    cfg = {"coordinator_address": "10.0.0.1:1234", "num_processes": 2, "process_id": 1}
+    with pytest.raises(Joined):
+        maybe_initialize_distributed(cfg)
+    assert calls[-1] == ("gloo", "tcp://10.0.0.1:1234", 2, 1)
+    # torchrun's environment wins over the config, key for key
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("RANK", "3")
+    with pytest.raises(Joined):
+        maybe_initialize_distributed(cfg)
+    assert calls[-1] == ("gloo", "tcp://127.0.0.1:29500", 4, 3)
+    # a card's process joins over NCCL, on its card
+    cards = []
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    with pytest.raises(Joined):
+        maybe_initialize_distributed(cfg, torch.device("cuda", 3))
+    assert calls[-1][0] == "nccl" and cards == [torch.device("cuda", 3)]
+    # a launch that names processes but not where to join raises
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK"):
+        monkeypatch.delenv(k)
+    with pytest.raises(RuntimeError, match="address"):
+        maybe_initialize_distributed({"num_processes": 2})
+
+
+# -- several processes over gloo ----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def single_gan(tmp_path_factory):
+    """One process (no group) on the 4-row global batch: its metrics, its
+    parameters and every draw it made."""
+    tmp = tmp_path_factory.mktemp("ddp_gan")
+    spec = _spec(tmp, "single", mode="gan_step", config="secc_img2plane.yaml", hparams=GAN,
+                 steps=GAN_STEPS, records_out=str(tmp / "draws.pkl"),
+                 params_out=str(tmp / "params.pt"))
+    (res,) = _launch([spec])
+    return tmp, spec, res
+
+
+def test_two_gloo_ranks_reproduce_the_global_batch_step(single_gan):
+    """2 + 2 rows on two ranks, the single process's draws replayed on each
+    rank's rows: the losses averaged over the ranks (as the trainer logs
+    them) and the parameters after the steps within 1e-5 of scale; both
+    ranks hold the same parameters, bit for bit."""
+    tmp, single, want = single_gan
+    got = _launch(_world(tmp, "pair", 2, mode="gan_step", config="secc_img2plane.yaml",
+                         hparams=GAN, steps=GAN_STEPS, records_in=single["records_out"],
+                         ref_params=single["params_out"]))
+    assert got[0]["sha1"] == got[1]["sha1"], "the ranks' parameters differ"
+    for r in got:
+        assert r["worst_rel"] <= 1e-5, (r["worst_leaf"], r["worst_rel"], r["max_abs"])
+        assert r["lambdas"] == got[0]["lambdas"]
+    for step, w in enumerate(want["metrics"]):
+        assert set(got[0]["metrics"][step]) == set(w)
+        for k, v in w.items():
+            mean = (got[0]["metrics"][step][k] + got[1]["metrics"][step][k]) / 2
+            np.testing.assert_allclose(mean, v, rtol=1e-5, atol=1e-7,
+                                       err_msg=f"step {step} {k}")
+    for k, v in want["lambdas"].items():
+        np.testing.assert_allclose(got[0]["lambdas"][k], v, rtol=1e-5, err_msg=k)
+
+
+def test_one_rank_gloo_world_is_bit_equal_to_no_launch(single_gan):
+    tmp, single, want = single_gan
+    (got,) = _launch(_world(tmp, "one", 1, mode="gan_step", config="secc_img2plane.yaml",
+                            hparams=GAN, steps=GAN_STEPS, draws_seed=7))
+    assert got["sha1"] == want["sha1"]
+    assert got["metrics"] == want["metrics"]
+
+
+def test_replicate_broadcasts_rank0_state(tmp_path):
+    # each rank builds the audio-to-motion state from its own seed; after
+    # replicate_to_mesh both hold rank 0's, which is the seed-0 build
+    hp = {"batch_size": 2, "sample_min_length": 16}
+    (ref,) = _launch([_spec(tmp_path, "ref", mode="replicate", config="audio2motion_vae.yaml",
+                            hparams=hp)])
+    got = _launch(_world(tmp_path, "rep", 2, mode="replicate", config="audio2motion_vae.yaml",
+                         hparams=hp))
+    assert got[0]["sha1"] == got[1]["sha1"] == ref["sha1"]
+
+
+def test_all_reduce_before_the_clip_and_rank1_writes_nothing(tmp_path):
+    """``training.run``'s trainer, audio-to-motion with a global-norm clip
+    that acts on every step: two ranks on 2 + 2 rows match one process on
+    the 4 rows (a clip of each rank's own gradient would not); rank 0 logs
+    the same metrics; rank 1's work dir stays empty."""
+    (want,) = _launch([_spec(tmp_path, "single", mode="fit", config="audio2motion_vae.yaml",
+                             hparams=A2M, work_dir=str(tmp_path / "single"),
+                             records_out=str(tmp_path / "a2m_draws.pkl"),
+                             params_out=str(tmp_path / "a2m_params.pt"))])
+    specs = _world(tmp_path, "fit", 2, mode="fit", config="audio2motion_vae.yaml", hparams=A2M,
+                   records_in=str(tmp_path / "a2m_draws.pkl"),
+                   ref_params=str(tmp_path / "a2m_params.pt"))
+    for s in specs:
+        s["work_dir"] = str(tmp_path / f"rank{s['rank']}")
+    got = _launch(specs)
+    assert got[0]["sha1"] == got[1]["sha1"]
+    assert got[0]["worst_rel"] <= 1e-5, (got[0]["worst_leaf"], got[0]["worst_rel"])
+    assert [r["step"] for r in got[0]["log"]] == [r["step"] for r in want["log"]] == [1, 2]
+    for g, w in zip(got[0]["log"], want["log"]):
+        for k in w:
+            if k not in ("step", "prefix", "steps_per_sec"):
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-7, err_msg=k)
+    assert sorted(os.listdir(tmp_path / "rank0" / "run")) == \
+        sorted(os.listdir(tmp_path / "single" / "run"))
+    assert not os.path.exists(tmp_path / "rank1") or not any(
+        files for _, _, files in os.walk(tmp_path / "rank1")), "rank 1 wrote files"
+    assert got[1]["log"] == []
+
+
+def test_two_ranks_refuse_a_global_batch_that_does_not_split(tmp_path):
+    """``training.run``'s trainer on two ranks with a global batch of 3
+    rows: both ranks raise at the first batch, before any step, instead of
+    each training on the whole batch."""
+    specs = _world(tmp_path, "odd", 2, mode="fit", config="audio2motion_vae.yaml",
+                   hparams={**A2M, "batch_size": 3})
+    for s in specs:
+        s["work_dir"] = str(tmp_path / f"rank{s['rank']}")
+    for out in _launch(specs, fail=True):
+        assert "AssertionError: (3, 2)" in out, out[-4000:]
+        assert "| train step" not in out, out[-4000:]
