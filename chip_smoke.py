@@ -138,7 +138,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    width and global batch 4 for 2 steps under ``torch.distributed.run``:
    one rank over NCCL against no launch, two ranks sharing the card over
    gloo against one rank (``phase_ddp`` says what is held; its processes
-   are ``python3 chip_smoke.py --ddp-worker SPEC``).
+   are ``python3 chip_smoke.py --ddp-worker SPEC``);
+14. ``last_modules`` (``phase_last_modules``), the port's modules no
+   stage runs, at full width: the StyleGAN2 ``Generator`` at the EG3D
+   tri-plane backbone's widths (``configs/eg3d.yaml``, 256^2 x 96, c_dim
+   25) at batch 4 in ``noise_mode="random"`` (K6b with a noise plane per
+   sample), forward and backward; the conditional ``Discriminator`` at
+   512^2 (c_dim 25, its 4 highest resolutions in bf16) at batch 4 with
+   R1's double backward; ``SuperresolutionHybrid4X`` 128^2 -> 256^2 (w_dim
+   512, bf16, random noise); ``TemporalAttNet`` on a window of 5 planes of
+   the SECC plane's shape; the torso's ``PatchDiscriminator`` on 512^2
+   with the keypoint heatmaps. Every distinct K6a and K6b call of the
+   three StyleGAN2 models is then held against its plain version
+   (``hold_calls``); the per-sample noise form of K6b is timed per launch
+   beside its bound and its plain version.
 
 The last lines are the kernels JSON (the backward kernels with their
 launches a step of the training run that is their main path; K4's
@@ -3562,7 +3575,8 @@ def hold_calls(dev: torch.device, log: CallLog, tag: str, seed: int,
             want = ba.bias_act_plain(x, b, noise=noise, **kw)
             e = bf16_ulps(got, want) if dtype == bf16 else _rel(got, want)
             check(e <= (2 if dtype == bf16 else 1e-6), f"{tag} bias_act[{shape}] disagrees: {e}")
-            need = dict(need_b=has_b, need_scale=bool(sshape), need_noise=bool(nshape))
+            need = dict(need_b=has_b, need_scale=bool(sshape), need_noise=bool(nshape),
+                        noise_per_sample=bool(nshape) and len(nshape) == 3)
             dy = randn(shape, dtype)
             gg = ba.bias_act_grad(dy, got, x, **kw, **need)
             wg = ba.bias_act_grad_plain(dy, got, x, **kw, **need)
@@ -4145,6 +4159,176 @@ def run_eval_phases(dev: torch.device) -> tuple[dict, dict, dict]:
     return metrics, parity, ddp
 
 
+# -- 14: the last modules -------------------------------------------------------------
+
+LAST_BATCH = 4
+LAST_KERNELS = ("upfirdn2d", "upfirdn2d_backward", "bias_act", "bias_act_grad")
+
+
+def phase_last_modules(dev: torch.device) -> dict:
+    """The port's last modules at full width (see the module docstring,
+    14): each model's wall ms (forward, or forward and backward; its first
+    call, then a second, warm one) and the phase's peak memory with the
+    card's line; every K6a and K6b call of the
+    StyleGAN2 models held to the plain versions (``hold_calls``: K6b's
+    forward and gradient with a [B,H,W] noise plane among them, fp32 and
+    bf16); K6b's per-sample noise form timed per launch at the largest
+    fp32 and bf16 calls, beside the bound (bytes) and the plain version.
+    Returns {"launches": the phase's launches by kernel, "k6b_noise": the
+    timing rows, "wall_ms": ..., "peak_gib": ...}."""
+    from real3dportrait_tpu_torch.config import load_config
+    from real3dportrait_tpu_torch.models.stylegan2 import Discriminator, Generator
+    from real3dportrait_tpu_torch.models.superresolution import SuperresolutionHybrid4X
+    from real3dportrait_tpu_torch.models.temporal_att import TemporalAttNet
+    from real3dportrait_tpu_torch.models.torso import PatchDiscriminator
+    from real3dportrait_tpu_torch.ops import bias_act as ba
+    from real3dportrait_tpu_torch.utils.draws import seeded_draws
+
+    cfg = load_config(os.path.join(ROOT, "configs", EG3D_CONFIG))
+    z_dim, w_dim = int(cfg.get("z_dim", 512)), int(cfg.get("w_dim", 512))
+    plane_res = int(cfg.get("teacher_plane_resolution", 256))
+    hid = int(cfg.get("triplane_hid_dim", 32))
+    base, cmax = int(cfg.get("base_channel", 32768)), int(cfg.get("max_channel", 512))
+    b = LAST_BATCH
+    torch.manual_seed(24)
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def strengthen(model):
+        # the layers' noise strengths start at 0: make the noise count
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith("noise_strength"):
+                    p.fill_(0.1)
+        return model
+
+    g = strengthen(Generator(z_dim, 25, w_dim, plane_res, 3 * hid,
+                             mapping_layers=int(cfg.get("mapping_network_depth", 2)),
+                             channel_base=base, channel_max=cmax)).to(dev)
+    d = Discriminator(25, 512, 3, channel_base=base, channel_max=cmax, num_fp16_res=4).to(dev)
+    sr = strengthen(SuperresolutionHybrid4X(hid, w_dim=w_dim)).to(dev)
+    att = TemporalAttNet(3 * hid).to(dev)
+    patch = PatchDiscriminator(num_keypoints=4).to(dev)
+    z, c = randn(b, z_dim), randn(b, 25)
+    walls, log = {}, CallLog()
+
+    def twice(name, fn):
+        """fn's result and wall ms, first call and warm (the second)."""
+        out, walls[f"{name} first"] = _wall_ms(fn, dev)
+        out, walls[name] = _wall_ms(fn, dev)
+        return out
+    reset_launches()
+    for w in train_wrappers().values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with log:
+        def gen_step():
+            img = g(z, c, noise_mode="random", draws=seeded_draws(1, dev))
+            (img.float().square().mean()).backward()
+            return img
+        img = twice("generator fwd+bwd", gen_step)
+        check(img.shape == (b, plane_res, plane_res, 3 * hid) and bool(torch.isfinite(img).all())
+              and all(p.grad is not None and torch.isfinite(p.grad).all()
+                      for n, p in g.named_parameters() if n.endswith("noise_strength")),
+              f"last_modules: generator image {tuple(img.shape)} or its noise gradients")
+
+        def disc_r1():
+            x = randn(b, 512, 512, 3).clamp(-1, 1).requires_grad_(True)
+            logits = d(x, c)
+            (gx,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
+            (gx.square().sum() + logits.sum()).backward()
+            return logits, gx
+        logits, gx = twice("discriminator R1 fwd+bwd", disc_r1)
+        check(logits.shape == (b, 1) and bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(gx).all()) and float(gx.detach().abs().max()) > 0,
+              "last_modules: discriminator logits or R1's input gradient")
+
+        def sr_step():
+            out = sr(randn(b, 128, 128, 3), randn(b, 128, 128, hid), randn(b, 3, w_dim),
+                     noise_mode="random", draws=seeded_draws(2, dev))
+            out.float().square().mean().backward()
+            return out
+        out = twice("superresolution 4x fwd+bwd", sr_step)
+        check(out.shape == (b, 256, 256, 3) and bool(torch.isfinite(out).all()),
+              f"last_modules: SR 4x {tuple(out.shape)}")
+    with torch.no_grad():
+        win = randn(1, 5, plane_res, plane_res, 3 * hid)
+        sm = twice("temporal att fwd", lambda: att(win))
+        check(sm.shape == win.shape[:1] + win.shape[2:] and bool(torch.isfinite(sm).all())
+              and float((sm - win.mean(1)).abs().max()) < float(win.abs().max()),
+              "last_modules: temporal attention")
+    kp = torch.rand((b, 4, 3), device=dev, generator=gen) * 2 - 1
+
+    def patch_step():
+        logit, feats = patch(randn(b, 512, 512, 3), kp)
+        logit.square().mean().backward()
+        return logit, feats
+    logit, feats = twice("patch discriminator fwd+bwd", patch_step)
+    check(logit.shape == (b, 64, 64, 1) and len(feats) == 4
+          and bool(torch.isfinite(logit).all()), f"last_modules: patch D {tuple(logit.shape)}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_launches()
+    launches.update({k: w.launches for k, w in train_wrappers().items()})
+    check(all(launches[k] > 0 for k in LAST_KERNELS) and launches["bias_act bf16"] > 0,
+          f"last_modules: launches {launches}")
+    per_sample = [cl for cl in log.calls["bias_act"]
+                  if cl[3] is not None and len(_meta_shape(cl[3])) == 3]
+    check(len({cl[0][2] for cl in per_sample}) == 2,
+          f"last_modules: K6b calls with a noise plane per sample: {len(per_sample)}")
+    print(f"last_modules ({card_line()}): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in walls.items()) + f"; peak {peak:.2f} GiB; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in LAST_KERNELS) + f"; K6b calls with a "
+        f"per-sample noise plane {len(per_sample)}")
+    del g, d, sr, att, patch, img, logits, gx, out, sm, win, logit, feats
+    torch.cuda.empty_cache()
+    held = hold_calls(dev, log, "last_modules", 25)
+    check(all(any(k.startswith(f"{name} {t}") for k in held) for name in (
+        "upfirdn2d", "upfirdn2d_backward", "bias_act", "bias_act_grad")
+        for t in ("fp32", "bf16")), f"last_modules: held {sorted(held)}")
+    check(all(any("noise" in w and "[4," in w.split("noise")[1] for w in held[name][2])
+              for name in held if name.startswith("bias_act")),
+          "last_modules: no per-sample noise call held")
+
+    # the per-sample noise form per launch at the largest fp32 and bf16
+    # calls: x, the noise and y once (the noise a plane a sample), forward;
+    # dy, y once, dx once and the sums (db [C], dnoise [B,H,W]), gradient
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        calls = [cl for cl in per_sample if cl[0][2] == dtype]
+        cl = max(calls, key=lambda cl: math.prod(cl[0][1]))
+        shape, (act, gain, clamp, axis) = cl[0][1], cl[4:8]
+        x = (2 * randn(*shape)).to(dtype)
+        noise, bias = 0.3 * randn(*_meta_shape(cl[3])), 0.3 * randn(shape[1])
+        scale = torch.rand((shape[0], shape[1]), device=dev, generator=gen) + 0.5
+        kw = dict(act=act, gain=gain, clamp=clamp, axis=axis, scale=scale)
+        with torch.no_grad():
+            fwd = lambda: ba.bias_act(x, bias, noise=noise, **kw)  # noqa: E731
+            y = fwd()
+            dy = randn(*shape).to(dtype)
+            need = dict(need_b=True, need_scale=False, need_noise=True, noise_per_sample=True)
+            grad = lambda: ba.bias_act_grad(dy, y, x, **kw, **need)  # noqa: E731
+            gg = grad()
+            for what, call, plain, n_bytes in (
+                    ("forward", fwd, lambda: ba.bias_act_plain(x, bias, noise=noise, **kw),
+                     nbytes(x, noise, y)),
+                    ("gradient", grad, lambda: ba.bias_act_grad_plain(dy, y, x, **kw, **need),
+                     nbytes(dy, y, gg[0], gg[1], gg[3]))):
+                bound_ms, by = bound(n_bytes, 6 * x.numel(), dtype)
+                rows[f"{what} {str(dtype)[6:]}"] = r = dict(
+                    shape=list(shape), launch_ms=device_ms(call), ms=cuda_ms(call),
+                    plain_ms=cuda_ms(plain), bound_ms=bound_ms, bound_by=by)
+                print(f"last_modules K6b per-sample noise {what} {list(shape)} "
+                      f"{str(dtype)[6:]}: per launch {r['launch_ms']:.4f} ms, per call "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({by}) ({card_line()})")
+        del x, noise, y, dy, gg
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k6b_noise=rows, wall_ms=walls, peak_gib=peak)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4188,6 +4372,9 @@ def main() -> int:
     rec_counts, sync, a2m = run_records_phases(dev)
     eg3d_counts, i2p_counts = run_teacher_phases(dev)
     metric_ms, parity, ddp = run_eval_phases(dev)
+    t_last = time.perf_counter()
+    last = phase_last_modules(dev)
+    print(f"last_modules wall s: {time.perf_counter() - t_last:.1f}")
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
@@ -4264,6 +4451,13 @@ def main() -> int:
                 entry[f"{key}_launches_per_step"] = counts[entry["name"]] / steps
     check(all(any(f"{key}_launches_per_step" in e for e in kernels_json)
               for key in ("train_eg3d", "train_img2plane")), "the last stages' launches")
+    # the last modules' launches (StyleGAN2 Generator, Discriminator, SR 4x)
+    for entry in kernels_json:
+        if entry["name"] in LAST_KERNELS:
+            entry["last_modules_launches"] = last["launches"][entry["name"]]
+    for entry in kernels_json:
+        if entry["name"] == "bias_act":
+            entry["per_sample_noise"] = last["k6b_noise"]
     print(json.dumps({"kernels": kernels_json}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

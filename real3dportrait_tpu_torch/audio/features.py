@@ -1,6 +1,7 @@
 """Audio front end on the host: log-mel spectrogram and pitch (port of
 ``real3dportrait_tpu/audio/features.py``, ``extract_mel`` and the pYIN
-tracker ``extract_f0_pyin``).
+tracker ``extract_f0_pyin``), and its utilities: MFCCs, an energy voice
+activity detector and Griffin-Lim reconstruction.
 
 Numpy on the host, as in the JAX package, and kept as the port's own copy:
 16 kHz audio, hop 320 (50 frames/s), 80 mel bins; F0 at the same 50 frames/s
@@ -210,3 +211,54 @@ def extract_f0_pyin(wav: np.ndarray, sr: int = SAMPLE_RATE,
     if len(f0) < n_mel_frames:
         f0 = np.pad(f0, (0, n_mel_frames - len(f0)), mode="edge")
     return f0[:n_mel_frames].astype(np.float32)
+
+
+def extract_mfcc(wav: np.ndarray, n_mfcc: int = 13, sr: int = SAMPLE_RATE) -> np.ndarray:
+    """Log-mel -> DCT-II cepstral coefficients [T, n_mfcc]."""
+    logmel = extract_mel(wav, sr)
+    t, n = logmel.shape
+    k = np.arange(n_mfcc)[:, None]
+    basis = np.cos(np.pi * k * (2 * np.arange(n)[None] + 1) / (2 * n))
+    basis *= np.sqrt(2.0 / n)
+    basis[0] *= np.sqrt(0.5)
+    return (logmel @ basis.T).astype(np.float32)
+
+
+def vad(wav: np.ndarray, sr: int = SAMPLE_RATE, threshold_db: float = -40.0) -> np.ndarray:
+    """Energy voice activity [T] bool at 50 frames/s: a frame's RMS above
+    ``threshold_db``."""
+    n_frames = max(1 + (len(wav) - N_FFT) // HOP, 0)
+    idx = np.arange(N_FFT)[None, :] + HOP * np.arange(n_frames)[:, None]
+    frames = np.asarray(wav, np.float32)[idx]
+    rms = np.sqrt(np.mean(frames**2, axis=-1) + 1e-12)
+    db = 20 * np.log10(rms + 1e-12)
+    return db > threshold_db
+
+
+def griffin_lim(mag: np.ndarray, n_iters: int = 30, sr: int = SAMPLE_RATE) -> np.ndarray:
+    """Linear-magnitude spectrogram [T, n_fft//2+1] -> waveform, by
+    Griffin-Lim from seeded random phases (a reconstruction utility)."""
+    rng = np.random.RandomState(0)
+    angles = np.exp(2j * np.pi * rng.rand(*mag.shape))
+    window = np.hanning(N_FFT).astype(np.float32)
+
+    def istft(spec):
+        frames = np.fft.irfft(spec, n=N_FFT, axis=-1) * window
+        out = np.zeros((len(spec) - 1) * HOP + N_FFT, np.float32)
+        wsum = np.zeros_like(out)
+        for i, fr in enumerate(frames):
+            out[i * HOP: i * HOP + N_FFT] += fr
+            wsum[i * HOP: i * HOP + N_FFT] += window**2
+        return out / np.maximum(wsum, 1e-8)
+
+    def stft(wav):
+        n_frames = 1 + (len(wav) - N_FFT) // HOP
+        idx = np.arange(N_FFT)[None, :] + HOP * np.arange(n_frames)[:, None]
+        return np.fft.rfft(wav[idx] * window, n=N_FFT, axis=-1)
+
+    wav = istft(mag * angles)
+    for _ in range(n_iters):
+        spec = stft(wav)
+        angles = np.exp(1j * np.angle(spec[: len(mag)]))
+        wav = istft(mag * angles)
+    return wav.astype(np.float32)

@@ -17,10 +17,13 @@
 // K6b bias_act replaces ops/bias_act.py bias_act (lines 37-57) together with
 // the tail of models/stylegan2.py modulated_conv2d (lines 66-78: the
 // demodulation multiply and the noise add): one pass of
-//   y = clamp(gain * act(x * d[b,c] + noise[h,w] + bias[c]))
+//   y = clamp(gain * act(x * d[b,c] + noise[b,h,w] + bias[c]))
 // over an NCHW tensor, each term optional, act in {linear, relu,
-// lrelu(0.2)}. Every operation is rounded explicitly (no FMA contraction),
-// in the order the plain version rounds, so the two agree bit for bit.
+// lrelu(0.2)}. The noise is one [H,W] plane that every sample shares (the
+// "const" noise, batch stride 0) or a plane per sample (the "random"
+// noise, batch stride H x W; JAX's [B,H,W,1] draw). Every operation is
+// rounded explicitly (no FMA contraction), in the order the plain version
+// rounds, so the two agree bit for bit.
 //
 // Storage type T is float or __nv_bfloat16; the arithmetic is fp32 in both.
 // In bf16, K6a rounds once, when it stores the fp32 sum of the taps (as a
@@ -582,7 +585,8 @@ constexpr int kEpiRows = 2;  // rows whose loads a thread has in flight together
 // NCHW: rows = B x C rows of HW elements. blockIdx.y owns rows_per_cta
 // consecutive rows, so d[b,c] and bias[c] are loaded once per row and
 // nothing is divided per element; a thread owns one 16 B vector slot of
-// every row and reads its noise vector once. kAligned: x, y and noise 16 B
+// every row and reads its noise vector once (a plane per sample: once per
+// sample its rows cross, noise + (row / C) * nstride). kAligned: x, y and noise 16 B
 // aligned and HW a multiple of the vector width, so every row is vectors
 // alone (the main path). Otherwise each row starts where y is aligned:
 // a scalar head before, a scalar tail after the last whole vector; x and
@@ -591,8 +595,8 @@ constexpr int kEpiRows = 2;  // rows whose loads a thread has in flight together
 template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kEpiThreads)
 bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ noise, const float* __restrict__ bias, int rows,
-                     int C, int HW, int rows_per_cta, int act, float gain, float clamp,
+                     const float* __restrict__ noise, int nstride, const float* __restrict__ bias,
+                     int rows, int C, int HW, int rows_per_cta, int act, float gain, float clamp,
                      T* __restrict__ y) {
   using Vec = Vec16<T>;
   using Raw = typename Vec::Raw;
@@ -604,7 +608,8 @@ bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     const int e = V * k;
     if (e >= HW) return;
     if (noise) load_noise<V>(noise + e, nf);
-    const typename Vec::Noise nz = Vec::noise(nf);
+    typename Vec::Noise nz = Vec::noise(nf);
+    int nb = 0;  // the sample whose noise nz holds
     for (int r = r0; r < r1; r += kEpiRows) {
       Raw v[kEpiRows];
 #pragma unroll
@@ -613,6 +618,11 @@ bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
       for (int u = 0; u < kEpiRows; ++u) {
         if (r + u >= r1) break;
+        if (noise && nstride && (r + u) / C != nb) {
+          nb = (r + u) / C;
+          load_noise<V>(noise + (long long)nb * nstride + e, nf);
+          nz = Vec::noise(nf);
+        }
         const EpiTerms t =
             row_terms<T>(scale, noise, bias, r + u, (r + u) % C, act, gain, clamp);
         *reinterpret_cast<Raw*>(y + (long long)(r + u) * HW + e) = Vec::apply(v[u], nz, t);
@@ -623,13 +633,14 @@ bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   for (int r = r0; r < r1; ++r) {
     const T* xr = x + (long long)r * HW;
     T* yr = y + (long long)r * HW;
+    const float* nr = noise ? noise + (long long)(r / C) * nstride : nullptr;
     const int h = min(HW, (int)((16 - (reinterpret_cast<uintptr_t>(yr) & 15)) & 15) /
                               (int)sizeof(T));
     const int n_vec = (HW - h) / V, tail = h + V * n_vec;
     const EpiTerms t = row_terms<T>(scale, noise, bias, r, r % C, act, gain, clamp);
     if (k < n_vec) {
       const int e = h + V * k;
-      if (noise) load_noise<V>(noise + e, nf);
+      if (noise) load_noise<V>(nr + e, nf);
       const Raw v = aligned16(xr + e) ? __ldg(reinterpret_cast<const Raw*>(xr + e))
                                       : Vec::gather(xr + e);
       *reinterpret_cast<Raw*>(yr + e) = Vec::apply(v, Vec::noise(nf), t);
@@ -637,7 +648,7 @@ bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     // the head [0, h) and the tail [tail, HW), one element a thread
     const int i = threadIdx.x < V ? threadIdx.x : tail + threadIdx.x - V;
     if (blockIdx.x == 0 && threadIdx.x < 2 * V && (threadIdx.x < V ? i < h : i < HW)) {
-      const float nz = noise ? round_to<T>(__ldg(noise + i)) : 0.0f;
+      const float nz = noise ? round_to<T>(__ldg(nr + i)) : 0.0f;
       store_f(yr + i, epilogue<T>(load_f(xr + i), nz, t));
     }
   }
@@ -647,26 +658,27 @@ bias_act_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 template <typename T>
 __global__ void __launch_bounds__(kEpiThreads)
 bias_act_flat_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ noise, const float* __restrict__ bias,
-                     long long total, int C, int act, float gain, float clamp,
-                     T* __restrict__ y) {
+                     const float* __restrict__ noise, int nstride,
+                     const float* __restrict__ bias, long long total, int C, int act,
+                     float gain, float clamp, T* __restrict__ y) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const EpiTerms t = row_terms<T>(scale, noise, bias, i, (int)(i % C), act, gain, clamp);
-  const float nz = noise ? round_to<T>(__ldg(noise)) : 0.0f;
+  const float nz = noise ? round_to<T>(__ldg(noise + (i / C) * nstride)) : 0.0f;
   store_f(y + i, epilogue<T>(load_f(x + i), nz, t));
 }
 
 template <typename T>
-int bias_act(const T* x, const float* scale, const float* noise, const float* bias,
-             long long total, int C, int HW, int act, float gain, float clamp, T* y,
-             cudaStream_t stream) {
-  if (act < kLinear || act > kLrelu || C < 1 || HW < 1 || total % HW)
+int bias_act(const T* x, const float* scale, const float* noise, int nstride,
+             const float* bias, long long total, int C, int HW, int act, float gain,
+             float clamp, T* y, cudaStream_t stream) {
+  if (act < kLinear || act > kLrelu || C < 1 || HW < 1 || total % HW ||
+      (nstride != 0 && nstride != HW))
     return (int)cudaErrorInvalidValue;
   if (total == 0) return (int)cudaGetLastError();
   if (HW == 1) {
     bias_act_flat_kernel<T><<<r3dp_blocks(total, kEpiThreads), kEpiThreads, 0, stream>>>(
-        x, scale, noise, bias, total, C, act, gain, clamp, y);
+        x, scale, noise, nstride, bias, total, C, act, gain, clamp, y);
     return (int)cudaGetLastError();
   }
   if (total / HW > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -682,10 +694,10 @@ int bias_act(const T* x, const float* scale, const float* noise, const float* bi
   const dim3 grid(gx, (unsigned)((rows + per - 1) / per));
   if (aligned)
     bias_act_rows_kernel<T, true><<<grid, kEpiThreads, 0, stream>>>(
-        x, scale, noise, bias, rows, C, HW, (int)per, act, gain, clamp, y);
+        x, scale, noise, nstride, bias, rows, C, HW, (int)per, act, gain, clamp, y);
   else
     bias_act_rows_kernel<T, false><<<grid, kEpiThreads, 0, stream>>>(
-        x, scale, noise, bias, rows, C, HW, (int)per, act, gain, clamp, y);
+        x, scale, noise, nstride, bias, rows, C, HW, (int)per, act, gain, clamp, y);
   return (int)cudaGetLastError();
 }
 
@@ -696,7 +708,8 @@ int bias_act(const T* x, const float* scale, const float* noise, const float* bi
 // clamp (rounded to T, as the forward rounds it); the activations keep y's
 // sign, so y alone decides act'. dx = dz * d[b,c] (d rounded to T), rounded
 // to T once; the sums in fp32: db[c] = sum dz, dscale[b,c] = sum_hw dz * x,
-// dnoise[hw] = sum_bc dz, each optional (NULL). Bound by bytes like the
+// dnoise[hw] = sum_bc dz (a plane per sample: dnoise[b,hw] = sum_c dz),
+// each optional (NULL). Bound by bytes like the
 // forward (dy, y and, for dscale, x read once, dx written once). Design,
 // simple first: a CTA walks a strided range of one row (b, c) with scalar
 // loads, so that d[b,c] is read once and each row's sums reduce by warp
@@ -716,9 +729,10 @@ bias_act_grad_rows_kernel(const T* __restrict__ dy, const T* __restrict__ y,
                           const T* __restrict__ x, const float* __restrict__ scale, int C,
                           int HW, int act, float gain, float clamp, T* __restrict__ dx,
                           float* __restrict__ dbias, float* __restrict__ dscale,
-                          float* __restrict__ dnoise) {
+                          float* __restrict__ dnoise, int nstride) {
   const int row = blockIdx.y;
   const long long base = (long long)row * HW;
+  if (dnoise) dnoise += (long long)(row / C) * nstride;
   const float s = scale ? round_to<T>(__ldg(scale + row)) : 1.0f;
   float sum_b = 0.0f, sum_s = 0.0f;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < HW; i += gridDim.x * blockDim.x) {
@@ -756,9 +770,10 @@ bias_act_grad_flat_kernel(const T* __restrict__ dy, const T* __restrict__ y, lon
 template <typename T>
 int bias_act_grad(const T* dy, const T* y, const T* x, const float* scale, long long total,
                   int C, int HW, int act, float gain, float clamp, T* dx, float* dbias,
-                  float* dscale, float* dnoise, cudaStream_t stream) {
+                  float* dscale, float* dnoise, int nstride, cudaStream_t stream) {
   if (act < kLinear || act > kLrelu || C < 1 || HW < 1 || total % HW ||
-      (dscale && (!x || !scale)) || (HW == 1 && (scale || dnoise)))
+      (dscale && (!x || !scale)) || (HW == 1 && (scale || dnoise)) ||
+      (nstride != 0 && nstride != HW))
     return (int)cudaErrorInvalidValue;
   if (total == 0) return (int)cudaGetLastError();
   const float bound = clamp >= 0.0f ? round_to_host<T>(clamp) : -1.0f;
@@ -772,7 +787,7 @@ int bias_act_grad(const T* dy, const T* y, const T* x, const float* scale, long 
   unsigned gx = r3dp_blocks(HW, kGradThreads);
   if (gx > kGradCtasPerRow) gx = kGradCtasPerRow;
   bias_act_grad_rows_kernel<T><<<dim3(gx, (unsigned)rows), kGradThreads, 0, stream>>>(
-      dy, y, x, scale, C, HW, act, gain, bound, dx, dbias, dscale, dnoise);
+      dy, y, x, scale, C, HW, act, gain, bound, dx, dbias, dscale, dnoise, nstride);
   return (int)cudaGetLastError();
 }
 
@@ -795,39 +810,43 @@ R3DP_EXPORT int r3dp_upfirdn2d_bf16(const __nv_bfloat16* x, const Upfirdn2dPlan*
 }
 
 // x, y [B,C,HW] fp32 or bf16, total = B x C x HW; scale [B,C], noise
-// [HW], bias [C] fp32 (the kernel rounds them to x's type), each optional
-// (NULL); act 0 linear, 1 relu, 2 lrelu(0.2); gain; clamp < 0 for none.
+// [HW] (nstride 0) or [B,HW] (nstride HW), bias [C] fp32 (the kernel
+// rounds them to x's type), each optional (NULL); act 0 linear, 1 relu, 2
+// lrelu(0.2); gain; clamp < 0 for none.
 R3DP_EXPORT int r3dp_bias_act(const float* x, const float* scale, const float* noise,
-                              const float* bias, long long total, int C, int HW, int act,
-                              float gain, float clamp, float* y, cudaStream_t stream) {
-  return bias_act(x, scale, noise, bias, total, C, HW, act, gain, clamp, y, stream);
+                              int nstride, const float* bias, long long total, int C, int HW,
+                              int act, float gain, float clamp, float* y,
+                              cudaStream_t stream) {
+  return bias_act(x, scale, noise, nstride, bias, total, C, HW, act, gain, clamp, y, stream);
 }
 
 R3DP_EXPORT int r3dp_bias_act_bf16(const __nv_bfloat16* x, const float* scale,
-                                   const float* noise, const float* bias, long long total,
-                                   int C, int HW, int act, float gain, float clamp,
-                                   __nv_bfloat16* y, cudaStream_t stream) {
-  return bias_act(x, scale, noise, bias, total, C, HW, act, gain, clamp, y, stream);
+                                   const float* noise, int nstride, const float* bias,
+                                   long long total, int C, int HW, int act, float gain,
+                                   float clamp, __nv_bfloat16* y, cudaStream_t stream) {
+  return bias_act(x, scale, noise, nstride, bias, total, C, HW, act, gain, clamp, y, stream);
 }
 
 // dy, y (and x where dscale is wanted) [B,C,HW] fp32 or bf16, total = B x C
 // x HW, HW = 1 for [N,C]; scale [B,C] fp32 (rounded to the type) or NULL;
 // act, gain and clamp as the forward's (clamp < 0 for none). dx the
-// type's; dbias [C], dscale [B,C], dnoise [HW] fp32, zeroed by the caller,
-// each NULL where not wanted.
+// type's; dbias [C], dscale [B,C], dnoise [HW] (nstride 0) or [B,HW]
+// (nstride HW) fp32, zeroed by the caller, each NULL where not wanted.
 R3DP_EXPORT int r3dp_bias_act_grad(const float* dy, const float* y, const float* x,
                                    const float* scale, long long total, int C, int HW,
                                    int act, float gain, float clamp, float* dx, float* dbias,
-                                   float* dscale, float* dnoise, cudaStream_t stream) {
+                                   float* dscale, float* dnoise, int nstride,
+                                   cudaStream_t stream) {
   return bias_act_grad(dy, y, x, scale, total, C, HW, act, gain, clamp, dx, dbias, dscale,
-                       dnoise, stream);
+                       dnoise, nstride, stream);
 }
 
 R3DP_EXPORT int r3dp_bias_act_grad_bf16(const __nv_bfloat16* dy, const __nv_bfloat16* y,
                                         const __nv_bfloat16* x, const float* scale,
                                         long long total, int C, int HW, int act, float gain,
                                         float clamp, __nv_bfloat16* dx, float* dbias,
-                                        float* dscale, float* dnoise, cudaStream_t stream) {
+                                        float* dscale, float* dnoise, int nstride,
+                                        cudaStream_t stream) {
   return bias_act_grad(dy, y, x, scale, total, C, HW, act, gain, clamp, dx, dbias, dscale,
-                       dnoise, stream);
+                       dnoise, nstride, stream);
 }

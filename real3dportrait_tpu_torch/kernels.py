@@ -72,10 +72,11 @@ SIGNATURES: dict[str, tuple] = {
     "r3dp_torso_warp_volume_backward": (_P, _P, _P, *(_I,) * 5, _P, _P, _P),
     "r3dp_upfirdn2d": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),
     "r3dp_upfirdn2d_bf16": (_P, ctypes.POINTER(Upfirdn2dPlan), _P, _P),
-    "r3dp_bias_act": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
-    "r3dp_bias_act_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P),
-    "r3dp_bias_act_grad": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
-    "r3dp_bias_act_grad_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "r3dp_bias_act": (_P, _P, _P, _I, _P, _L, _I, _I, _I, _F, _F, _P, _P),
+    "r3dp_bias_act_bf16": (_P, _P, _P, _I, _P, _L, _I, _I, _I, _F, _F, _P, _P),
+    "r3dp_bias_act_grad": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _I, _P),
+    "r3dp_bias_act_grad_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P, _I,
+                                _P),
     "r3dp_conv3d": (_P, _P, _P, _P, _P, *(_I,) * 15, _P),
     "r3dp_conv3d_weight_grad": (_P, _P, *(_I,) * 11, _P, _P, _P),
     "r3dp_mfe_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,

@@ -144,23 +144,27 @@ class ResidualCouplingBlock(nn.Module):
 
 
 class FVAEEncoder(nn.Module):
-    """Stride-s conv + WN -> the posterior (training)."""
+    """Strided convs (``Conv_0``, ``Conv_1``, ... one a latent stride) + WN
+    -> the posterior (training)."""
 
     def __init__(self, in_channels: int, hidden: int, latent: int, kernel_size: int,
-                 n_layers: int, gin_channels: int, stride: int):
+                 n_layers: int, gin_channels: int, strides: Sequence[int]):
         super().__init__()
-        self.stride, self.latent = stride, latent
-        self.Conv_0 = _conv(in_channels, hidden, 2 * stride, stride=stride,
-                            padding=stride // 2)
+        self.stride, self.latent, self.n_convs = math.prod(strides), latent, len(strides)
+        for i, s in enumerate(strides):
+            setattr(self, f"Conv_{i}", _conv(in_channels if i == 0 else hidden, hidden, 2 * s,
+                                             stride=s, padding=s // 2))
         self.wn = WN(hidden, kernel_size, 1, n_layers, gin_channels)
         self.out_proj = _conv(hidden, 2 * latent, 1)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor, draws
                 ) -> tuple:
         """x [B,C,T], x_mask [B,1,T], g [B,Cg,T/s] -> (z, m, logs [B,latent,T/s],
-        the mask at T/s: every s-th frame of ``x_mask``). ``z = m + eps *
-        exp(logs)`` with eps from ``draws``, drawn [B,T/s,latent]."""
-        x = self.Conv_0(x)
+        the mask at T/s: every s-th frame of ``x_mask``, s the strides'
+        product). ``z = m + eps * exp(logs)`` with eps from ``draws``, drawn
+        [B,T/s,latent]."""
+        for i in range(self.n_convs):
+            x = getattr(self, f"Conv_{i}")(x)
         mask = x_mask[:, :, ::self.stride][:, :, :x.shape[2]]
         x = self.wn(x * mask, mask, g) * mask
         m, logs = torch.split(self.out_proj(x), self.latent, dim=1)
@@ -169,24 +173,35 @@ class FVAEEncoder(nn.Module):
 
 
 class FVAEDecoder(nn.Module):
-    """Transposed-conv upsample + WN decoder."""
+    """Transposed-conv upsample (``ConvTranspose_0``, ... one a latent
+    stride) + WN decoder."""
 
     def __init__(self, latent: int, hidden: int, out_channels: int, kernel_size: int,
-                 n_layers: int, gin_channels: int, stride: int):
+                 n_layers: int, gin_channels: int, strides: Sequence[int]):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose1d(latent, hidden, stride)
+        self.n_convs = len(strides)
+        for i, s in enumerate(strides):
+            setattr(self, f"ConvTranspose_{i}",
+                    ConvTranspose1d(latent if i == 0 else hidden, hidden, s))
         self.wn = WN(hidden, kernel_size, 1, n_layers, gin_channels)
         self.out_proj = _conv(hidden, out_channels, 1)
 
     def forward(self, z: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        x = self.ConvTranspose_0(z) * x_mask
+        x = z
+        for i in range(self.n_convs):
+            x = getattr(self, f"ConvTranspose_{i}")(x)
+        x = x * x_mask
         x = self.wn(x, x_mask, g) * x_mask
         return self.out_proj(x)
 
 
 class FVAE(nn.Module):
     """Flow-prior VAE; :meth:`forward` is the inference branch,
-    :meth:`forward_train` the training one."""
+    :meth:`forward_train` the training one. The latent runs at T over the
+    product of ``strides``; the condition's pre-net is one strided conv a
+    stride: ``g_pre_net`` for one stride (the JAX tree's name), else
+    ``g_pre_net_0``, ``g_pre_net_1``, ... (the JAX module names every one
+    ``g_pre_net`` and cannot build with more than one)."""
 
     def __init__(self, in_out_channels: int = 64, hidden: int = 256, latent_size: int = 16,
                  kernel_size: int = 5, enc_n_layers: int = 8, dec_n_layers: int = 4,
@@ -194,18 +209,25 @@ class FVAE(nn.Module):
                  use_prior_glow: bool = True, glow_hidden: int = 64,
                  glow_kernel_size: int = 3, glow_n_blocks: int = 4):
         super().__init__()
-        if len(strides) != 1:
-            raise ValueError(f"one latent stride is ported, got {tuple(strides)}")
-        s = strides[0]
         self.latent_size, self.use_prior_glow = latent_size, use_prior_glow
-        self.g_pre_net = _conv(gin_channels, gin_channels, 2 * s, stride=s, padding=s // 2)
+        self.g_pre_nets = ["g_pre_net"] if len(strides) == 1 else \
+            [f"g_pre_net_{i}" for i in range(len(strides))]
+        for name, s in zip(self.g_pre_nets, strides):
+            setattr(self, name, _conv(gin_channels, gin_channels, 2 * s, stride=s,
+                                      padding=s // 2))
         self.encoder = FVAEEncoder(in_out_channels, hidden, latent_size, kernel_size,
-                                   enc_n_layers, gin_channels, s)
+                                   enc_n_layers, gin_channels, strides)
         self.decoder = FVAEDecoder(latent_size, hidden, in_out_channels, kernel_size,
-                                   dec_n_layers, gin_channels, s)
+                                   dec_n_layers, gin_channels, strides)
         if use_prior_glow:
             self.prior_flow = ResidualCouplingBlock(latent_size, glow_hidden, glow_kernel_size,
                                                     1, glow_n_blocks, 4, gin_channels)
+
+    def g_pre(self, g: torch.Tensor) -> torch.Tensor:
+        """The condition [B,Cg,T] at the latent's rate."""
+        for name in self.g_pre_nets:
+            g = getattr(self, name)(g)
+        return g
 
     def forward_train(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor,
                       draws) -> tuple:
@@ -215,7 +237,7 @@ class FVAE(nn.Module):
         log p(flow(z))] over the masked latent frames, divided by the latent
         size (the coupling layers are mean-only and the flips permute, so
         the flow's log-determinant is 0)."""
-        g_sqz = self.g_pre_net(g)
+        g_sqz = self.g_pre(g)
         z_q, m_q, logs_q, mask_sqz = self.encoder(x, x_mask, g_sqz, draws)
         x_recon = self.decoder(z_q, x_mask, g)
         log2pi = math.log(2 * math.pi)
@@ -233,7 +255,7 @@ class FVAE(nn.Module):
         noise is ``z`` ([B,latent,T/s]) if given, else drawn from
         ``generator`` (on the CPU, then moved: the same seed gives the same
         noise on every device), times ``temperature``."""
-        g_sqz = self.g_pre_net(g)
+        g_sqz = self.g_pre(g)
         b, t_sqz = g_sqz.shape[0], g_sqz.shape[2]
         if z is None:
             z = torch.randn((b, self.latent_size, t_sqz), generator=generator)

@@ -4,7 +4,10 @@ discriminator over the SR image concatenated with the raw neural render,
 antialias-resized to the final resolution (6 channels), conditioned on the
 25-d camera through a mapping network. Images come in NHWC, as in the JAX
 package; the blocks run NCHW. Blocks at the ``num_fp16_res`` highest
-resolutions run bf16 (kernels K6a and K6b in bf16).
+resolutions run bf16 (kernels K6a and K6b in bf16). With ``disc_c_noise >
+0`` the camera takes normal noise scaled by its batch standard deviation
+(1 for a batch of one) times ``disc_c_noise``, drawn from the caller's
+``draws`` (``utils/draws.py``); the training tasks run 0.
 """
 
 from __future__ import annotations
@@ -27,10 +30,7 @@ class DualDiscriminator(nn.Module):
                  channel_max: int = 512, num_fp16_res: int = 4, conv_clamp: float = 256.0,
                  camera_dim: int = 25, mbstd_group_size: int = 2, disc_c_noise: float = 0.0):
         super().__init__()
-        if disc_c_noise > 0:
-            raise NotImplementedError("DualDiscriminator: camera noise (disc_c_noise > 0) "
-                                      "is not ported; the training task runs 0")
-        self.img_resolution = img_resolution
+        self.img_resolution, self.disc_c_noise = img_resolution, disc_c_noise
         log2 = int(math.log2(img_resolution))
         self.resolutions = [2 ** i for i in range(log2, 2, -1)]
 
@@ -50,13 +50,20 @@ class DualDiscriminator(nn.Module):
                                         conv_clamp=conv_clamp)
 
     def forward(self, image: torch.Tensor, image_raw: torch.Tensor,
-                camera: torch.Tensor) -> torch.Tensor:
+                camera: torch.Tensor, draws=None) -> torch.Tensor:
         """image [B,R,R,3] (SR output), image_raw [B,r,r,3] (raw render),
-        both in [-1,1], camera [B,25] -> logits [B,1]."""
+        both in [-1,1], camera [B,25] -> logits [B,1]. ``draws`` makes the
+        camera noise where ``disc_c_noise > 0``."""
         raw_up = filtered_resizing(image_raw, image.shape[1])
         img = torch.clamp(torch.cat([image, raw_up], dim=-1), -1.0, 1.0).permute(0, 3, 1, 2)
         x = None
         for res in self.resolutions:
             x = getattr(self, f"b{res}")(x, img if x is None else None)
+        if self.disc_c_noise > 0:
+            if draws is None:
+                raise ValueError("DualDiscriminator: disc_c_noise > 0 needs draws")
+            c_std = camera.std(dim=0, unbiased=False) if camera.shape[0] > 1 else 1.0
+            camera = camera + draws.normal(tuple(camera.shape), camera.device) * c_std \
+                * self.disc_c_noise
         cmap = self.mapping(camera)
         return self.b4(x, cmap)

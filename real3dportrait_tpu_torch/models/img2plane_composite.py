@@ -227,18 +227,24 @@ class TriplanePredictorViT(nn.Module):
 
 
 class CompositeImg2PlaneBackbone(nn.Module):
-    """image [B,H,W,3] (NHWC) -> planes [B,3,H/2,W/2,C]."""
+    """image [B,H,W,3] (NHWC) -> planes [B,3,H/2,W/2,C]. ``input_mode``
+    "rgb", "rgb_alpha" (an alpha channel: ``cond["ref_alphas"]`` [B,H,W,1],
+    else 1 where the pixel's channel mean is at least -0.999), "rgb_camera"
+    (three channels of ``camera_to_channel(cond["ref_cameras"])``, a dense
+    layer of the 25-d camera broadcast over the image) or
+    "rgb_alpha_camera" (both, alpha first)."""
 
     def __init__(self, plane_channels: int = 96, scale: str = "standard",
                  vit_dim: int = 1024, input_mode: str = "rgb", norm_mode: str = "affine"):
         super().__init__()
-        if input_mode != "rgb":
-            raise NotImplementedError(
-                "the composite backbone is ported for rgb input, the only mode "
-                "the avatar models pass")
-        self.plane_channels = plane_channels
+        if input_mode not in ("rgb", "rgb_alpha", "rgb_camera", "rgb_alpha_camera"):
+            raise ValueError(f"input_mode {input_mode!r}")
+        self.plane_channels, self.input_mode = plane_channels, input_mode
         low_blocks, pred_blocks = COMPOSITE_SCALES[scale]
-        in_ch = 3 + 2  # rgb + the xy coordinate channels
+        # rgb, alpha, camera channels, the xy coordinate channels
+        in_ch = 3 + ("alpha" in input_mode) + 3 * ("camera" in input_mode) + 2
+        if "camera" in input_mode:
+            self.camera_to_channel = nn.Linear(25, 3)       # the packed camera
         self.low_reso_encoder = DeepLabV3LowEncoder(in_ch, norm_mode)
         self.low_reso_vit = LowResolutionViT(256, low_blocks, vit_dim)
         self.high_reso_encoder = HighResoEncoder(in_ch)
@@ -246,13 +252,22 @@ class CompositeImg2PlaneBackbone(nn.Module):
             96 + 96, num_blocks=pred_blocks, vit_dim=vit_dim,
             out_channels=plane_channels * 3)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, cond: dict | None = None) -> torch.Tensor:
         b, h, w, _ = img.shape
+        x = [nchw(img)]
+        if "alpha" in self.input_mode:
+            alphas = (cond or {}).get("ref_alphas")
+            if alphas is None:
+                alphas = (img.mean(dim=-1, keepdim=True) >= -0.999).to(img.dtype)
+            x.append(nchw(alphas.to(img.dtype)))
+        if "camera" in self.input_mode:
+            cam = self.camera_to_channel((cond or {})["ref_cameras"].to(img.dtype))
+            x.append(cam[:, :, None, None].expand(b, 3, h, w))
         # both axes normalized by H; channel 0 is the ROW coordinate
         gy, gx = torch.meshgrid(torch.arange(h, device=img.device) / h,
                                 torch.arange(w, device=img.device) / h, indexing="ij")
-        grid = torch.stack([gy, gx], dim=0)[None].expand(b, 2, h, w).to(img.dtype)
-        x = torch.cat([nchw(img), grid], dim=1)
+        x.append(torch.stack([gy, gx], dim=0)[None].expand(b, 2, h, w).to(img.dtype))
+        x = torch.cat(x, dim=1)
         feat_low = self.low_reso_vit(nhwc(self.low_reso_encoder(x)))
         feat_high = self.high_reso_encoder(x)
         raw = self.triplane_predictor_vit(feat_low, feat_high)

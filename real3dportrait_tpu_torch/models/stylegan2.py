@@ -1,10 +1,19 @@
-"""StyleGAN2 building blocks (port of ``real3dportrait_tpu/models/stylegan2.py``):
-the synthesis side of the SR heads and of the EG3D tri-plane generator
+"""StyleGAN2 (port of ``real3dportrait_tpu/models/stylegan2.py``): the
+synthesis side of the SR heads and of the EG3D tri-plane generator
 (``SynthesisBlock`` with or without a constant input, ``SynthesisNetwork``,
-``MappingNetwork`` with latents, its w average and truncation) and the
+``MappingNetwork`` with latents, its w average and truncation), the
 discriminator side of the dual discriminator (``MappingNetwork`` without
 latents, ``MinibatchStdLayer``, ``DiscriminatorBlock``,
-``DiscriminatorEpilogue``).
+``DiscriminatorEpilogue``), and the whole ``Generator`` (mapping plus
+synthesis) and conditional ``Discriminator``.
+
+Noise modes: ``"none"``, ``"const"`` (each layer's buffer ``noise_const``)
+and ``"random"`` (a fresh [B,H,W] normal plane per layer and call, drawn
+from the ``draws`` object the caller passes, ``utils/draws.py``, in the
+JAX package's shape [B,H,W,1] and order, so that a test replays JAX's
+draws). The port's blocks default to ``"none"``, the mode its SR heads run;
+the JAX package's default ``"random"`` is the default of ``Generator``
+alone.
 
 Parameter names and shapes follow the reference torch modules (which the
 JAX tree reuses): dense weights [out, in], conv weights OIHW. Modulated
@@ -171,18 +180,25 @@ class SynthesisLayer(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, noise_mode: str = "none",
-                gain: float = 1.0) -> torch.Tensor:
+                gain: float = 1.0, draws=None) -> torch.Tensor:
         """x [B,Cin,H,W], w [B,w_dim] -> [B,Cout,H*up,W*up].
 
-        ``noise_mode`` is ``"none"`` (inference) or ``"const"``; per-call
-        random noise is a training option and not ported.
+        ``noise_mode`` ``"none"``, ``"const"`` (the buffer, [H,W], shared by
+        the batch) or ``"random"`` (a [B,H,W] normal plane from ``draws``,
+        reaching kernel K6b by a batch stride).
         """
-        if noise_mode not in ("const", "none"):
-            raise ValueError(f"noise_mode {noise_mode!r}: only 'const' and 'none'")
+        if noise_mode not in ("random", "const", "none"):
+            raise ValueError(f"noise_mode {noise_mode!r}: 'random', 'const' or 'none'")
         styles = self.affine(w)
         noise = None
         if self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
+        elif self.use_noise and noise_mode == "random":
+            if draws is None:
+                raise ValueError("noise_mode 'random' needs draws")
+            r = self.resolution
+            noise = draws.normal((x.shape[0], r, r, 1), x.device).reshape(-1, r, r) \
+                * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
         x, d = modulated_conv2d(x.to(self.dtype), self.weight, styles, up=self.up,
                                 padding=self.padding, resample_filter=f)
@@ -265,13 +281,13 @@ class SynthesisBlock(nn.Module):
             self.const.normal_(generator=generator)
 
     def forward_nchw(self, x: torch.Tensor | None, img: torch.Tensor | None,
-                     ws: torch.Tensor, noise_mode: str = "none"
+                     ws: torch.Tensor, noise_mode: str = "none", draws=None
                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
         if self.in_channels == 0:
             x = self.const[None].expand(ws.shape[0], -1, -1, -1).to(self.dtype)
         else:
-            x = self.conv0(x, ws[:, 0], noise_mode=noise_mode)
-        x = self.conv1(x, ws[:, self.num_conv - 1], noise_mode=noise_mode)
+            x = self.conv0(x, ws[:, 0], noise_mode=noise_mode, draws=draws)
+        x = self.conv1(x, ws[:, self.num_conv - 1], noise_mode=noise_mode, draws=draws)
         if img is not None and self.up > 1:
             img = upsample2d(img, self.resample_filter, up=self.up)
         if self.is_last or self.architecture == "skip":
@@ -280,12 +296,13 @@ class SynthesisBlock(nn.Module):
         return x, img
 
     def forward(self, x: torch.Tensor | None, img: torch.Tensor | None, ws: torch.Tensor,
-                noise_mode: str = "none") -> tuple[torch.Tensor, torch.Tensor | None]:
+                noise_mode: str = "none", draws=None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """x [B,H,W,Cin] (None for a first block), img [B,H,W,3] or None
         (NHWC) -> (x, img) NHWC."""
         x, img = self.forward_nchw(
             None if x is None else x.permute(0, 3, 1, 2),
-            None if img is None else img.permute(0, 3, 1, 2), ws, noise_mode)
+            None if img is None else img.permute(0, 3, 1, 2), ws, noise_mode, draws)
         return x.permute(0, 2, 3, 1), None if img is None else img.permute(0, 2, 3, 1)
 
 
@@ -315,20 +332,22 @@ class SynthesisNetwork(nn.Module):
                 conv_clamp=conv_clamp, use_fp16=num_fp16_res > 0 and res >= fp16_resolution))
         self.num_ws = sum(1 if res == 4 else 2 for res in self.block_resolutions) + 1
 
-    def forward_nchw(self, ws: torch.Tensor, noise_mode: str = "none") -> torch.Tensor:
+    def forward_nchw(self, ws: torch.Tensor, noise_mode: str = "none",
+                     draws=None) -> torch.Tensor:
         """ws [B, num_ws, w_dim] -> the image [B, img_channels, res, res] (fp32)."""
         x = img = None
         w_idx = 0
         for res in self.block_resolutions:
             block = getattr(self, f"b{res}")
             x, img = block.forward_nchw(x, img, ws[:, w_idx:w_idx + block.num_conv + 1],
-                                        noise_mode=noise_mode)
+                                        noise_mode=noise_mode, draws=draws)
             w_idx += block.num_conv
         return img
 
-    def forward(self, ws: torch.Tensor, noise_mode: str = "none") -> torch.Tensor:
+    def forward(self, ws: torch.Tensor, noise_mode: str = "none",
+                draws=None) -> torch.Tensor:
         """ws [B, num_ws, w_dim] -> the image [B, res, res, img_channels] (NHWC)."""
-        return self.forward_nchw(ws, noise_mode).permute(0, 2, 3, 1)
+        return self.forward_nchw(ws, noise_mode, draws).permute(0, 2, 3, 1)
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -468,3 +487,70 @@ class DiscriminatorEpilogue(nn.Module):
         if self.cmap_dim > 0:
             x = (x * cmap).sum(dim=1, keepdim=True) / math.sqrt(self.cmap_dim)
         return x
+
+
+class Generator(nn.Module):
+    """Mapping plus synthesis: z [B,z_dim] (and c [B,c_dim]) -> the image
+    [B,res,res,img_channels] (NHWC, fp32). ``noise_mode`` defaults to
+    ``"random"``, as in the JAX package: each synthesis layer then draws its
+    noise plane from ``draws``."""
+
+    def __init__(self, z_dim: int, c_dim: int, w_dim: int, img_resolution: int,
+                 img_channels: int, mapping_layers: int = 8, channel_base: int = 32768,
+                 channel_max: int = 512, num_fp16_res: int = 0):
+        super().__init__()
+        self.synthesis = SynthesisNetwork(w_dim, img_resolution, img_channels,
+                                          channel_base=channel_base, channel_max=channel_max,
+                                          num_fp16_res=num_fp16_res)
+        self.mapping = MappingNetwork(c_dim, w_dim, num_layers=mapping_layers, z_dim=z_dim,
+                                      num_ws=self.synthesis.num_ws)
+
+    def forward(self, z: torch.Tensor, c: torch.Tensor | None = None,
+                truncation_psi: float = 1.0, truncation_cutoff: int | None = None,
+                update_emas: bool = False, noise_mode: str = "random",
+                draws=None) -> torch.Tensor:
+        ws = self.mapping(c, z, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff, update_emas=update_emas)
+        return self.synthesis(ws, noise_mode=noise_mode, draws=draws)
+
+
+class Discriminator(nn.Module):
+    """The conditional StyleGAN2 discriminator: resnet blocks from
+    ``img_resolution`` down to 8^2 (the ``num_fp16_res`` highest in bf16,
+    through bf16 kernels K6a and K6b), the camera (or any condition c)
+    mapped to ``cmap``, the 4^2 epilogue. img [B,res,res,C] (NHWC), c
+    [B,c_dim] -> logits [B,1]."""
+
+    def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
+                 channel_base: int = 32768, channel_max: int = 512, num_fp16_res: int = 4,
+                 conv_clamp: float | None = 256.0, cmap_dim: int | None = None,
+                 mbstd_group_size: int = 4, mapping_layers: int = 8):
+        super().__init__()
+        log2 = int(math.log2(img_resolution))
+        self.resolutions = [2 ** i for i in range(log2, 2, -1)]
+
+        def channels(res: int) -> int:
+            return min(channel_base // res, channel_max)
+
+        cmap_dim = channels(4) if cmap_dim is None else cmap_dim
+        if c_dim == 0:
+            cmap_dim = 0
+        fp16_resolution = max(2 ** (log2 + 1 - num_fp16_res), 8)
+        for res in self.resolutions:
+            setattr(self, f"b{res}", DiscriminatorBlock(
+                channels(res) if res < img_resolution else 0, channels(res),
+                channels(res // 2), res, img_channels, conv_clamp=conv_clamp,
+                use_fp16=num_fp16_res > 0 and res >= fp16_resolution))
+        self.mapping = (MappingNetwork(c_dim, cmap_dim, num_layers=mapping_layers,
+                                       w_avg_beta=None) if c_dim > 0 else None)
+        self.b4 = DiscriminatorEpilogue(channels(4), cmap_dim=cmap_dim,
+                                        mbstd_group_size=mbstd_group_size,
+                                        conv_clamp=conv_clamp)
+
+    def forward(self, img: torch.Tensor, c: torch.Tensor | None = None) -> torch.Tensor:
+        img = img.permute(0, 3, 1, 2)
+        x = None
+        for res in self.resolutions:
+            x = getattr(self, f"b{res}")(x, img if x is None else None)
+        cmap = self.mapping(c) if self.mapping is not None else None
+        return self.b4(x, cmap)

@@ -1,5 +1,6 @@
-"""GAN super-resolution head, raw neural render -> final image (port of
-``real3dportrait_tpu/models/superresolution.py``)."""
+"""GAN super-resolution heads, raw neural render -> final image (port of
+``real3dportrait_tpu/models/superresolution.py``): the 8X head the avatar
+models run (128^2 -> 512^2) and the 4X variant (128^2 -> 256^2)."""
 
 from __future__ import annotations
 
@@ -62,4 +63,35 @@ class SuperresolutionHybrid8XDC(nn.Module):
         x, rgb = x.permute(0, 3, 1, 2), rgb.permute(0, 3, 1, 2)
         x, rgb = self.block0.forward_nchw(x, rgb, ws, noise_mode=noise_mode)
         x, rgb = self.block1.forward_nchw(x, rgb, ws, noise_mode=noise_mode)
+        return rgb.permute(0, 2, 3, 1)
+
+
+class SuperresolutionHybrid4X(nn.Module):
+    """128 -> 256 SR head: a block without upsampling at 128^2 (128
+    channels) and one up block to 256^2 (64 channels), both in bf16 with
+    ``conv_clamp=256`` when ``sr_num_fp16_res > 0``. An input below
+    ``input_resolution`` is resized up to it first."""
+
+    def __init__(self, channels: int, w_dim: int = 512, sr_num_fp16_res: int = 4,
+                 sr_antialias: bool = True, input_resolution: int = 128):
+        super().__init__()
+        use_fp16 = sr_num_fp16_res > 0
+        clamp = 256.0 if use_fp16 else None
+        self.sr_antialias, self.input_resolution = sr_antialias, input_resolution
+        self.block0 = SynthesisBlock(channels, 128, w_dim=w_dim, resolution=128,
+                                     img_channels=3, is_last=False, conv_clamp=clamp,
+                                     use_fp16=use_fp16, up=1)
+        self.block1 = SynthesisBlock(128, 64, w_dim=w_dim, resolution=256, img_channels=3,
+                                     is_last=True, conv_clamp=clamp, use_fp16=use_fp16)
+
+    def forward(self, rgb: torch.Tensor, x: torch.Tensor, ws: torch.Tensor,
+                noise_mode: str = "none", draws=None) -> torch.Tensor:
+        """rgb [B,h,w,3], x [B,h,w,C] (NHWC), ws [B,*,w_dim] -> [B,256,256,3]."""
+        ws = ws[:, -1:, :].expand(-1, 3, -1)
+        if x.shape[1] < self.input_resolution:
+            x = resize_bilinear(x, self.input_resolution, self.sr_antialias)
+            rgb = resize_bilinear(rgb, self.input_resolution, self.sr_antialias)
+        x, rgb = x.permute(0, 3, 1, 2), rgb.permute(0, 3, 1, 2)
+        x, rgb = self.block0.forward_nchw(x, rgb, ws, noise_mode=noise_mode, draws=draws)
+        x, rgb = self.block1.forward_nchw(x, rgb, ws, noise_mode=noise_mode, draws=draws)
         return rgb.permute(0, 2, 3, 1)

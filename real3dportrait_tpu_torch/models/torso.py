@@ -6,9 +6,10 @@ appearance volume), :class:`MotionFieldEstimator` (keypoint heatmaps and K+1
 candidate warps -> dense deformation and two occlusion maps),
 :class:`WarpGenerator` (warped volume -> torso RGB and hidden features) and
 the :class:`WarpBasedTorsoModel` wrapper, driven by a subset of the 68
-landmarks. Parameter names follow the JAX tree. Convolutions run NCDHW /
-NCHW inside; public tensors keep the JAX layouts (volumes [B,D,H,W,C],
-images NHWC, keypoints [B,K,3]).
+landmarks, and the torso stage's :class:`PatchDiscriminator`. Parameter
+names follow the JAX tree. Convolutions run NCDHW / NCHW inside; public
+tensors keep the JAX layouts (volumes [B,D,H,W,C], images NHWC, keypoints
+[B,K,3]).
 
 The two trilinear warps (``csrc/torso_warp.cu``) and the estimator's tail
 (``csrc/conv3d.cu``) are kernels, each with its plain PyTorch version
@@ -87,10 +88,12 @@ class ConvBlock2D(nn.Module):
     conv_cls = nn.Conv2d
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 pattern: str = "CNA", lrelu: bool = False, norm_mode: str = "gn"):
+                 pattern: str = "CNA", lrelu: bool = False, norm_mode: str = "gn",
+                 stride: int = 1):
         super().__init__()
         self.pattern, self.lrelu = pattern, lrelu
-        self.conv = self.conv_cls(in_channels, out_channels, kernel, padding=kernel // 2)
+        self.conv = self.conv_cls(in_channels, out_channels, kernel, padding=kernel // 2,
+                                  **({"stride": stride} if stride != 1 else {}))
         normed = out_channels if pattern.index("C") < pattern.index("N") else in_channels
         self.norm = _norm(normed, norm_mode)
 
@@ -160,6 +163,20 @@ def make_coordinate_grid_3d(d: int, h: int, w: int, device="cpu") -> torch.Tenso
     zz, yy, xx = torch.meshgrid(_axis(d, device), _axis(h, device), _axis(w, device),
                                 indexing="ij")
     return torch.stack([xx, yy, zz], dim=-1)
+
+
+def make_coordinate_grid_2d(h: int, w: int, device="cpu") -> torch.Tensor:
+    """[-1,1]^2 grid, (x, y) ordering -> [H,W,2]."""
+    yy, xx = torch.meshgrid(_axis(h, device), _axis(w, device), indexing="ij")
+    return torch.stack([xx, yy], dim=-1)
+
+
+def kp2gaussian_2d(kp: torch.Tensor, h: int, w: int, kp_variance: float = 0.01
+                   ) -> torch.Tensor:
+    """kp [B,K,2] (x, y) in [-1,1] -> gaussian heatmaps [B,K,H,W],
+    exp(-|g - kp|^2 / 2v)."""
+    diff = make_coordinate_grid_2d(h, w, kp.device)[None, None] - kp[:, :, None, None, :]
+    return torch.exp(-0.5 * diff.square().sum(dim=-1) / kp_variance)
 
 
 def kp2gaussian_3d(kp: torch.Tensor, d: int, h: int, w: int,
@@ -857,6 +874,33 @@ class WarpGenerator(nn.Module):
         for i in range(self.n_up):
             x = getattr(self, f"up_{i}")(upsample_2d(x))
         return nhwc(self.out_conv(x)), nhwc(x)
+
+
+class PatchDiscriminator(nn.Module):
+    """Patch discriminator over the image and its keypoints' gaussian
+    heatmaps (``kp2gaussian_2d`` of the keypoints' (x, y), no gradient to
+    them): ``ConvBlock2D_0`` .. ``ConvBlock2D_{n-1}`` (lrelu, stride 2 but
+    the last), then a 1-channel conv + norm, ``ConvBlock2D_n``; GroupNorms.
+    img [B,H,W,3] (NHWC), kp [B,K,2 or 3] -> (logits [B,h,w,1], the blocks'
+    features, NHWC)."""
+
+    def __init__(self, down_seq: Sequence[int] = (64, 128, 256, 512), num_keypoints: int = 4):
+        super().__init__()
+        self.n = len(down_seq)
+        chans = [3 + num_keypoints] + list(down_seq)      # RGB and the heatmaps
+        for i in range(self.n):
+            setattr(self, f"ConvBlock2D_{i}", ConvBlock2D(
+                chans[i], chans[i + 1], lrelu=True, stride=2 if i < self.n - 1 else 1))
+        setattr(self, f"ConvBlock2D_{self.n}", ConvBlock2D(chans[-1], 1, pattern="CN"))
+
+    def forward(self, img: torch.Tensor, kp: torch.Tensor):
+        heat = kp2gaussian_2d(kp[..., :2].detach(), img.shape[1], img.shape[2])
+        x = torch.cat([nchw(img), heat.to(img.dtype)], dim=1)
+        feats = []
+        for i in range(self.n):
+            x = getattr(self, f"ConvBlock2D_{i}")(x)
+            feats.append(nhwc(x))
+        return nhwc(getattr(self, f"ConvBlock2D_{self.n}")(x)), feats
 
 
 # architecture presets of the reference's model_scale choices, plus a tiny

@@ -10,13 +10,14 @@ casts them (the kernel rounds them as it loads them, so the wrapper
 launches nothing but the kernel), and in bf16 every step rounds to bf16.
 
 On CUDA tensors :func:`bias_act` is a ``torch.autograd.Function`` whose
-backward is kernel K6b's gradient, :func:`bias_act_grad` (same source):
-``dz = dy * gain * act'(y)``, zero where the clamp saturated, ``dx = dz *
-scale`` and the sums ``db = sum dz``, ``dscale = sum_hw dz * x``, ``dnoise =
-sum_bc dz`` in fp32. :func:`bias_act_grad_plain` is its plain version. For
-the piecewise-linear activations the kernel takes, ``dx`` is linear in
-``dy`` with a piecewise-constant factor, so the gradient of the gradient
-(R1's double backward) is the same masked multiply: the same kernel again
+backward is kernel K6b's gradient, :func:`bias_act_grad` (same source): ``dz
+= dy * gain * act'(y)``, zero where the clamp saturated, ``dx = dz * scale``
+and the sums ``db = sum dz``, ``dscale = sum_hw dz * x``, ``dnoise = sum_bc
+dz`` (``sum_c dz`` for a noise plane per sample) in fp32.
+:func:`bias_act_grad_plain` is its plain version. For the piecewise-linear
+activations the kernel takes, ``dx`` is linear in ``dy`` with a
+piecewise-constant factor, so the gradient of the gradient (R1's double
+backward) is the same masked multiply: the same kernel again
 (StyleGAN2-ADA's ``BiasActCudaGrad`` design). CPU tensors take the plain
 forward, which autograd differentiates.
 """
@@ -59,12 +60,13 @@ def bias_act_plain(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "l
                    noise: torch.Tensor | None = None) -> torch.Tensor:
     """y = clamp(gain * act(x * scale + noise + b)); ``b`` broadcasts along
     ``axis``. ``scale`` [B,C] (the demodulation coefficients) and ``noise``
-    [H,W] apply to NCHW ``x`` only."""
+    apply to NCHW ``x`` only; ``noise`` is one [H,W] plane for every sample
+    or a [B,H,W] plane per sample (broadcast over the channels)."""
     spec = ACTIVATIONS[act]
     if scale is not None:
         x = x * scale.to(x.dtype)[:, :, None, None]
     if noise is not None:
-        x = x + noise.to(x.dtype)
+        x = x + (noise[:, None] if noise.dim() == 3 else noise).to(x.dtype)
     if b is not None:
         shape = [1] * x.dim()
         shape[axis] = b.shape[0]
@@ -128,12 +130,15 @@ def bias_act_grad_plain(dy: torch.Tensor, y: torch.Tensor, x: torch.Tensor | Non
                         act: str = "linear", gain: float | None = None,
                         clamp: float | None = None, axis: int = -1,
                         scale: torch.Tensor | None = None, need_b: bool = True,
-                        need_scale: bool = True, need_noise: bool = False) -> tuple:
+                        need_scale: bool = True, need_noise: bool = False,
+                        noise_per_sample: bool = False) -> tuple:
     """Plain PyTorch K6b gradient: the output ``y`` and its gradient ``dy``
-    -> ``(dx, db [C] or None, dscale [B,C] or None, dnoise [H,W] or None)``,
-    the sums in fp32. ``db`` is computed where ``need_b``; ``dscale`` where
+    -> ``(dx, db [C] or None, dscale [B,C] or None, dnoise or None)``, the
+    sums in fp32. ``db`` is computed where ``need_b``; ``dscale`` where
     ``scale`` is given and ``need_scale``, from ``x`` (the input before
-    ``scale``); ``dnoise`` (NCHW only) where ``need_noise``."""
+    ``scale``); ``dnoise`` (NCHW only) where ``need_noise``: [H,W] summed
+    over batch and channels, or with ``noise_per_sample`` [B,H,W] summed
+    over the channels."""
     g = ACTIVATIONS[act].def_gain if gain is None else gain
     dz = dy.float() * _act_slope(y, act, g, clamp)
     dims = [d for d in range(dy.dim()) if d != axis % dy.dim()]
@@ -146,7 +151,7 @@ def bias_act_grad_plain(dy: torch.Tensor, y: torch.Tensor, x: torch.Tensor | Non
     else:
         dz_x = dz
     if need_noise:
-        dnoise = dz.sum(dim=(0, 1))
+        dnoise = dz.sum(dim=1) if noise_per_sample else dz.sum(dim=(0, 1))
     return dz_x.to(dy.dtype), db, dscale, dnoise
 
 
@@ -155,12 +160,13 @@ class _BiasActGrad(torch.autograd.Function):
     backward of R1) is the same masked multiply, through the same kernel."""
 
     @staticmethod
-    def forward(ctx, dy, y, x, scale, act, gain, clamp, axis, need_b, need_scale, need_noise):
+    def forward(ctx, dy, y, x, scale, act, gain, clamp, axis, need_b, need_scale, need_noise,
+                noise_per_sample=False):
         ctx.save_for_backward(y)
         ctx.args = (act, gain, clamp, axis)
         ctx.has_terms = scale is not None or need_noise
         return bias_act_grad(dy, y, x, act, gain, clamp, axis, scale, need_b, need_scale,
-                             need_noise)
+                             need_noise, noise_per_sample)
 
     @staticmethod
     def backward(ctx, ddx, ddb, ddscale, ddnoise):
@@ -175,8 +181,8 @@ class _BiasActGrad(torch.autograd.Function):
             shape[axis] = ddb.shape[0]
             u = u + ddb.reshape(shape).to(u.dtype)
         ddy = _BiasActGrad.apply(u, y, None, None, act, gain, clamp, axis, False, False,
-                                 False)[0]
-        return (ddy,) + (None,) * 10
+                                 False, False)[0]
+        return (ddy,) + (None,) * 11
 
 
 class _BiasAct(torch.autograd.Function):
@@ -189,28 +195,30 @@ class _BiasAct(torch.autograd.Function):
         kernels.require(name, "x", x, (torch.float32, torch.bfloat16))
         bsz, c, hw = _layout(x, axis, scale, noise)
         h, w = (x.shape[2], x.shape[3]) if x.dim() == 4 else (1, 1)
+        per_sample = noise is not None and noise.dim() == 3
         y = torch.empty_like(x)
         bf16 = x.dtype == torch.bfloat16
         kernels.launch("r3dp_bias_act_bf16" if bf16 else "r3dp_bias_act", x,
                        _aux("scale", scale, (bsz, c), x.dtype),
-                       _aux("noise", noise, (h, w), x.dtype), _aux("b", b, (c,), x.dtype),
+                       _aux("noise", noise, (bsz, h, w) if per_sample else (h, w), x.dtype),
+                       hw if per_sample else 0, _aux("b", b, (c,), x.dtype),
                        x.numel(), c, hw, KERNEL_ACTS[act], float(gain),
                        -1.0 if clamp is None else float(clamp), y)
         bias_act.launches += 1
         bias_act.launches_bf16 += bf16
         keep_x = scale is not None and ctx.needs_input_grad[2]
         ctx.save_for_backward(y, x if keep_x else None, scale)
-        ctx.args = (act, gain, clamp, axis)
+        ctx.args = (act, gain, clamp, axis, per_sample)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         y, x, scale = ctx.saved_tensors
-        act, gain, clamp, axis = ctx.args
+        act, gain, clamp, axis, per_sample = ctx.args
         need_b, need_scale, need_noise = ctx.needs_input_grad[1:4]
         dx, db, dscale, dnoise = _BiasActGrad.apply(
             dy.contiguous(), y, x, scale, act, gain, clamp, axis, need_b, need_scale,
-            need_noise)
+            need_noise, per_sample)
         return dx, db, dscale, dnoise, None, None, None, None
 
 
@@ -223,8 +231,9 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, act: str = "linear"
     CPU tensors take the plain version. CUDA tensors launch the kernel,
     which takes fp32 or bf16 NCHW ``x`` with ``axis=1`` or [N,C] ``x`` with
     the channel axis last, and a linear, relu or lrelu activation, or
-    raise; gradients reach ``x``, ``b``, ``scale`` and ``noise`` through
-    :func:`bias_act_grad`. ``bias_act.launches`` counts every launch,
+    raise; a [B,H,W] ``noise`` reaches the kernel by a batch stride.
+    Gradients reach ``x``, ``b``, ``scale`` and ``noise`` (in its own
+    shape) through :func:`bias_act_grad`. ``bias_act.launches`` counts every launch,
     ``launches_bf16`` the bf16 ones among them.
     """
     if x.device.type == "cpu":
@@ -241,7 +250,8 @@ def bias_act_grad(dy: torch.Tensor, y: torch.Tensor, x: torch.Tensor | None = No
                   act: str = "linear", gain: float | None = None,
                   clamp: float | None = None, axis: int = -1,
                   scale: torch.Tensor | None = None, need_b: bool = True,
-                  need_scale: bool = True, need_noise: bool = False) -> tuple:
+                  need_scale: bool = True, need_noise: bool = False,
+                  noise_per_sample: bool = False) -> tuple:
     """K6b gradient wrapper, same contract as :func:`bias_act_grad_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the gradient
@@ -252,7 +262,7 @@ def bias_act_grad(dy: torch.Tensor, y: torch.Tensor, x: torch.Tensor | None = No
     g = ACTIVATIONS[act].def_gain if gain is None else gain
     if dy.device.type == "cpu":
         return bias_act_grad_plain(dy, y, x, act, g, clamp, axis, scale, need_b, need_scale,
-                                   need_noise)
+                                   need_noise, noise_per_sample)
     name = "bias_act_grad"
     if act not in KERNEL_ACTS:
         raise ValueError(f"{name}: the kernel takes {sorted(KERNEL_ACTS)}, got {act!r}")
@@ -279,11 +289,14 @@ def bias_act_grad(dy: torch.Tensor, y: torch.Tensor, x: torch.Tensor | None = No
     dx = torch.empty_like(dy)
     db = torch.zeros((c,), **f32) if need_b else None
     dscale = torch.zeros((bsz, c), **f32) if need_scale else None
-    dnoise = torch.zeros(tuple(dy.shape[2:]), **f32) if need_noise else None
+    per_sample = need_noise and noise_per_sample
+    dnoise = torch.zeros(((bsz,) if per_sample else ()) + tuple(dy.shape[2:]), **f32) \
+        if need_noise else None
     bf16 = dy.dtype == torch.bfloat16
     kernels.launch("r3dp_bias_act_grad_bf16" if bf16 else "r3dp_bias_act_grad", dy, y, x,
                    scale, dy.numel(), c, hw, KERNEL_ACTS[act], float(g),
-                   -1.0 if clamp is None else float(clamp), dx, db, dscale, dnoise)
+                   -1.0 if clamp is None else float(clamp), dx, db, dscale, dnoise,
+                   hw if per_sample else 0)
     bias_act_grad.launches += 1
     bias_act_grad.launches_bf16 += bf16
     return dx, db, dscale, dnoise

@@ -50,6 +50,7 @@ class RenderOptions(NamedTuple):
     ray_start: float | str = "auto"
     ray_end: float | str = "auto"
     white_back: bool = False
+    density_noise: float = 0.0  # std of the normal noise a training render adds to sigma
 
 
 def sample_from_planes(planes: torch.Tensor, coordinates: torch.Tensor,
@@ -336,7 +337,10 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
 
     ``decoder`` is an ``OSGDecoder`` (its ``decode_points`` is kernel K1 or
     K1-trigrid, by the planes' rank). ``draws`` (``utils/draws.Draws``)
-    makes the training render's jittered depths and K2's random ``u``.
+    makes the training render's jittered depths and K2's random ``u``, and
+    with ``options.density_noise > 0`` the normal noise (times it) added to
+    each pass's densities between the decode and the march, as the JAX
+    package draws it.
     Returns ``rgb`` [B,M,C], ``depth``
     [B,M,1], ``weights_sum`` [B,M,1], ``is_ray_valid`` [B,M].
     """
@@ -359,6 +363,9 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
         coords = (ray_origins[:, :, None, :] + depths * ray_directions[:, :, None, :])
         rgb, sigma = decoder.decode_points(planes, coords.reshape(b, -1, 3),
                                            options.box_warp)
+        if options.density_noise > 0 and draws is not None:
+            sigma = sigma + draws.normal(tuple(sigma.shape), sigma.device) \
+                * options.density_noise
         return rgb.reshape(b, m, n_s, -1), sigma.reshape(b, m, n_s, 1)
 
     depths_coarse = _stratified_depths(ray_start, ray_end, options.depth_resolution, draws)

@@ -6,6 +6,7 @@ through ``utils/draws.ReplayDraws``)."""
 
 from __future__ import annotations
 
+import math
 import os
 
 import jax
@@ -143,8 +144,80 @@ def tree_of(module, named: dict) -> dict:
     return jax_variables_from_torch(module, named)["params"]
 
 
+def reorder_bound(n_terms: int, magnitude: float) -> float:
+    """The largest difference of two fp32 sums of the same ``n_terms``
+    terms taken in two tree (pairwise or blocked) orders: each lies within
+    ``ceil(log2 n) * 2^-24 * sum|terms|`` of the exact sum, so the two lie
+    within twice that of each other. ``magnitude`` is sum|terms|."""
+    return 2 * math.ceil(math.log2(max(n_terms, 2))) * 2.0 ** -24 * magnitude
+
+
+class NoiseStrengthTerms:
+    """The terms of every ``noise_strength`` gradient of a port run on the
+    CPU. The gradient of a StyleGAN2 layer's noise strength is one scalar
+    sum over batch, channels and pixels of ``dz * n``, ``dz`` the gradient
+    at the noise add and ``n`` the unit noise (``noise_const`` or the
+    layer's draw); its terms cancel (their magnitudes may sum to a hundred
+    times the result), so the result's last bits depend on the order of the
+    sum. Inside the context, each ``SynthesisLayer``'s noise (``n`` times
+    the strength, which must not be 0) reaches the plain epilogue broadcast
+    to ``x``'s shape, with a hook that keeps ``dz`` (the same values and
+    the same sum as the broadcast add). ``bounds(root, prefix)`` then gives
+    {leaf path: ``reorder_bound(terms, sum|dz * n|)``} for the layers under
+    the module ``root``, with the paths of
+    ``jax.tree_util.tree_leaves_with_path`` under ``prefix``."""
+
+    def __enter__(self):
+        from real3dportrait_tpu_torch.models import stylegan2 as sg
+        from real3dportrait_tpu_torch.ops import bias_act as ba
+
+        self.seen: list = []       # (layer, dz, unit noise)
+        self._sg, self._ba = sg, ba
+        self._fwd, self._plain = sg.SynthesisLayer.forward, ba.bias_act_plain
+        current: list = []
+        seen, fwd, plain = self.seen, self._fwd, self._plain
+
+        def layer_forward(layer, *args, **kwargs):
+            # the strength as this call uses it (a step moves it after)
+            current.append((layer, abs(float(layer.noise_strength)) if layer.use_noise else 0))
+            try:
+                return fwd(layer, *args, **kwargs)
+            finally:
+                current.pop()
+
+        def plain_with_hook(x, b=None, act="linear", gain=None, clamp=None, axis=-1,
+                            scale=None, noise=None):
+            if noise is not None and current and noise.requires_grad:
+                (layer, strength), kept = current[-1], noise.detach().double()
+                assert strength > 0, "a noise strength of 0 hides the noise"
+                unit = (kept[:, None] if kept.dim() == 3 else kept) / strength
+                noise = (noise[:, None] if noise.dim() == 3 else noise).expand(x.shape)
+                noise.register_hook(lambda g: seen.append((layer, g.detach().double(), unit)))
+            return plain(x, b, act, gain, clamp, axis, scale, noise)
+
+        sg.SynthesisLayer.forward = layer_forward
+        ba.bias_act_plain = plain_with_hook
+        return self
+
+    def __exit__(self, *exc):
+        self._sg.SynthesisLayer.forward = self._fwd
+        self._ba.bias_act_plain = self._plain
+
+    def bounds(self, root, prefix: tuple = ()) -> dict:
+        names = {id(m): n for n, m in root.named_modules()}
+        out: dict = {}
+        for layer, dz, unit in self.seen:
+            if id(layer) not in names:
+                continue
+            key = tuple(prefix) + tuple(names[id(layer)].split(".")) + ("noise_strength",)
+            n, mag = out.get(key, (0, 0.0))
+            out[key] = (n + dz.numel(), mag + float((dz * unit).abs().sum()))
+        return {k: reorder_bound(n, mag) for k, (n, mag) in out.items()}
+
+
 def agree_trees(got, want, max_rel: float, mean_rel: float, what: str,
-                floor: float = 1e-3, near_zero: float | None = None) -> None:
+                floor: float = 1e-3, near_zero: float | None = None,
+                sum_bounds: dict | None = None) -> None:
     """Leaf by leaf, relative to the leaf's largest magnitude, floored at
     ``floor`` of the tree's (a leaf whose gradient is small against the
     tree's, as an attention query bias or a bias whose terms cancel, is
@@ -152,7 +225,9 @@ def agree_trees(got, want, max_rel: float, mean_rel: float, what: str,
     magnitude is at most that share of the tree's (a gradient that is
     exactly 0, as a bias before a GroupNorm of one channel a group, of
     which both frameworks compute fp32 noise) is held to a tenth of it,
-    absolutely."""
+    absolutely. ``sum_bounds`` {path as a tuple of keys: bound}: a scalar
+    leaf that is one fp32 sum of many terms (``NoiseStrengthTerms``) is
+    held to its reordering bound, absolutely, and to nothing else."""
     flat_w = dict(jax.tree_util.tree_leaves_with_path(want))
     flat_g = dict(jax.tree_util.tree_leaves_with_path(got))
     assert set(flat_w) == set(flat_g), f"{what}: trees differ"
@@ -161,6 +236,12 @@ def agree_trees(got, want, max_rel: float, mean_rel: float, what: str,
         g, w = np.asarray(flat_g[path], np.float64), np.asarray(w, np.float64)
         name = f"{what} {jax.tree_util.keystr(path)}"
         assert np.isfinite(g).all(), f"{name}: non-finite"
+        key = tuple(getattr(p, "key", p) for p in path)
+        if sum_bounds and key in sum_bounds:
+            err = float(np.abs(g - w).max())
+            assert err <= sum_bounds[key], \
+                f"{name}: sum err {err:.3e} over its reordering bound {sum_bounds[key]:.3e}"
+            continue
         if near_zero is not None and np.abs(w).max() <= near_zero * top:
             err = np.abs(g - w).max()
             assert err <= 0.1 * near_zero * top, f"{name}: ~0 gradient, err {err:.3e}"

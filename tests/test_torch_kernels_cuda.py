@@ -1039,6 +1039,59 @@ def test_k6b_grad_every_term(dev, dtype, act, clamp, terms):
         _rel_close(a, b_, tol if dtype == torch.float32 else 3e-2, "Function")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(5, 3, 8, 8), (3, 2, 13, 11), (2, 17, 4, 4), (3, 4, 1, 1)],
+                         ids=["aligned_rows_span_samples", "ragged", "wide", "flat"])
+def test_k6b_noise_per_sample(dev, dtype, shape):
+    """A [B,H,W] noise plane read by the batch stride: CTAs whose rows span
+    several samples (C below the rows a CTA takes), rows that are not whole
+    vectors, H = W = 1; the forward against the plain version (fp32 1e-6
+    absolute, bf16 within 2 ulps: the same roundings in the same order), the
+    gradient's dnoise [B,H,W] summed over the channels (1e-5 of scale: fp32
+    sums in another order) and the Function against autograd of the plain
+    forward."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    bsz, c, h, w = shape
+    x = (2 * torch.randn(shape, device=dev, generator=g)).to(dtype)
+    b = 0.3 * torch.randn((c,), device=dev, generator=g)
+    scale = torch.rand((bsz, c), device=dev, generator=g) + 0.5
+    noise = torch.randn((bsz, h, w), device=dev, generator=g)
+    kw = dict(act="lrelu", gain=2 ** 0.5, clamp=2.5, axis=1, scale=scale)
+    before = ba.bias_act.launches
+    got = ba.bias_act(x, b, noise=noise, **kw)
+    want = ba.bias_act_plain(x, b, noise=noise, **kw)
+    torch.cuda.synchronize()
+    assert ba.bias_act.launches == before + 1
+    if dtype == torch.float32:
+        _close(got, want, 1e-6, "forward")
+    else:
+        assert _bf16_ulps(got, want) <= 2
+    shared = ba.bias_act(x, b, noise=noise[0], **kw)       # the [H,W] form is unchanged
+    _close(shared.float(), ba.bias_act_plain(x, b, noise=noise[0], **kw).float(), 1e-6,
+           "shared plane")
+    if h * w == 1:
+        return                  # the gradient kernel takes no noise at H = W = 1
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    flags = dict(need_b=True, need_scale=True, need_noise=True, noise_per_sample=True)
+    k = ba.bias_act_grad(dy, got, x, **kw, **flags)
+    p = ba.bias_act_grad_plain(dy, got, x, **kw, **flags)
+    torch.cuda.synchronize()
+    assert k[3].shape == (bsz, h, w)
+    for a, b_, name in zip(k, p, ("dx", "db", "dscale", "dnoise")):
+        _rel_close(a, b_, 1e-5 if dtype == torch.float32 else 1e-2, name)
+    # through the Function at the layers' clamp (256: no bf16 value ties
+    # with the bound, where autograd's clamp passes the gradient and the
+    # kernel, as the JAX package's epilogue, zeroes it)
+    leaves = [t.clone().requires_grad_(True) for t in (x, b, scale, noise)]
+    outs = [torch.autograd.grad(fn(leaves[0], leaves[1], act="lrelu", gain=2 ** 0.5,
+                                   clamp=256.0, axis=1, scale=leaves[2], noise=leaves[3]),
+                                leaves, dy)
+            for fn in (ba.bias_act, ba.bias_act_plain)]
+    assert outs[0][3].shape == noise.shape
+    for a, b_ in zip(*outs):
+        _rel_close(a, b_, 1e-5 if dtype == torch.float32 else 3e-2, "Function")
+
+
 # -- the torso stage's backward kernels ------------------------------------------
 
 
