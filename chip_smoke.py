@@ -46,6 +46,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    package's msgpack format and read back by
    ``Real3DPortraitPipeline(mock_weights=False, ...)``, whose ``run``
    frames must be bit-equal to the writer's;
+4c. convert: the released lineage (``configs/real3d_orig.yaml`` at 48+48)
+   written as reference torch ``.ckpt`` files, converted by ``python -m
+   real3dportrait_tpu_torch.tools.convert_torch_ckpt`` in a subprocess and
+   loaded with ``mock_weights=False``: weights bit-equal to the writer's,
+   folded ones within their fold's bound, ``run`` frames (1 s of wav)
+   within 1e-3 / 1e-4 of scale of the writer's, every kernel of the
+   released path launched in that run (``convert_run_launches``);
 5. the slices: ``Real3DPortraitPipeline()``'s default model,
    ``configs/secc_img2plane_torso.yaml`` (depth-3 tri-grids through
    K1-trigrid, the composite backbone with GroupNorms, bf16 SR blocks
@@ -1689,6 +1696,145 @@ def phase_checkpoint(dev: torch.device, out_dir: str, n_vertices: int = 35709,
           f"{tuple(got.shape)} bit-equal to the writer's")
     del written, loaded, got, want
     torch.cuda.empty_cache()
+
+
+def ref_layout():
+    """``tests/_torch_ref_layout.py`` (numpy, torch and the port only), by
+    its path, so that no other ``tests`` package on the host shadows it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_ref_layout", os.path.join(ROOT, "tests", "_torch_ref_layout.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass looks itself up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CONVERT_STEPS = {"audio2secc": 160000, "secc2video": 250000}
+
+
+def phase_convert(dev: torch.device, out_dir: str, n_vertices: int = 35709,
+                  **overrides) -> dict:
+    """The released lineage from checkpoints in the released torch layout:
+    the seeded pipeline of ``configs/real3d_orig.yaml`` (tri-planes through
+    K1, the composite backbone, folded BatchNorms, the torso) at the
+    ``reference`` quadrature (48+48) is written as reference
+    ``model_ckpt_steps_<N>.ckpt`` files (``tests/_torch_ref_layout.py``:
+    the renames and layouts inverted, the norms unfolded with seeded
+    statistics); the port's converter turns them into msgpack checkpoints in
+    a subprocess, as a user runs it; a pipeline drawn from another seed
+    loads them with ``mock_weights=False``. Its weights must be the
+    writer's, bit-equal where the converter copies or transposes a leaf and
+    within the fold's bound (the stored operands' own error plus the fp32
+    forward-error bound, per element) where it folds a BatchNorm, a weight
+    norm or a spectral norm; its ``run`` frames (1 s of wav, temperature 0)
+    within ``compare``'s fp32 tolerance of the writer's (the folded leaves
+    differ at their last bits, as a reordered fp32 sum does), with every
+    kernel of the released path launched in that run. Returns its launch
+    counts."""
+    from real3dportrait_tpu_torch.config import load_config
+    from real3dportrait_tpu_torch.geometry.bfm import synthetic_bfm
+    from real3dportrait_tpu_torch.inference.pipeline import Real3DPortraitPipeline
+
+    layout = ref_layout()
+    written = make_pipeline(RELEASED_CONFIG, "reference", dev, n_vertices=n_vertices,
+                            **overrides)
+    t0 = time.perf_counter()
+    refs = {"audio2secc": layout.audio2secc(written.a2m, seed=1),
+            "secc2video": layout.secc2video(written.model, seed=2)}
+    torch_dirs = {}
+    for name, ref in refs.items():
+        torch_dirs[name] = os.path.join(out_dir, "torch", name)
+        os.makedirs(torch_dirs[name])
+        ref.save(os.path.join(torch_dirs[name], f"model_ckpt_steps_{CONVERT_STEPS[name]}.ckpt"),
+                 CONVERT_STEPS[name])
+    t1 = time.perf_counter()
+    conv_dir = os.path.join(out_dir, "converted")
+    proc = subprocess.run(
+        [sys.executable, "-m", "real3dportrait_tpu_torch.tools.convert_torch_ckpt",
+         "--audio2secc", torch_dirs["audio2secc"], "--secc2video", torch_dirs["secc2video"],
+         "--out", conv_dir], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=600)
+    t2 = time.perf_counter()
+    check(proc.returncode == 0, f"convert_torch_ckpt failed:\n{proc.stderr[-3000:]}")
+    print("\n".join(f"convert[cli] {line}" for line in proc.stdout.splitlines()))
+    dirs = {name: os.path.join(conv_dir, name) for name in refs}
+    paths = {name: os.path.join(d, f"model_ckpt_steps_{CONVERT_STEPS[name]}.ckpt")
+             for name, d in dirs.items()}
+    check(all(os.path.exists(p) for p in paths.values()), f"converted files {paths}")
+    mib = sum(os.path.getsize(p) for p in paths.values()) / 2**20
+    cfg = load_config(os.path.join(ROOT, "configs", RELEASED_CONFIG),
+                      dict(sampling_preset="reference", **overrides))
+    loaded = Real3DPortraitPipeline(cfg, mock_weights=False, a2m_ckpt_dir=dirs["audio2secc"],
+                                    secc2video_ckpt_dir=dirs["secc2video"],
+                                    assets=synthetic_bfm(n_vertices=n_vertices), seed=1,
+                                    device=dev)
+    t3 = time.perf_counter()
+    held = {name: layout.check_converted(module, refs[name], got.state_dict())
+            for name, module, got in (("audio2secc", written.a2m, loaded.a2m),
+                                      ("secc2video", written.model, loaded.model))}
+    print("convert[weights]: " + "; ".join(
+        f"{name} {h['equal']} leaves bit-equal, {h['folded']} folded within their bounds "
+        f"(largest error {h['worst']:.3f} of its bound)" for name, h in held.items()))
+    res = written.res
+    src = np.random.RandomState(0).randint(0, 256, (res, res, 3)).astype(np.uint8)
+    wav = seeded_wav(1.0, seed=5)
+    want = written.run(src, wav=wav, temperature=0.0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t4 = time.perf_counter()
+    got = loaded.run(src, wav=wav, temperature=0.0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t4
+    counts = read_launches()
+    check(got.shape == want.shape and tuple(got.shape[1:]) == (res, res, 3) and len(got) > 0
+          and got.is_cuda and bool(torch.isfinite(got).all()),
+          f"convert run frames {tuple(got.shape)}")
+    text = compare("convert run frames", got, want, (1e-3, 1e-4))
+    expect = set(REPLACES) - {"trigrid_decode"}
+    check(all(counts[k] > 0 for k in expect) and counts["trigrid_decode"] == 0,
+          f"convert: a kernel of the released path was not launched: {counts}")
+    print(f"convert[released lineage, {res}^2, 48+48]: torch checkpoints written in "
+          f"{t1 - t0:.2f} s, converted by the command line in {t2 - t1:.2f} s ({mib:.1f} MiB "
+          f"written), pipeline with mock_weights=False built and loaded in {t3 - t2:.2f} s; "
+          f"run frames {tuple(got.shape)} in {run_s:.2f} s "
+          f"({1e3 * run_s / len(got):.2f} ms/frame), against the writer's {text}, "
+          f"bit-equal {bool(torch.equal(got, want))}; launches {counts}")
+    convert_no_fallback(layout, loaded, paths)
+    del written, loaded, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def convert_no_fallback(layout, pipe, paths: dict) -> None:
+    """The converted trees with a leaf missing (secc2video) or misshaped
+    (audio2secc) must not load: the strict loader raises, naming it."""
+    from real3dportrait_tpu_torch.utils import msgpack_ckpt
+    from real3dportrait_tpu_torch.weights import load_jax_variables
+
+    for name, module, root in (("secc2video", pipe.model, "gen"), ("audio2secc", pipe.a2m,
+                                                                    "model")):
+        tree = msgpack_ckpt.load_checkpoint(paths[name])["params"][root]
+        path, node = (), tree
+        while isinstance(node, dict):
+            key = sorted(node)[0]
+            path, parent, node = path + (key,), node, node[key]
+        key = layout.port_key("params", path)
+        if name == "secc2video":
+            del parent[path[-1]]
+            want = f"Missing key(s) in state_dict: \"{key}\""
+        else:
+            parent[path[-1]] = np.zeros(np.shape(node) + (1,), np.float32)
+            want = f"size mismatch for {key}"
+        try:
+            load_jax_variables(module, {"params": tree})
+        except RuntimeError as err:
+            check(want in str(err), f"convert: the {name} error does not name {key}: {err}")
+            print(f"convert[no fallback]: {name} with {key} "
+                  f"{'missing' if name == 'secc2video' else 'misshaped'} raises, naming it")
+            continue
+        check(False, f"convert: the {name} tree without {key} loaded")
 
 
 def phase_flagship(dev: torch.device, steps: int = 16) -> None:
@@ -4362,6 +4508,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         phase_checkpoint(dev, out_dir)
     torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as out_dir:
+        convert_counts = phase_convert(dev, out_dir)
+    torch.cuda.synchronize()
     slice_counts = phase_slice(dev)
     torch.cuda.synchronize()
     phase_flagship(dev)
@@ -4412,6 +4561,7 @@ def main() -> int:
         if counts[k] == 0:
             path, counts = "released torso fast", slice_counts["released torso fast"]
         launches[k] = dict(launches=counts[k], path=path, video_run_launches=video_counts[k],
+                           convert_run_launches=convert_counts[k],
                            **{f"fb8_{m}": batch_rows[k][m] for m in (
                                "launch_ms", "b1_launch_ms", "bound_ms", "max_abs_err")})
         if k in BF16_COUNTED:

@@ -15,9 +15,10 @@ extractor, on ``--device``).
 Weights are seeded mock weights unless both ``--a2m_ckpt`` and
 ``--s2v_ckpt`` are given and ``--mock_weights`` is not (the JAX CLI's
 rule): directories of the JAX package's msgpack checkpoints, such as
-``tools/convert_torch_ckpt.py --out DIR`` writes from the released torch
-checkpoints (``DIR/audio2secc``, ``DIR/secc2video``). ``--hubert_path``
-takes the ``.msgpack`` tree of ``convert_hubert``.
+``python -m real3dportrait_tpu_torch.tools.convert_torch_ckpt --out DIR``
+writes from the released torch checkpoints (``DIR/audio2secc``,
+``DIR/secc2video``). ``--hubert_path`` takes the ``.msgpack`` tree of
+``convert_hubert`` (written with ``utils/msgpack_ckpt.msgpack_serialize``).
 """
 
 from __future__ import annotations

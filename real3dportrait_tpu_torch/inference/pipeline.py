@@ -41,8 +41,8 @@ The pipeline runs on ``device="cuda"`` unless it is given another device.
 pixels are untrained. ``mock_weights=False`` loads the newest checkpoint
 of ``a2m_ckpt_dir`` and ``secc2video_ckpt_dir`` where they are given, as
 the JAX pipeline does: the msgpack files that the JAX package writes, and
-that ``tools/convert_torch_ckpt.py`` makes of the released torch
-checkpoints, read without flax (``utils/msgpack_ckpt.py``).
+that the port's ``tools/convert_torch_ckpt.py`` makes of the released
+torch checkpoints, read without flax (``utils/msgpack_ckpt.py``).
 """
 
 from __future__ import annotations
@@ -143,7 +143,8 @@ def _resize_np(img: np.ndarray, size: int) -> np.ndarray:
 def load_hubert(path: str | None, device: torch.device | str,
                 model_fn: Callable[[], torch.nn.Module] = hubert_large) -> Callable | None:
     """The HuBERT extractor of a ``.msgpack`` tree in the layout that
-    ``tools/convert_torch_ckpt.py:convert_hubert`` writes, loaded strictly
+    ``tools/convert_torch_ckpt.py:convert_hubert`` gives (written with
+    ``utils/msgpack_ckpt.msgpack_serialize``), loaded strictly
     into ``model_fn()`` (``hubert_large``, as the JAX pipeline builds), or
     None: for no path, another file type, or a file that does not load,
     after one line saying why. Without HuBERT the pipeline tiles the

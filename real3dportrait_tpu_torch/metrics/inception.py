@@ -5,8 +5,9 @@ The pytorch-fid network: the torchvision ``inception_v3`` layout with
 FID's pooling (``count_include_pad=False`` average pools, a max-pool
 branch in ``Mixed_7c``), its eval-time BatchNorms folded into per-channel
 affines. The modules keep the Flax tree's names (``Mixed_5b.branch1x1.conv``,
-``bn_scale``, ``bn_bias``), so a ``tools/convert_torch_ckpt.py:convert_inception``
-tree loads through ``weights.inception_from_jax``. The convolutions are
+``bn_scale``, ``bn_bias``), so a tree of the port's
+``tools/convert_torch_ckpt.py:convert_inception`` loads through
+``weights.inception_from_jax``. The convolutions are
 cuDNN's; JAX computes them outside any kernel. Without a weight file the
 metric suite uses its random-projection extractor and says so.
 """

@@ -173,7 +173,8 @@ def perceptual_v2(vgg19_w: dict, vggface_w: dict, pred: torch.Tensor, target: to
 
 
 def load_tree(path: str, convs: tuple = VGG19_CONVS) -> dict | None:
-    """A converted feature tree (msgpack; ``tools/convert_torch_ckpt.py``),
+    """A converted feature tree (msgpack; the port's
+    ``tools/convert_torch_ckpt.py:save_vgg19``),
     or None where ``path`` is empty or missing; raises where a conv of
     ``convs`` is absent or of another width."""
     if not path or not os.path.exists(path):

@@ -26,7 +26,7 @@ the fp32 skip image.
 Internally the convolutions run NCHW; :class:`SynthesisBlock.forward` keeps
 the port's NHWC public layout. The epilogue's ``fc`` weight takes its input
 flattened in the JAX package's (H, W, C) order, the order its tree holds
-(``tools/convert_torch_ckpt.py:convert_stylegan2_discriminator`` permutes
+(the port's ``tools/convert_torch_ckpt.py:convert_stylegan2_discriminator`` permutes
 the reference's (C, H, W) weight into it).
 """
 

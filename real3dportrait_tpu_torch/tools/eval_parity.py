@@ -4,9 +4,10 @@
 1. build the released geometry's pipeline (``configs/real3d_orig.yaml``,
    the ``reference`` 48+48 quadrature unless ``--hparams`` names a preset)
    from converted checkpoint directories (``--a2m_ckpt``, ``--s2v_ckpt``,
-   as the JAX package's checkpoints; ``tools/convert_torch_ckpt.py``
-   writes them from the released torch checkpoints), or seeded mock
-   weights;
+   as the JAX package's checkpoints), from the released torch checkpoints
+   (``--torch_a2m``, ``--torch_s2v``: converted first by the port's
+   ``tools/convert_torch_ckpt.py`` into ``<out>/converted``), or seeded
+   mock weights;
 2. render the fixture batch: ``<fixtures>/inputs.npz`` (src_img and the
    driving coefficients id / exp / euler / trans) and
    ``<fixtures>/ref_frames.npy`` (the frames to match);
@@ -19,14 +20,17 @@
 The port-versus-JAX check: the JAX package's tool writes the fixtures
 (``inputs.npz`` and its own ``ref_frames.npy``) and the converted
 checkpoint directories; this tool renders the same driving coefficients
-from the same directories. The JAX tool's ``--torch_a2m`` / ``--torch_s2v`` conversion
-stays a JAX-side step (the converter imports flax): convert first, then
-pass the directories.
+from the same directories; or both tools convert the same released torch
+checkpoints (``--torch_a2m`` / ``--torch_s2v``), each with its own package's
+converter, which write the same bytes.
 
 Usage::
 
     python -m real3dportrait_tpu_torch.tools.eval_parity --fixtures F \\
         --a2m_ckpt D/audio2secc --s2v_ckpt D/secc2video --out /tmp/parity
+    # the released torch checkpoints, converted into /tmp/parity/converted
+    python -m real3dportrait_tpu_torch.tools.eval_parity --fixtures F \
+        --torch_a2m A.ckpt --torch_s2v S.ckpt --out /tmp/parity
     # no weights: the whole mechanism on mock weights, PSNR must be inf
     python -m real3dportrait_tpu_torch.tools.eval_parity --selftest --out /tmp/parity
 
@@ -178,6 +182,8 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--torch_a2m", default="", help="released audio2secc torch ckpt")
+    p.add_argument("--torch_s2v", default="", help="released secc2video torch ckpt")
     p.add_argument("--a2m_ckpt", default="", help="converted audio2secc checkpoint dir")
     p.add_argument("--s2v_ckpt", default="", help="converted secc2video checkpoint dir")
     p.add_argument("--fixtures", default="", help="dir with inputs.npz + ref_frames.npy")
@@ -195,9 +201,23 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     set_fp32_policy()
+    a2m_dir, s2v_dir = args.a2m_ckpt, args.s2v_ckpt
+    if args.torch_a2m or args.torch_s2v:
+        from real3dportrait_tpu_torch.tools.convert_torch_ckpt import main as convert_main
+
+        conv_out = os.path.join(args.out, "converted")
+        conv_args = ["--out", conv_out, "--backbone_mode", "composite"]
+        if args.torch_a2m:
+            conv_args += ["--audio2secc", args.torch_a2m]
+            a2m_dir = os.path.join(conv_out, "audio2secc")
+        if args.torch_s2v:
+            conv_args += ["--secc2video", args.torch_s2v]
+            s2v_dir = os.path.join(conv_out, "secc2video")
+        convert_main(conv_args)
+
     if args.selftest:
         args.mock_weights = True
-    pipe = build_pipeline(args, args.a2m_ckpt, args.s2v_ckpt)
+    pipe = build_pipeline(args, a2m_dir, s2v_dir)
 
     fixtures = args.fixtures
     if args.selftest and not fixtures:

@@ -2,7 +2,7 @@
 
 The port names its parameters after the JAX package's Flax tree (which
 reuses the reference torch names), so converting is a walk over the tree
-with shape-directed transforms, the reverse of
+with shape-directed transforms, the reverse of the port's
 ``tools/convert_torch_ckpt.py:convert_leaf``:
 
 * Flax ``kernel`` / StyleGAN ``weight`` of rank 4: HWIO -> OIHW;

@@ -185,16 +185,19 @@ def test_port_imports_leave_jax_out():
 
 
 def test_port_sources_name_no_jax_import():
-    """Every import statement of the port and of chip_smoke.py, at any depth
-    (a function's lazy import too, which the import test above does not
-    run), and every literal ``importlib.import_module`` / ``__import__``
-    name: none is JAX, Flax, Optax or the JAX package."""
+    """Every import statement of the port, of chip_smoke.py and of the
+    released-layout writer it loads (tests/_torch_ref_layout.py), at any
+    depth (a function's lazy import too, which the import test above does
+    not run), and every literal ``importlib.import_module`` /
+    ``__import__`` name: none is JAX, Flax, Optax, the JAX package or the
+    root ``tools`` package of the JAX side."""
     import ast
     import pathlib
 
-    banned = ("jax", "flax", "optax", "real3dportrait_tpu")
+    banned = ("jax", "flax", "optax", "real3dportrait_tpu", "tools")
     files = sorted(pathlib.Path(ROOT, "real3dportrait_tpu_torch").rglob("*.py"))
     files.append(pathlib.Path(ROOT, "chip_smoke.py"))
+    files.append(pathlib.Path(ROOT, "tests", "_torch_ref_layout.py"))
     assert len(files) > 60
     found = []
     for f in files:
