@@ -158,7 +158,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    with the keypoint heatmaps. Every distinct K6a and K6b call of the
    three StyleGAN2 models is then held against its plain version
    (``hold_calls``); the per-sample noise form of K6b is timed per launch
-   beside its bound and its plain version.
+   beside its bound and its plain version;
+15. ``study`` (``phase_study``): the port's sampling study
+   (``real3dportrait_tpu_torch/tools/study_sampling.py``) at 128^2, its
+   table printed, K2 and K3 launched (K3 at 3 colour channels, its scalar
+   path), every K2 and K3 call of its merged schemes against the plain
+   versions, its rows at 32^2 against the CPU's; and every port
+   subpackage's exports imported on this host.
 
 The last lines are the kernels JSON (the backward kernels with their
 launches a step of the training run that is their main path; K4's
@@ -4475,6 +4481,115 @@ def phase_last_modules(dev: torch.device) -> dict:
     return dict(launches=launches, k6b_noise=rows, wall_ms=walls, peak_gib=peak)
 
 
+# -- 15: the sampling study ----------------------------------------------------------
+
+STUDY_RES = 128
+STUDY_CHECK_RES = 32    # the card's study against the CPU's at this grid
+# the port's subpackages (and its config module), whose exports must import here
+PORT_SUBPACKAGES = ("audio", "config", "data", "geometry", "inference", "metrics", "models",
+                    "ops", "parallel", "preprocess", "rendering", "training", "utils")
+
+
+def phase_study(dev: torch.device) -> dict:
+    """``tools/study_sampling.py`` at 128^2 on the card (see the module
+    docstring, 15): every port subpackage's exports imported on this host;
+    the study's table printed, with the launch counters from 0 (K2 once a
+    scheme that marches the full grid's proposals, K3 once a merged scheme,
+    no other kernel); its rows at 32^2 against the CPU's (PSNR within 0.05
+    dB, depth MAE within 1e-4, the bounds its CPU test holds the JAX tool
+    to); then every K2 and K3 call of the merged schemes, rebuilt from the
+    same deterministic inputs (K3's rgb bit-equal to the study's, so they
+    are its calls), against the plain versions at phase 3's tolerance,
+    1e-4 absolute, K3 at C = 3 on its scalar path. Returns {"launches":
+    the study's K2 and K3 launches, "k3_c3": K3's C = 3 timing rows,
+    "wall_s": ...}."""
+    import importlib
+
+    from real3dportrait_tpu_torch.rendering import renderer as rr
+    from real3dportrait_tpu_torch.tools import study_sampling as study
+
+    t0 = time.perf_counter()
+    n_names = 0
+    for sub in PORT_SUBPACKAGES:
+        mod = importlib.import_module(f"real3dportrait_tpu_torch.{sub}")
+        for name in mod.__all__:
+            check(getattr(mod, name) is not None, f"study: {sub}.{name}")
+            n_names += 1
+    check(not any(m == "jax" or m.startswith(("jax.", "flax", "real3dportrait_tpu."))
+                  for m in sys.modules), "study: a JAX module is imported")
+    print(f"study: {n_names} exports of {len(PORT_SUBPACKAGES)} port subpackages import here")
+
+    reset_launches()
+    rows = study.study(STUDY_RES, dev, keep=True)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    full_grid = [kw for _, kw in study.SCHEMES if kw.get("coarse_downsample", 1) == 1]
+    merged = [kw for kw in full_grid if kw["mode"] == "merged"]
+    want = {k: 0 for k in counts}
+    want.update(importance_sample=len(full_grid), merge_composite=len(merged))
+    check(counts == want, f"study: launches {counts}, want {want}")
+    check(all(math.isfinite(r["psnr_gt"]) and math.isfinite(r["depth_mae"])
+              and bool(torch.isfinite(r["rgb"]).all()) and bool(torch.isfinite(r["depth"]).all())
+              and r["rgb"].shape == (1, STUDY_RES ** 2, 3) for r in rows)
+          and rows[0]["psnr_ref"] == float("inf")
+          and all(math.isfinite(r["psnr_ref"]) for r in rows[1:]), "study: rows not finite")
+
+    small = study.study(STUDY_CHECK_RES, dev, log=lambda line: None)
+    cpu = study.study(STUDY_CHECK_RES, "cpu", log=lambda line: None)
+    worst = dict(psnr=0.0, mae=0.0)
+    for g, c in zip(small, cpu):
+        worst["psnr"] = max(worst["psnr"], abs(g["psnr_gt"] - c["psnr_gt"]),
+                            0.0 if c is cpu[0] else abs(g["psnr_ref"] - c["psnr_ref"]))
+        worst["mae"] = max(worst["mae"], abs(g["depth_mae"] - c["depth_mae"]))
+    check(worst["psnr"] <= 0.05 and worst["mae"] <= 1e-4,
+          f"study at {STUDY_CHECK_RES}^2: card vs CPU {worst}")
+    print(f"study at {STUDY_CHECK_RES}^2, card vs CPU: PSNR within {worst['psnr']:.2e} dB, "
+          f"depth MAE within {worst['mae']:.2e}")
+
+    # the merged schemes' K2 and K3 calls, rebuilt
+    rays = study.study_rays(STUDY_RES, dev)
+    origins, dirs, ray_start, ray_end = rays
+    m = origins.shape[1]
+    errs = {"importance_sample": 0.0, "merge_composite": 0.0}
+    k3_rows = {}
+    with torch.no_grad():
+        for (name, kw), row in zip(study.SCHEMES, rows):
+            if kw["mode"] != "merged":
+                continue
+            depths_c = rr._stratified_depths(ray_start, ray_end, kw["n_coarse"])
+            colors_c, dens_c = study.eval_field(origins, dirs, depths_c)
+            u = rr.importance_u(m, kw["n_fine"], dev)
+            fine = rr.importance_sample(depths_c, dens_c, u)
+            errs["importance_sample"] = max(errs["importance_sample"], max_err(
+                fine, rr.importance_sample_plain(depths_c, dens_c, u)))
+            colors_f, dens_f = study.eval_field(origins, dirs, fine)
+            args = (depths_c, colors_c, dens_c, fine, colors_f, dens_f)
+            got, plain = rr.merge_composite(*args), rr.merge_composite_plain(*args)
+            check(torch.equal(got[0], row["rgb"]), f"study: {name}'s K3 call not rebuilt")
+            errs["merge_composite"] = max(errs["merge_composite"],
+                                          *(max_err(k, p) for k, p in zip(got, plain)))
+            if kw["n_coarse"] + kw["n_fine"] in (48, 96):
+                c = kw["n_coarse"] + kw["n_fine"]
+                bound_ms, by = bound(nbytes(*args, *got), m * c * (2 * 3 + 20), torch.float32)
+                k3_rows[f"{kw['n_coarse']}+{kw['n_fine']}"] = r = dict(
+                    launch_ms=device_ms(lambda: rr.merge_composite(*args)),
+                    ms=cuda_ms(lambda: rr.merge_composite(*args)),
+                    plain_ms=cuda_ms(lambda: rr.merge_composite_plain(*args)),
+                    bound_ms=bound_ms, bound_by=by)
+                print(f"study merge_composite[{m} rays {kw['n_coarse']}+{kw['n_fine']}, 3 "
+                      f"channels, scalar path]: per launch {r['launch_ms']:.4f} ms, per call "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound_ms:.4f} "
+                      f"ms ({by}) ({card_line()})")
+    check(all(e <= 1e-4 for e in errs.values()), f"study: kernels vs plain {errs}")
+    wall = time.perf_counter() - t0
+    print(f"study: {len(merged)} merged schemes' K2 and K3 calls held, max_abs_err K2 "
+          f"{errs['importance_sample']:.3e} K3 {errs['merge_composite']:.3e} (tol 1e-4); "
+          f"launches {want['importance_sample']} K2, {want['merge_composite']} K3; phase wall "
+          f"{wall:.1f} s ({card_line()})")
+    return dict(launches={k: counts[k] for k in ("importance_sample", "merge_composite")},
+                k3_c3=k3_rows, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4524,6 +4639,8 @@ def main() -> int:
     t_last = time.perf_counter()
     last = phase_last_modules(dev)
     print(f"last_modules wall s: {time.perf_counter() - t_last:.1f}")
+    torch.cuda.synchronize()
+    study_out = phase_study(dev)
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
@@ -4608,6 +4725,12 @@ def main() -> int:
     for entry in kernels_json:
         if entry["name"] == "bias_act":
             entry["per_sample_noise"] = last["k6b_noise"]
+    # the sampling study's launches at 128^2, and K3's C = 3 calls timed
+    for entry in kernels_json:
+        if entry["name"] in study_out["launches"]:
+            entry["study_launches"] = study_out["launches"][entry["name"]]
+        if entry["name"] == "merge_composite":
+            entry["study_c3"] = study_out["k3_c3"]
     print(json.dumps({"kernels": kernels_json}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,16 +5,112 @@ The same semantics as ``real3dportrait_tpu.config.load_config``: a
 under the file, then dot-path overrides (``{"a.b": 1}``, or the CLI's
 ``"a.b=1,c=true"`` through :func:`parse_overrides`) are applied. The result
 is a plain nested ``dict``; the port reads it with ``cfg.get``.
+:class:`FrozenConfig`, the JAX package's immutable tree with attribute
+access, wraps such a dict where a caller wants one.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from collections.abc import Mapping
+from collections.abc import Iterator, Mapping
 from typing import Any
 
 import yaml
+
+
+__all__ = ["FrozenConfig", "load_config", "parse_overrides"]
+
+
+class FrozenConfig(Mapping):
+    """An immutable nested mapping with attribute access: ``cfg.model.lr``
+    is ``cfg["model"]["lr"]``, ``cfg.get("k", default)`` is dict's.
+    Nested mappings become FrozenConfigs and lists tuples; setting an
+    attribute raises, :meth:`replace` / :meth:`replace_dotted` make an
+    updated copy. Equal to a mapping with the same plain contents."""
+
+    __slots__ = ("_data",)
+
+    def __init__(self, data: Mapping | None = None):
+        d = {}
+        for k, v in dict(data or {}).items():
+            if isinstance(v, Mapping) and not isinstance(v, FrozenConfig):
+                v = FrozenConfig(v)
+            elif isinstance(v, list):
+                v = tuple(FrozenConfig(x) if isinstance(x, Mapping) else x for x in v)
+            d[str(k)] = v
+        object.__setattr__(self, "_data", d)
+
+    def __getitem__(self, k: str) -> Any:
+        return self._data[k]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._data)
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def __contains__(self, k) -> bool:
+        return k in self._data
+
+    def __getattr__(self, k: str) -> Any:
+        try:
+            return self._data[k]
+        except KeyError:
+            raise AttributeError(k) from None
+
+    def __setattr__(self, k, v):
+        raise TypeError("FrozenConfig is immutable; use .replace()")
+
+    def __repr__(self) -> str:
+        return f"FrozenConfig({self._data!r})"
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, FrozenConfig):
+            return self._data == other._data
+        if isinstance(other, Mapping):
+            return self.to_dict() == dict(other)
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash(json.dumps(self.to_dict(), sort_keys=True, default=str))
+
+    def to_dict(self) -> dict:
+        """The plain nested dict (tuples of mappings back to lists)."""
+        out = {}
+        for k, v in self._data.items():
+            if isinstance(v, FrozenConfig):
+                v = v.to_dict()
+            elif isinstance(v, tuple):
+                v = [x.to_dict() if isinstance(x, FrozenConfig) else x for x in v]
+            out[k] = v
+        return out
+
+    def replace(self, **updates) -> "FrozenConfig":
+        """A copy with top-level keys replaced."""
+        d = self.to_dict()
+        d.update(updates)
+        return FrozenConfig(d)
+
+    def replace_dotted(self, dotted: Mapping[str, Any]) -> "FrozenConfig":
+        """A copy with dot-path keys (``a.b.c``) replaced."""
+        d = self.to_dict()
+        for path, value in dotted.items():
+            node = d
+            *parents, leaf = path.split(".")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = value
+        return FrozenConfig(d)
+
+    def save(self, path: str) -> None:
+        """Write the tree as sorted YAML (through a temporary file)."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".part"
+        with open(tmp, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=True)
+        os.replace(tmp, path)
 
 
 def _merge(base: dict, child: dict) -> dict:

@@ -49,6 +49,15 @@ def build_library() -> str:
     return _SO
 
 
+def native_available() -> bool:
+    """Whether the native reader builds (or is built) and loads here."""
+    try:
+        _load_library()
+        return True
+    except Exception:
+        return False
+
+
 def _load_library():
     global _lib
     with _lock:

@@ -236,3 +236,11 @@ def to_image(shape_cam: torch.Tensor, focal: float = DEFAULT_FOCAL,
     """[B,N,3] camera-space -> [B,N,2] pixel coordinates (224 scale)."""
     proj = shape_cam @ perspective_projection_matrix(focal, center, shape_cam.device)
     return proj[..., :2] / proj[..., 2:]
+
+
+def compute_landmarks_2d(assets: BFMAssets, id_coeff: torch.Tensor, exp_coeff: torch.Tensor,
+                         euler: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """coeffs -> [B,K,2] landmark pixel coordinates in the 224 fit frame."""
+    key = compute_key_shape(assets, id_coeff, exp_coeff)
+    key = to_camera(transform(key, compute_rotation(euler), trans))
+    return to_image(key)

@@ -146,3 +146,10 @@ def smooth_camera_sequence(camera: torch.Tensor, kernel_size: int = 7) -> torch.
     u, _, vt = torch.linalg.svd(sm[:, :3, :3])
     sm[:, :3, :3] = u @ vt
     return torch.cat([sm.reshape(t, 16), camera[:, 16:]], dim=-1)
+
+
+def mirror_index(idx: torch.Tensor | int, length: int) -> torch.Tensor:
+    """Ping-pong looping index: 0, 1, ..., length - 1, length - 2, ..., 1, 0, 1, ..."""
+    period = 2 * (length - 1) if length > 1 else 1
+    r = torch.remainder(torch.as_tensor(idx), period)
+    return torch.where(r < length, r, period - r)

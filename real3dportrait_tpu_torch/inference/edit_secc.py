@@ -59,3 +59,25 @@ def periodic_blink_percent(n_frames: int) -> np.ndarray:
         percent[start: start + BLINK_FRAMES] = profile
         start += BLINK_PERIOD
     return percent
+
+
+def inject_blink_to_secc_sequence(secc_seq: np.ndarray, fps: int = 25, period_s: float = 5.0,
+                                  blink_frames: int = 5, seed: int = 0) -> np.ndarray:
+    """Blinks added to [T,H,W,3] SECC maps at seeded times: the first at a
+    frame in [period / 2, period), then every period plus a shift in
+    [-fps, fps), each a close-open profile over ``blink_frames`` frames
+    that must end before the last frame. ``numpy.random.RandomState(seed)``
+    draws the times, as the JAX package's helper does, so a seed gives the
+    same blinks. The pipeline's schedule is :func:`periodic_blink_percent`."""
+    t = len(secc_seq)
+    out = secc_seq.copy()
+    rng = np.random.RandomState(seed)
+    period = int(period_s * fps)
+    profile = np.concatenate([np.linspace(0.25, 1.0, blink_frames // 2 + 1)[1:],
+                              np.linspace(1.0, 0.25, blink_frames - blink_frames // 2)])
+    start = rng.randint(period // 2, period)
+    while start + len(profile) < t:
+        for k, p in enumerate(profile):
+            out[start + k] = blink_eye_for_secc(out[start + k], float(p))
+        start += period + rng.randint(-fps, fps)
+    return out

@@ -66,6 +66,7 @@ from real3dportrait_tpu_torch.config import load_config
 from real3dportrait_tpu_torch.geometry.bfm import BFMAssets, load_or_synthetic_bfm
 from real3dportrait_tpu_torch.geometry.camera import (
     convert_eg3d_convention,
+    mirror_index,
     pack_camera,
     smooth_camera_sequence,
 )
@@ -120,13 +121,6 @@ def _expand_batch(v, n: int):
     if isinstance(v, tuple):
         return tuple(_expand_batch(x, n) for x in v)
     return v.expand(n, *v.shape[1:])
-
-
-def mirror_index(idx: torch.Tensor, length: int) -> torch.Tensor:
-    """Ping-pong looping index."""
-    period = 2 * (length - 1) if length > 1 else 1
-    r = torch.remainder(idx, period)
-    return torch.where(r < length, r, period - r)
 
 
 def _resize_np(img: np.ndarray, size: int) -> np.ndarray:

@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from real3dportrait_tpu_torch.ops.resize import resize_linear
+
 F0_BIN = 256
 F0_MAX = 1100.0
 F0_MIN = 50.0
@@ -41,9 +43,17 @@ def f0_to_coarse(f0: torch.Tensor) -> torch.Tensor:
     return torch.floor(f0_mel + 0.5).long()
 
 
-def downsample_time(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """[B,T,...] -> [B,T//factor,...], nearest: output i reads input i*factor."""
-    return x[:, : (x.shape[1] // factor) * factor : factor]
+def downsample_time(x: torch.Tensor, factor: int = 2, method: str = "nearest") -> torch.Tensor:
+    """[B,T,...] -> [B,T//factor,...]. ``nearest``: output i reads input
+    i*factor. ``linear`` (or ``bilinear``), for [B,T,C]: ``jax.image.resize``
+    along T, half-pixel and antialiased."""
+    t_out = x.shape[1] // factor
+    if method == "nearest":
+        return x[:, : t_out * factor : factor]
+    if method not in ("linear", "bilinear") or x.dim() != 3:
+        raise ValueError(f"downsample_time: method {method!r} on {tuple(x.shape)}; "
+                         "nearest, or linear on [B,T,C]")
+    return resize_linear(x[:, :, None], t_out, 1)[:, :, 0]
 
 
 def _conv(ci: int, co: int, k: int, stride: int = 1, padding: int = 0, dilation: int = 1,

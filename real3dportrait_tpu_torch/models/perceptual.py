@@ -189,6 +189,11 @@ def load_tree(path: str, convs: tuple = VGG19_CONVS) -> dict | None:
     return tree
 
 
+def load_vgg19_params(path: str) -> dict | None:
+    """The JAX package's name for :func:`load_tree` on a VGG19 tree."""
+    return load_tree(path, VGG19_CONVS)
+
+
 def make_perceptual_fn(cfg, device="cpu") -> tuple:
     """``(fn(pred, target) -> scalar, kind)``: ``"vgg19_v2"`` where
     ``lpips_mode`` is ``vgg19_v2`` (the default) and both

@@ -19,11 +19,14 @@ import torch
 import torch.nn.functional as F
 
 
-def grid_sample_2d(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def grid_sample_2d(features: torch.Tensor, coords: torch.Tensor, align_corners: bool = False,
+                   padding_mode: str = "zeros") -> torch.Tensor:
     """features [B,H,W,C], coords [B,M,2] (x indexes W, y indexes H) in
-    [-1,1] -> [B,M,C]."""
+    [-1,1] -> [B,M,C]; ``padding_mode`` "zeros" or "border" (the border
+    clamps the continuous coordinate)."""
     out = F.grid_sample(features.permute(0, 3, 1, 2), coords[:, None],
-                        mode="bilinear", padding_mode="zeros", align_corners=False)
+                        mode="bilinear", padding_mode=padding_mode,
+                        align_corners=align_corners)
     return out[:, :, 0].permute(0, 2, 1)
 
 

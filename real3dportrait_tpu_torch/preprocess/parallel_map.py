@@ -17,11 +17,13 @@ def _pool(use_threads: bool, num_workers: int):
                                mp_context=multiprocessing.get_context("spawn"))
 
 
-def parallel_map(fn: Callable, items: Iterable, num_workers: int = 4, use_threads: bool = False,
-                 desc: str = "") -> list:
-    """``[fn(item) for item in items]`` on a pool, in the items' order;
-    threads (``use_threads``) for IO-bound or unpicklable work, processes
-    otherwise. ``desc`` prints progress every tenth of the items."""
+def parallel_map(fn: Callable, items: Iterable, num_workers: int = 4, ordered: bool = True,
+                 use_threads: bool = False, desc: str = "") -> list:
+    """``[fn(item) for item in items]`` on a pool, in the items' order
+    whatever ``ordered`` says (the JAX package's flag, which its function
+    ignores too); threads (``use_threads``) for IO-bound or unpicklable
+    work, processes otherwise. ``desc`` prints progress every tenth of the
+    items."""
     items = list(items)
     results: list = [None] * len(items)
     done = 0

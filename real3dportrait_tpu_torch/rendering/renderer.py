@@ -114,17 +114,40 @@ def importance_u(n_rays: int, n_importance: int, device: torch.device) -> torch.
     return torch.linspace(0.0, 1.0, n_importance, device=device).expand(n_rays, n_importance)
 
 
-def importance_sample_plain(depths: torch.Tensor, densities: torch.Tensor,
-                            u: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K2: coarse depths/densities [B,M,S,1], u [B*M,n] ->
-    fine depths [B,M,n,1] (``march_weights`` + ``sample_importance``)."""
+def _resample(depths: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Coarse depths [B,M,S,1] and march weights [B,M,S-1,1], u [B*M,n] ->
+    fine depths [B,M,n,1]: smoothing, then the inverse CDF over the
+    intervals' midpoints."""
     b, m, s, _ = depths.shape
-    weights, _, _ = march_weights(densities, depths)
     z = depths.reshape(b * m, s)
     w = _smooth_weights(weights.reshape(b, m, s - 1, 1)).reshape(b * m, s - 1)
     z_mid = (z[:, :-1] + z[:, 1:]) / 2.0
     fine = _sample_pdf(z_mid, w[:, 1:-1], u)
     return fine.reshape(b, m, -1, 1)
+
+
+def sample_importance(depths: torch.Tensor, weights: torch.Tensor, n_importance: int,
+                      draws=None) -> torch.Tensor:
+    """Coarse depths [B,M,S,1] + march weights [B,M,S-1,1] -> fine depths
+    [B,M,n,1], gradients stopped: the JAX package's weights-in resampler.
+    ``u`` is linspace(0, 1) without ``draws``, else sorted uniform draws.
+    Plain PyTorch on any device: the render path takes densities through
+    K2 (:func:`importance_sample`) and never calls this; the sampling
+    study's low-resolution proposals, whose weights are upsampled, do."""
+    b, m = depths.shape[:2]
+    if draws is None:
+        u = importance_u(b * m, n_importance, depths.device)
+    else:
+        u = torch.sort(draws.uniform((b * m, n_importance), depths.device), dim=-1).values
+    return _resample(depths.detach(), weights.detach(), u)
+
+
+def importance_sample_plain(depths: torch.Tensor, densities: torch.Tensor,
+                            u: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2: coarse depths/densities [B,M,S,1], u [B*M,n] ->
+    fine depths [B,M,n,1] (``march_weights`` + ``sample_importance``)."""
+    weights, _, _ = march_weights(densities, depths)
+    return _resample(depths, weights, u)
 
 
 def importance_sample(depths: torch.Tensor, densities: torch.Tensor,

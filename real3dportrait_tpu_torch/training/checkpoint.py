@@ -73,10 +73,11 @@ def _set_path(tree: dict, path: tuple, value) -> None:
     node[path[-1]] = value
 
 
-def partial_load(target: dict, source: dict, prefix_map: dict | None = None
-                 ) -> tuple[dict, dict]:
+def partial_load(target: dict, source: dict, prefix_map: dict | None = None,
+                 strict_shapes: bool = False, verbose: bool = False) -> tuple[dict, dict]:
     """Copy the leaves of ``source`` into (a copy of) ``target`` where their
-    dotted paths match; a leaf whose shape differs is skipped.
+    dotted paths match; a leaf whose shape differs is skipped (printed with
+    ``verbose``), or raises ``ValueError`` with ``strict_shapes``.
     ``prefix_map`` {source prefix: target prefix} renames: a target path
     that starts with a target prefix (the first that matches, as a string)
     reads the source path with that prefix replaced. Returns (the merged
@@ -96,7 +97,12 @@ def partial_load(target: dict, source: dict, prefix_map: dict | None = None
             continue
         src_leaf = src_leaves[src_key]
         if np.shape(src_leaf) != np.shape(tgt_leaf):
+            if strict_shapes:
+                raise ValueError(f"shape mismatch at {dotted}: "
+                                 f"{np.shape(src_leaf)} vs {np.shape(tgt_leaf)}")
             stats["shape_mismatch"] += 1
+            if verbose:
+                print(f"| skip {dotted}: {np.shape(src_leaf)} != {np.shape(tgt_leaf)}")
             continue
         _set_path(target, path, np.asarray(src_leaf))
         stats["loaded"] += 1

@@ -2,9 +2,10 @@
 ``real3dportrait_tpu/utils/visualization.py``): debug views of a frame
 (``to_uint8``, ``depth_to_colormap``, ``side_by_side``, for the
 ``concat_debug`` output mode), landmark overlays, image grids and files,
-and the figures of the validation dumps (spectrogram, attention map,
-t-SNE). cv2 and matplotlib are imported where used: the card's host may
-lack matplotlib."""
+the figures of the validation dumps (spectrogram, attention map,
+t-SNE) and a figure as an image, and landmark videos through ffmpeg. cv2,
+matplotlib and ffmpeg are used where needed: the card's host may lack
+matplotlib and has no ffmpeg."""
 
 from __future__ import annotations
 
@@ -214,3 +215,54 @@ def _tsne_numpy(x: np.ndarray, perplexity: float = 30.0, n_iter: int = 300,
         y = y + inc
         y = y - y.mean(0)
     return y
+
+
+def figure_to_image(fig) -> np.ndarray:
+    """Matplotlib figure -> uint8 RGB array [H,W,3] (its PNG, tight bounds,
+    decoded); the figure is closed."""
+    import io
+
+    import cv2
+    import matplotlib.pyplot as plt
+
+    buf = io.BytesIO()
+    fig.savefig(buf, format="png", bbox_inches="tight")
+    plt.close(fig)
+    arr = np.frombuffer(buf.getvalue(), np.uint8)
+    return cv2.cvtColor(cv2.imdecode(arr, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+
+
+def imgs_to_video(img_dir: str, video_path: str, audio_path: str | None = None,
+                  fps: int = 25, verbose: bool = False) -> None:
+    """The PNG frames of ``img_dir`` (in name order) -> an H.264 video
+    through ``ffmpeg``, with ``audio_path`` muxed in (cut to the shorter)
+    where given. Raises where ffmpeg is missing or fails."""
+    import subprocess
+
+    cmd = ["ffmpeg", "-y", "-framerate", str(fps), "-pattern_type", "glob",
+           "-i", f"{img_dir}/*.png"]
+    if audio_path:
+        cmd += ["-i", audio_path, "-shortest"]
+    cmd += ["-c:v", "libx264", "-pix_fmt", "yuv420p", video_path]
+    subprocess.run(cmd, check=True, capture_output=not verbose)
+
+
+def render_lm3d_video(lm3d_seq: np.ndarray, out_path: str, audio_path: str | None = None,
+                      fps: int = 25, size: int = 512) -> None:
+    """Landmark offsets [T,K,3] -> a video of black dots on white, size^2:
+    each frame's offsets / 10 taken from [-1, 1] onto the pixel grid (y
+    up), written as PNGs and encoded by :func:`imgs_to_video`."""
+    import os
+    import tempfile
+
+    import cv2
+
+    seq = np.asarray(lm3d_seq, np.float32)
+    with tempfile.TemporaryDirectory() as td:
+        for t in range(len(seq)):
+            img = np.full((size, size, 3), 255, np.uint8)
+            xy = ((seq[t, :, :2] / 10.0 * 0.5 + 0.5) * (size - 1)).astype(int)
+            for x, y in xy:
+                cv2.circle(img, (int(x), int(size - 1 - y)), 2, (0, 0, 0), -1)
+            cv2.imwrite(os.path.join(td, f"{t:06d}.png"), img)
+        imgs_to_video(td, out_path, audio_path, fps=fps)
