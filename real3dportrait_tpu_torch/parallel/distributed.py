@@ -84,7 +84,8 @@ def is_main_process() -> bool:
 
 def process_local_batch_slice(global_batch_size: int) -> slice:
     """The [start, stop) rows of the global batch this process feeds (the
-    reference's DistributedSampler)."""
+    reference's DistributedSampler); the rows must divide by the number of
+    processes."""
     n = world_size()
     assert global_batch_size % n == 0, (global_batch_size, n)
     per = global_batch_size // n
@@ -92,18 +93,29 @@ def process_local_batch_slice(global_batch_size: int) -> slice:
     return slice(i * per, (i + 1) * per)
 
 
+def batch_rows(batch: dict) -> int:
+    """A batch's rows: its leaves' largest leading size (0 for a batch of
+    scalars)."""
+    return max((v.shape[0] for v in batch.values() if getattr(v, "ndim", 0) >= 1), default=0)
+
+
 def shard_global_batch(global_batch: dict, device=None) -> dict:
     """This process's rows of a global batch that every process builds
-    alike. The batch's rows are its leaves' largest leading size, which
-    must divide by the number of processes (``process_local_batch_slice``);
-    every leaf of that leading size is cut to this process's slice, the
-    others (per-batch values) are kept whole. With ``device``, host arrays
-    are copied there and tensors moved."""
-    rows = max((v.shape[0] for v in global_batch.values() if getattr(v, "ndim", 0) >= 1),
-               default=0)
-    sl = process_local_batch_slice(rows)
-    out = {k: v[sl] if getattr(v, "ndim", 0) >= 1 and v.shape[0] == rows else v
-           for k, v in global_batch.items()}
+    alike. The batch's rows are its leaves' largest leading size
+    (``batch_rows``). Where they divide by the number of processes, every
+    leaf of that leading size is cut to this process's slice
+    (``process_local_batch_slice``) and the others (per-batch values) are
+    kept whole. Where they do not (an uneven token bucket), every leaf is
+    kept whole and each process trains on the whole batch, as JAX's
+    ``shard_global_batch`` replicates such a leaf (``P()``); the
+    all-reduce then averages the processes' gradients on the same rows.
+    With ``device``, host arrays are copied there and tensors moved."""
+    rows = batch_rows(global_batch)
+    out = dict(global_batch)
+    if rows % world_size() == 0:
+        sl = process_local_batch_slice(rows)
+        out = {k: v[sl] if getattr(v, "ndim", 0) >= 1 and v.shape[0] == rows else v
+               for k, v in global_batch.items()}
     if device is None:
         return out
     return {k: v.to(device) if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)).to(device)

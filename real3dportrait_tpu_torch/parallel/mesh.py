@@ -81,8 +81,9 @@ def shard_batch(batch: dict, mesh: Mesh, axis: str = "data") -> dict:
     divides by the axis size is split in equal blocks of rows, the others
     (tiny smoke batches, per-batch scalars) are kept whole, as JAX
     replicates them. Whole leaves are then computed on every process, so
-    the trainer takes its rows with ``shard_global_batch``, which refuses a
-    global batch that does not split."""
+    the trainer takes its rows with ``shard_global_batch``, which cuts the
+    batch as one (every leaf of its rows) and keeps a batch whose rows do
+    not divide whole on every process."""
     n, i = mesh.shape[axis], rank()
 
     def local(x):

@@ -14,10 +14,14 @@ Data parallel (``parallel/``): one process a card, launched by
 ``python -m torch.distributed.run --nproc_per_node N -m
 real3dportrait_tpu_torch.training.run ...`` (NCCL on the cards, gloo on
 the CPU). ``batch_size`` is the global batch: every process builds the
-same global batch and keeps its rows (``parallel.shard_global_batch``:
-its rows must divide by the number of processes); the
-state is broadcast from rank 0 after the restore; each optimiser
-all-reduces the gradients to the global batch's mean
+same global batch and keeps its rows (``parallel.shard_global_batch``);
+a batch whose rows do not divide by the number of processes (an
+audio-to-motion token bucket) is trained whole on every process, as JAX
+replicates it (the update is then the mean over the processes'
+differently drawn copies of the batch, as over JAX's stitched copies),
+and the first such batch is reported on stdout; the state is broadcast
+from rank 0 after the restore; each optimiser all-reduces the gradients
+to the global batch's mean
 (``schedulers.Adam.updates``); the logged and validation metrics are
 means over the processes, in one collective a read; each process draws
 its noise from a generator seeded with (seed, step, rank). Rank 0 alone
@@ -43,7 +47,12 @@ from real3dportrait_tpu_torch.parallel import (
     replicate_to_mesh,
     shard_global_batch,
 )
-from real3dportrait_tpu_torch.parallel.distributed import all_reduce_mean, rank
+from real3dportrait_tpu_torch.parallel.distributed import (
+    all_reduce_mean,
+    batch_rows,
+    rank,
+    world_size,
+)
 from real3dportrait_tpu_torch.training import checkpoint as ckpt
 from real3dportrait_tpu_torch.training.train_state import TrainState
 from real3dportrait_tpu_torch.utils.draws import seeded_draws
@@ -101,6 +110,7 @@ class Trainer:
         self.monitor_mode = cfg.get("valid_monitor_mode", "min")
         self.monitor_key = cfg.get("valid_monitor_key", "val_loss")
         self.best_val = np.inf if self.monitor_mode == "min" else -np.inf
+        self.told_whole = False
         if self.is_main:
             with open(os.path.join(work_dir, "config.yaml"), "w") as f:
                 yaml.safe_dump(cfg, f)
@@ -130,7 +140,13 @@ class Trainer:
 
     def batch(self, batch: dict) -> dict:
         """This process's rows of a global batch, on the task's device; a
-        batch whose rows do not divide by the number of processes raises."""
+        batch whose rows do not divide by the number of processes is kept
+        whole, and the first such batch is reported on stdout."""
+        rows, n = batch_rows(batch), world_size()
+        if rows % n and not self.told_whole:
+            self.told_whole = True
+            print(f"| a batch of {rows} rows does not divide over {n} processes: each rank "
+                  f"trains on the whole batch", flush=True)
         return shard_global_batch(batch, self.task.device)
 
     def save(self, state: TrainState, not_save_keys: tuple = ()) -> str:

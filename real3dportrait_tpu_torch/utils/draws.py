@@ -105,15 +105,13 @@ def rank_records(records, world: int, rank: int) -> list:
     """A single process's recorded draws, (kind, values) in order, as rank
     ``rank`` of ``world`` processes draws them for its rows of the global
     batch: a record of leading size above 1 (batch-major: B rows, or B x
-    rays) gives the rank its block of rows; a record of leading size 1 (a
-    draw the batch shares) stays whole. A batch-major record that does not
-    split raises."""
+    rays) gives the rank its block of rows where its rows divide by
+    ``world``; a record of leading size 1 (a draw the batch shares), or
+    one whose rows do not divide (a batch that every rank trains whole,
+    ``parallel.shard_global_batch``), stays whole."""
     out = []
     for kind, v in records:
-        if v.ndim >= 1 and v.shape[0] > 1:
-            if v.shape[0] % world:
-                raise ValueError(f"a {kind} draw of {tuple(v.shape)} does not split over "
-                                 f"{world} processes")
+        if v.ndim >= 1 and v.shape[0] > 1 and v.shape[0] % world == 0:
             per = v.shape[0] // world
             v = v[rank * per:(rank + 1) * per]
         out.append((kind, v))

@@ -4,11 +4,14 @@
 
 ``spec``: ``mode`` ("gan_step", "fit" or "replicate"), ``world`` (0: no
 process group) and ``rank``, ``port`` (rank 0's, on localhost), ``config``
-and ``hparams`` (a dict), ``steps``, the draws (``draws_seed``, recorded to
-``records_out``, or replayed from ``records_in``, each record split by rows
-across the world), ``ref_params`` (a reference's parameters to measure
-against), ``params_out``, ``work_dir`` and ``out_json``. Imports nothing of
-JAX."""
+and ``hparams`` (a dict; ``binary_data_dir`` in it trains from a record
+store), ``steps``, the draws (``draws_seed``, recorded to ``records_out``,
+or replayed from ``records_in``, each record split by rows across the
+world where its rows divide), ``ref_params`` (a reference's parameters to
+measure against), ``params_out``, ``work_dir``, ``no_save`` (the trainer
+writes no checkpoint) and ``out_json``. In "fit" mode the result also has
+each step's batch rows and the parameters' sha1 after it. Imports nothing
+of JAX."""
 
 from __future__ import annotations
 
@@ -52,14 +55,18 @@ def params_of(state) -> dict:
     return out
 
 
+def sha1_of(params: dict) -> str:
+    h = hashlib.sha1()
+    for n in sorted(params):
+        h.update(params[n].numpy().tobytes())
+    return h.hexdigest()
+
+
 def summarise(params: dict, ref_path: str | None) -> dict:
     """The parameters' sha1, and against a reference: the largest
     |difference| over each leaf's scale (its largest magnitude, floored at
     1e-3 of the tree's), the leaf where it is, and the largest absolute one."""
-    h = hashlib.sha1()
-    for n in sorted(params):
-        h.update(params[n].numpy().tobytes())
-    out = {"sha1": h.hexdigest(), "n_params": len(params)}
+    out = {"sha1": sha1_of(params), "n_params": len(params)}
     if ref_path:
         ref = torch.load(ref_path)
         assert set(ref) == set(params)
@@ -78,7 +85,8 @@ def summarise(params: dict, ref_path: str | None) -> dict:
 def main(spec: dict) -> None:
     from real3dportrait_tpu_torch.config import load_config
     from real3dportrait_tpu_torch.parallel import (
-        make_mesh, maybe_initialize_distributed, replicate_to_mesh, shard_global_batch)
+        distributed, make_mesh, maybe_initialize_distributed, replicate_to_mesh,
+        shard_global_batch)
     from real3dportrait_tpu_torch.training.tasks.base_task import resolve_task
 
     dev = torch.device("cpu")
@@ -107,7 +115,24 @@ def main(spec: dict) -> None:
                 "--work_dir_root", spec["work_dir"], "--exp_name", "run", "--hparams",
                 ",".join(f"{k}={v}" for k, v in hparams.items())]
         t = run.make_trainer(argv)
+        step, take = t.task.train_step, t.batch
+        result.update(rows=[], step_sha1=[])
+
+        def batch_of(batch):
+            result["rows"].append(distributed.batch_rows(batch))
+            return take(batch)
+
+        def hashed_step(state, batch, d):
+            metrics = step(state, batch, d)
+            result["step_sha1"].append(sha1_of(params_of(state)))
+            return metrics
+        t.batch, t.task.train_step = batch_of, hashed_step
+        if spec.get("no_save"):
+            t.save = lambda *a, **k: None
         state = t.fit()
+        result["lambdas"] = {k: float(v) for k, v in getattr(state, "extra", {}).items()}
+        if spec.get("records_in"):
+            assert not draws.records, "fewer draws than the single process made"
         with open(os.path.join(spec["work_dir"], "run", "metrics.jsonl")
                   if t.is_main else os.devnull) as f:
             result["log"] = [json.loads(line) for line in f if line.strip()]

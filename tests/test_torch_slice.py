@@ -114,7 +114,8 @@ def test_weight_bridge_loads_each_submodule(jax_slice, sub):
 
 
 @pytest.mark.parametrize("name", sorted(
-    os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "configs", "*.yaml"))))
+    os.path.relpath(p, os.path.join(ROOT, "configs"))
+    for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True)))
 def test_port_config_loader_matches_jax(name):
     path = os.path.join(ROOT, "configs", name)
     assert port_config.load_config(path) == load_config(path).to_dict()

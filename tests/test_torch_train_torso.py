@@ -1,11 +1,15 @@
-"""The port's torso-stage GAN step (``SeccImg2PlaneTorsoTask``,
-``configs/secc_img2plane_torso.yaml``) against the JAX package's at the tiny
-GAN widths with the tiny torso preset, batch 1: the synthetic batch, then
+"""The port's torso-stage GAN step (``SeccImg2PlaneTorsoTask``, the default
+``configs/secc_img2plane_torso.yaml`` and the released lineage's
+``configs/real3d_orig/secc_img2plane_torso_orig.yaml``) against the JAX
+package's at the tiny GAN widths with the tiny torso preset, batch 1: the
+synthetic batch, then
 step 0 (src2src, the density regulariser, the adversarial term) with the
 JAX step's own random draws replayed: every loss, the occlusion
 regularisers among them, and the gradients of the SR head (which owns the
 torso model), within 1e-4; and the gated update, which moves the SR head
 and leaves the head groups bit-equal."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ from real3dportrait_tpu_torch.training.tasks.secc_img2plane_torso_task import (
 )
 from real3dportrait_tpu_torch.utils.draws import ReplayDraws
 from tests._torch_train_parity import (
+    ROOT,
     TORSO_CONFIG,
     agree_trees,
     jax_state,
@@ -29,11 +34,15 @@ from tests._torch_train_parity import (
 
 torch.set_num_threads(1)
 HEAD = ("img2plane_backbone", "secc_img2plane_backbone", "decoder")
+# the released lineage's torso stage (tri-planes, folded-BN affines, SR fp32)
+TORSO_ORIG_CONFIG = os.path.join(ROOT, "configs", "real3d_orig",
+                                 "secc_img2plane_torso_orig.yaml")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jtask, ptask = tasks({"batch_size": 1, "torso_model_scale": "tiny"}, TORSO_CONFIG)
+@pytest.fixture(scope="module", params=[TORSO_CONFIG, TORSO_ORIG_CONFIG],
+                ids=["default", "released"])
+def setup(request):
+    jtask, ptask = tasks({"batch_size": 1, "torso_model_scale": "tiny"}, request.param)
     assert isinstance(ptask, SeccImg2PlaneTorsoTask)
     batch = jtask.synthetic_batch(np.random.RandomState(0))
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
