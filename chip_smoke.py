@@ -168,7 +168,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    table printed, K2 and K3 launched (K3 at 3 colour channels, its scalar
    path), every K2 and K3 call of its merged schemes against the plain
    versions, its rows at 32^2 against the CPU's; and every port
-   subpackage's exports imported on this host.
+   subpackage's exports imported on this host;
+16. ``ray_cp`` (``phase_ray_cp``), the mesh's ``rays`` axis: the default
+   model's frame (tri-grids from ``cal_plane_given_cano`` of a seeded
+   source, its decoder, its frame camera's 128^2 rays) at ``fast`` and
+   48+48 and the released geometry's tri-planes at ``fast``, rendered by
+   two gloo ranks sharing the card (``python3 chip_smoke.py --ddp-worker
+   SPEC`` under ``torch.distributed.run``), each on its 8,192 rays
+   (``render_rays_sharded``), gathered bit-equal to the unsharded render
+   (depth where the weights are not 0), K1-trigrid, K1, K2 and K3 held to
+   their plain versions at each rank's block; the same render in a one-rank
+   NCCL world; one training step of ``configs/secc_img2plane.yaml`` at
+   ``mesh_shape={data: 1, rays: 2}`` on the two ranks against one process.
 
 The last lines are the kernels JSON (the backward kernels with their
 launches a step of the training run that is their main path; K4's
@@ -176,7 +187,8 @@ launches a batch of record preparation and the step kernels' a step of
 ``train_records`` as ``train_records_launches_per_step``; the EG3D and
 img2plane stages' as ``train_eg3d_launches_per_step`` and
 ``train_img2plane_launches_per_step``; a rank's of the data-parallel
-SECC stage from a record store as ``ddp_records_launches_per_rank``), the
+SECC stage from a record store as ``ddp_records_launches_per_rank``; a
+rank's of the ``ray_cp`` renders as ``ray_cp_launches_per_rank``), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -4074,7 +4086,8 @@ def ddp_worker(spec_json: str) -> int:
     SPEC``, under ``torch.distributed.run`` or alone): with ``spec["gloo"]``
     the process joins its group over gloo first (two ranks sharing one
     card), and the trainer's join then only reports; then each of
-    ``spec["runs"]`` (or ``spec`` itself) in turn, by ``ddp_run``."""
+    ``spec["runs"]`` (or ``spec`` itself) in turn, by ``ddp_run`` (by
+    ``ray_cp_run`` for a run of ``kind`` "ray_cp")."""
     spec = json.loads(spec_json)
     set_fp32_policy()
     if spec.get("gloo"):
@@ -4082,7 +4095,7 @@ def ddp_worker(spec_json: str) -> int:
 
         dist.init_process_group("gloo", init_method="env://")
     for run in spec.get("runs", [spec]):
-        ddp_run(run)
+        (ray_cp_run if run.get("kind") == "ray_cp" else ddp_run)(run)
     return 0
 
 
@@ -4090,7 +4103,8 @@ def ddp_run(spec: dict) -> None:
     """``training.run``'s trainer (``run.make_trainer``, then ``fit``) on
     ``spec["argv"]``, the work dir under ``spec["root"]/rank<RANK>``; its
     draws recorded to ``records_out`` or replayed, split by rows where they
-    divide, from ``records_in``; with ``full_mesh``, the SECC renderer on
+    divide over the data axis of ``mesh_shape`` (the world's processes
+    without it), from ``records_in``; with ``full_mesh``, the SECC renderer on
     the 35,709-vertex morphable model (``full_mesh_renderer``); each step
     timed and its batch's rows kept (with ``step_sha1``, the parameters'
     sha1 taken after it); the launch counts set to 0 before ``fit`` and
@@ -4100,11 +4114,12 @@ def ddp_run(spec: dict) -> None:
     the run, the first step's all-reduced gradients and that noise written
     to ``deltas_out`` by rank 0; a line
     ``ddp_worker {...}`` with the run's tag, the rank, ms/step, peak GiB,
-    the rows, the sha1s, the launches and whether the trainer reported a
+    the global batch's rows and this rank's, the sha1s, the launches and whether the trainer reported a
     batch kept whole."""
     import hashlib
 
     from real3dportrait_tpu_torch.parallel.distributed import batch_rows
+    from real3dportrait_tpu_torch.parallel.mesh import axis_sizes, mesh_coords
     from real3dportrait_tpu_torch.training import run as trun
     from real3dportrait_tpu_torch.training import trainer as tmod
     from real3dportrait_tpu_torch.utils.draws import RecordDraws, ReplayDraws, rank_records
@@ -4112,7 +4127,10 @@ def ddp_run(spec: dict) -> None:
     rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
     seeded = tmod.seeded_draws
     if spec.get("records_in"):
-        draws = ReplayDraws(rank_records(torch.load(spec["records_in"]), world, rank))
+        # a rank replays the rows of its coordinate on the mesh's data axis
+        shape = axis_sizes(spec.get("mesh_shape"), world)
+        draws = ReplayDraws(rank_records(torch.load(spec["records_in"]), shape.get("data", 1),
+                                         mesh_coords(shape, rank).get("data", 0)))
         tmod.seeded_draws = lambda seed, device: draws
     elif spec.get("records_out"):
         draws = None
@@ -4124,7 +4142,7 @@ def ddp_run(spec: dict) -> None:
         tmod.seeded_draws = recording
     argv = spec["argv"] + ["--work_dir_root", os.path.join(spec["root"], f"rank{rank}")]
     trainer = trun.make_trainer(argv)
-    task, init, times, rows, sha1s = trainer.task, {}, [], [], []
+    task, init, times, rows, sha1s, local_rows = trainer.task, {}, [], [], [], []
     if spec.get("full_mesh"):
         full_mesh_renderer(task)
     start_fn, step_fn, batch_fn = trainer.init_or_restore, task.train_step, trainer.batch
@@ -4179,7 +4197,9 @@ def ddp_run(spec: dict) -> None:
 
     def rows_of(batch):
         rows.append(batch_rows(batch))
-        return batch_fn(batch)
+        local = batch_fn(batch)
+        local_rows.append(batch_rows(local))
+        return local
 
     trainer.init_or_restore, task.train_step, trainer.batch = start_and_keep, timed_step, rows_of
     if spec.get("no_save"):
@@ -4203,7 +4223,7 @@ def ddp_run(spec: dict) -> None:
         torch.save({"grads": grads0, "deltas": deltas, "noise": noise}, spec["deltas_out"])
     print("ddp_worker " + json.dumps({
         "run": spec.get("tag", ""), "rank": rank, "world": world, "device": str(task.device),
-        "ms_per_step": times, "rows": rows, "step_sha1": sha1s,
+        "ms_per_step": times, "rows": rows, "local_rows": local_rows, "step_sha1": sha1s,
         "peak_gib": torch.cuda.max_memory_allocated(task.device) / 2 ** 30 if on_card else 0.0,
         "sha1": sha1_of(deltas), "launches": {k: v for k, v in launches.items() if v},
         "told_whole": trainer.told_whole}), flush=True)
@@ -4816,6 +4836,285 @@ def phase_study(dev: torch.device) -> dict:
                 k3_c3=k3_rows, wall_s=wall)
 
 
+# -- 16: ray context parallelism -----------------------------------------------------
+
+RAY_CP_RES = 128
+RAY_CP_KERNELS = ("trigrid_decode", "triplane_decode", "importance_sample", "merge_composite")
+# the rays mesh's training step: global batch 2, one fp32 step (as ``ddp``)
+RAY_CP_TRAIN_HPARAMS = DDP_HPARAMS.replace("batch_size=4", "batch_size=2").replace(
+    f"max_updates={DDP_STEPS}", "max_updates=1")
+RAY_CP_MESH = "{data: 1, rays: 2}"
+
+
+def ray_cp_inputs(dev: torch.device, **overrides) -> list[dict]:
+    """The renders of the ``ray_cp`` phase: the default model's frame (its
+    tri-grids from ``cal_plane_given_cano`` of a seeded 512^2 source and
+    the SECC of the morphable model at zero pose, its decoder, its frame
+    camera's 128^2 rays) at ``fast`` 16+32 and at 48+48, and the released
+    geometry's tri-planes of the same source likewise at ``fast``."""
+    from real3dportrait_tpu_torch.geometry import camera
+    from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
+
+    cases = []
+    for config, presets in ((DEFAULT_CONFIG, ("fast", "config")), (RELEASED_CONFIG, ("fast",))):
+        pipe = make_pipeline(config, "fast", dev, use_torso=False, **overrides)
+        m = pipe.model
+        src, exp, _ = slice_inputs(pipe.res, 1)
+        with torch.no_grad():
+            img = torch.from_numpy(src[None].astype(np.float32) / 127.5 - 1.0).to(dev)
+            zero = torch.zeros((1, 3), device=dev)
+            secc = pipe.secc_renderer.render(pipe.fit_source(None)["id"], exp[:1].to(dev), zero,
+                                             zero)[1]
+            planes = m.cal_plane_given_cano(m.cal_cano_plane(img), torch.cat([secc] * 3, -1))
+            _, c2w, intr = camera.convert_eg3d_convention(zero, zero)
+            origins, dirs = sample_rays(c2w, intr, RAY_CP_RES)
+        for preset in presets:
+            n = (16, 32) if preset == "fast" else (48, 48)
+            opts = m.render_options._replace(depth_resolution=n[0],
+                                             depth_resolution_importance=n[1])
+            name = f"{'default' if config == DEFAULT_CONFIG else 'released'} " \
+                   f"{opts.depth_resolution}+{opts.depth_resolution_importance}"
+            cases.append(dict(name=name, planes=planes.contiguous(), decoder=m.decoder,
+                              origins=origins.contiguous(), dirs=dirs.contiguous(),
+                              options=opts._asdict()))
+        del pipe, m
+    torch.cuda.empty_cache()
+    return cases
+
+
+def ray_cp_calls(case: dict, block: slice, mesh_rgb: torch.Tensor) -> dict:
+    """The kernel calls of ``render_rays`` on this process's ``block`` of
+    the case's rays, rebuilt from its deterministic inputs (the fallback
+    bounds from the whole set of rays, as the all-reduce gives them), each
+    held to its plain version at ``phase_kernels``' tolerance, 1e-4
+    absolute; K3's rgb must be bit-equal to ``mesh_rgb``, the sharded
+    render's block, so that they are its calls. Returns the largest errors
+    by kernel and the block's shapes."""
+    from real3dportrait_tpu_torch.models.decoder import (
+        trigrid_decode_plain, triplane_decode_plain)
+    from real3dportrait_tpu_torch.rendering import math_utils
+    from real3dportrait_tpu_torch.rendering import renderer as rr
+
+    planes, dec, opts = case["planes"], case["decoder"], case["options"]
+    o, d = case["origins"], case["dirs"]
+    start, end, valid = math_utils.get_ray_limits_box(o, d, opts["box_warp"])
+    lo = torch.where(valid[..., None], start, torch.full_like(start, 1e10)).min()
+    hi = torch.where(valid[..., None], start, torch.full_like(start, -1e10)).max()
+    ok = valid[:, block, None]
+    start = torch.where(ok, start[:, block], lo)
+    end = torch.where(ok, end[:, block], hi)
+    o, d = o[:, block].contiguous(), d[:, block].contiguous()
+    b, m = o.shape[:2]
+    k1 = "trigrid_decode" if planes.dim() == 6 else "triplane_decode"
+    plain = trigrid_decode_plain if planes.dim() == 6 else triplane_decode_plain
+    errs = dict.fromkeys((k1, "importance_sample", "merge_composite"), 0.0)
+
+    def decode(depths):
+        coords = (o[:, :, None, :] + depths * d[:, :, None, :]).reshape(b, -1, 3)
+        rgb, sigma = dec.decode_points(planes, coords, opts["box_warp"])
+        p_rgb, p_sigma = plain(planes, coords, opts["box_warp"], dec)
+        errs[k1] = max(errs[k1], max_err(rgb, p_rgb), max_err(sigma, p_sigma))
+        n = depths.shape[2]
+        return rgb.reshape(b, m, n, -1), sigma.reshape(b, m, n, 1)
+
+    with torch.no_grad():
+        depths_c = rr._stratified_depths(start, end, opts["depth_resolution"])
+        colors_c, dens_c = decode(depths_c)
+        u = rr.importance_u(b * m, opts["depth_resolution_importance"], o.device)
+        fine = rr.importance_sample(depths_c, dens_c, u)
+        errs["importance_sample"] = max_err(fine, rr.importance_sample_plain(depths_c, dens_c, u))
+        colors_f, dens_f = decode(fine)
+        args = (depths_c, colors_c, dens_c, fine, colors_f, dens_f, opts["white_back"])
+        got, want = rr.merge_composite(*args), rr.merge_composite_plain(*args)
+        errs["merge_composite"] = max(max_err(k, p) for k, p in zip(got, want))
+    check(torch.equal(got[0], mesh_rgb), f"ray_cp {case['name']}: the rebuilt K3 call is not "
+          "the sharded render's")
+    check(all(e <= 1e-4 for e in errs.values()), f"ray_cp {case['name']}: kernels vs plain "
+          f"{errs}")
+    return dict(errs=errs, rays=m, samples=[opts["depth_resolution"],
+                                            opts["depth_resolution_importance"]])
+
+
+def ray_cp_run(spec: dict) -> None:
+    """One rank of the ``ray_cp`` phase's render (``ddp_worker``, run
+    ``kind`` "ray_cp"): each case of ``spec["inputs"]`` rendered on the
+    mesh ``{"rays": -1}`` by ``render_rays_sharded`` (once to warm, then
+    with the launch counters from 0, timed), the gathered outputs saved;
+    then the kernels held at this rank's block (``ray_cp_calls``). Prints a
+    line ``ddp_worker {...}`` with each case's wall ms, launches and
+    errors."""
+    from real3dportrait_tpu_torch.parallel import make_mesh
+    from real3dportrait_tpu_torch.rendering.renderer import RenderOptions, render_rays_sharded
+
+    dev = torch.device(spec["device"])
+    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    mesh = make_mesh({"rays": -1})
+    cases = torch.load(spec["inputs"], map_location=dev, weights_only=False)
+    out = {}
+    for case in cases:
+        opts = RenderOptions(**case["options"])
+        args = (case["planes"], case["decoder"], case["origins"], case["dirs"], opts, mesh)
+        with torch.no_grad():
+            render_rays_sharded(*args)
+            reset_launches()
+            got, ms = _wall_ms(lambda: render_rays_sharded(*args), dev)
+        counts = {k: read_launches()[k] for k in RAY_CP_KERNELS}
+        torch.save({k: v.cpu() for k, v in got.items()},
+                   os.path.join(spec["out_dir"], f"rank{rank}_{case['name']}.pt"))
+        m = case["origins"].shape[1] // mesh.size("rays")
+        block = slice(mesh.coord("rays") * m, (mesh.coord("rays") + 1) * m)
+        held = ray_cp_calls(case, block, got["rgb"][:, block])
+        out[case["name"]] = dict(ms=ms, launches=counts, **held)
+    print("ddp_worker " + json.dumps({"run": spec["tag"], "rank": rank, "world": world,
+                                      "coords": dict(mesh.coords), "cases": out}), flush=True)
+
+
+def ray_cp_nccl(cases: list[dict], want: dict, dev: torch.device) -> None:
+    """A one-rank NCCL world in this process: the first case rendered on
+    ``{"rays": -1}``, whose all-reduce and all-gather then go through NCCL,
+    bit-equal to the unsharded render; the group is left after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from real3dportrait_tpu_torch.parallel import make_mesh
+    from real3dportrait_tpu_torch.rendering.renderer import RenderOptions, render_rays_sharded
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh({"rays": -1})
+        check(dist.get_backend(mesh.group("rays")) == "nccl", "ray_cp nccl: not an NCCL group")
+        case = cases[0]
+        with torch.no_grad():
+            got = render_rays_sharded(case["planes"], case["decoder"], case["origins"],
+                                      case["dirs"], RenderOptions(**case["options"]), mesh)
+        torch.cuda.synchronize(dev)
+        for k, v in want[case["name"]].items():
+            check(torch.equal(got[k], v), f"ray_cp nccl {case['name']}: {k} differs from the "
+                  "unsharded render")
+        print(f"ray_cp nccl[{case['name']}, one rank]: bit-equal to the unsharded render")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ray_cp(dev: torch.device, out_dir: str, hparams: str = RAY_CP_TRAIN_HPARAMS,
+                 **overrides) -> dict:
+    """The mesh's ``rays`` axis (see the module docstring, 16): the renders
+    of ``ray_cp_inputs`` unsharded in this process, then on two gloo ranks
+    sharing the card (``ray_cp_run``), whose gathered ``rgb``,
+    ``weights_sum`` and ``is_ray_valid`` must be bit-equal to the
+    unsharded render's, and ``depth`` wherever the weights are not 0 (a
+    ray of zero weight takes its rank's own bound, as in JAX; their count
+    is printed), with K1-trigrid, K1, K2 and K3 launched on each rank and
+    held to their plain versions at the rank's block; a one-rank NCCL
+    world (``ray_cp_nccl``); then one training step of
+    ``configs/secc_img2plane.yaml`` at ``mesh_shape={data: 1, rays: 2}``
+    on the two gloo ranks (each training the whole batch of 2), held to
+    one process as ``phase_ddp`` holds (b) to (a), with the card's
+    batch-size noise as the floor (``hparams``; ``overrides``: the models'
+    config overrides, for a rehearsal at a small size). Returns
+    {"launches_per_rank": by kernel, rank 0's over the renders, "wall_s":
+    ...}."""
+    from real3dportrait_tpu_torch.rendering.renderer import RenderOptions, render_rays
+
+    t0 = time.perf_counter()
+    cases = ray_cp_inputs(dev, **overrides)
+    want, ms = {}, {}
+    for case in cases:
+        with torch.no_grad():
+            args = (case["planes"], case["decoder"], case["origins"], case["dirs"],
+                    RenderOptions(**case["options"]))
+            render_rays(*args)
+            want[case["name"]], ms[case["name"]] = _wall_ms(lambda: render_rays(*args), dev)
+    inputs = os.path.join(out_dir, "ray_cp_inputs.pt")
+    torch.save(cases, inputs)
+
+    # the one process's training step (its draws recorded, the card's
+    # batch-size noise measured), in this process
+    train = {"argv": ["--config", os.path.join(ROOT, "configs", TRAIN_CONFIG), "--exp_name",
+                      "ray_cp", "--device", str(dev), "--hparams", hparams],
+             "no_save": True, "noise_probe": True, "tag": "train"}
+    ddp_run({**train, "root": os.path.join(out_dir, "one"), "records_out":
+             os.path.join(out_dir, "ray_cp_draws.pt"), "deltas_out":
+             os.path.join(out_dir, "ray_cp_one.pt")})
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lines = _ddp_launch("ray_cp", 2, {"gloo": True, "runs": [
+        {"kind": "ray_cp", "tag": "render", "inputs": inputs, "out_dir": out_dir,
+         "device": str(dev)},
+        {**train, "noise_probe": False, "root": os.path.join(out_dir, "two"),
+         "mesh_shape": {"data": 1, "rays": 2},
+         "argv": train["argv"][:-1] + [hparams + f",mesh_shape={RAY_CP_MESH}"],
+         "records_in": os.path.join(out_dir, "ray_cp_draws.pt"),
+         "deltas_out": os.path.join(out_dir, "ray_cp_two.pt")}]})
+    ranks_wall = time.perf_counter() - t
+    renders = [r for r in lines if r["run"] == "render"]
+    check([r["coords"] for r in renders] == [{"rays": 0}, {"rays": 1}],
+          f"ray_cp: coordinates {[r['coords'] for r in renders]}")
+    for case in cases:
+        name = case["name"]
+        for r in renders:
+            got = torch.load(os.path.join(out_dir, f"rank{r['rank']}_{name}.pt"))
+            ref = {k: v.cpu() for k, v in want[name].items()}
+            for k in ("rgb", "weights_sum", "is_ray_valid"):
+                check(torch.equal(got[k], ref[k]), f"ray_cp {name} rank {r['rank']}: {k} "
+                      f"differs from the unsharded render by {max_err(got[k], ref[k])}")
+            weighted = ref["weights_sum"] != 0
+            check(torch.equal(got["depth"][weighted], ref["depth"][weighted]),
+                  f"ray_cp {name} rank {r['rank']}: depth differs where the weights are not 0")
+            c = r["cases"][name]
+            check(all(c["launches"][k] > 0 for k in (
+                "trigrid_decode" if case["planes"].dim() == 6 else "triplane_decode",
+                "importance_sample", "merge_composite")), f"ray_cp {name}: launches {c}")
+            print(f"ray_cp {name}[rank {r['rank']} of 2, {c['rays']} rays, "
+                  f"{c['samples'][0]}+{c['samples'][1]}]: sharded render wall {c['ms']:.2f} ms "
+                  f"(unsharded {ms[name]:.2f} ms in one process); launches {c['launches']}; "
+                  f"kernels vs plain at the block {c['errs']} (tol 1e-4)")
+        own = int((~weighted).sum())
+        print(f"ray_cp {name}: gathered rgb, weights_sum, is_ray_valid bit-equal to the "
+              f"unsharded render on both ranks; depth bit-equal on the "
+              f"{int(weighted.sum())} rays of nonzero weight; {own} rays of zero weight take "
+              f"their rank's own bound; {int((~ref['is_ray_valid']).sum())} rays miss the box")
+    ray_cp_nccl(cases, want, dev)
+    del cases, want
+
+    # the rays mesh's training step against the one process
+    two = [r for r in lines if r["run"] == "train"]
+    check(two[0]["sha1"] == two[1]["sha1"], "ray_cp train: the ranks' parameters differ")
+    # each rank trains the whole global batch (replicated over rays)
+    check(all(r["rows"] == r["local_rows"] == [2] for r in two)
+          and not any(r["told_whole"] for r in two),
+          f"ray_cp train: rows {[(r['rows'], r['local_rows']) for r in two]}")
+    logs = {k: _train_log(os.path.join(out_dir, k, "rank0", "ray_cp")) for k in ("one", "two")}
+    got, ref = (torch.load(os.path.join(out_dir, f"ray_cp_{k}.pt")) for k in ("two", "one"))
+    failed = []
+    for fn, args in ((_logs_agree, (logs["two"], logs["one"])),
+                     (functools.partial(_trees_agree, floor=ref["noise"]),
+                      ("step 0 gradient", got["grads"], ref["grads"])),
+                     (functools.partial(_trees_agree, share=DDP_FLIP_SHARE),
+                      ("parameter change", got["deltas"], ref["deltas"]))):
+        try:
+            fn("ray_cp train rays mesh vs one", *args)
+        except AssertionError as e:     # print every comparison before failing
+            failed.append(str(e))
+    check(not failed, "; ".join(failed))
+    for r in two:
+        print(f"ray_cp train[rank {r['rank']} of 2, mesh_shape {RAY_CP_MESH}]: rows "
+              f"{r['local_rows']} of {r['rows']}, ms/step {[round(x, 1) for x in r['ms_per_step']]}, peak "
+              f"{r['peak_gib']:.2f} GiB")
+    wall = time.perf_counter() - t0
+    launches = {k: sum(c["launches"][k] for c in renders[0]["cases"].values())
+                for k in RAY_CP_KERNELS}
+    print(f"ray_cp: two ranks' processes {ranks_wall:.1f} s; phase wall {wall:.1f} s; "
+          f"launches a rank over the renders {launches} ({card_line()})")
+    return dict(launches_per_rank=launches, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4867,6 +5166,9 @@ def main() -> int:
     print(f"last_modules wall s: {time.perf_counter() - t_last:.1f}")
     torch.cuda.synchronize()
     study_out = phase_study(dev)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ray_cp = phase_ray_cp(dev, out_dir)
     print(f"train summary: flagship {train_counts['ms_per_step']:.1f} ms/step, peak "
           f"{train_counts['peak_gib']:.2f} GiB; torso {torso_counts['ms_per_step']:.1f} ms/step, "
           f"peak {torso_counts['peak_gib']:.2f} GiB; tri-plane {tri_counts['ms_per_step']:.1f} "
@@ -4963,6 +5265,12 @@ def main() -> int:
         n = ddp["records two secc"][0]["launches"].get(entry["name"], 0)
         if n:
             entry["ddp_records_launches_per_rank"] = n
+    # the sharded render's launches on each of two ranks (rays mesh)
+    for entry in kernels_json:
+        if entry["name"] in RAY_CP_KERNELS:
+            entry["ray_cp_launches_per_rank"] = ray_cp["launches_per_rank"][entry["name"]]
+    check(all(ray_cp["launches_per_rank"][k] > 0 for k in RAY_CP_KERNELS),
+          f"ray_cp launches {ray_cp['launches_per_rank']}")
     print(json.dumps({"kernels": kernels_json}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""PyTorch port of ``real3dportrait_tpu.parallel``: data-parallel training
-over ``torch.distributed``, one process a card."""
+"""PyTorch port of ``real3dportrait_tpu.parallel``: a mesh of processes
+over ``torch.distributed``, one a card, with JAX's ``data`` axis
+(data-parallel training) and ``rays`` axis (the renderer's ray context
+parallelism, ``rendering/renderer.py:render_rays_sharded``)."""
 
 from real3dportrait_tpu_torch.parallel.distributed import (
     is_main_process,

@@ -82,14 +82,22 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
-def process_local_batch_slice(global_batch_size: int) -> slice:
+def _data_axis(mesh) -> tuple[int, int]:
+    """(processes a batch is cut over, this process's block): the mesh's
+    ``data`` axis and coordinate, or the world and the rank without one."""
+    if mesh is None:
+        return world_size(), rank()
+    return mesh.size("data"), mesh.coord("data")
+
+
+def process_local_batch_slice(global_batch_size: int, mesh=None) -> slice:
     """The [start, stop) rows of the global batch this process feeds (the
     reference's DistributedSampler); the rows must divide by the number of
-    processes."""
-    n = world_size()
+    processes, or with ``mesh`` by its ``data`` size, this process taking
+    the block of its ``data`` coordinate."""
+    n, i = _data_axis(mesh)
     assert global_batch_size % n == 0, (global_batch_size, n)
     per = global_batch_size // n
-    i = rank()
     return slice(i * per, (i + 1) * per)
 
 
@@ -99,21 +107,24 @@ def batch_rows(batch: dict) -> int:
     return max((v.shape[0] for v in batch.values() if getattr(v, "ndim", 0) >= 1), default=0)
 
 
-def shard_global_batch(global_batch: dict, device=None) -> dict:
+def shard_global_batch(global_batch: dict, device=None, mesh=None) -> dict:
     """This process's rows of a global batch that every process builds
     alike. The batch's rows are its leaves' largest leading size
-    (``batch_rows``). Where they divide by the number of processes, every
-    leaf of that leading size is cut to this process's slice
-    (``process_local_batch_slice``) and the others (per-batch values) are
-    kept whole. Where they do not (an uneven token bucket), every leaf is
-    kept whole and each process trains on the whole batch, as JAX's
-    ``shard_global_batch`` replicates such a leaf (``P()``); the
-    all-reduce then averages the processes' gradients on the same rows.
-    With ``device``, host arrays are copied there and tensors moved."""
+    (``batch_rows``). Where they divide by the number of processes (with
+    ``mesh``: by its ``data`` size), every leaf of that leading size is cut
+    to this process's slice (``process_local_batch_slice``: processes that
+    differ only in another axis, ``rays``, get the same rows, as JAX
+    replicates the batch over an axis its spec does not name) and the
+    others (per-batch values) are kept whole. Where they do not (an uneven
+    token bucket), every leaf is kept whole and each process trains on the
+    whole batch, as JAX's ``shard_global_batch`` replicates such a leaf
+    (``P()``); the all-reduce then averages the processes' gradients on
+    the same rows. With ``device``, host arrays are copied there and
+    tensors moved."""
     rows = batch_rows(global_batch)
     out = dict(global_batch)
-    if rows % world_size() == 0:
-        sl = process_local_batch_slice(rows)
+    if rows % _data_axis(mesh)[0] == 0:
+        sl = process_local_batch_slice(rows, mesh)
         out = {k: v[sl] if getattr(v, "ndim", 0) >= 1 and v.shape[0] == rows else v
                for k, v in global_batch.items()}
     if device is None:

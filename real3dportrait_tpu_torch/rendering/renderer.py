@@ -24,6 +24,12 @@ colours and densities of both sample lists through K3's backward
 (:func:`merge_composite_backward`) and the tri-grids and decoder through
 K1-trigrid's; the depths take none (K2's inputs are detached, as the JAX
 package stops them).
+
+Ray context parallelism (JAX's ``shard_map`` over the mesh's ``rays``
+axis): :func:`render_rays_sharded` renders this process's contiguous block
+of the rays with ``render_rays(..., axis_name="rays", mesh=...)``, whose
+only collectives are the two bounds of step 1, and gathers the blocks;
+steps 2-5 run on the block alone, the depth clip over the block's depths.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from real3dportrait_tpu_torch import kernels
@@ -354,7 +361,7 @@ merge_composite.launches = 0
 
 def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
                 ray_directions: torch.Tensor, options: RenderOptions,
-                draws=None) -> dict[str, Any]:
+                draws=None, axis_name: str | None = None, mesh=None) -> dict[str, Any]:
     """Full two-pass render of tri-planes [B,3,H,W,C] or tri-grids
     [B,3,D,H,W,C] along rays [B,M,3].
 
@@ -366,7 +373,17 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
     package draws it.
     Returns ``rgb`` [B,M,C], ``depth``
     [B,M,1], ``weights_sum`` [B,M,1], ``is_ray_valid`` [B,M].
+
+    ``axis_name``: JAX's, set where the rays are this process's block of a
+    render split over that axis of ``mesh`` (``parallel.mesh.Mesh``; what
+    ``shard_map``'s context gives JAX; ``render_rays_sharded``). Every ray
+    is rendered alone but for the fallback bounds of rays that miss the
+    box, whose min / max then run over the axis's processes, as JAX's
+    ``pmin`` / ``pmax``; the composite depth's clamp stays this block's
+    own, as in JAX. An axis name without a mesh raises.
     """
+    if axis_name is not None and mesh is None:
+        raise ValueError(f"render_rays: axis_name {axis_name!r} needs the mesh it names")
     b, m, _ = ray_origins.shape
     if options.ray_start == "auto" or options.ray_end == "auto":
         ray_start, ray_end, is_valid = math_utils.get_ray_limits_box(
@@ -374,6 +391,9 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
         valid = is_valid[..., None]
         start_min = torch.where(valid, ray_start, torch.full_like(ray_start, 1e10)).min()
         start_max = torch.where(valid, ray_start, torch.full_like(ray_start, -1e10)).max()
+        if axis_name is not None:
+            start_min = mesh.all_reduce(start_min, dist.ReduceOp.MIN, axis_name)
+            start_max = mesh.all_reduce(start_max, dist.ReduceOp.MAX, axis_name)
         ray_start = torch.where(valid, ray_start, start_min)
         ray_end = torch.where(valid, ray_end, start_max)
     else:
@@ -414,3 +434,31 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
                                          options.white_back)
     return {"rgb": rgb, "depth": depth, "weights_sum": weights.sum(dim=-2),
             "is_ray_valid": is_valid}
+
+
+def render_rays_sharded(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
+                        ray_directions: torch.Tensor, options: RenderOptions, mesh,
+                        axis: str = "rays") -> dict[str, Any]:
+    """The port's ``shard_map`` of the render over ``axis`` of ``mesh``: the
+    rays [B,M,3] cut into contiguous blocks of M along the axis (JAX's
+    ``P(None, "rays", None)``; M must divide by the axis size, as
+    ``shard_map`` requires), this process's block rendered by
+    ``render_rays(..., axis_name=axis)`` with the planes and decoder
+    replicated, and ``rgb``, ``depth``, ``weights_sum`` and
+    ``is_ray_valid`` gathered back to [B,M,...] on every process of the
+    axis, as JAX's ``out_specs`` reassemble the global arrays."""
+    m = ray_origins.shape[1]
+    n, i = mesh.size(axis), mesh.coord(axis)
+    if m % n:
+        raise ValueError(f"render_rays_sharded: {m} rays do not divide over {n} processes "
+                         f"of axis {axis!r}")
+    block = slice(i * (m // n), (i + 1) * (m // n))
+    out = render_rays(planes, decoder, ray_origins[:, block].contiguous(),
+                      ray_directions[:, block].contiguous(), options, axis_name=axis,
+                      mesh=mesh)
+    gathered = {k: mesh.all_gather(out[k], axis, dim=1)
+                for k in ("rgb", "depth", "weights_sum")}
+    # bool is gathered as bytes (not every backend reduces or gathers bool)
+    gathered["is_ray_valid"] = mesh.all_gather(out["is_ray_valid"].to(torch.uint8), axis,
+                                               dim=1).bool()
+    return gathered

@@ -16,6 +16,9 @@ dir:
 
 runs over NCCL, each process on ``cuda:LOCAL_RANK`` (an explicit
 ``--device cuda:<i>`` keeps that card); with ``--device cpu`` over gloo.
+``--hparams "mesh_shape={data: -1, rays: 2}"`` (JAX's mesh) cuts the
+batch over ``data`` and trains the same rows on the processes that differ
+only in ``rays``; their gradients are averaged with the rest.
 Across hosts, torchrun's ``--nnodes``, ``--node_rank`` and
 ``--master_addr`` (or the config's ``coordinator_address``,
 ``num_processes``, ``process_id``) say where rank 0 listens.

@@ -14,8 +14,12 @@ Data parallel (``parallel/``): one process a card, launched by
 ``python -m torch.distributed.run --nproc_per_node N -m
 real3dportrait_tpu_torch.training.run ...`` (NCCL on the cards, gloo on
 the CPU). ``batch_size`` is the global batch: every process builds the
-same global batch and keeps its rows (``parallel.shard_global_batch``);
-a batch whose rows do not divide by the number of processes (an
+same global batch and keeps the rows of its coordinate on the mesh's
+``data`` axis (``parallel.shard_global_batch``; ``mesh_shape`` as in JAX,
+default ``{data: -1}``); processes that differ only in ``rays`` train the
+same rows, as JAX replicates the batch over that axis, and the world's
+all-reduce then averages those replicas, each with its own draws. A batch
+whose rows do not divide by the ``data`` size (an
 audio-to-motion token bucket) is trained whole on every process, as JAX
 replicates it (the update is then the mean over the processes'
 differently drawn copies of the batch, as over JAX's stitched copies),
@@ -51,7 +55,6 @@ from real3dportrait_tpu_torch.parallel.distributed import (
     all_reduce_mean,
     batch_rows,
     rank,
-    world_size,
 )
 from real3dportrait_tpu_torch.training import checkpoint as ckpt
 from real3dportrait_tpu_torch.training.train_state import TrainState
@@ -139,15 +142,16 @@ class Trainer:
         return replicate_to_mesh(state, self.mesh)
 
     def batch(self, batch: dict) -> dict:
-        """This process's rows of a global batch, on the task's device; a
-        batch whose rows do not divide by the number of processes is kept
-        whole, and the first such batch is reported on stdout."""
-        rows, n = batch_rows(batch), world_size()
+        """This process's rows of a global batch, on the task's device: the
+        block of its ``data`` coordinate (the same rows along ``rays``); a
+        batch whose rows do not divide by the ``data`` size is kept whole,
+        and the first such batch is reported on stdout."""
+        rows, n = batch_rows(batch), self.mesh.size("data")
         if rows % n and not self.told_whole:
             self.told_whole = True
             print(f"| a batch of {rows} rows does not divide over {n} processes: each rank "
                   f"trains on the whole batch", flush=True)
-        return shard_global_batch(batch, self.task.device)
+        return shard_global_batch(batch, self.task.device, self.mesh)
 
     def save(self, state: TrainState, not_save_keys: tuple = ()) -> str:
         return ckpt.save_checkpoint(self.work_dir, state.step, state.state_dict(),

@@ -1,17 +1,20 @@
-"""One process of tests/test_torch_ddp.py's data-parallel runs on the CPU:
+"""One process of the port's multi-process tests on the CPU
+(tests/test_torch_ddp.py, tests/test_torch_ray_parallel.py):
 
     python tests/_torch_ddp_worker.py '<json spec>'
 
-``spec``: ``mode`` ("gan_step", "fit" or "replicate"), ``world`` (0: no
-process group) and ``rank``, ``port`` (rank 0's, on localhost), ``config``
+``spec``: ``mode`` ("gan_step", "fit", "replicate" or "ray_render"),
+``world`` (0: no process group) and ``rank``, ``port`` (rank 0's, on localhost), ``config``
 and ``hparams`` (a dict; ``binary_data_dir`` in it trains from a record
 store), ``steps``, the draws (``draws_seed``, recorded to ``records_out``,
 or replayed from ``records_in``, each record split by rows across the
-world where its rows divide), ``ref_params`` (a reference's parameters to
+mesh's ``data`` axis where its rows divide; ``hparams["mesh_shape"]``,
+default the world on ``data``), ``ref_params`` (a reference's parameters to
 measure against), ``params_out``, ``work_dir``, ``no_save`` (the trainer
 writes no checkpoint) and ``out_json``. In "fit" mode the result also has
-each step's batch rows and the parameters' sha1 after it. Imports nothing
-of JAX."""
+each step's global and local batch rows and the parameters' sha1 after it. "ray_render"
+renders ``inputs`` on the mesh ``mesh_shape`` (``ray_render``). Imports
+nothing of JAX."""
 
 from __future__ import annotations
 
@@ -34,13 +37,17 @@ JOIN_TIMEOUT_S = 120
 
 
 def draws_for(spec: dict, device):
+    from real3dportrait_tpu_torch.parallel.mesh import axis_sizes, mesh_coords
     from real3dportrait_tpu_torch.utils.draws import (
         RecordDraws, ReplayDraws, rank_records, seeded_draws)
 
     if spec.get("records_in"):
         with open(spec["records_in"], "rb") as f:
             records = pickle.load(f)
-        return ReplayDraws(rank_records(records, max(spec["world"], 1), spec["rank"]))
+        # the rank's rows are those of its coordinate on the mesh's data axis
+        shape = axis_sizes(spec["hparams"].get("mesh_shape"), max(spec["world"], 1))
+        coord = mesh_coords(shape, spec["rank"])
+        return ReplayDraws(rank_records(records, shape.get("data", 1), coord.get("data", 0)))
     draws = seeded_draws(spec.get("draws_seed", 7), device)
     return RecordDraws(draws) if spec.get("records_out") else draws
 
@@ -82,6 +89,36 @@ def summarise(params: dict, ref_path: str | None) -> dict:
     return out
 
 
+def ray_render(spec: dict) -> list[str]:
+    """Each case of ``spec["inputs"]`` (a ``torch.save`` list of planes,
+    decoder state dict and channels, rays and render options) rendered on
+    the mesh ``spec["mesh_shape"]`` by ``render_rays_sharded``: this rank's
+    block of the rays, the blocks gathered; the gathered outputs saved, a
+    file a case, with the rank's coordinates and the sum of the ranks of
+    its line along each axis (an all-reduce over the line's group);
+    returns the files."""
+    import torch.distributed as dist
+
+    from real3dportrait_tpu_torch.models.decoder import OSGDecoder
+    from real3dportrait_tpu_torch.parallel import make_mesh
+    from real3dportrait_tpu_torch.rendering.renderer import RenderOptions, render_rays_sharded
+
+    mesh = make_mesh(spec["mesh_shape"])
+    # each axis line's group: the sum of its ranks
+    sums = {axis: int(mesh.all_reduce(torch.tensor([spec["rank"]]), dist.ReduceOp.SUM, axis))
+            for axis in mesh.shape}
+    paths = []
+    for i, case in enumerate(torch.load(spec["inputs"])):
+        dec = OSGDecoder(case["channels"], 64, 32)
+        dec.load_state_dict(case["decoder"])
+        with torch.no_grad():
+            out = render_rays_sharded(case["planes"], dec, case["origins"], case["dirs"],
+                                      RenderOptions(**case["options"]), mesh)
+        paths.append(spec["out_json"].replace(".json", f"_case{i}.pt"))
+        torch.save({**out, "coords": dict(mesh.coords), "line_sums": sums}, paths[-1])
+    return paths
+
+
 def main(spec: dict) -> None:
     from real3dportrait_tpu_torch.config import load_config
     from real3dportrait_tpu_torch.parallel import (
@@ -90,7 +127,7 @@ def main(spec: dict) -> None:
     from real3dportrait_tpu_torch.training.tasks.base_task import resolve_task
 
     dev = torch.device("cpu")
-    hparams = spec["hparams"]
+    hparams = spec.get("hparams", {})
     if spec["world"] > 0:
         os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(spec["port"]),
                           WORLD_SIZE=str(spec["world"]), RANK=str(spec["rank"]),
@@ -106,6 +143,11 @@ def main(spec: dict) -> None:
         dist.init_process_group("gloo", init_method="env://",
                                 timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
     result: dict = {}
+    if spec["mode"] == "ray_render":
+        result["cases"] = ray_render(spec)
+        with open(spec["out_json"], "w") as f:
+            json.dump(result, f)
+        return
     if spec["mode"] == "fit":
         from real3dportrait_tpu_torch.training import run, trainer
 
@@ -116,11 +158,13 @@ def main(spec: dict) -> None:
                 ",".join(f"{k}={v}" for k, v in hparams.items())]
         t = run.make_trainer(argv)
         step, take = t.task.train_step, t.batch
-        result.update(rows=[], step_sha1=[])
+        result.update(rows=[], local_rows=[], step_sha1=[])
 
         def batch_of(batch):
             result["rows"].append(distributed.batch_rows(batch))
-            return take(batch)
+            local = take(batch)
+            result["local_rows"].append(distributed.batch_rows(local))
+            return local
 
         def hashed_step(state, batch, d):
             metrics = step(state, batch, d)

@@ -8,11 +8,7 @@ one process's steps on the 4-row global batch, as JAX's single program
 computes them (tools/dryrun_multihost.py's contract), with the single
 process's per-row draws replayed on each rank's rows."""
 
-import json
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -28,65 +24,17 @@ from real3dportrait_tpu_torch.parallel import (
     shard_global_batch,
 )
 from real3dportrait_tpu_torch.utils.draws import rank_records
+from tests._torch_launch import _launch, _spec, _world
 from tests._torch_train_parity import TINY_GAN
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "_torch_ddp_worker.py")
 GAN = {**{k: v for k, v in TINY_GAN.items() if k != "mesh_shape"},
        "batch_size": 4, "group_size_for_mini_batch_std": 1}
 GAN_STEPS = 2
 # the audio-to-motion stage with a clip so small that every step clips
 A2M = {"batch_size": 4, "sample_min_length": 16, "clip_grad_norm": 0.001, "max_updates": 2,
        "tb_log_interval": 1, "num_sanity_val_steps": 0, "val_check_interval": 100000}
-PROC_TIMEOUT = 400
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _launch(specs: list[dict], fail: bool = False) -> list:
-    """Start every spec's worker at once; wait for all under the process
-    timeout (killing the rest when one fails or times out); their results.
-    With ``fail``, every worker must fail instead: their outputs."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, WORKER, json.dumps(s)], env=env, cwd=ROOT,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for s in specs]
-    try:
-        outs = [p.communicate(timeout=PROC_TIMEOUT)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if fail:
-        assert all(p.returncode != 0 for p in procs), [p.returncode for p in procs]
-        return outs
-    for s, p, out in zip(specs, procs, outs):
-        assert p.returncode == 0, f"rank {s['rank']} of {s['world']}: rc {p.returncode}\n" \
-                                  f"{out[-4000:]}"
-    results = []
-    for s, out in zip(specs, outs):
-        with open(s["out_json"]) as f:
-            results.append({**json.load(f), "stdout": out})
-    return results
-
-
-def _spec(tmp, name: str, **kw) -> dict:
-    return {"world": 0, "rank": 0, "port": 0, "out_json": str(tmp / f"{name}.json"), **kw}
-
-
-def _world(tmp, name: str, world: int, **kw) -> list[dict]:
-    port = _free_port()
-    return [_spec(tmp, f"{name}{r}", world=world, rank=r, port=port, **kw)
-            for r in range(world)]
 
 
 # -- one process ----------------------------------------------------------------------
@@ -106,7 +54,7 @@ def test_process_local_batch_slice_and_shards(monkeypatch):
     assert process_local_batch_slice(4) == slice(2, 4)
     with pytest.raises(AssertionError):
         process_local_batch_slice(3)
-    local = shard_batch(batch, pmesh.Mesh({"data": 2}))
+    local = shard_batch(batch, pmesh.Mesh({"data": 2}, {"data": 1}))
     np.testing.assert_array_equal(local["a"], batch["a"][2:])
     np.testing.assert_array_equal(local["odd"], batch["odd"])   # 3 rows: kept whole
     assert local["s"] == batch["s"]
@@ -145,8 +93,12 @@ def test_make_mesh_axes_and_errors():
     assert make_mesh({"data": -1}).shape == make_mesh({"data": 1}).shape == {"data": 1}
     with pytest.raises(ValueError):
         make_mesh({"data": 2})
-    with pytest.raises(NotImplementedError, match="Not to port"):
+    # JAX's make_mesh on one device: 2 does not divide 1, its assertion fails
+    with pytest.raises(ValueError):
         make_mesh({"data": -1, "rays": 2})
+    m = make_mesh({"data": -1, "rays": 1})
+    assert m.shape == {"data": 1, "rays": 1} and list(m.shape) == ["data", "rays"]
+    assert m.coords == {"data": 0, "rays": 0} and m.groups is None
 
 
 def test_launch_contract_env_wins_and_partial_launch_raises(monkeypatch):
@@ -277,16 +229,19 @@ def test_all_reduce_before_the_clip_and_rank1_writes_nothing(tmp_path):
     assert got[1]["log"] == []
 
 
-def _fit_pair(tmp, name: str, config: str, hparams: dict) -> tuple[dict, list[dict]]:
+def _fit_pair(tmp, name: str, config: str, hparams: dict,
+              rank_hparams: dict | None = None) -> tuple[dict, list[dict]]:
     """``training.run``'s trainer, writing no checkpoint: one process with
-    its draws recorded, then two ranks with them replayed (``rank_records``:
-    a rank's rows of a batch that splits, the whole draw of one kept
-    whole); (one, ranks)."""
+    its draws recorded, then two ranks (with ``rank_hparams`` added) with
+    them replayed (``rank_records``: a rank's rows of a batch that splits
+    over the mesh's data axis, the whole draw of one kept whole); (one,
+    ranks)."""
     draws, params = str(tmp / f"{name}_draws.pkl"), str(tmp / f"{name}_params.pt")
     (want,) = _launch([_spec(tmp, f"{name}_single", mode="fit", config=config,
                              hparams=hparams, work_dir=str(tmp / f"{name}_single"),
                              records_out=draws, params_out=params, no_save=True)])
-    specs = _world(tmp, name, 2, mode="fit", config=config, hparams=hparams,
+    specs = _world(tmp, name, 2, mode="fit", config=config,
+                   hparams={**hparams, **(rank_hparams or {})},
                    records_in=draws, ref_params=params, no_save=True)
     for s in specs:
         s["work_dir"] = str(tmp / f"{name}_rank{s['rank']}")
@@ -412,4 +367,21 @@ def test_two_ranks_train_the_secc_stage_from_a_store(tmp_path, secc_store):
     want, got = _fit_pair(tmp_path, "secc", "secc_img2plane.yaml", hp)
     assert want["rows"] == [2] * GAN_STEPS
     _assert_ranks_reproduce(want, got)
+    assert not any(WHOLE in r["stdout"] for r in got)
+
+
+def test_two_ranks_on_a_rays_mesh_train_replicas_of_the_global_batch(tmp_path):
+    """``training.run``'s trainer with ``mesh_shape={data: 1, rays: 2}``
+    (JAX's ``{"data": -1, "rays": 2}`` on two devices) for one step: each
+    rank trains the whole 4-row global batch, as JAX replicates the batch
+    over ``rays``, and the world's all-reduce averages the two replicas.
+    With the single process's draws replayed whole on each rank, the
+    replicas are the one process's step: held to it as the data-parallel
+    pair is, and the ranks' parameters bit-equal to its own."""
+    want, got = _fit_pair(tmp_path, "rays", "audio2motion_vae.yaml", {**A2M, "max_updates": 1},
+                          rank_hparams={"mesh_shape": {"data": 1, "rays": 2}})
+    assert want["rows"] == want["local_rows"] == [4]
+    assert all(r["local_rows"] == [4] for r in got), [r["local_rows"] for r in got]
+    _assert_ranks_reproduce(want, got)
+    assert got[0]["step_sha1"] == want["step_sha1"]
     assert not any(WHOLE in r["stdout"] for r in got)
