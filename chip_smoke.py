@@ -177,9 +177,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    SPEC`` under ``torch.distributed.run``), each on its 8,192 rays
    (``render_rays_sharded``), gathered bit-equal to the unsharded render
    (depth where the weights are not 0), K1-trigrid, K1, K2 and K3 held to
-   their plain versions at each rank's block; the same render in a one-rank
-   NCCL world; one training step of ``configs/secc_img2plane.yaml`` at
-   ``mesh_shape={data: 1, rays: 2}`` on the two ranks against one process.
+   their plain versions at each rank's block; the default model's frame
+   also under a wide camera whose upper half sees past the box (rank 0's
+   rays all miss it, so its fallback bounds are the all-reduce's alone),
+   with its decoder and with a density that reads one feature (rays of
+   zero weight in both blocks), each rank's block held on every output to
+   the block rendered alone in one process with the whole frame's bounds;
+   the same render in a one-rank NCCL world; one training step of
+   ``configs/secc_img2plane.yaml`` at ``mesh_shape={data: 1, rays: 2}``
+   on the two ranks against one process.
 
 The last lines are the kernels JSON (the backward kernels with their
 launches a step of the training run that is their main path; K4's
@@ -4844,6 +4850,33 @@ RAY_CP_KERNELS = ("trigrid_decode", "triplane_decode", "importance_sample", "mer
 RAY_CP_TRAIN_HPARAMS = DDP_HPARAMS.replace("batch_size=4", "batch_size=2").replace(
     f"max_updates={DDP_STEPS}", "max_updates=1")
 RAY_CP_MESH = "{data: 1, rays: 2}"
+# the wide camera: normalised focal length 1 (the frame camera's is 4.26)
+# and the principal point at 0.8 of the height, so that the rows of the
+# upper half (rank 0's block) pass beside the box and the lower half's
+# partly hit it
+RAY_CP_WIDE = (1.0, 0.8)
+
+
+def rig_density(planes: torch.Tensor, decoder, seed: int = 0):
+    """(planes, decoder) whose density reads feature 0 alone: the planes'
+    feature 0 set to 2 +- 0.1 (seeded), a copy of the decoder with hidden
+    unit 0 = softplus(8 f0 - 8) and density = 8.6 h0 - 25.6, about 43 where
+    every sample lies inside the box and about -25 (alpha exactly 0) in
+    the grids' zero padding outside it. Rays through the box composite;
+    rays that miss it sum weights of exactly 0, and their depth takes the
+    block's clamp."""
+    import copy
+
+    g = torch.Generator().manual_seed(seed)
+    planes = planes.clone()
+    planes[..., 0] = 2.0 + 0.1 * torch.randn(planes.shape[:-1], generator=g).to(planes.device)
+    dec = copy.deepcopy(decoder)
+    with torch.no_grad():
+        for net, w, b in ((dec.net0, 8.0, -8.0), (dec.net1, 8.6, -25.6)):
+            net.weight[0] = 0.0
+            net.weight[0, 0] = w / net.weight_gain
+            net.bias[0] = b / net.lr_multiplier
+    return planes.contiguous(), dec
 
 
 def ray_cp_inputs(dev: torch.device, **overrides) -> list[dict]:
@@ -4851,11 +4884,14 @@ def ray_cp_inputs(dev: torch.device, **overrides) -> list[dict]:
     tri-grids from ``cal_plane_given_cano`` of a seeded 512^2 source and
     the SECC of the morphable model at zero pose, its decoder, its frame
     camera's 128^2 rays) at ``fast`` 16+32 and at 48+48, and the released
-    geometry's tri-planes of the same source likewise at ``fast``."""
+    geometry's tri-planes of the same source likewise at ``fast``; then
+    the default model's tri-grids at ``fast`` under the wide camera
+    (``RAY_CP_WIDE``), with its decoder and with ``rig_density``'s (cases
+    with ``wide`` set)."""
     from real3dportrait_tpu_torch.geometry import camera
     from real3dportrait_tpu_torch.rendering.ray_sampler import sample_rays
 
-    cases = []
+    cases, wide = [], []
     for config, presets in ((DEFAULT_CONFIG, ("fast", "config")), (RELEASED_CONFIG, ("fast",))):
         pipe = make_pipeline(config, "fast", dev, use_torso=False, **overrides)
         m = pipe.model
@@ -4877,9 +4913,46 @@ def ray_cp_inputs(dev: torch.device, **overrides) -> list[dict]:
             cases.append(dict(name=name, planes=planes.contiguous(), decoder=m.decoder,
                               origins=origins.contiguous(), dirs=dirs.contiguous(),
                               options=opts._asdict()))
+        if config == DEFAULT_CONFIG:
+            intr = intr.clone()
+            intr[:, 0, 0] = intr[:, 1, 1] = RAY_CP_WIDE[0]
+            intr[:, 1, 2] = RAY_CP_WIDE[1]
+            origins, dirs = sample_rays(c2w, intr, RAY_CP_RES)
+            base = dict(origins=origins.contiguous(), dirs=dirs.contiguous(), wide=True,
+                        options=cases[0]["options"])
+            wide += [dict(base, name="default 16+32 wide", planes=planes.contiguous(),
+                          decoder=m.decoder),
+                     dict(base, name="default 16+32 wide, density of feature 0",
+                          **dict(zip(("planes", "decoder"), rig_density(planes, m.decoder))))]
         del pipe, m
     torch.cuda.empty_cache()
-    return cases
+    return cases + wide
+
+
+def frame_bounds(origins: torch.Tensor, dirs: torch.Tensor, box_warp: float):
+    """The whole frame's fallback bounds of rays that miss the box (the
+    least and the largest entry depth of the rays that hit it; 1e10 and
+    -1e10 where none does), as the rays axis's MIN / MAX all-reduce gives
+    them to every block."""
+    from real3dportrait_tpu_torch.rendering import math_utils
+
+    start, _, valid = math_utils.get_ray_limits_box(origins, dirs, box_warp)
+    return (torch.where(valid[..., None], start, torch.full_like(start, 1e10)).min(),
+            torch.where(valid[..., None], start, torch.full_like(start, -1e10)).max())
+
+
+class FrameBounds:
+    """The rays axis in one process, for a block rendered alone: its MIN /
+    MAX all-reduce gives the whole frame's fallback bounds
+    (``frame_bounds``), as the axis's processes together would."""
+
+    def __init__(self, lo: torch.Tensor, hi: torch.Tensor):
+        self.lo, self.hi = lo, hi
+
+    def all_reduce(self, t: torch.Tensor, op, axis: str) -> torch.Tensor:
+        import torch.distributed as dist
+
+        return self.lo if op == dist.ReduceOp.MIN else self.hi
 
 
 def ray_cp_calls(case: dict, block: slice, mesh_rgb: torch.Tensor) -> dict:
@@ -4898,8 +4971,7 @@ def ray_cp_calls(case: dict, block: slice, mesh_rgb: torch.Tensor) -> dict:
     planes, dec, opts = case["planes"], case["decoder"], case["options"]
     o, d = case["origins"], case["dirs"]
     start, end, valid = math_utils.get_ray_limits_box(o, d, opts["box_warp"])
-    lo = torch.where(valid[..., None], start, torch.full_like(start, 1e10)).min()
-    hi = torch.where(valid[..., None], start, torch.full_like(start, -1e10)).max()
+    lo, hi = frame_bounds(o, d, opts["box_warp"])
     ok = valid[:, block, None]
     start = torch.where(ok, start[:, block], lo)
     end = torch.where(ok, end[:, block], hi)
@@ -4969,6 +5041,67 @@ def ray_cp_run(spec: dict) -> None:
                                       "coords": dict(mesh.coords), "cases": out}), flush=True)
 
 
+def ray_cp_blocks(case: dict, n: int) -> dict:
+    """The case's rays cut into ``n`` blocks as the rays axis cuts them,
+    each rendered alone in this process with the whole frame's fallback
+    bounds (``FrameBounds``; what each rank of the axis must compute),
+    concatenated as "blocks"; the frame's bounds as "bounds" and each
+    block's own (what it would take without the all-reduce) as "own"; and
+    block 0 rendered with the lower half of the frame's interval, as
+    "narrowed", to show whether the bounds reach its outputs. (Not with
+    its own bounds: a block without a ray in the box has 1e10 and -1e10,
+    an interval no render is meant to march.)"""
+    from real3dportrait_tpu_torch.rendering.renderer import RenderOptions, render_rays
+
+    o, d, opts = case["origins"], case["dirs"], RenderOptions(**case["options"])
+    lo, hi = frame_bounds(o, d, opts.box_warp)
+    m = o.shape[1] // n
+    block = [(o[:, i * m:(i + 1) * m].contiguous(), d[:, i * m:(i + 1) * m].contiguous())
+             for i in range(n)]
+    with torch.no_grad():
+        parts = [render_rays(case["planes"], case["decoder"], bo, bd, opts, axis_name="rays",
+                             mesh=FrameBounds(lo, hi)) for bo, bd in block]
+        narrowed = render_rays(case["planes"], case["decoder"], *block[0], opts,
+                               axis_name="rays", mesh=FrameBounds(lo, (lo + hi) / 2))
+    return dict(blocks={k: torch.cat([p[k] for p in parts], dim=1).cpu() for k in parts[0]},
+                bounds=(float(lo), float(hi)),
+                own=[tuple(float(x) for x in frame_bounds(bo, bd, opts.box_warp))
+                     for bo, bd in block],
+                narrowed={k: v.cpu() for k, v in narrowed.items()})
+
+
+def ray_cp_wide_check(name: str, local: dict, ref: dict) -> None:
+    """The wide camera's case really needs the all-reduce: rank 0's block
+    has no ray in the box (its own bounds are 1e10 and -1e10, not the
+    frame's) and rank 1's has rays in it and beside it; rank 0's block
+    rendered with other bounds differs from its block of the sharded
+    render on some output; with the density of feature 0, both blocks
+    hold rays of zero weight, whose depths (each block's clamp) differ
+    from the unsharded render's."""
+    blocks, m = local["blocks"], ref["rgb"].shape[1] // 2
+    valid = blocks["is_ray_valid"][0]
+    check(not valid[:m].any() and valid[m:].any() and not valid[m:].all(),
+          f"ray_cp {name}: rays in the box by block {int(valid[:m].sum())}, "
+          f"{int(valid[m:].sum())} of {m}")
+    check(local["own"][0] == (1e10, -1e10) != local["bounds"],
+          f"ray_cp {name}: bounds {local['bounds']}, rank 0's own {local['own'][0]}")
+    differs = [k for k in blocks if not torch.equal(local["narrowed"][k], blocks[k][:, :m])]
+    check(differs, f"ray_cp {name}: rank 0's block does not depend on the fallback bounds")
+    zero = blocks["weights_sum"][0, :, 0] == 0
+    line = (f"ray_cp {name}: rays in the box {int(valid[:m].sum())} and {int(valid[m:].sum())} "
+            f"of {m} by block; the frame's fallback bounds {local['bounds']}, rank 0's own "
+            f"{local['own'][0]}, rank 1's {local['own'][1]}; rank 0's block with the lower "
+            f"half of the frame's interval differs on {differs}; rays of zero weight "
+            f"{int(zero[:m].sum())} and {int(zero[m:].sum())} by block")
+    if "density" in name:
+        check(bool(zero[:m].any() and zero[m:].any()), line)
+        moved = int((blocks["depth"][0, zero] != ref["depth"][0, zero]).sum())
+        check(moved > 0, f"ray_cp {name}: the zero-weight rays' depths are the unsharded "
+              "render's")
+        line += f", {moved} of whose depths (the block's clamp) differ from the unsharded render"
+    print(line)
+
+
 def ray_cp_nccl(cases: list[dict], want: dict, dev: torch.device) -> None:
     """A one-rank NCCL world in this process: the first case rendered on
     ``{"rays": -1}``, whose all-reduce and all-gather then go through NCCL,
@@ -5010,9 +5143,12 @@ def phase_ray_cp(dev: torch.device, out_dir: str, hparams: str = RAY_CP_TRAIN_HP
     ``weights_sum`` and ``is_ray_valid`` must be bit-equal to the
     unsharded render's, and ``depth`` wherever the weights are not 0 (a
     ray of zero weight takes its rank's own bound, as in JAX; their count
-    is printed), with K1-trigrid, K1, K2 and K3 launched on each rank and
-    held to their plain versions at the rank's block; a one-rank NCCL
-    world (``ray_cp_nccl``); then one training step of
+    is printed), and every output bit-equal to the blocks rendered alone
+    in this process with the whole frame's bounds (``ray_cp_blocks``; for
+    the wide camera's cases, ``ray_cp_wide_check`` shows that these bounds
+    decide rank 0's block), with K1-trigrid, K1, K2 and K3 launched on each
+    rank and held to their plain versions at the rank's block; a one-rank
+    NCCL world (``ray_cp_nccl``); then one training step of
     ``configs/secc_img2plane.yaml`` at ``mesh_shape={data: 1, rays: 2}``
     on the two gloo ranks (each training the whole batch of 2), held to
     one process as ``phase_ddp`` holds (b) to (a), with the card's
@@ -5024,13 +5160,14 @@ def phase_ray_cp(dev: torch.device, out_dir: str, hparams: str = RAY_CP_TRAIN_HP
 
     t0 = time.perf_counter()
     cases = ray_cp_inputs(dev, **overrides)
-    want, ms = {}, {}
+    want, ms, local = {}, {}, {}
     for case in cases:
         with torch.no_grad():
             args = (case["planes"], case["decoder"], case["origins"], case["dirs"],
                     RenderOptions(**case["options"]))
             render_rays(*args)
             want[case["name"]], ms[case["name"]] = _wall_ms(lambda: render_rays(*args), dev)
+            local[case["name"]] = ray_cp_blocks(case, 2)
     inputs = os.path.join(out_dir, "ray_cp_inputs.pt")
     torch.save(cases, inputs)
 
@@ -5067,6 +5204,9 @@ def phase_ray_cp(dev: torch.device, out_dir: str, hparams: str = RAY_CP_TRAIN_HP
             weighted = ref["weights_sum"] != 0
             check(torch.equal(got["depth"][weighted], ref["depth"][weighted]),
                   f"ray_cp {name} rank {r['rank']}: depth differs where the weights are not 0")
+            for k, v in local[name]["blocks"].items():
+                check(torch.equal(got[k], v), f"ray_cp {name} rank {r['rank']}: {k} differs "
+                      "from the blocks rendered alone with the whole frame's bounds")
             c = r["cases"][name]
             check(all(c["launches"][k] > 0 for k in (
                 "trigrid_decode" if case["planes"].dim() == 6 else "triplane_decode",
@@ -5079,9 +5219,12 @@ def phase_ray_cp(dev: torch.device, out_dir: str, hparams: str = RAY_CP_TRAIN_HP
         print(f"ray_cp {name}: gathered rgb, weights_sum, is_ray_valid bit-equal to the "
               f"unsharded render on both ranks; depth bit-equal on the "
               f"{int(weighted.sum())} rays of nonzero weight; {own} rays of zero weight take "
-              f"their rank's own bound; {int((~ref['is_ray_valid']).sum())} rays miss the box")
+              f"their rank's own bound; {int((~ref['is_ray_valid']).sum())} rays miss the box; "
+              f"every output bit-equal to the blocks rendered alone with the frame's bounds")
+        if case.get("wide"):
+            ray_cp_wide_check(name, local[name], ref)
     ray_cp_nccl(cases, want, dev)
-    del cases, want
+    del cases, want, local
 
     # the rays mesh's training step against the one process
     two = [r for r in lines if r["run"] == "train"]

@@ -18,8 +18,9 @@ sizes)``. Axes:
 
 Each axis line (the processes that differ only in that axis) has its
 process group, built on every rank in one fixed order (``new_group`` is
-collective). Without a process group there are no groups, and every
-collective over an axis is the identity.
+collective); the trainer, which cuts batches by coordinate alone, builds
+none. With one process there are no groups, and every collective over an
+axis is the identity.
 """
 
 from __future__ import annotations
@@ -62,8 +63,10 @@ def mesh_coords(shape: Mapping[str, int], r: int) -> dict:
 class Mesh:
     """``shape``: axis -> size, in order; ``coords``: this process's
     coordinate on each axis; ``groups``: axis -> the process group of this
-    process's line along it (None for an axis, or for all: a line of one
-    process, or no process group at all)."""
+    process's line along it (None for a line of one process). A mesh
+    without ``groups`` (``make_mesh`` outside a process group, or a layout
+    that only cuts by coordinate, as the trainer's) runs no collective over
+    an axis of more than one process."""
 
     shape: Mapping[str, int]
     coords: Mapping[str, int]
@@ -79,10 +82,15 @@ class Mesh:
 
     def group(self, axis: str):
         """The process group of this process's line along ``axis``, or None
-        where its collectives are the identity."""
+        where its collectives are the identity (a line of one process)."""
         if axis not in self.shape:
             raise ValueError(f"the mesh {dict(self.shape)} has no axis {axis!r}")
-        return (self.groups or {}).get(axis)
+        if self.size(axis) == 1:
+            return None
+        if self.groups is None:
+            raise ValueError(f"the mesh {dict(self.shape)} holds no process groups: "
+                             "make_mesh builds them")
+        return self.groups[axis]
 
     def all_reduce(self, t: torch.Tensor, op, axis: str) -> torch.Tensor:
         """``t`` reduced with ``op`` (a ``dist.ReduceOp``) over the axis's
@@ -143,7 +151,10 @@ def make_mesh(mesh_shape: Mapping[str, int] | None = None) -> Mesh:
     pure data parallelism; ``{"data": -1, "rays": 2}`` gives pairs of
     processes that split a render's rays. Axis sizes as JAX's
     ``make_mesh`` (``axis_sizes``); in a process group every axis line's
-    group is built here, on every rank."""
+    group is built here, on every rank, for the collectives over an axis
+    (``render_rays_sharded``). A caller that only cuts by coordinate
+    builds ``Mesh(shape, mesh_coords(shape, rank()))`` instead, and no
+    group."""
     shape = axis_sizes(mesh_shape, world_size())
     r = rank()
     groups = _axis_groups(shape, r) if dist.is_initialized() else None

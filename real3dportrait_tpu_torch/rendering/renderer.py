@@ -437,28 +437,28 @@ def render_rays(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
 
 
 def render_rays_sharded(planes: torch.Tensor, decoder, ray_origins: torch.Tensor,
-                        ray_directions: torch.Tensor, options: RenderOptions, mesh,
-                        axis: str = "rays") -> dict[str, Any]:
-    """The port's ``shard_map`` of the render over ``axis`` of ``mesh``: the
-    rays [B,M,3] cut into contiguous blocks of M along the axis (JAX's
-    ``P(None, "rays", None)``; M must divide by the axis size, as
-    ``shard_map`` requires), this process's block rendered by
-    ``render_rays(..., axis_name=axis)`` with the planes and decoder
+                        ray_directions: torch.Tensor, options: RenderOptions,
+                        mesh) -> dict[str, Any]:
+    """The port's ``shard_map`` of the render over the ``rays`` axis of
+    ``mesh``: the rays [B,M,3] cut into contiguous blocks of M along the
+    axis (JAX's ``P(None, "rays", None)``; M must divide by the axis size,
+    as ``shard_map`` requires), this process's block rendered by
+    ``render_rays(..., axis_name="rays")`` with the planes and decoder
     replicated, and ``rgb``, ``depth``, ``weights_sum`` and
     ``is_ray_valid`` gathered back to [B,M,...] on every process of the
     axis, as JAX's ``out_specs`` reassemble the global arrays."""
     m = ray_origins.shape[1]
-    n, i = mesh.size(axis), mesh.coord(axis)
+    n, i = mesh.size("rays"), mesh.coord("rays")
     if m % n:
         raise ValueError(f"render_rays_sharded: {m} rays do not divide over {n} processes "
-                         f"of axis {axis!r}")
+                         "of axis 'rays'")
     block = slice(i * (m // n), (i + 1) * (m // n))
     out = render_rays(planes, decoder, ray_origins[:, block].contiguous(),
-                      ray_directions[:, block].contiguous(), options, axis_name=axis,
+                      ray_directions[:, block].contiguous(), options, axis_name="rays",
                       mesh=mesh)
-    gathered = {k: mesh.all_gather(out[k], axis, dim=1)
+    gathered = {k: mesh.all_gather(out[k], "rays", dim=1)
                 for k in ("rgb", "depth", "weights_sum")}
     # bool is gathered as bytes (not every backend reduces or gathers bool)
-    gathered["is_ray_valid"] = mesh.all_gather(out["is_ray_valid"].to(torch.uint8), axis,
+    gathered["is_ray_valid"] = mesh.all_gather(out["is_ray_valid"].to(torch.uint8), "rays",
                                                dim=1).bool()
     return gathered

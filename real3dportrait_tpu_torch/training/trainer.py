@@ -46,7 +46,6 @@ import yaml
 
 from real3dportrait_tpu_torch.parallel import (
     is_main_process,
-    make_mesh,
     maybe_initialize_distributed,
     replicate_to_mesh,
     shard_global_batch,
@@ -55,7 +54,9 @@ from real3dportrait_tpu_torch.parallel.distributed import (
     all_reduce_mean,
     batch_rows,
     rank,
+    world_size,
 )
+from real3dportrait_tpu_torch.parallel.mesh import Mesh, axis_sizes, mesh_coords
 from real3dportrait_tpu_torch.training import checkpoint as ckpt
 from real3dportrait_tpu_torch.training.train_state import TrainState
 from real3dportrait_tpu_torch.utils.draws import seeded_draws
@@ -101,7 +102,11 @@ class Trainer:
         # the process group first (``training/run.py`` has joined it already)
         maybe_initialize_distributed(cfg, task.device)
         self.is_main = is_main_process()
-        self.mesh = make_mesh(dict(cfg.get("mesh_shape", None) or {"data": -1}))
+        # the mesh's layout alone: training cuts batches by the data
+        # coordinate and runs its all-reduces over the world, so it builds
+        # no axis line's process group
+        shape = axis_sizes(dict(cfg.get("mesh_shape", None) or {"data": -1}), world_size())
+        self.mesh = Mesh(shape, mesh_coords(shape, rank()))
         if self.is_main:
             os.makedirs(work_dir, exist_ok=True)
         self.logger = MetricLogger(work_dir, int(cfg.get("tb_log_interval", 100)),

@@ -158,7 +158,9 @@ def main(spec: dict) -> None:
                 ",".join(f"{k}={v}" for k, v in hparams.items())]
         t = run.make_trainer(argv)
         step, take = t.task.train_step, t.batch
-        result.update(rows=[], local_rows=[], step_sha1=[])
+        result.update(rows=[], local_rows=[], step_sha1=[], mesh=dict(
+            shape=dict(t.mesh.shape), coords=dict(t.mesh.coords),
+            groups=t.mesh.groups is not None))
 
         def batch_of(batch):
             result["rows"].append(distributed.batch_rows(batch))

@@ -382,6 +382,10 @@ def test_two_ranks_on_a_rays_mesh_train_replicas_of_the_global_batch(tmp_path):
                           rank_hparams={"mesh_shape": {"data": 1, "rays": 2}})
     assert want["rows"] == want["local_rows"] == [4]
     assert all(r["local_rows"] == [4] for r in got), [r["local_rows"] for r in got]
+    # the trainer lays the ranks out on the mesh and builds no axis group
+    assert [r["mesh"] for r in got] == [
+        {"shape": {"data": 1, "rays": 2}, "coords": {"data": 0, "rays": i}, "groups": False}
+        for i in range(2)]
     _assert_ranks_reproduce(want, got)
     assert got[0]["step_sha1"] == want["step_sha1"]
     assert not any(WHOLE in r["stdout"] for r in got)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
@@ -80,8 +81,18 @@ def test_make_mesh_shapes_and_coordinates_match_jax(monkeypatch, shape, world):
         assert dict(m.shape) == dict(jm.shape) and list(m.shape) == list(jm.axis_names)
         want = {k: int(c) for k, c in zip(jm.axis_names, np.argwhere(ids == r)[0])}
         assert m.coords == want, (r, m.coords, want)
-        assert m.groups is None     # no process group: every collective is the identity
+        assert m.groups is None     # outside a process group no group is built
         assert all(m.coord(k) == v for k, v in want.items()) and m.coord("other") == 0
+        # a line of one process needs no group; a longer line's collective
+        # raises without one, rather than being the identity
+        for k, n in m.shape.items():
+            if n == 1:
+                assert m.group(k) is None
+            else:
+                with pytest.raises(ValueError, match="no process groups"):
+                    m.all_reduce(torch.zeros(()), dist.ReduceOp.MIN, k)
+        with pytest.raises(ValueError, match="no axis"):
+            m.group("other")
 
 
 @pytest.mark.parametrize("shape,world", BAD_MESHES)
